@@ -1,0 +1,60 @@
+"""Categorical(K) likelihood via logistic-softmax with an implicit base class.
+
+Counterpart of ``hetmogp_tpu/likelihoods/categorical.py``, predictive only.
+K - 1 latent functions drive the class probabilities
+p_k = e^{f_k} / (1 + sum_j e^{f_j}), clipped to [1e-9, 1 - 1e-9] and
+renormalized.  ``predictive`` returns the K - 1 class-probability means on
+a T=10 tensor GH grid; its variance is zeros unless
+``exact_predictive_variance`` (the reference leaves it unimplemented).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from hetmogp_tpu_torch.likelihoods.base import Likelihood, safe_exp
+from hetmogp_tpu_torch.ops import quadrature
+
+
+@dataclasses.dataclass(frozen=True)
+class Categorical(Likelihood):
+    K: int = 3
+    exact_predictive_variance: bool = False
+    # quasi-MC nodes in place of the tensor grid: not ported yet
+    mc_samples: int = 0
+
+    def __post_init__(self):
+        if self.K < 2:
+            raise ValueError(f"Categorical needs K >= 2 classes, got {self.K}")
+        if self.mc_samples:
+            raise NotImplementedError(
+                "Categorical(mc_samples > 0) is not ported yet (ROADMAP.md "
+                "section 1, item 5)")
+
+    @property
+    def dim_f(self):  # type: ignore[override]
+        return self.K - 1
+
+    @property
+    def dim_p(self):  # type: ignore[override]
+        return self.K - 1
+
+    @property
+    def T_pred(self):  # type: ignore[override]
+        return quadrature.MULTI_T
+
+    def conditional_moments(self, F):
+        # mean over dim_p = the first K - 1 class probabilities
+        ef = safe_exp(F)
+        rho = ef / (1.0 + torch.sum(ef, dim=-1, keepdim=True))
+        rho = torch.clamp(rho, 1e-9, 1.0 - 1e-9)
+        rho = rho / torch.sum(rho, dim=-1, keepdim=True)
+        return rho, rho * (1.0 - rho)
+
+    def predictive(self, M, V):
+        mean, var = super().predictive(M, V)
+        if not self.exact_predictive_variance:
+            var = torch.zeros_like(mean)
+        return mean, var

@@ -1,0 +1,33 @@
+"""Poisson likelihood, rate lambda = e^f.
+
+Counterpart of ``hetmogp_tpu/likelihoods/poisson.py``, predictive only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from hetmogp_tpu_torch.likelihoods.base import Likelihood, safe_exp
+
+
+@dataclasses.dataclass(frozen=True)
+class Poisson(Likelihood):
+    """``analytic=True`` (default) gives the predictive moments in closed
+    form, E[y*] = e^{m+v/2} and V[y*] = E[e^f] + E[e^{2f}] - E[e^f]^2, with
+    the rate moments capped at 1e9 and 1e18 so serving stays finite at any
+    moments.  ``analytic=False`` takes the GH engine (T=20)."""
+
+    analytic: bool = True
+
+    def predictive(self, M, V):
+        if not self.analytic:
+            return Likelihood.predictive(self, M, V)
+        Em = torch.clamp(safe_exp(M + 0.5 * V), 0.0, 1e9)
+        Em2 = torch.clamp(safe_exp(2.0 * M + 2.0 * V), 0.0, 1e18)
+        return Em, Em + Em2 - torch.square(Em)
+
+    def conditional_moments(self, F):
+        lam = safe_exp(F[..., :1])
+        return lam, lam

@@ -1,0 +1,127 @@
+"""Model parameters as a dataclass of tensors.
+
+Counterpart of ``hetmogp_tpu/models/params.py``, with the same field names
+and shapes (Q latents, M inducing, D output functions, Dx input dims):
+
+  Z:               (Q, M, Dx)  inducing inputs per latent GP
+  q_mu:            (Q, M)      variational means (whitened by default)
+  q_sqrt:          (Q, M, M)   variational Cholesky factors, lower triangle used
+  log_lengthscale: (Q, Dx_ls)  RBF lengthscales (log), Dx_ls = Dx if ARD else 1
+  log_variance:    (Q,)        RBF variances (log)
+  W:               (Q, D)      LMC mixing weights
+  kappa:           (Q, D)      coregionalization diagonal, fixed at 0
+
+Trained parameters cross from the JAX package with ``params_from_jax``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from hetmogp_tpu_torch.config import ModelConfig
+
+FIELDS = ("Z", "q_mu", "q_sqrt", "log_lengthscale", "log_variance", "W",
+          "kappa")
+
+
+@dataclasses.dataclass
+class SVMOGPParams:
+    Z: torch.Tensor
+    q_mu: torch.Tensor
+    q_sqrt: torch.Tensor
+    log_lengthscale: torch.Tensor
+    log_variance: torch.Tensor
+    W: torch.Tensor
+    kappa: torch.Tensor
+
+    @property
+    def lengthscale(self) -> torch.Tensor:
+        return torch.exp(self.log_lengthscale)
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return torch.exp(self.log_variance)
+
+    def to(self, device=None, dtype=None) -> "SVMOGPParams":
+        return SVMOGPParams(*(getattr(self, f).to(device=device, dtype=dtype)
+                              for f in FIELDS))
+
+
+def random_W(rng: np.random.Generator, Q: int, D: int) -> np.ndarray:
+    """Random sign-mixed mixing weights: with probability 1/2 each entry is
+    N(0.5, 0.5^2), else N(-0.5, 0.5^2) (the JAX ``random_W`` at rank 1)."""
+    p = rng.random((Q, D)) < 0.5
+    n1 = 0.5 + 0.5 * rng.standard_normal((Q, D))
+    n2 = -0.5 + 0.5 * rng.standard_normal((Q, D))
+    return np.where(p, n1, n2)
+
+
+def init_params(rng: np.random.Generator, config: ModelConfig, Z, *,
+                W=None, lengthscale=1.0, variance=1.0,
+                q_mu_scale: float = 2.5, device="cpu") -> SVMOGPParams:
+    """Initial parameters, drawn from ``rng``.
+
+    Args:
+      Z: (M, Dx) shared inducing inputs, tiled to all Q latents, or
+        (Q, M, Dx) per latent.
+      W: optional (Q, D) mixing weights; random_W(rng, ...) otherwise.
+      lengthscale, variance: scalars or per-q arrays.
+      q_mu_scale: std of the q(u) mean init.
+    q_sqrt starts at the identity.
+    """
+    Q, M, Dx = config.num_latent, config.num_inducing, config.input_dim
+    D = config.num_output_functions
+    Z = np.asarray(Z, np.float64)
+    if Z.ndim == 2:
+        if Z.shape != (M, Dx):
+            raise ValueError(f"Z has shape {Z.shape}; expected (num_inducing, "
+                             f"input_dim) = ({M}, {Dx}) or (Q, M, Dx)")
+        Z = np.broadcast_to(Z[None], (Q, M, Dx))
+    if Z.shape != (Q, M, Dx):
+        raise ValueError(f"Z has shape {Z.shape}; expected {(Q, M, Dx)}")
+    q_mu = q_mu_scale * rng.standard_normal((Q, M))
+    W = random_W(rng, Q, D) if W is None else np.asarray(W).reshape(Q, D)
+    ls = np.broadcast_to(np.asarray(lengthscale, np.float64),
+                         (Q, Dx if config.ard else 1))
+    var = np.broadcast_to(np.asarray(variance, np.float64), (Q,))
+    leaves = (Z, q_mu, np.broadcast_to(np.eye(M), (Q, M, M)), np.log(ls),
+              np.log(var), W, np.zeros((Q, D)))
+    return SVMOGPParams(*(torch.tensor(np.array(a), dtype=config.torch_dtype,
+                                       device=device) for a in leaves))
+
+
+def params_from_jax(src, device="cpu",
+                    dtype: Optional[torch.dtype] = None) -> SVMOGPParams:
+    """Parameters trained by the JAX package, as tensors on ``device``.
+
+    src: the JAX ``SVMOGPParams`` with its leaves converted to numpy (or
+      anything else with the seven fields as arrays), or the path of an
+      ``.npz`` written by ``hetmogp_tpu.checkpoint.save_checkpoint``, which
+      stores them as ``param_0`` ... ``param_6`` in field order.
+    dtype: None keeps each leaf's dtype.
+    Trainable likelihood parameters (``lik_theta``) and rank > 1 are not
+    ported yet and raise.
+    """
+    if isinstance(src, (str, os.PathLike)):
+        with np.load(src, allow_pickle=False) as z:
+            if "param_7" in z.files:
+                raise NotImplementedError(
+                    "checkpoint holds lik_theta leaves; trainable likelihood "
+                    "parameters are not ported yet (ROADMAP.md section 1, "
+                    "item 11)")
+            leaves = [z[f"param_{i}"] for i in range(len(FIELDS))]
+    else:
+        if getattr(src, "lik_theta", None) is not None:
+            raise NotImplementedError(
+                "lik_theta is not ported yet (ROADMAP.md section 1, item 11)")
+        if getattr(src, "rank", 1) != 1:
+            raise NotImplementedError(
+                "rank > 1 is not ported yet (ROADMAP.md section 1, item 2)")
+        leaves = [np.asarray(getattr(src, f)) for f in FIELDS]
+    return SVMOGPParams(*(torch.tensor(a, dtype=dtype, device=device)
+                          for a in leaves))
