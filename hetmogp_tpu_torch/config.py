@@ -1,18 +1,20 @@
-"""Static model configuration.
+"""Static model and training configuration.
 
-Counterpart of ``hetmogp_tpu/config.py``'s ``ModelConfig``, with the same
-field names, defaults and derived properties, so that a config written by
-the JAX package (``ModelConfig.to_dict()``) loads here with ``from_dict``.
+Counterpart of ``hetmogp_tpu/config.py``'s ``ModelConfig`` and
+``TrainConfig``, with the same field names, defaults and derived
+properties, so that a config written by the JAX package (``to_dict()``, or
+``dataclasses.asdict`` of a ``TrainConfig``) loads here with ``from_dict``.
 What the port cannot run yet raises ``NotImplementedError`` when the
 config is made: a kernel other than RBF, coregionalization rank > 1,
-adaptive jitter, the float64 factorization island and the reduced
-precision forward projection.
+adaptive jitter, the float64 factorization island, the reduced precision
+forward projection, and every optimizer, schedule and sampler but the
+flagship trainer's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -47,7 +49,7 @@ class ModelConfig:
       ard: per-dimension lengthscales.
       chol_dtype: "same" only, for now.
       ve_fwd_precision: "highest" only: full float32 matmuls.
-      fuse_task_rows: a training option; accepted and not read here.
+      fuse_task_rows: the ELBO projects all tasks' rows at once.
     """
 
     likelihoods: Tuple[Any, ...]
@@ -155,3 +157,78 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters, with the JAX package's fields and defaults.
+
+    The port trains what the flagship trainer runs: adam with a constant
+    ``step_rate``, the cached fast projection, contiguous ``"slice"``
+    minibatches and the VE/VM flip-flop with ``ve_steps_per_vm`` VE steps
+    per VM step.  The other optimizers, the schedules, gradient clipping,
+    the ``"gather"`` sampler and trainable likelihood parameters raise
+    ``NotImplementedError`` (ROADMAP.md section 1); since the JAX defaults
+    are ``optimizer="adadelta"`` and ``minibatch="gather"``, a config for
+    the port names ``optimizer="adam"`` and ``minibatch="slice"``.  Fields
+    that only those paths read (``momentum``, ``natgrad_*``, ...) are
+    accepted and not read.
+    """
+
+    vem_iters: int = 5
+    batch_inner_iters: int = 100
+    step_rate: float = 0.01
+    momentum: float = 0.9
+    adadelta_decay: float = 0.9
+    adadelta_offset: float = 1e-4
+    ve_steps_per_vm: int = 4
+    optimizer: str = "adadelta"
+    natgrad_lr: float = 0.1
+    natgrad_retraction: str = "cholesky"
+    natgrad_trust: float = 0.3
+    lr_schedule: Optional[str] = None
+    lr_schedule_kwargs: Tuple = ()
+    clip_grad_norm: Optional[float] = None
+    learn_inducing: bool = True
+    learn_W: bool = True
+    shuffle: bool = True
+    seed: int = 0
+    fast_projection: bool = True
+    minibatch: str = "gather"
+    vm_batch_fraction: float = 1.0
+    learn_lik_params: bool = False
+    skip_nonfinite_steps: bool = False
+
+    def __post_init__(self):
+        if self.optimizer in ("adadelta", "natgrad_adam"):
+            raise _not_ported(f"optimizer={self.optimizer!r} (pass "
+                              "optimizer='adam')", 12)
+        if self.optimizer != "adam":
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if self.lr_schedule is not None:
+            raise _not_ported(f"lr_schedule={self.lr_schedule!r}", 12)
+        if self.clip_grad_norm is not None:
+            raise _not_ported("clip_grad_norm", 12)
+        if self.minibatch != "slice":
+            raise _not_ported(f"minibatch={self.minibatch!r} (pass "
+                              "minibatch='slice')", 8)
+        if self.learn_lik_params:
+            raise _not_ported("learn_lik_params=True", 11)
+        if not self.fast_projection:
+            raise _not_ported("fast_projection=False (the solve path)", 7)
+        if not 0.0 < self.vm_batch_fraction <= 1.0:
+            raise ValueError("vm_batch_fraction must be in (0, 1], got "
+                             f"{self.vm_batch_fraction}")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainConfig":
+        """Inverse of ``to_dict``; also takes ``dataclasses.asdict`` of the
+        JAX package's ``TrainConfig``.  JSON turns tuples into lists, so
+        ``lr_schedule_kwargs`` is re-tupled."""
+        d = dict(d)
+        d["lr_schedule_kwargs"] = tuple(
+            tuple(kv) for kv in d.get("lr_schedule_kwargs", ()))
+        return cls(**d)

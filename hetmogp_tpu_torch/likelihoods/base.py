@@ -1,16 +1,20 @@
-"""Likelihood protocol, serving subset.
+"""Likelihood protocol.
 
-Counterpart of ``hetmogp_tpu/likelihoods/base.py``.  A likelihood gives
-``conditional_moments`` of y given its parameter functions f, and
-``predictive`` pushes the posterior moments (M, V) of f through them: by
-the generic Gauss-Hermite engine, or in closed form where a subclass has
-one.  ``logpdf`` and ``var_exp`` come with the trainer (ROADMAP.md
-section 1, item 6).
+Counterpart of ``hetmogp_tpu/likelihoods/base.py`` without the trainable
+likelihood parameters (theta) and the Monte-Carlo paths.  A likelihood
+gives ``logpdf`` of y given its parameter functions f and the
+``conditional_moments`` of y; ``var_exp`` integrates ``logpdf`` against the
+posterior moments (M, V) of f, and ``predictive`` pushes (M, V) through the
+conditional moments: both by the generic Gauss-Hermite engines of
+``ops/quadrature.py``, or in closed form where a subclass has one.
 
-Instances are frozen dataclasses, hashable, so the GH engine is cached per
-likelihood.  Array conventions: ``M``/``V`` are (N, dim_f); ``predictive``
-returns two (N, dim_p) tensors.  ``conditional_moments`` takes F with any
-leading dims, (..., dim_f), and returns two (..., dim_p) tensors.
+Instances are frozen dataclasses, hashable, so the GH engines are cached
+per likelihood.  Array conventions: ``Y`` is (N, dim_y), ``M``/``V`` are
+(N, dim_f); ``var_exp`` returns (N,) and ``predictive`` two (N, dim_p)
+tensors.  ``logpdf`` and ``conditional_moments`` are batched where the JAX
+package's are per point: they take F with any leading dims, (..., dim_f),
+``logpdf`` a Y that broadcasts against it, (..., dim_y), and return (...)
+and two (..., dim_p) tensors.
 """
 
 from __future__ import annotations
@@ -38,6 +42,11 @@ def safe_square(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _var_exp_engine(lik):
+    return quadrature.make_var_exp(lik.logpdf, J=lik.dim_f, T=lik.T_var_exp)
+
+
+@functools.lru_cache(maxsize=None)
 def _predictive_engine(lik):
     return quadrature.make_predictive(lik.conditional_moments, J=lik.dim_f,
                                       T=lik.T_pred)
@@ -45,14 +54,19 @@ def _predictive_engine(lik):
 
 @dataclasses.dataclass(frozen=True)
 class Likelihood:
-    """Base class; subclasses set the class attributes and
+    """Base class; subclasses set the class attributes, ``logpdf`` and
     ``conditional_moments``."""
 
     # the reference's get_metadata() triple (dim_y, dim_f, dim_p)
     dim_y: ClassVar[int] = 1
     dim_f: ClassVar[int] = 1
     dim_p: ClassVar[int] = 1
+    T_var_exp: ClassVar[int] = quadrature.DEFAULT_T
     T_pred: ClassVar[int] = quadrature.DEFAULT_T
+
+    def logpdf(self, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        """log p(y | f): (..., dim_f), (..., dim_y) -> (...)."""
+        raise NotImplementedError
 
     def conditional_moments(self, F: torch.Tensor):
         """(mean, var) of y given f: (..., dim_f) -> two (..., dim_p)."""
@@ -60,6 +74,12 @@ class Likelihood:
 
     def get_metadata(self):
         return self.dim_y, self.dim_f, self.dim_p
+
+    def var_exp(self, Y: torch.Tensor, M: torch.Tensor,
+                V: torch.Tensor) -> torch.Tensor:
+        """E_{N(f; M, V)}[log p(Y | f)] per data point -> (N,), with the
+        engine's Bonnet/Price (m, v)-gradients."""
+        return _var_exp_engine(self)(Y, M, V)
 
     def predictive(self, M: torch.Tensor, V: torch.Tensor):
         """Observation-space predictive moments -> ((N, dim_p), (N, dim_p))."""

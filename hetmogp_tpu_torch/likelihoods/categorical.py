@@ -1,10 +1,11 @@
 """Categorical(K) likelihood via logistic-softmax with an implicit base class.
 
-Counterpart of ``hetmogp_tpu/likelihoods/categorical.py``, predictive only.
-K - 1 latent functions drive the class probabilities
-p_k = e^{f_k} / (1 + sum_j e^{f_j}), clipped to [1e-9, 1 - 1e-9] and
-renormalized.  ``predictive`` returns the K - 1 class-probability means on
-a T=10 tensor GH grid; its variance is zeros unless
+Counterpart of ``hetmogp_tpu/likelihoods/categorical.py``.  K - 1 latent
+functions drive the class probabilities p_k = e^{f_k} / (1 + sum_j e^{f_j})
+for k < K and p_K = 1 / (1 + sum_j e^{f_j}), clipped to [1e-9, 1 - 1e-9]
+and renormalized.  Labels are 1-indexed, y in {1, ..., K}.  var_exp and the
+predictive use a (K-1)-dim T=10 tensor GH grid.  ``predictive`` returns
+the K - 1 class-probability means; its variance is zeros unless
 ``exact_predictive_variance`` (the reference leaves it unimplemented).
 """
 
@@ -42,8 +43,22 @@ class Categorical(Likelihood):
         return self.K - 1
 
     @property
+    def T_var_exp(self):  # type: ignore[override]
+        return quadrature.MULTI_T
+
+    @property
     def T_pred(self):  # type: ignore[override]
         return quadrature.MULTI_T
+
+    def logpdf(self, F, Y):
+        ef = safe_exp(F)
+        den = 1.0 + torch.sum(ef, dim=-1, keepdim=True)
+        p = torch.cat([ef / den, 1.0 / den], dim=-1)
+        p = torch.clamp(p, 1e-9, 1.0 - 1e-9)
+        p = p / torch.sum(p, dim=-1, keepdim=True)
+        classes = torch.arange(1, self.K + 1, dtype=Y.dtype, device=Y.device)
+        onehot = (classes == Y).to(F.dtype)  # Y (..., 1) -> (..., K)
+        return torch.sum(onehot * torch.log(p), dim=-1)
 
     def conditional_moments(self, F):
         # mean over dim_p = the first K - 1 class probabilities

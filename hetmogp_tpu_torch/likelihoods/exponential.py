@@ -1,7 +1,7 @@
 """Exponential likelihood, scale b = e^{-f}.
 
-Counterpart of ``hetmogp_tpu/likelihoods/exponential.py``, predictive
-only: b = clip(e^{-f}, 1e-9, 1e9).
+Counterpart of ``hetmogp_tpu/likelihoods/exponential.py``:
+b = clip(e^{-f}, 1e-9, 1e9), logpdf = -log b - y / b.
 """
 
 from __future__ import annotations
@@ -20,12 +20,21 @@ def _scale(f):
 
 @dataclasses.dataclass(frozen=True)
 class Exponential(Likelihood):
-    """``analytic=True`` (default) gives the predictive moments in closed
-    form, E[y*] = E[b] = e^{-m+v/2} and V[y*] = 2 E[b^2] - E[b]^2, with the
-    node clips of b and b^2 carried onto the expectations.
-    ``analytic=False`` takes the GH engine (T=20)."""
+    """``analytic=True`` (default) gives var_exp and the predictive moments
+    in closed form.  With b = e^{-f} the logpdf is f - y e^f, so
+    E[log p] = m - y E[e^f], E[e^f] = e^{m+v/2} clipped to [1e-9, 1e9] like
+    the engine's node clip (without it a transient m + v/2 > ~88 overflows
+    in float32); E[y*] = E[b] = e^{-m+v/2} and V[y*] = 2 E[b^2] - E[b]^2,
+    with the node clips of b and b^2 carried onto the expectations.
+    ``analytic=False`` takes the GH engines (T=20)."""
 
     analytic: bool = True
+
+    def var_exp(self, Y, M, V):
+        if not self.analytic:
+            return Likelihood.var_exp(self, Y, M, V)
+        y, m, v = Y[:, 0], M[:, 0], V[:, 0]
+        return m - y * torch.clamp(safe_exp(m + 0.5 * v), 1e-9, 1e9)
 
     def predictive(self, M, V):
         if not self.analytic:
@@ -33,6 +42,10 @@ class Exponential(Likelihood):
         Eb = torch.clamp(safe_exp(-M + 0.5 * V), 1e-9, 1e9)
         Eb2 = torch.clamp(safe_exp(-2.0 * M + 2.0 * V), 1e-18, 1e18)
         return Eb, 2.0 * Eb2 - torch.square(Eb)
+
+    def logpdf(self, F, Y):
+        b = _scale(F[..., 0])
+        return -torch.log(b) - Y[..., 0] / b
 
     def conditional_moments(self, F):
         b = _scale(F[..., :1])

@@ -1,13 +1,22 @@
-"""Posterior moments of the latent functions, serving subset.
+"""The evidence lower bound and the posterior moments of the latent functions.
 
-Counterpart of the serving subset of ``hetmogp_tpu/models/elbo.py``: the
-prior factorization (Luu, Luu^{-1}), the per-latent projections on the
-cached-inverse path, and the mixing of those into one task's q(f) moments.
-The triangular-solve path, ``cache_grad`` and the ELBO itself come with
-the trainer (ROADMAP.md section 1, item 7).
+Counterpart of ``hetmogp_tpu/models/elbo.py`` on the cached-inverse path:
+
+    ELBO = sum_t scale_t * sum_i E_{q(f)}[log p(y_ti | f_ti)]
+           - sum_q KL(q(u_q) || p(u_q)),
+
+with every projection through (Luu, Luu^{-1}): P = Kfu @ iLuu^T, the
+triangular projection kernel on CUDA float32.  ``cache_grad=True`` is the
+VM step's path, where the hyperparameter gradients flow through the cache
+by the cached-inverse adjoints (``linalg.chol_cached``,
+``linalg.solve_tri_cached``).  The triangular-solve path of the JAX
+package (no cached inverse) and the un-whitened KL are not ported
+(ROADMAP.md section 1, item 7).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -16,17 +25,54 @@ from hetmogp_tpu_torch.models.params import SVMOGPParams
 from hetmogp_tpu_torch.ops import kernels, linalg
 
 
-def prior_cholesky_inverse(params: SVMOGPParams, config: ModelConfig):
-    """(Luu, Luu^{-1}) of Kuu + jitter I, each (Q, M, M), fixed jitter."""
+class TaskData(NamedTuple):
+    """One task's (mini)batch; mask weights each row's VE term (1/0)."""
+
+    X: torch.Tensor  # (N_t, Dx)
+    Y: torch.Tensor  # (N_t, dim_y)
+    mask: torch.Tensor  # (N_t,)
+
+
+def task_data(X, Y, mask=None, dtype=None, device=None) -> TaskData:
+    X = torch.as_tensor(X, dtype=dtype, device=device)
+    Y = torch.as_tensor(Y, dtype=X.dtype, device=X.device)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    if mask is None:
+        mask = torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
+    return TaskData(X, Y, torch.as_tensor(mask, dtype=X.dtype,
+                                          device=X.device))
+
+
+def _jittered_gram(params: SVMOGPParams, config: ModelConfig) -> torch.Tensor:
     Kuu = kernels.K_gram_batched(config.kernel, params.Z, params.lengthscale,
                                  params.variance)
     eye = torch.eye(Kuu.shape[-1], dtype=Kuu.dtype, device=Kuu.device)
-    return linalg.blocked_cholesky_inverse(Kuu + config.jitter * eye)
+    return Kuu + config.jitter * eye
+
+
+def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
+                   cached=None) -> torch.Tensor:
+    """Luu: (Q, M, M) lower Cholesky factors of Kuu_q + jitter I.
+
+    cached: optional (Luu, iLuu) valid for the current hypers (the VM
+    step): the forward reuses the factor, and the backward runs the
+    Cholesky pullback as matmuls against the cached inverse.
+    """
+    K = _jittered_gram(params, config)
+    if cached is not None:
+        return linalg.chol_cached(K, *cached)
+    return linalg.cholesky(K)
+
+
+def prior_cholesky_inverse(params: SVMOGPParams, config: ModelConfig):
+    """(Luu, Luu^{-1}) of Kuu + jitter I, each (Q, M, M), fixed jitter."""
+    return linalg.blocked_cholesky_inverse(_jittered_gram(params, config))
 
 
 def latent_projections(params: SVMOGPParams, config: ModelConfig,
                        Luu: torch.Tensor, X: torch.Tensor, iLuu: torch.Tensor,
-                       *, use_kernel: bool = True):
+                       *, cache_grad: bool = False, use_kernel: bool = True):
     """Per-latent projection terms at inputs X, through the cached inverse.
 
     Returns:
@@ -36,26 +82,30 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
       kdiag:   (Q, N)  prior diagonal per latent
 
     Whitened: P = (Luu^{-1} Kuf)^T = Kfu @ iLuu^T.  Un-whitened:
-    A = P @ iLuu = Kfu Kuu^{-1}.  Luu is not read on this path; it stays in
-    the signature of the JAX function.
+    A = P @ iLuu = Kfu Kuu^{-1}.  ``cache_grad`` takes P through
+    ``linalg.solve_tri_cached``, so that gradients reach Luu (and, by
+    ``chol_cached``, the hypers) as well as Kfu; without it Luu is not read
+    (it stays in the signature of the JAX function).
 
     P feeds the kdiag - |P|^2 cancellation, so its matmul must run in full
     float32: at reduced precision the JAX package measured a relative error
     of 1.5e0 in P at M=1024, against 2.3e-4 at full precision.
     """
-    del Luu
     Kfu = kernels.K_batched(config.kernel, X, params.Z, params.lengthscale,
                             params.variance, use_kernel=use_kernel)  # (Q, N, M)
     kdiag = kernels.Kdiag_batched(config.kernel, X, params.variance)
     m_u, Lq = params.q_mu, torch.tril(params.q_sqrt)
-    P = linalg.matmul_tril_t(Kfu, iLuu)
+    if cache_grad:
+        P = linalg.solve_tri_cached(Luu, Kfu, iLuu, use_kernel=use_kernel)
+    else:
+        P = linalg.matmul_tril_t(Kfu, iLuu, use_kernel=use_kernel)
     if config.whiten:
-        mean_q = torch.einsum("qnm,qm->qn", P, m_u)
+        mean_q = (P @ m_u[..., None])[..., 0]
         gamma_q = (kdiag + linalg.quad_diag(P, Lq)
                    - torch.sum(torch.square(P), dim=-1))
     else:
         A = linalg.matmul_tril(P, iLuu)
-        mean_q = torch.einsum("qnm,qm->qn", A, m_u)
+        mean_q = (A @ m_u[..., None])[..., 0]
         gamma_q = (kdiag + linalg.quad_diag(A, Lq)
                    - torch.sum(A * Kfu, dim=-1))
     return mean_q, gamma_q, kdiag
@@ -64,11 +114,13 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
 def task_qf_moments(params: SVMOGPParams, config: ModelConfig,
                     Luu: torch.Tensor, X: torch.Tensor, task: int, *,
                     iLuu: torch.Tensor, clip_variance: bool = True,
-                    var_floor: float = 0.0, use_kernel: bool = True):
+                    var_floor: float = 0.0, cache_grad: bool = False,
+                    use_kernel: bool = True):
     """Marginal moments (m_F, v_F), each (N, F_t), of q(f_d) for every
     parameter function d of one task."""
     mean_q, gamma_q, kdiag = latent_projections(
-        params, config, Luu, X, iLuu, use_kernel=use_kernel)
+        params, config, Luu, X, iLuu, cache_grad=cache_grad,
+        use_kernel=use_kernel)
     return _mix_task(mean_q, gamma_q, kdiag, params, config, task,
                      clip_variance=clip_variance, var_floor=var_floor)
 
@@ -81,9 +133,85 @@ def _mix_task(mean_q, gamma_q, kdiag, params, config, task,
     start, stop = config.task_function_slices[task]
     Wt = params.W[:, start:stop]  # (Q, F_t)
     Kt = params.kappa[:, start:stop]
-    m_F = torch.einsum("qn,qj->nj", mean_q, Wt)
-    v_F = (torch.einsum("qn,qj->nj", gamma_q, torch.square(Wt))
-           + torch.einsum("qn,qj->nj", kdiag, Kt))
+    m_F = mean_q.mT @ Wt
+    v_F = gamma_q.mT @ torch.square(Wt) + kdiag.mT @ Kt
     if clip_variance:
         v_F = torch.clamp(v_F, min=var_floor)
     return m_F, v_F
+
+
+def fused_task_moments(params: SVMOGPParams, config: ModelConfig, Luu,
+                       data: Sequence[TaskData], iLuu, *,
+                       cache_grad: bool = False, use_kernel: bool = True,
+                       var_floor: float = 0.0):
+    """(m_F, v_F) for every task from one concatenated-rows projection: one
+    Kfu build, one triangular projection and one ``quad_diag`` for all
+    tasks' rows, then the per-task mixing on column slices
+    (``config.fuse_task_rows``)."""
+    X_all = torch.cat([td.X for td in data], dim=0)
+    mean_q, gamma_q, kdiag = latent_projections(
+        params, config, Luu, X_all, iLuu, cache_grad=cache_grad,
+        use_kernel=use_kernel)
+    out, off = [], 0
+    for t, td in enumerate(data):
+        sl = slice(off, off + td.X.shape[0])
+        off = sl.stop
+        out.append(_mix_task(mean_q[:, sl], gamma_q[:, sl], kdiag[:, sl],
+                             params, config, t, var_floor=var_floor))
+    return out
+
+
+def kl_divergence(params: SVMOGPParams, config: ModelConfig) -> torch.Tensor:
+    """sum_q KL(q(v_q) || N(0, I)) of the whitened q(u):
+    KL_q = 0.5 (||L~||_F^2 + ||m~||^2 - M - 2 sum log |diag L~|)."""
+    if not config.whiten:
+        raise NotImplementedError(
+            "the un-whitened KL is not ported yet (ROADMAP.md section 1, "
+            "item 7)")
+    Lq = torch.tril(params.q_sqrt)
+    tr = torch.sum(torch.square(Lq), dim=(-2, -1))
+    mah = torch.sum(torch.square(params.q_mu), dim=-1)
+    kl = 0.5 * (tr + mah - config.num_inducing - linalg.logdet_from_chol(Lq))
+    return torch.sum(kl)
+
+
+def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
+            scales: torch.Tensor, config: ModelConfig, Luu=None, iLuu=None,
+            cache_grad: bool = False, use_kernel: bool = True):
+    """ELBO and per-task diagnostics.
+
+    Args:
+      data: one TaskData per task.
+      scales: (T,) minibatch scales N_full_t / N_batch_t.
+      Luu, iLuu: the cached (Luu, Luu^{-1}) for the current hypers.  None
+        computes them here, differentiably (``prior_cholesky_inverse``).
+      cache_grad: the VM step's path: (Luu, iLuu) are value-correct caches
+        and the hyperparameter gradients flow through them by the
+        cached-inverse adjoints.  Needs both and the whitened model.
+      use_kernel: False takes the plain PyTorch versions of the CUDA
+        kernels on any device.
+    Returns:
+      (elbo, aux) with aux = {'ve': (T,), 'kl': scalar}.
+    """
+    if cache_grad:
+        if Luu is None or iLuu is None:
+            raise ValueError("cache_grad=True needs both Luu and iLuu")
+        if not config.whiten:
+            raise ValueError("cache_grad fast path requires config.whiten")
+        Luu = prior_cholesky(params, config, cached=(Luu, iLuu))
+    elif Luu is None or iLuu is None:
+        Luu, iLuu = prior_cholesky_inverse(params, config)
+    if config.fuse_task_rows:
+        moments = fused_task_moments(params, config, Luu, data, iLuu,
+                                     cache_grad=cache_grad,
+                                     use_kernel=use_kernel)
+    else:
+        moments = [task_qf_moments(params, config, Luu, td.X, t, iLuu=iLuu,
+                                   cache_grad=cache_grad,
+                                   use_kernel=use_kernel)
+                   for t, td in enumerate(data)]
+    ve_sums = torch.stack([
+        scales[t] * torch.sum(lik.var_exp(td.Y, *moments[t]) * td.mask)
+        for t, (lik, td) in enumerate(zip(config.likelihoods, data))])
+    kl = kl_divergence(params, config)
+    return torch.sum(ve_sums) - kl, {"ve": ve_sums, "kl": kl}

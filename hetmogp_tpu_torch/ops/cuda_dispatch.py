@@ -1,12 +1,16 @@
-"""Dispatch between the hand-written CUDA kernel and its plain version.
+"""Dispatch between the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``hetmogp_tpu/ops/pallas_dispatch.py``.  The policy:
+Counterpart of ``hetmogp_tpu/ops/pallas_dispatch.py``.  The policy, the
+same for every kernel:
 
 * a CUDA float32 tensor goes to the kernel, at every size: there is no
-  N*M gate until a measurement on the card sets one;
-* a CUDA tensor of another dtype raises: the kernel is float32-only, and a
-  silent switch to the plain version would hide that from the caller;
+  size gate until a measurement on the card sets one;
+* a CUDA tensor of another dtype raises: the kernels are float32-only, and
+  a silent switch to the plain version would hide that from the caller;
 * a CPU tensor, or ``use_kernel=False``, takes the plain PyTorch version.
+
+The kernels are reached through their ``autograd.Function``s, so the
+dispatched ops are differentiable on either route.
 """
 
 from __future__ import annotations
@@ -14,15 +18,24 @@ from __future__ import annotations
 import torch
 
 
-def use_rbf_kernel(X: torch.Tensor, use_kernel: bool = True) -> bool:
-    """Whether ``X`` (and the tensors that come with it) go to the kernel."""
-    if not use_kernel or not X.is_cuda:
+def _use_kernel(t: torch.Tensor, use_kernel: bool, what: str) -> bool:
+    if not use_kernel or not t.is_cuda:
         return False
-    if X.dtype != torch.float32:
+    if t.dtype != torch.float32:
         raise TypeError(
-            f"the CUDA RBF kernel takes float32 only, got {X.dtype}; pass "
+            f"the CUDA {what} kernel takes float32 only, got {t.dtype}; pass "
             "use_kernel=False for the plain PyTorch version")
     return True
+
+
+def use_rbf_kernel(X: torch.Tensor, use_kernel: bool = True) -> bool:
+    """Whether ``X`` (and the tensors that come with it) go to the kernel."""
+    return _use_kernel(X, use_kernel, "RBF")
+
+
+def use_tril_kernel(A: torch.Tensor, use_kernel: bool = True) -> bool:
+    """Whether ``A`` (and L) go to the triangular projection kernel."""
+    return _use_kernel(A, use_kernel, "triangular projection")
 
 
 def rbf_K_batched(X, Z, lengthscale, variance, *, use_kernel: bool = True):
@@ -30,5 +43,14 @@ def rbf_K_batched(X, Z, lengthscale, variance, *, use_kernel: bool = True):
     from hetmogp_tpu_torch.ops import cuda_kernels
 
     if use_rbf_kernel(X, use_kernel):
-        return cuda_kernels.rbf_K_batched(X, Z, lengthscale, variance)
+        return cuda_kernels.RBFCrossCovariance.apply(X, Z, lengthscale,
+                                                     variance)
     return cuda_kernels.rbf_K_batched_plain(X, Z, lengthscale, variance)
+
+
+def matmul_tril_t(A, L, *, use_kernel: bool = True):
+    from hetmogp_tpu_torch.ops import cuda_kernels
+
+    if use_tril_kernel(A, use_kernel):
+        return cuda_kernels.TrilProjection.apply(A, L)
+    return cuda_kernels.tril_projection_plain(A, L)

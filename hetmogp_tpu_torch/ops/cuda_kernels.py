@@ -1,16 +1,23 @@
-"""Hand-written CUDA kernels and their plain PyTorch versions.
+"""Hand-written CUDA kernels, their plain PyTorch versions and gradients.
 
-Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py``.  The RBF
-cross-covariance kernel is ``csrc/rbf_kernel.cu``, built by
-``ops/_build.py`` when a CUDA tensor first reaches ``rbf_K_batched`` and
-bound with ``ctypes``.  Importing this module builds and loads nothing.
+Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py`` and of the Pallas
+projection of ``tools/probe_pallas_proj.py``.  The kernels are
+``csrc/rbf_kernel.cu`` (the RBF cross-covariance) and
+``csrc/tril_proj_kernel.cu`` (the triangular projection A tril(L)^T), built
+by ``ops/_build.py`` when a CUDA tensor first reaches one and bound with
+``ctypes``.  Importing this module builds and loads nothing.
 
-``rbf_K_batched_plain`` is ``ops/kernels.py``'s ``rbf`` batched over Q:
-what CPU tensors take, and what the kernel is checked against on the card.
+For each kernel:
 
-The backward of the kernel (an ``autograd.Function`` with the algebra of
-``pallas_kernels._rbf_bwd``) comes with the trainer; until then the
-wrapper refuses inputs that require grad.
+* the raw launcher (``rbf_K_batched``, ``tril_projection``) runs it on
+  float32 CUDA tensors, counts its launches in ``<launcher>.launches``, and
+  refuses inputs that require grad: it records no graph;
+* the plain version (``*_plain``) is what CPU tensors take and what the
+  kernel is checked against on the card;
+* an ``autograd.Function`` (``RBFCrossCovariance``, ``TrilProjection``)
+  runs the launcher forward and a plain PyTorch backward.  The JAX package
+  differentiates its Pallas RBF with XLA einsums (``_rbf_bwd``), so
+  ``rbf_K_batched_bwd`` is that algebra on tensors.
 """
 
 from __future__ import annotations
@@ -22,8 +29,8 @@ import torch
 
 from hetmogp_tpu_torch.ops import _build, kernels
 
-# The kernel stages (128 + 32) * Dx floats of shared memory per block and
-# stays under the 48 KiB that needs no opt-in (csrc/rbf_kernel.cu).
+# The RBF kernel stages (128 + 32) * Dx floats of shared memory per block
+# and stays under the 48 KiB that needs no opt-in (csrc/rbf_kernel.cu).
 MAX_DX = 64
 
 
@@ -33,6 +40,9 @@ def _library() -> ctypes.CDLL:
     fn = lib.hetmogp_rbf_cross_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.hetmogp_tril_proj_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -40,6 +50,28 @@ def load() -> None:
     """Build (if needed) and load the kernel library now, not at first use."""
     _library()
 
+
+def _check_launch_inputs(name: str, tensors) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the raw CUDA {name} launcher records no backward; "
+            "differentiate through its autograd.Function (what the ops "
+            "dispatch to), or call it under torch.no_grad()")
+    if not all(t.dtype == torch.float32 for t in tensors):
+        raise TypeError(f"{name} takes float32 only, got "
+                        f"{[t.dtype for t in tensors]}")
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{name} takes tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# ---- RBF cross-covariance --------------------------------------------------
 
 def rbf_K_batched_plain(X, Z, lengthscale, variance):
     """Plain version of the kernel: (N, Dx), (Q, M, Dx) -> (Q, N, M)."""
@@ -56,16 +88,7 @@ def rbf_K_batched(X: torch.Tensor, Z: torch.Tensor, lengthscale: torch.Tensor,
     launches.
     """
     tensors = (X, Z, lengthscale, variance)
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the CUDA RBF kernel has no backward yet (ROADMAP.md section 1, "
-            "item 8); call it under torch.no_grad() or inference_mode()")
-    if not all(t.is_cuda and t.device == X.device for t in tensors):
-        raise ValueError("rbf_K_batched takes tensors on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if not all(t.dtype == torch.float32 for t in tensors):
-        raise TypeError("rbf_K_batched takes float32 only, got "
-                        f"{[t.dtype for t in tensors]}")
+    _check_launch_inputs("rbf_K_batched", tensors)
     if X.ndim != 2 or Z.ndim != 3 or Z.shape[-1] != X.shape[-1]:
         raise ValueError(f"X must be (N, Dx) and Z (Q, M, Dx); got "
                          f"{tuple(X.shape)} and {tuple(Z.shape)}")
@@ -91,10 +114,121 @@ def rbf_K_batched(X: torch.Tensor, Z: torch.Tensor, lengthscale: torch.Tensor,
         err = lib.hetmogp_rbf_cross_f32(
             X.data_ptr(), Z.data_ptr(), ils.data_ptr(), var.data_ptr(),
             out.data_ptr(), Q, N, M, Dx, stream)
-    if err != 0:
-        raise RuntimeError(f"rbf_K_batched launch failed: CUDA error {err}")
+    _raise_on(err, "rbf_K_batched")
     rbf_K_batched.launches += 1
     return out
 
 
 rbf_K_batched.launches = 0
+
+
+def rbf_K_batched_bwd(X, Z, lengthscale, variance, K, g):
+    """Cotangents (dX, dZ, dlengthscale, dvariance) of K = rbf(X, Z, ls, var)
+    for the cotangent g of K: the algebra of ``pallas_kernels._rbf_bwd``.
+
+    With S = g * K and il2 = 1 / ls^2 (broadcast to (Q, Dx)):
+      dvar[q]      = sum_nm S / var
+      dX[n, d]     = -sum_q il2_qd (x_nd rowsum(S)_qn - (S_q Z_q)_nd)
+      dZ[q, m, d]  = il2_qd ((S_q^T X)_md - colsum(S)_qm z_qmd)
+      dls[q, d]    = ls^-3 sum_nm S (x - z)^2
+    An isotropic (Q, 1) lengthscale gets the sum over d.
+    """
+    Q, Dx = Z.shape[0], X.shape[-1]
+    S = g * K
+    ls_full = lengthscale.expand(Q, Dx)
+    il2 = 1.0 / torch.square(ls_full)
+    dvar = torch.sum(S, dim=(1, 2)) / variance
+    rowsum = torch.sum(S, dim=2)  # (Q, N)
+    colsum = torch.sum(S, dim=1)  # (Q, M)
+    SZ = S @ Z  # (Q, N, Dx)
+    SX = S.mT @ X  # (Q, M, Dx)
+    dX = -torch.einsum("qnd,qd->nd", rowsum[..., None] * X - SZ, il2)
+    dZ = (SX - colsum[..., None] * Z) * il2[:, None, :]
+    E = (rowsum @ torch.square(X)
+         + torch.einsum("qm,qmd->qd", colsum, torch.square(Z))
+         - 2.0 * torch.einsum("qnd,nd->qd", SZ, X))  # sum_nm S (x - z)^2
+    dls = E / ls_full ** 3
+    if lengthscale.shape != dls.shape:
+        dls = torch.sum(dls, dim=-1, keepdim=True)
+    return dX, dZ, dls, dvar
+
+
+class RBFCrossCovariance(torch.autograd.Function):
+    """The RBF cross-covariance on the card with a gradient: the kernel
+    forward, ``rbf_K_batched_bwd`` backward.  ``backwards`` counts the
+    backward passes."""
+
+    backwards = 0
+
+    @staticmethod
+    def forward(ctx, X, Z, lengthscale, variance):
+        K = rbf_K_batched(X.detach(), Z.detach(), lengthscale.detach(),
+                          variance.detach())
+        ctx.save_for_backward(X, Z, lengthscale, variance, K)
+        return K
+
+    @staticmethod
+    def backward(ctx, g):
+        RBFCrossCovariance.backwards += 1
+        return rbf_K_batched_bwd(*ctx.saved_tensors, g)
+
+
+# ---- triangular projection -------------------------------------------------
+
+def tril_projection_plain(A, L):
+    """Plain version of the kernel: A tril(L)^T, (..., N, M), (..., M, M)."""
+    return A @ torch.tril(L).mT
+
+
+def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] on the card.
+
+    A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
+    upper entries are not read.  Full float32 (no TF32).  Launches on the
+    current stream and does not synchronise.  ``tril_projection.launches``
+    counts the launches.
+    """
+    _check_launch_inputs("tril_projection", (A, L))
+    if A.ndim != 3 or L.ndim != 3 or L.shape != (A.shape[0], A.shape[2],
+                                                  A.shape[2]):
+        raise ValueError(f"A must be (Q, N, M) and L (Q, M, M); got "
+                         f"{tuple(A.shape)} and {tuple(L.shape)}")
+    Q, N, M = A.shape
+    if Q > 65535 or N >= 2 ** 31 or M >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: Q={Q}, N={N}, "
+                         f"M={M} (Q <= 65535)")
+    out = torch.empty((Q, N, M), dtype=torch.float32, device=A.device)
+    if out.numel() == 0:
+        return out
+    A = A.contiguous()
+    L = L.contiguous()
+    aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (A, L, out))
+    lib = _library()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.hetmogp_tril_proj_f32(A.data_ptr(), L.data_ptr(),
+                                        out.data_ptr(), Q, N, M, int(aligned),
+                                        stream)
+    _raise_on(err, "tril_projection")
+    tril_projection.launches += 1
+    return out
+
+
+tril_projection.launches = 0
+
+
+class TrilProjection(torch.autograd.Function):
+    """A tril(L)^T on the card with a gradient: the kernel forward; the
+    backward dA = g tril(L), dL = tril(g^T A) as plain matmuls."""
+
+    @staticmethod
+    def forward(ctx, A, L):
+        ctx.save_for_backward(A, L)
+        return tril_projection(A.detach(), L.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        A, L = ctx.saved_tensors
+        dA = g @ torch.tril(L) if ctx.needs_input_grad[0] else None
+        dL = torch.tril(g.mT @ A) if ctx.needs_input_grad[1] else None
+        return dA, dL

@@ -1,17 +1,38 @@
-"""Dense linear algebra of the serving path.
+"""Dense linear algebra of the serving and training paths.
 
-Counterpart of the serving subset of ``hetmogp_tpu/ops/linalg.py``.  The
-JAX package blocks these by hand for the TPU's matrix unit; here they start
-as plain PyTorch calls (cuSOLVER and cuBLAS on the card).  Each becomes a
-hand kernel only where a profile on the card puts it on top.  Float32
-matmuls must run in full float32: TF32 ruins the projection
-P = Kfu @ iLuu^T (see ``models/elbo.py``), so nothing here may run under
+Counterpart of the main-path subset of ``hetmogp_tpu/ops/linalg.py``.  The
+JAX package blocks these by hand for the TPU's matrix unit; here they are
+plain PyTorch calls (cuSOLVER and cuBLAS on the card), except the
+triangular projection A tril(L)^T, which CUDA float32 tensors run as the
+hand-written kernel ``csrc/tril_proj_kernel.cu`` (``ops/cuda_dispatch.py``
+decides).  The ``*_tril*`` helpers mask their triangular operand with
+``torch.tril`` where the JAX package skips its zero blocks; on an exactly
+triangular operand the two agree.  Float32 matmuls must run in full
+float32: TF32 ruins the projection P = Kfu @ iLuu^T (see
+``models/elbo.py``), so nothing here may run under
 ``torch.set_float32_matmul_precision("high")``.
+
+``chol_cached`` and ``solve_tri_cached`` are the trainer's cached-inverse
+adjoints (``autograd.Function``s with the JAX custom VJPs' algebra): the
+VM step differentiates through the Cholesky and the projection with
+matmuls against the cached (Luu, Luu^{-1}) instead of a new factorization
+and triangular solves.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hetmogp_tpu_torch.ops import cuda_dispatch
+
+
+def cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of (..., M, M) SPD K; a factorization that
+    fails gives NaNs, not an exception, and no host synchronisation (the
+    JAX package's fixed-jitter ``jitchol``)."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(L, float("nan")), L)
 
 
 def blocked_cholesky_inverse(K: torch.Tensor):
@@ -21,25 +42,104 @@ def blocked_cholesky_inverse(K: torch.Tensor):
     back lower-triangular, and a factorization that fails surfaces as NaNs
     in both, not as an exception (and without a host synchronisation).
     """
-    L, info = torch.linalg.cholesky_ex(K)
-    L = torch.where((info != 0)[..., None, None],
-                    torch.full_like(L, float("nan")), L)
+    L = cholesky(K)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     iL = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
     return L, iL
 
 
-def matmul_tril_t(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """A @ L^T for lower-triangular L: (..., N, M), (..., M, M) -> (..., N, M).
+def matmul_tril_t(A: torch.Tensor, L: torch.Tensor, *,
+                  use_kernel: bool = True) -> torch.Tensor:
+    """A @ tril(L)^T: (Q, N, M), (Q, M, M) -> (Q, N, M), the projection
+    P = Kfu iLuu^T.  out[..., n, k] = sum_{m <= k} A[..., n, m] L[..., k, m].
 
-    Dense for now; the JAX package skips L's zero blocks.
+    CUDA float32 runs the triangular projection kernel, which skips L's
+    zero blocks; CPU tensors (or ``use_kernel=False``) the plain version.
     """
-    return A @ L.mT
+    return cuda_dispatch.matmul_tril_t(A, L, use_kernel=use_kernel)
 
 
 def matmul_tril(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """A @ L for lower-triangular L (dense for now)."""
-    return A @ L
+    """A @ tril(L)."""
+    return A @ torch.tril(L)
+
+
+def tril_matmul(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """tril(L) @ B."""
+    return torch.tril(L) @ B
+
+
+def tril_t_matmul(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """tril(L)^T @ B."""
+    return torch.tril(L).mT @ B
+
+
+def _phi(A: torch.Tensor) -> torch.Tensor:
+    """Lower triangle with halved diagonal (Cholesky pullback helper)."""
+    return torch.tril(A) - 0.5 * torch.diag_embed(
+        torch.diagonal(A, dim1=-2, dim2=-1))
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """log|A| from A = L L^T; batched over leading dims -> (...,)."""
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    return 2.0 * torch.sum(torch.log(torch.abs(d)), dim=-1)
+
+
+class _CholCached(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, K, L, iL):
+        ctx.save_for_backward(L, iL)
+        return L
+
+    @staticmethod
+    def backward(ctx, gL):
+        L, iL = ctx.saved_tensors
+        P = _phi(tril_t_matmul(L, gL))
+        S = matmul_tril(tril_t_matmul(iL, P), iL)  # L^{-T} P L^{-1}
+        return 0.5 * (S + S.mT), None, None
+
+
+def chol_cached(K: torch.Tensor, L: torch.Tensor,
+                iL: torch.Tensor) -> torch.Tensor:
+    """Cholesky of K with a precomputed factor ``L`` and inverse ``iL``.
+
+    Forward: returns ``L`` (the caller guarantees it is chol(K) up to
+    roundoff).  Backward: the Cholesky pullback Kbar = 0.5 (S + S^T),
+    S = L^{-T} Phi(L^T Lbar) L^{-1}, as matmuls against ``iL``.  L and iL
+    are caches and get no gradient.
+    """
+    return _CholCached.apply(K, L, iL)
+
+
+class _SolveTriCached(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, L, Kfu, iL, use_kernel):
+        P = matmul_tril_t(Kfu, iL, use_kernel=use_kernel)
+        ctx.save_for_backward(P, iL)
+        return P
+
+    @staticmethod
+    def backward(ctx, gP):
+        P, iL = ctx.saved_tensors
+        gKfu = matmul_tril(gP, iL)  # (L^{-T} ybar)^T
+        gL = -torch.tril(gKfu.mT @ P)
+        return gL, gKfu, None, None
+
+
+def solve_tri_cached(L: torch.Tensor, Kfu: torch.Tensor, iL: torch.Tensor, *,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """P = (L^{-1} Kfu^T)^T = Kfu iL^T through the cached inverse ``iL``.
+
+    The JAX ``solve_tri_cached(L, Kfu^T, iL)`` in the (Q, N, M) layout of
+    Kfu, returning P rather than its transpose.  Forward: the triangular
+    projection (the kernel for CUDA float32).  Backward, the exact solve
+    adjoints with y = P^T: Kfubar = Pbar iL, Lbar = -tril(Kfubar^T P); iL
+    is a cache and gets no gradient.
+    """
+    return _SolveTriCached.apply(L, Kfu, iL, use_kernel)
 
 
 def quad_diag(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
@@ -47,4 +147,4 @@ def quad_diag(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
 
     Only the lower triangle of L is read.
     """
-    return torch.sum(torch.square(A @ torch.tril(L)), dim=-1)
+    return torch.sum(torch.square(matmul_tril(A, L)), dim=-1)

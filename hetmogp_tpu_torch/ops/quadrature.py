@@ -1,9 +1,23 @@
-"""Gauss-Hermite predictive moments.
+"""Gauss-Hermite variational expectations and predictive moments.
 
-Counterpart of the serving subset of ``hetmogp_tpu/ops/quadrature.py``.
-The nodes and weights come from numpy's ``hermgauss``, so they are the
-JAX package's to the bit.  ``make_var_exp`` and the Monte-Carlo nodes come
-with the trainer (ROADMAP.md section 1, item 5).
+Counterpart of ``hetmogp_tpu/ops/quadrature.py`` without the Monte-Carlo
+nodes and the theta engine (ROADMAP.md section 1, item 5).  The nodes and
+weights come from numpy's ``hermgauss``, so they are the JAX package's to
+the bit.
+
+``make_var_exp`` keeps the JAX engine's gradient semantics: the value is
+the T-node GH sum of ``logpdf``, and its (m, v)-gradients are the
+reference's Bonnet/Price forms (E[dlogp/df], 1/2 E[d2logp/df2]) on the same
+nodes, not the derivative of the finite sum (which is noisier and singular
+as v -> 0).  One forward sweep gives the value and the two reduced
+expectations; the backward is two multiplies.  The per-node derivatives
+come from autograd over the summed sweep: every node F[n, s, :] reaches
+only lp[n, s], so the gradient of sum(lp) with respect to F is the
+per-node gradient, and one more backward per latent dimension j of
+sum(d lp / dF_j) gives the diagonal second derivative.  That is J + 1
+backward passes over tensors the size of the grid, all batched, where
+``torch.func``'s vmapped ``hessian`` would build the full J x J Hessian
+per node only to keep its diagonal.
 """
 
 from __future__ import annotations
@@ -40,6 +54,20 @@ def tensor_grid(T: int, J: int):
     return nodes, weights / (np.pi ** (J / 2.0))
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_tensors(T: int, J: int, dtype: torch.dtype, device: torch.device):
+    """``tensor_grid(T, J)`` as tensors on ``device``, made once: a copy
+    from host memory per call would synchronise the stream every step."""
+    nodes, weights = tensor_grid(T, J)
+    return (torch.as_tensor(nodes, dtype=dtype, device=device),
+            torch.as_tensor(weights, dtype=dtype, device=device))
+
+
+def _expand_nodes(m, v, nodes):
+    """F[n, s, :] = m[n] + sqrt(2 v[n]) * nodes[s]; (N,J),(S,J) -> (N,S,J)."""
+    return m[:, None, :] + torch.sqrt(2.0 * v)[:, None, :] * nodes[None]
+
+
 def make_predictive(cond_moments, J: int, T: int):
     """Observation-space predictive moments by GH quadrature.
 
@@ -50,17 +78,59 @@ def make_predictive(cond_moments, J: int, T: int):
     Returns:
       predictive(m, v) with m, v (N, J) -> (mean, var), each (N, dim_p).
     """
-    nodes_np, weights_np = tensor_grid(T, J)
-
     def predictive(m, v):
-        nodes = torch.as_tensor(nodes_np, dtype=m.dtype, device=m.device)
-        w = torch.as_tensor(weights_np, dtype=m.dtype, device=m.device)
-        sigma = torch.sqrt(2.0 * v)
-        F = m[:, None, :] + sigma[:, None, :] * nodes[None, :, :]  # (N, S, J)
-        cm, cv = cond_moments(F)  # (N, S, dim_p) each
-        Em = torch.einsum("nsp,s->np", cm, w)
-        Em2 = torch.einsum("nsp,s->np", torch.square(cm), w)
-        Ev = torch.einsum("nsp,s->np", cv, w)
+        nodes, w = _grid_tensors(T, J, m.dtype, m.device)
+        cm, cv = cond_moments(_expand_nodes(m, v, nodes))  # (N, S, dim_p)
+        Em = cm.mT @ w
+        Em2 = torch.square(cm).mT @ w
+        Ev = cv.mT @ w
         return Em, Ev + Em2 - torch.square(Em)
 
     return predictive
+
+
+def _diag_second(d1, F, j):
+    """d2 lp / dF_j^2 at every node from the per-node gradient d1 (built
+    with ``create_graph``); zeros where d1_j does not depend on F."""
+    if not d1.requires_grad:
+        return torch.zeros_like(F[..., j])
+    (g,) = torch.autograd.grad(d1[..., j].sum(), F, retain_graph=True,
+                               allow_unused=True)
+    return torch.zeros_like(F[..., j]) if g is None else g[..., j]
+
+
+def make_var_exp(logpdf, J: int, T: int):
+    """Build ve(y, m, v) -> (N,), E_{N(f; m, v)}[log p(y | f)] per row.
+
+    Args:
+      logpdf: batched log-density, (F: (..., J), y: (..., dim_y)) -> (...),
+        broadcasting y over the node axis.
+      J: number of latent parameter functions (dim_f).
+      T: GH nodes per dimension (tensor grid of T^J nodes).
+    The gradient with respect to (m, v) is (E[dlogp], 1/2 E[d2logp]) on the
+    same nodes; y gets none.
+    """
+    class VarExp(torch.autograd.Function):
+
+        @staticmethod
+        def forward(ctx, y, m, v):
+            nodes, w = _grid_tensors(T, J, m.dtype, m.device)
+            if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
+                return logpdf(_expand_nodes(m, v, nodes), y[:, None, :]) @ w
+            with torch.enable_grad():
+                F = _expand_nodes(m, v, nodes).detach().requires_grad_()
+                lp = logpdf(F, y[:, None, :])  # (N, S)
+                (d1,) = torch.autograd.grad(lp.sum(), F, create_graph=True)
+                d2 = torch.stack([_diag_second(d1, F, j) for j in range(J)],
+                                 dim=-1)
+            Ed1 = d1.detach().mT @ w  # (N, J)
+            Ed2 = d2.mT @ w
+            ctx.save_for_backward(Ed1, Ed2)
+            return lp.detach() @ w
+
+        @staticmethod
+        def backward(ctx, g):
+            Ed1, Ed2 = ctx.saved_tensors
+            return None, Ed1 * g[:, None], 0.5 * Ed2 * g[:, None]
+
+    return VarExp.apply

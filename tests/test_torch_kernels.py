@@ -1,21 +1,28 @@
 """The port's RBF cross-covariance against the JAX package, and the
-no-fallback contract of its CUDA kernel.
+no-fallback contract of its CUDA kernels.
 
 The plain PyTorch version (what CPU tensors take, and what the kernel is
 checked against on the card by chip_smoke.py) is held against the JAX XLA
-path and the Pallas kernel in interpret mode, on the same numpy inputs.
-The CUDA kernel itself runs only on the card; here the tests show that
-CPU tensors never reach it and that its wrapper and build refuse what
-they cannot do.
+path and the Pallas kernel in interpret mode, on the same numpy inputs;
+the RBF backward against the JAX package's ``_rbf_bwd`` and against
+autograd.  The CUDA kernels themselves run only on the card; here the
+tests show that CPU tensors never reach them, that their wrappers and
+build refuse what they cannot do, and (with the launchers swapped for
+their plain versions) that the autograd.Functions around them give the
+plain versions' gradients.
 """
 
+import types
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from hetmogp_tpu.ops import kernels as jkernels
 from hetmogp_tpu.ops import pallas_kernels
-from hetmogp_tpu_torch.ops import _build, cuda_dispatch, cuda_kernels, kernels
+from hetmogp_tpu_torch.ops import (_build, cuda_dispatch, cuda_kernels,
+                                   kernels, linalg)
 
 torch.set_num_threads(1)
 
@@ -116,9 +123,123 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-def test_build_is_keyed_by_the_sources():
+def test_build_is_keyed_by_the_sources(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "hetmogp_tpu_torch")
     assert path == _build.library_path()
-    assert (_build.CSRC / "rbf_kernel.cu").is_file()
+    for name in ("rbf_kernel.cu", "tril_proj_kernel.cu"):
+        assert (_build.CSRC / name).is_file()
+        # an edit to either source gives another library
+        src = tmp_path / name
+        for f in _build.CSRC.glob("*.cu"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+        monkeypatch.setattr(_build, "CSRC", tmp_path)
+        assert _build.library_path() == path
+        src.write_bytes(src.read_bytes() + b"\n")
+        assert _build.library_path() != path
+        monkeypatch.undo()
+
+
+# ---- the triangular projection's wrapper -----------------------------------
+
+def _tri(dtype=np.float32, Q=2, N=9, M=7):
+    rng = np.random.RandomState(0)
+    return (torch.from_numpy(rng.randn(Q, N, M).astype(dtype)),
+            torch.from_numpy(np.tril(rng.randn(Q, M, M)).astype(dtype)))
+
+
+def test_cpu_tensors_take_the_plain_projection():
+    A, L = _tri()
+    got = linalg.matmul_tril_t(A, L)
+    assert not cuda_dispatch.use_tril_kernel(A)
+    assert cuda_kernels.tril_projection.launches == 0
+    assert cuda_kernels.rbf_K_batched.launches == 0
+    torch.testing.assert_close(got, cuda_kernels.tril_projection_plain(A, L),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,err", [(np.float32, ValueError),
+                                       (np.float64, TypeError)])
+def test_projection_wrapper_refuses_cpu_and_non_f32(dtype, err):
+    with pytest.raises(err):
+        cuda_kernels.tril_projection(*_tri(dtype))
+    assert cuda_kernels.tril_projection.launches == 0
+
+
+def test_projection_wrapper_refuses_grad():
+    A, L = _tri()
+    with pytest.raises(NotImplementedError, match="backward"):
+        cuda_kernels.tril_projection(A, L.requires_grad_())
+
+
+@pytest.mark.parametrize("what", ["rbf", "tril"])
+def test_dispatch_raises_on_cuda_non_f32(what):
+    """A CUDA tensor of another dtype raises instead of taking the plain
+    version (the policy, on a stand-in for a CUDA float64 tensor)."""
+    fake = types.SimpleNamespace(is_cuda=True, dtype=torch.float64)
+    use = {"rbf": cuda_dispatch.use_rbf_kernel,
+           "tril": cuda_dispatch.use_tril_kernel}[what]
+    with pytest.raises(TypeError, match="float32 only"):
+        use(fake)
+    assert not use(fake, use_kernel=False)
+
+
+# ---- gradients --------------------------------------------------------------
+
+@pytest.mark.parametrize("iso", [False, True], ids=["ard", "iso"])
+def test_rbf_backward_matches_jax_and_autograd_f64(iso):
+    """rtol 1e-12 against JAX's ``_rbf_bwd``: the same algebra in float64,
+    reduced in another order.  rtol 1e-10 against autograd through the
+    plain RBF: another algebra (the difference form's chain rule), whose
+    rounding differs by a few ulps per term over 40 x 30 terms."""
+    X, Z, ls, var = _inputs(N=40, M=30, Q=3, Dx=2, iso=iso, dtype=np.float64)
+    g = np.random.RandomState(1).randn(3, 40, 30)
+    t = [torch.from_numpy(a).requires_grad_() for a in (X, Z, ls, var)]
+    K = cuda_kernels.rbf_K_batched_plain(*t)
+    want_autograd = torch.autograd.grad(K, t, torch.from_numpy(g))
+    got = cuda_kernels.rbf_K_batched_bwd(*(a.detach() for a in t),
+                                         K.detach(), torch.from_numpy(g))
+    K_j = jkernels.K_batched("rbf", X, Z, ls, var, use_pallas=False)
+    want_jax = pallas_kernels._rbf_bwd(
+        tuple(jnp.asarray(a) for a in (X, Z, ls, var)) + (K_j,),
+        jnp.asarray(g))
+    for name, a, b, c in zip(("dX", "dZ", "dls", "dvar"), got, want_autograd,
+                             want_jax):
+        assert a.shape == b.shape == c.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=1e-12,
+                                   atol=1e-12, err_msg=name)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-10, err_msg=name)
+
+
+def test_rbf_function_gives_the_plain_gradient(monkeypatch):
+    """RBFCrossCovariance with its launcher swapped for the plain version:
+    its forward is the launcher's, its gradient autograd's through the
+    plain RBF (rtol 1e-10, as above), and it counts its backward passes."""
+    monkeypatch.setattr(cuda_kernels, "rbf_K_batched",
+                        cuda_kernels.rbf_K_batched_plain)
+    monkeypatch.setattr(cuda_kernels.RBFCrossCovariance, "backwards", 0)
+    arrays = _inputs(**CASES["ard"], dtype=np.float64)
+    t = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    g = torch.from_numpy(np.random.RandomState(2).randn(2, 70, 50))
+    got = torch.autograd.grad(cuda_kernels.RBFCrossCovariance.apply(*t), t, g)
+    want = torch.autograd.grad(cuda_kernels.rbf_K_batched_plain(*t), t, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+    assert cuda_kernels.RBFCrossCovariance.backwards == 1
+
+
+def test_projection_function_gives_the_plain_gradient(monkeypatch):
+    """TrilProjection's backward (g tril(L), tril(g^T A)) against autograd
+    through the plain version: the same products in float64 (rtol 1e-12)."""
+    monkeypatch.setattr(cuda_kernels, "tril_projection",
+                        cuda_kernels.tril_projection_plain)
+    A, L = (t.double().requires_grad_() for t in _tri())
+    g = torch.from_numpy(np.random.RandomState(3).randn(*A.shape))
+    got = torch.autograd.grad(cuda_kernels.TrilProjection.apply(A, L),
+                              (A, L), g)
+    want = torch.autograd.grad(cuda_kernels.tril_projection_plain(A, L),
+                               (A, L), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-14)

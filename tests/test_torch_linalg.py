@@ -1,0 +1,194 @@
+"""The port's linear algebra against the JAX package's, on the same numpy
+inputs: the triangular projection (the plain version of the CUDA kernel
+``csrc/tril_proj_kernel.cu``, and ``linalg.matmul_tril_t``), the Pallas
+projection kernel it replaces, and the cached-inverse adjoints of the VM
+step.
+
+Tolerances are normwise, max|a - b| / max|b|:
+* 1e-12 in float64 where the two packages run the same products in another
+  blocking (the JAX package splits M=512 into 256-wide blocks);
+* 2e-5 in float32 against the Pallas kernel, which multiplies in three
+  bf16 passes (Precision.HIGH, relative error ~1e-5 per product sum);
+* 1e-9 for the adjoints, which multiply by the explicit inverse of a
+  Cholesky factor whose entries reach ~1e2 (jitter 1e-4): the two
+  packages' rounding differs by about cond * eps there.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from hetmogp_tpu.ops import kernels as jkernels
+from hetmogp_tpu.ops import linalg as jlinalg
+from hetmogp_tpu_torch.ops import cuda_kernels, linalg
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _normwise(got, want):
+    if isinstance(got, torch.Tensor):
+        got = got.detach().numpy()
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _tri_inputs(Q, N, M, seed=0, dtype=np.float64):
+    rng = np.random.RandomState(seed)
+    A = rng.randn(Q, N, M)
+    L = np.tril(rng.randn(Q, M, M)) / np.sqrt(M) + 2.0 * np.eye(M)
+    return A.astype(dtype), L.astype(dtype)
+
+
+def _cached_factor(Q, M, seed=0):
+    """(K, L, iL) of an RBF Gram at jitter 1e-4, as the trainer caches
+    them, plus a (Q, N, M) cross-covariance."""
+    rng = np.random.RandomState(seed)
+    Z = rng.rand(Q, M, 2)
+    ls, var = 0.2 + 0.1 * rng.rand(Q, 2), 0.5 + rng.rand(Q)
+    K = np.asarray(jkernels.K_gram_batched("rbf", Z, ls, var)) \
+        + 1e-4 * np.eye(M)
+    L = np.linalg.cholesky(K)
+    iL = np.linalg.inv(L)
+    iL = np.tril(iL)
+    Kfu = np.array(jkernels.K_batched("rbf", rng.rand(64, 2), Z, ls, var,
+                                       use_pallas=False))
+    return K, L, iL, Kfu
+
+
+@pytest.mark.parametrize("M", [512, 300], ids=["blocked", "dense"])
+def test_matmul_tril_t_matches_jax_f64(M):
+    A, L = _tri_inputs(2, 70, M)
+    want = jlinalg.matmul_tril_t(jnp.asarray(A), jnp.asarray(L))
+    got = linalg.matmul_tril_t(torch.from_numpy(A), torch.from_numpy(L))
+    assert _normwise(got, want) < 1e-12
+    plain = cuda_kernels.tril_projection_plain(torch.from_numpy(A),
+                                               torch.from_numpy(L))
+    assert torch.equal(plain, got)
+
+
+def test_plain_projection_ignores_the_upper_triangle():
+    """The kernel's contract: L's strictly upper entries count as zero."""
+    A, L = _tri_inputs(3, 40, 77, seed=1)
+    junk = L + np.triu(np.random.RandomState(2).randn(3, 77, 77), 1)
+    a, lo, hi = map(torch.from_numpy, (A, L, junk))
+    torch.testing.assert_close(cuda_kernels.tril_projection_plain(a, hi),
+                               a @ lo.mT, rtol=1e-13, atol=0)
+
+
+def _probe():
+    spec = importlib.util.spec_from_file_location(
+        "probe_pallas_proj", ROOT / "tools" / "probe_pallas_proj.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_plain_projection_matches_pallas_proj_kernel_f32():
+    """The Pallas kernel the CUDA kernel replaces, run in interpret mode
+    with the probe's own BlockSpecs (bn=512, bk=256)."""
+    probe = _probe()
+    Q, N, M, bn, bk = 2, 512, 512, 512, 256
+    A, L = _tri_inputs(Q, N, M, dtype=np.float32)
+    out = pl.pallas_call(
+        probe._proj_kernel,
+        grid=(Q, N // bn, M // bk, M // bk),
+        in_specs=[pl.BlockSpec((1, bn, bk), lambda q, i, j, mt: (q, i, mt)),
+                  pl.BlockSpec((1, bk, bk), lambda q, i, j, mt: (q, j, mt))],
+        out_specs=pl.BlockSpec((1, bn, bk), lambda q, i, j, mt: (q, i, j)),
+        out_shape=jax.ShapeDtypeStruct((Q, N, M), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(A), jnp.asarray(L))
+    got = cuda_kernels.tril_projection_plain(torch.from_numpy(A),
+                                             torch.from_numpy(L))
+    ref64 = A.astype(np.float64) @ np.swapaxes(L.astype(np.float64), -1, -2)
+    assert _normwise(got, out) < 2e-5
+    assert _normwise(got, ref64) < 1e-6  # full float32 products
+    assert _normwise(out, ref64) < 2e-5  # three bf16 passes
+
+
+@pytest.mark.parametrize("M", [256, 512])
+def test_chol_cached_matches_jax_vjp(M):
+    K, L, iL, _ = _cached_factor(2, M)
+    gL = np.tril(np.random.RandomState(3).randn(*L.shape))
+    want, vjp = jax.vjp(lambda k: jlinalg.chol_cached(k, jnp.asarray(L),
+                                                      jnp.asarray(iL)),
+                        jnp.asarray(K))
+    (want_K,) = vjp(jnp.asarray(gL))
+    k = torch.from_numpy(K).requires_grad_()
+    got = linalg.chol_cached(k, torch.from_numpy(L), torch.from_numpy(iL))
+    (got_K,) = torch.autograd.grad(got, k, torch.from_numpy(gL))
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    assert _normwise(got_K, want_K) < 1e-9
+
+
+@pytest.mark.parametrize("M", [256, 512])
+def test_solve_tri_cached_matches_jax_vjp(M):
+    """The port takes Kfu (Q, N, M) and returns P; the JAX function takes
+    Kfu^T and returns P^T."""
+    _, L, iL, Kfu = _cached_factor(2, M)
+    yb = np.random.RandomState(4).randn(2, M, Kfu.shape[1])
+    B = np.swapaxes(Kfu, -1, -2)
+    want, vjp = jax.vjp(lambda l, b: jlinalg.solve_tri_cached(
+        l, b, jnp.asarray(iL)), jnp.asarray(L), jnp.asarray(B))
+    want_L, want_B = vjp(jnp.asarray(yb))
+    l = torch.from_numpy(L).requires_grad_()
+    kfu = torch.from_numpy(Kfu).requires_grad_()
+    got = linalg.solve_tri_cached(l, kfu, torch.from_numpy(iL))
+    got_L, got_K = torch.autograd.grad(got, (l, kfu),
+                                       torch.from_numpy(yb).mT)
+    assert _normwise(got.mT, want) < 1e-12
+    assert _normwise(got_L, want_L) < 1e-9
+    assert _normwise(got_K.mT, want_B) < 1e-9
+
+
+def test_solve_tri_cached_gradient_is_the_solve_gradient():
+    """Against autograd through a real triangular solve, in float64: the
+    cached-inverse adjoints are the exact solve adjoints."""
+    _, L, iL, Kfu = _cached_factor(2, 128, seed=5)
+    g = torch.from_numpy(np.random.RandomState(6).randn(*Kfu.shape))
+    l = torch.from_numpy(L).requires_grad_()
+    kfu = torch.from_numpy(Kfu).requires_grad_()
+    ref = torch.linalg.solve_triangular(l, kfu.mT, upper=False).mT
+    want = torch.autograd.grad(ref, (l, kfu), g)
+    got = torch.autograd.grad(
+        linalg.solve_tri_cached(l, kfu, torch.from_numpy(iL)), (l, kfu), g)
+    assert _normwise(got[0], torch.tril(want[0])) < 1e-9
+    assert _normwise(got[1], want[1]) < 1e-9
+
+
+def test_logdet_and_cholesky_match_jax():
+    K, L, _, _ = _cached_factor(2, 64)
+    np.testing.assert_allclose(
+        linalg.logdet_from_chol(torch.from_numpy(L)).numpy(),
+        np.asarray(jlinalg.logdet_from_chol(jnp.asarray(L))), rtol=1e-13)
+    np.testing.assert_allclose(linalg.cholesky(torch.from_numpy(K)).numpy(),
+                               np.asarray(jlinalg.jitchol(
+                                   jnp.asarray(K), adaptive=False)),
+                               rtol=0, atol=1e-12)
+    bad = linalg.cholesky(-torch.from_numpy(K))
+    assert torch.isnan(bad).all()
+
+
+@pytest.mark.parametrize("fn", ["matmul_tril", "tril_matmul",
+                                "tril_t_matmul"])
+def test_triangular_helpers_match_jax(fn):
+    A, L = _tri_inputs(2, 512, 512, seed=7)
+    want = getattr(jlinalg, fn)(*(jnp.asarray(a) for a in (
+        (A, L) if fn == "matmul_tril" else (L, np.swapaxes(A, -1, -2)))))
+    got = getattr(linalg, fn)(*(torch.from_numpy(a) for a in (
+        (A, L) if fn == "matmul_tril" else (L, np.swapaxes(A, -1, -2)))))
+    assert _normwise(got, want) < 1e-12
+
+
+def test_phi_matches_jax():
+    A = np.random.RandomState(8).randn(3, 9, 9)
+    np.testing.assert_array_equal(linalg._phi(torch.from_numpy(A)).numpy(),
+                                  np.asarray(jlinalg._phi(jnp.asarray(A))))
