@@ -9,27 +9,45 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
 ``build/hetmogp_tpu_torch/``) and, phase by phase:
 
 1. checks the RBF kernel against its plain PyTorch version and times both;
-2. checks the triangular projection kernel against float64 next to cuBLAS,
-   on random and on the trainer's real (Kfu, iLuu), and times both;
-3. checks the RBF backward (its autograd.Function) against autograd
+2. checks the triangular projection kernel (kernel A, float32) against
+   float64 next to cuBLAS, on random and on the trainer's real
+   (Kfu, iLuu), and times both;
+3. checks the 3-pass bf16 projection kernel (kernel 3) against its plain
+   version and float64 (of the split and of the unsplit operands, next to
+   a 1-pass bf16 product) on the same shapes, and times it in turns with
+   kernel A, cuBLAS and the plain version;
+4. checks the RBF backward (its autograd.Function) against autograd
    through the plain RBF;
-4. trains the flagship model of ``bench.py`` at full width (six
+5. trains the flagship model of ``bench.py`` at full width (six
    likelihoods, 1e6 rows, Q=4, M=1024, Dx=2, B=512 a task, float32,
-   adam, 4 VE steps per VM step): ten steps against the plain versions in
-   float32 and float64, the kernels' launches in every step, steps/s over
-   five calls of 200 steps, the ELBO, and a profile of one call;
-5. serves the bench serving model at full width (2 chunks of 65536 rows
-   per task) through both kernels, checks what it serves, and times it.
+   adam, 4 VE steps per VM step):
+   a. the host loop ``make_trainer`` at ``ve_fwd_precision="highest"``:
+      ten steps against the plain versions in float32 and float64, the
+      kernels' launches in every step, steps/s over three calls of 100
+      steps, the ELBO, and a profile of one call;
+   b. the main path, as ``bench.py`` configures it: ``make_scan_trainer``
+      (one captured CUDA graph per step kind) at ``"high"`` with 1,000
+      steps a call.  Ten graphed steps against ten eager steps and the
+      plain versions in float32 and float64; a 1,500-step trajectory A/B
+      of ``"high"`` against ``"highest"`` from one state and offset
+      stream; steps/s over five calls of 1,000 steps, for two trainers
+      of each precision in turns, with the launches counted from zero
+      around each trainer's first call, the final ELBO, peak memory,
+      capture time, the host's share of a call and a profile;
+6. serves the bench serving model at full width (2 chunks of 65536 rows
+   per task) through the kernels, checks what it serves, and times it.
 
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
-JSON; the last line is ``{"ok": true, "device": {...}}``.
+JSON; the last line is ``{"ok": true, "device": {...}}``.  About four
+and a half minutes on one H100.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -86,7 +104,48 @@ TRAIN_PLAIN_F32 = 3e-4
 TRAIN_F64 = 2e-3
 TRAIN_N_PER = 1_000_000 // 6  # bench.py:84-86
 TRAIN_B = 512
-TRAIN_CALL_STEPS, TRAIN_CALLS = 200, 5
+HOST_CALL_STEPS, HOST_CALLS = 100, 3  # the host loop
+GRAPH_CALL_STEPS, GRAPH_CALLS = 1000, 5  # bench.py:233-235, :84-86
+PROFILE_STEPS = 50
+# Kernel 3 against the float64 product of the split operands, normwise: at
+# most this multiple of the plain version's error against the same
+# reference.  The plain version sums exact bf16 products in float32 with
+# cuBLAS; the tensor cores sum each 16-deep step's products at their own
+# internal precision before the float32 add, a few times rounder.  A lost
+# or doubled term is off by the size of the lo products, ~2^-8 of |P|.
+PROJ3_VS_PLAIN = 16.0
+# Kernel 3 against the float64 product of the unsplit operands: at most
+# this share of a 1-pass bf16 product's error (both operands rounded to
+# bf16, float32 accumulation).  The 3-pass error is ~2^-14 relative per
+# product and the 1-pass one ~2^-8: without its lo terms kernel 3 would
+# match the 1-pass error.
+PROJ3_VS_ONE_PASS = 1.0 / 16.0
+# Ten graphed steps against ten eager steps of the same step body on the
+# same offsets: the graph replays the kernels that the eager steps launch,
+# on the same inputs, so the two agree to the last bit unless a library
+# picks another algorithm under capture: 1e-6 relative ELBO.
+GRAPH_VS_EAGER = 1e-6
+# The graphed "high" steps against the plain versions ("high" is then the
+# plain 3-pass product of the same split) in float32, relative ELBO.  Up
+# to the first VM step the two differ by Kfu's rounding and by kernel 3's
+# summation order.  On the model's own (Kfu, iLuu) the cancelling products
+# of iLuu (entries ~1e2) make that order matter: kernel 3 and the plain
+# version differ by ~3e-4 of max|P| there (phase 3 prints it), and the
+# ELBO moves by about as much through the variance cancellation: 1e-3.
+# After it, as for the host loop, adam's sign-sized moves of hypers whose
+# gradients sit at float32 noise: 2e-3.
+GRAPH_PLAIN_F32_VE = 1e-3
+GRAPH_PLAIN_F32 = 2e-3
+# Against float64 (plain, full precision): the 3-pass P is ~2^-14
+# relative per product where full float32 is ~2^-24; the JAX package
+# measured 6.3e-3 relative in P at "high" on these shapes against 2.3e-4
+# at "highest", and an absolute variance error ~5e-3, below quadrature
+# noise.  Summed over rows, 5e-3.
+GRAPH_F64 = 5e-3
+# The 1,500-step trajectories at "high" and "highest" from one state and
+# one offset stream: per-100-step mean ELBOs within 2e-3 relative, the
+# JAX package's adoption criterion (docs/DESIGN.md:387-393).
+AB_STEPS, AB_EVERY, AB_TOL = 1500, 100, 2e-3
 
 
 def card() -> str:
@@ -111,20 +170,37 @@ def device_phase() -> str:
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
-          f"count {torch.cuda.device_count()}")
+          f"count {torch.cuda.device_count()} [card: {smi}]")
     return smi
 
 
-def build_phase():
+def build_phase(smi: str):
     from hetmogp_tpu_torch.ops import _build, cuda_kernels
 
     t0 = time.perf_counter()
     path = _build.build()
     cuda_kernels.load()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s"
+          f" [card: {smi}]")
     for line in path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+            print(f"  ptxas: {line.strip()} [card: {smi}]")
+
+
+# H100 SXM peaks (NVIDIA's data sheet, dense): the bounds below are the
+# larger of bytes over the memory rate and operations over the peak rate
+# of their type
+HBM_BYTES_PER_S = 3.35e12
+F32_PEAK = 67e12  # float32 without tensor cores
+BF16_PEAK = 989e12  # bf16 tensor cores
+
+
+def bound_ms(nbytes: float, ops: float, peak: float):
+    """(least time in ms, "bytes" or "operations") for moving ``nbytes``
+    and doing ``ops`` operations at ``peak`` per second."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def device_times_ms(fn, reps=20, warmup=3):
@@ -168,7 +244,7 @@ def kernel_phase(smi: str) -> dict:
         err = float((got - want).abs().max())
         errs[name] = err
         print(f"kernel vs plain, {name}: max_abs_err {err:.3e} "
-              f"(atol {KERNEL_ATOL:g})")
+              f"(atol {KERNEL_ATOL:g}) [card: {smi}]")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"kernel disagrees with plain: {name}")
     serving = next(iter(cases))
@@ -178,14 +254,20 @@ def kernel_phase(smi: str) -> dict:
                       for f in (plain, kern, kern, plain))
     ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
     out_bytes = Q * CHUNK * M * 4
+    # each input read once, the output written once; exp and ~3 Dx + 2
+    # float32 operations per output element
+    nbytes = sum(a.numel() * 4 for a in args) + out_bytes
+    bound = bound_ms(nbytes, Q * CHUNK * M * (3 * DX + 3), F32_PEAK)
     print(f"kernel time at serving shape: {ms:.4f} ms "
           f"({out_bytes / (ms * 1e-3) / 1e12:.3f} TB/s of output), plain "
-          f"{plain_ms:.4f} ms; median of {len(k1 + k2)} calls each "
-          f"[card: {smi}]")
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); no "
+          f"single PyTorch call computes it; median of {len(k1 + k2)} calls "
+          f"each [card: {smi}]")
     return {"name": "rbf_cross_covariance", "route": "cuda",
             "source": "hetmogp_tpu_torch/csrc/rbf_kernel.cu",
             "replaces": "hetmogp_tpu/ops/pallas_kernels.py:43",
-            "max_abs_err": errs[serving], "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": errs[serving], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
 
 def projection_phase(smi: str, Kfu: torch.Tensor, iLuu: torch.Tensor) -> dict:
@@ -218,7 +300,7 @@ def projection_phase(smi: str, Kfu: torch.Tensor, iLuu: torch.Tensor) -> dict:
         print(f"projection kernel, {name}: normwise error vs f64 {ek:.3e}, "
               f"plain version (cuBLAS) {ec:.3e} (bound {PROJ_VS_CUBLAS:g}x "
               f"plain); max abs difference from plain {errs[name]:.3e}, "
-              f"bitwise equal {bool(torch.equal(got, cub))}")
+              f"bitwise equal {bool(torch.equal(got, cub))} [card: {smi}]")
         if not ek <= PROJ_VS_CUBLAS * ec:
             raise AssertionError(f"projection kernel error {ek} > "
                                  f"{PROJ_VS_CUBLAS} x cuBLAS {ec}: {name}")
@@ -246,14 +328,103 @@ def projection_phase(smi: str, Kfu: torch.Tensor, iLuu: torch.Tensor) -> dict:
               f"Q*N*M*(M+1) = {flop:.3e}; median of {len(k1 + k2)} calls "
               f"each [card: {smi}]")
     train = times["training (4, 3072, 1024)"]
+    bound = proj_bound(*cases["training (4, 3072, 1024)"], 1, F32_PEAK)
+    print(f"projection bound at the training shape: {bound[0]:.4f} ms "
+          f"({bound[1]}, float32 at {F32_PEAK / 1e12:g} TFLOP/s) "
+          f"[card: {smi}]")
     return {"name": "tril_projection", "route": "cuda",
             "source": "hetmogp_tpu_torch/csrc/tril_proj_kernel.cu",
             "replaces": "tools/probe_pallas_proj.py:20",
             "max_abs_err": errs["training Kfu, iLuu of the model"],
-            "ms": train["kernel"], "plain_ms": train["plain"]}
+            "ms": train["kernel"], "plain_ms": train["plain"],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": train["cublas"]}
 
 
-def rbf_backward_phase():
+def proj_bound(A, L, passes: int, peak: float):
+    """Bound of A tril(L)^T: A, L read once, out written once; `passes`
+    products of the Q N M (M + 1) triangular FLOPs."""
+    q, n, m = A.shape
+    nbytes = 4 * (2 * A.numel() + L.numel())
+    return bound_ms(nbytes, passes * q * n * m * (m + 1), peak)
+
+
+def projection3_phase(smi: str, Kfu: torch.Tensor, iLuu: torch.Tensor) -> dict:
+    """Kernel 3 against its plain version and float64 (of the split and
+    of the unsplit operands), and its time in turns with kernel A, cuBLAS
+    float32 and the plain version."""
+    from hetmogp_tpu_torch.ops import cuda_kernels
+
+    kern = cuda_kernels.tril_projection_3pass
+    plain = cuda_kernels.tril_projection_3pass_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def random_case(q, n, m):
+        A = torch.randn(q, n, m, generator=gen, device="cuda")
+        L = (torch.tril(torch.randn(q, m, m, generator=gen, device="cuda"))
+             / m ** 0.5 + 2.0 * torch.eye(m, device="cuda"))
+        return A, L
+
+    cases = {"training (4, 3072, 1024)": random_case(Q, 3072, M),
+             "serving (4, 65536, 1024)": random_case(Q, CHUNK, M),
+             "ragged (3, 1000, 777)": random_case(3, 1000, 777),
+             "training Kfu, iLuu of the model": (Kfu, iLuu)}
+    errs = {}
+    for name, (A, L) in cases.items():
+        got, want = kern(A, L), plain(A, L)
+        ahi, alo = cuda_kernels.split_bf16(A)
+        lhi, llo = (t.double() for t in cuda_kernels.split_bf16(torch.tril(L)))
+        ahi, alo = ahi.double(), alo.double()
+        ref_split = (alo @ lhi.mT + ahi @ llo.mT) + ahi @ lhi.mT
+        del ahi, alo, lhi, llo
+        ref = A.double() @ torch.tril(L).double().mT
+        one = (A.to(torch.bfloat16).float()
+               @ torch.tril(L).to(torch.bfloat16).float().mT)
+        e_k, e_p = normwise(got, ref_split), normwise(want, ref_split)
+        f_k, f_p, f_1 = normwise(got, ref), normwise(want, ref), normwise(one,
+                                                                         ref)
+        errs[name] = float((got - want).abs().max())
+        print(f"3-pass kernel, {name}: normwise error vs f64 of the split "
+              f"operands {e_k:.3e}, plain version {e_p:.3e} (bound "
+              f"{PROJ3_VS_PLAIN:g}x plain); vs f64 of the unsplit operands "
+              f"{f_k:.3e}, plain {f_p:.3e}, 1-pass bf16 {f_1:.3e} (bound "
+              f"{PROJ3_VS_ONE_PASS:g}x 1-pass); max abs difference from "
+              f"plain {errs[name]:.3e} [card: {smi}]")
+        if not (e_k <= PROJ3_VS_PLAIN * e_p
+                and f_k <= PROJ3_VS_ONE_PASS * f_1):
+            raise AssertionError(f"3-pass kernel out of bounds: {name}")
+        del got, want, ref_split, ref, one
+    times = {}
+    for name in ("training (4, 3072, 1024)", "serving (4, 65536, 1024)"):
+        A, L = cases[name]
+        Lt = torch.tril(L)
+        order = (("plain", plain), ("kernel 3", kern),
+                 ("kernel A", cuda_kernels.tril_projection),
+                 ("cuBLAS f32", lambda a, _: a @ Lt.mT))
+        samples = {k: [] for k, _ in order}
+        for k, f in order + order[::-1]:  # in turns, there and back
+            samples[k] += device_times_ms(lambda f=f: f(A, L))
+        t = {k: statistics.median(v) for k, v in samples.items()}
+        times[name] = t
+        bound = proj_bound(A, L, 3, BF16_PEAK)
+        print(f"3-pass projection time, {name}: kernel 3 {t['kernel 3']:.4f} "
+              f"ms (bound {bound[0]:.4f} ms, {bound[1]}, "
+              f"{bound[0] / t['kernel 3'] * 100:.1f}% of it), kernel A "
+              f"{t['kernel A']:.4f} ms, cuBLAS f32 {t['cuBLAS f32']:.4f} ms, "
+              f"plain version {t['plain']:.4f} ms; no PyTorch call computes "
+              f"the 3-pass product; median of {len(samples['plain'])} calls "
+              f"each [card: {smi}]")
+    train = times["training (4, 3072, 1024)"]
+    bound = proj_bound(*cases["training (4, 3072, 1024)"], 3, BF16_PEAK)
+    return {"name": "tril_projection_3pass", "route": "cuda",
+            "source": "hetmogp_tpu_torch/csrc/tril_proj3_kernel.cu",
+            "replaces": "tools/probe_pallas_proj.py:110",
+            "max_abs_err": errs["training Kfu, iLuu of the model"],
+            "ms": train["kernel 3"], "plain_ms": train["plain"],
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
+def rbf_backward_phase(smi: str):
     """RBFCrossCovariance's gradient against autograd through the plain
     RBF at the training shape, in float32 and float64."""
     from hetmogp_tpu_torch.ops import cuda_kernels
@@ -281,15 +452,17 @@ def rbf_backward_phase():
         e64 = normwise(d, c)
         print(f"rbf backward {name}: f32 Function vs f32 autograd {e32:.3e}, "
               f"vs f64 autograd {e_vs64:.3e}; f64 algebra vs f64 autograd "
-              f"{e64:.3e} (bounds {RBF_BWD_F32:g}, {RBF_BWD_F64:g})")
+              f"{e64:.3e} (bounds {RBF_BWD_F32:g}, {RBF_BWD_F64:g}) "
+              f"[card: {smi}]")
         if not (e32 <= RBF_BWD_F32 and e64 <= RBF_BWD_F64):
             raise AssertionError(f"rbf backward {name} disagrees")
 
 
-def training_model(device="cuda"):
+def training_model(device="cuda", precision="highest"):
     """The flagship model and data of bench.py:172-217 at full width: the
     bench's own arrays from RandomState(0), Z = rng.rand(M, 2), lengthscale
-    0.2, variance 0.5, q_mu_scale 0.1, jitter 1e-4, float32."""
+    0.2, variance 0.5, q_mu_scale 0.1, jitter 1e-4, float32, the VE
+    projection at ``precision`` (the bench runs "high")."""
     import hetmogp_tpu_torch as tp
 
     liks = (tp.HetGaussian(), tp.Bernoulli(), tp.Categorical(K=3),
@@ -304,34 +477,34 @@ def training_model(device="cuda"):
               rng.exponential(1.0, (n, 1)) + 1e-3]
     cfg = tp.ModelConfig(likelihoods=liks, num_latent=Q, num_inducing=M,
                          input_dim=DX, dtype="float32", jitter=1e-4,
-                         adaptive_jitter=False, fuse_task_rows=True)
+                         adaptive_jitter=False, fuse_task_rows=True,
+                         ve_fwd_precision=precision)
     tc = tp.TrainConfig(optimizer="adam", step_rate=0.005, minibatch="slice",
                         vm_batch_fraction=0.25)
     Z = rng.rand(M, DX).astype(np.float32)
     params = tp.init_params(rng, cfg, Z, lengthscale=0.2, variance=0.5,
                             q_mu_scale=0.1, device=device)
-    dataset = tp.make_dataset(X_list, Y_list, cfg, device=device)
+    dataset = tp.prepare_dataset_on_device(cfg, X_list, Y_list, device=device)
     return cfg, tc, params, dataset
 
 
 def _counts():
+    """(kernel A launches, RBF launches, RBF backward passes)."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
-    return (ck.tril_projection.launches, ck.rbf_K_batched.launches,
-            ck.RBFCrossCovariance.backwards)
+    c = ck.launch_counts()
+    return c["tril_projection"], c["rbf_K_batched"], c["rbf_backward"]
 
 
 def _zero_counts():
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
-    ck.tril_projection.launches = 0
-    ck.rbf_K_batched.launches = 0
-    ck.RBFCrossCovariance.backwards = 0
+    ck.zero_launch_counts()
 
 
 def training_phase(smi: str):
-    """The flagship trainer: parity, launches, steps/s, ELBO, profile.
-    Returns (launch counts of the timed trainer's first call, Kfu, iLuu)."""
+    """The host-loop trainer at "highest": parity, launches, steps/s, ELBO,
+    profile.  Returns (Kfu, iLuu) of the model after ten steps."""
     import hetmogp_tpu_torch as tp
     from hetmogp_tpu_torch import train as ttrain
 
@@ -366,7 +539,7 @@ def training_phase(smi: str):
                 vm = i % cycle == tc.ve_steps_per_vm
                 print(f"  step {i} ({'VM' if vm else 'VE'}): projection "
                       f"kernel launches {tril}, rbf kernel launches {rbf}, "
-                      f"rbf backward passes {bwd}")
+                      f"rbf backward passes {bwd} [card: {smi}]")
                 if tril < 1 or rbf < 1 or (vm and bwd < 1):
                     raise AssertionError(f"step {i} did not run the kernels")
         elbos[name] = torch.stack(out).double().cpu()
@@ -379,20 +552,19 @@ def training_phase(smi: str):
     rel32_ve = float(rel("kernels", "plain_f32")[:first_vm].max())
     rel32 = float(rel("kernels", "plain_f32").max())
     rel64 = float(rel("kernels", "plain_f64").max())
-    print("ten steps, ELBO per step: kernels "
-          f"{elbos['kernels'].numpy().round(3).tolist()}")
-    print(f"  plain f32 {elbos['plain_f32'].numpy().round(3).tolist()}")
-    print(f"  plain f64 {elbos['plain_f64'].numpy().round(3).tolist()}")
+    for name in elbos:
+        print(f"ten host-loop steps, ELBO per step, {name}: "
+              f"{elbos[name].numpy().round(3).tolist()} [card: {smi}]")
     print(f"  max relative ELBO difference: vs plain f32 {rel32_ve:.3e} up to "
           f"the first VM step (bound {TRAIN_PLAIN_F32_VE:g}), {rel32:.3e} "
           f"over all ten (bound {TRAIN_PLAIN_F32:g}); vs plain f64 "
-          f"{rel64:.3e} (bound {TRAIN_F64:g})")
+          f"{rel64:.3e} (bound {TRAIN_F64:g}) [card: {smi}]")
     if not (torch.isfinite(elbos["kernels"]).all()
             and rel32_ve <= TRAIN_PLAIN_F32_VE and rel32 <= TRAIN_PLAIN_F32
             and rel64 <= TRAIN_F64):
         raise AssertionError("trainer disagrees with its plain versions")
 
-    # the model's own (Kfu, iLuu) at the training shape, for phase 2
+    # the model's own (Kfu, iLuu) at the training shape, for phases 2 and 3
     from hetmogp_tpu_torch.ops import kernels
     with torch.no_grad():
         batch = ttrain.slice_batch(ext, offsets[0], sizes, batches)
@@ -402,9 +574,9 @@ def training_phase(smi: str):
                                 use_kernel=False)
         iLuu = trained.iLuu
 
-    # the entry point: one call of 200 steps with the counts from 0
+    # the host loop: one call with the counts from 0, then timed calls
     run = tp.make_trainer(cfg, tc, sizes, batches,
-                          steps_per_call=TRAIN_CALL_STEPS)
+                          steps_per_call=HOST_CALL_STEPS)
     state = tp.init_train_state(params, cfg)
     gen = torch.Generator().manual_seed(SEED + 2)
     _zero_counts()
@@ -413,76 +585,297 @@ def training_phase(smi: str):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     counts = _counts()
-    n_vm = TRAIN_CALL_STEPS // cycle
-    print(f"trainer call of {TRAIN_CALL_STEPS} steps (warm-up, {warm:.3f} s):"
-          f" projection kernel launches {counts[0]}, rbf kernel launches "
-          f"{counts[1]}, rbf backward passes {counts[2]} ({n_vm} VM steps)")
-    if (counts[0] < TRAIN_CALL_STEPS or counts[1] < TRAIN_CALL_STEPS
+    n_vm = HOST_CALL_STEPS // cycle
+    print(f"host-loop call of {HOST_CALL_STEPS} steps (warm-up, {warm:.3f} "
+          f"s): projection kernel launches {counts[0]}, rbf kernel launches "
+          f"{counts[1]}, rbf backward passes {counts[2]} ({n_vm} VM steps)"
+          f" [card: {smi}]")
+    if (counts[0] < HOST_CALL_STEPS or counts[1] < HOST_CALL_STEPS
             or counts[2] < n_vm):
         raise AssertionError("the trainer did not go through the kernels")
 
     calls = [first]
     rates = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(TRAIN_CALLS):
+    for _ in range(HOST_CALLS):
         t0 = time.perf_counter()
         state, e = run(state, dataset, gen)
         torch.cuda.synchronize()
-        rates.append(TRAIN_CALL_STEPS / (time.perf_counter() - t0))
+        rates.append(HOST_CALL_STEPS / (time.perf_counter() - t0))
         calls.append(e)
-    rates.sort()
-    med = statistics.median(rates)
-    print(f"trainer throughput: {med:.2f} steps/s, median of {TRAIN_CALLS} "
-          f"calls of {TRAIN_CALL_STEPS} steps, min {rates[0]:.2f}, max "
-          f"{rates[-1]:.2f}, spread {(rates[-1] - rates[0]) / med * 100:.2f}%"
-          f"; samples {[round(r, 2) for r in rates]}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"[card: {smi}]")
+    report_rates("host-loop trainer (make_trainer, \"highest\")", rates,
+                 HOST_CALL_STEPS, smi)
     e = torch.cat(calls).double().cpu()
     start, end = float(e[:10].mean()), float(e[-10:].mean())
-    print(f"ELBO over {e.numel()} steps: mean of the first ten {start:.3f}, "
-          f"of the last ten {end:.3f}, final {float(e[-1]):.3f}")
+    print(f"host-loop ELBO over {e.numel()} steps: mean of the first ten "
+          f"{start:.3f}, of the last ten {end:.3f}, final {float(e[-1]):.3f}"
+          f" [card: {smi}]")
     if not (torch.isfinite(e).all() and end > start):
         raise AssertionError("ELBO not finite or not rising")
 
-    profile_trainer(cfg, tc, sizes, batches, state, dataset, gen, smi)
-    return counts, Kfu, iLuu
+    profile(lambda: run(state, dataset, gen), "host-loop trainer, "
+            f"{HOST_CALL_STEPS} steps", smi)
+    return Kfu, iLuu
 
 
-def profile_trainer(cfg, tc, sizes, batches, state, dataset, gen, smi):
-    """One call of 50 steps under torch.profiler: device idle share and the
-    kernels that take the time."""
-    import hetmogp_tpu_torch as tp
-    from torch.profiler import ProfilerActivity, profile
+def report_rates(what: str, rates, steps: int, smi: str) -> float:
+    """Print the median, min, max, spread and samples of steps/s."""
+    rates = sorted(rates)
+    med = statistics.median(rates)
+    print(f"{what} throughput: {med:.2f} steps/s, median of {len(rates)} "
+          f"calls of {steps} steps, min {rates[0]:.2f}, max {rates[-1]:.2f}, "
+          f"spread {(rates[-1] - rates[0]) / med * 100:.2f}%; samples "
+          f"{[round(r, 2) for r in rates]} [card: {smi}]")
+    return med
 
-    run = tp.make_trainer(cfg, tc, sizes, batches, steps_per_call=50)
-    state, _ = run(state, dataset, gen)
+
+def profile(call, what: str, smi: str) -> dict:
+    """One call under torch.profiler: device idle share and the kernels
+    that take the time.  Returns {kernel name: (ms, count)}, empty when
+    the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(state, dataset, gen)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows = {}
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        rows.append((us / 1e3, evt.count, evt.key))
-    busy = sum(r[0] for r in rows)
+        ms, n = rows.get(evt.key, (0.0, 0))
+        rows[evt.key] = (ms + us / 1e3, n + evt.count)
+    busy = sum(ms for ms, _ in rows.values())
     if busy <= 0:
-        print("trainer profile: the profiler saw no device time; idle share "
+        print(f"{what} profile: the profiler saw no device time; idle share "
               "not measured")
-        return
-    print(f"trainer profile, 50 steps: {busy:.3f} ms of kernel time in "
-          f"{wall_ms:.3f} ms of traced wall, device idle "
-          f"{(1 - busy / wall_ms) * 100:.1f}% [card: {smi}]")
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        return {}
+    print(f"{what} profile: {busy:.3f} ms of kernel time in {wall_ms:.3f} "
+          f"ms of traced wall, device idle {(1 - busy / wall_ms) * 100:.1f}% "
+          f"[card: {smi}]")
+    idle_gaps(prof, smi)
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]
+    for key, (ms, count) in top:
         print(f"  {ms:9.3f} ms {ms / busy * 100:5.1f}% {count:6d}x "
-              f"{key[:90]}")
+              f"{key[:90]} [card: {smi}]")
+    return rows
+
+
+def idle_gaps(prof, smi: str) -> None:
+    """Where the device waits inside the traced window: the gaps between
+    one device activity's end and the next one's start, summed by the
+    activity that ends each gap (what the device waited for)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    evts = sorted((e for e in prof.events() if e.device_type == cuda),
+                  key=lambda e: e.time_range.start)
+    if not evts:
+        return
+    by_next, total, end = {}, 0.0, evts[0].time_range.end
+    for e in evts[1:]:
+        gap = e.time_range.start - end
+        if gap > 0:
+            total += gap
+            by_next[e.name] = by_next.get(e.name, 0.0) + gap
+        end = max(end, e.time_range.end)
+    span = (end - evts[0].time_range.start) / 1e3
+    print(f"  gaps between device activities: {total / 1e3:.3f} ms of "
+          f"{span:.3f} ms from the first to the last [card: {smi}]")
+    for name, us in sorted(by_next.items(), key=lambda kv: -kv[1])[:3]:
+        print(f"    {us / 1e3:8.3f} ms before {name[:80]} [card: {smi}]")
+
+
+def graphed_parity_phase(smi: str):
+    """Ten graphed steps at "high" against ten eager steps of the same body
+    on the same offsets, and against the plain versions in f32 and f64."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+
+    cfg, tc, params, dataset = training_model(precision="high")
+    sizes = (TRAIN_N_PER,) * cfg.num_tasks
+    batches = (TRAIN_B,) * cfg.num_tasks
+    offsets = ttrain.draw_offset_stream(
+        torch.Generator().manual_seed(SEED + 3), sizes, batches, 10)
+    run = tp.make_scan_trainer(cfg, tc, sizes, batches,
+                               steps_per_call=GRAPH_CALL_STEPS)
+    _, graphed = run(tp.init_train_state(params, cfg), dataset,
+                     offsets=offsets)
+    ext = ttrain.extend_for_wraparound(dataset, batches, sizes)
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    ext64 = tuple(tp.TaskData(*(a.double() for a in td)) for td in ext)
+    elbos = {"graphed": graphed.double().cpu()}
+    for name, c, data, p, use_kernel in (
+            ("eager", cfg, ext, params, True),
+            ("plain_f32", cfg, ext, params, False),
+            ("plain_f64", cfg64, ext64, params.to(dtype=torch.float64),
+             False)):
+        step = ttrain.make_step(c, tc, use_kernel=use_kernel)
+        state = tp.init_train_state(p, c)
+        scales = ttrain.batch_scales(sizes, batches, c.torch_dtype, "cuda")
+        out = []
+        for off in offsets.tolist():
+            state, metrics = step(
+                state, ttrain.slice_batch(data, off, sizes, batches), scales)
+            out.append(metrics["elbo"])
+        elbos[name] = torch.stack(out).double().cpu()
+
+    def rel(b, upto=None):
+        r = (elbos["graphed"] - elbos[b]).abs() / elbos[b].abs()
+        return float(r[:upto].max())
+
+    first_vm = tc.ve_steps_per_vm + 1
+    bitwise = torch.equal(elbos["graphed"], elbos["eager"])
+    r_eager, r32_ve = rel("eager"), rel("plain_f32", first_vm)
+    r32, r64 = rel("plain_f32"), rel("plain_f64")
+    for name in elbos:
+        print(f"  {name:9s} ELBO {elbos[name].numpy().round(3).tolist()}"
+              f" [card: {smi}]")
+    print(f"ten graphed steps at \"high\": vs ten eager steps {r_eager:.3e} "
+          f"(bound {GRAPH_VS_EAGER:g}), bitwise equal {bitwise}; vs plain f32 "
+          f"{r32_ve:.3e} up to the first VM step (bound "
+          f"{GRAPH_PLAIN_F32_VE:g}), {r32:.3e} over all ten (bound "
+          f"{GRAPH_PLAIN_F32:g}); vs plain f64 {r64:.3e} (bound "
+          f"{GRAPH_F64:g}) [card: {smi}]")
+    if not (torch.isfinite(elbos["graphed"]).all()
+            and r_eager <= GRAPH_VS_EAGER
+            and r32_ve <= GRAPH_PLAIN_F32_VE and r32 <= GRAPH_PLAIN_F32
+            and r64 <= GRAPH_F64):
+        raise AssertionError("graphed steps disagree with eager or plain")
+
+
+def trajectory_ab_phase(smi: str):
+    """The graphed trainer at "highest" and at "high" from one state and
+    one offset stream, AB_STEPS steps each: every per-AB_EVERY mean ELBO
+    within AB_TOL relative, both finite."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+
+    cfg, tc, params, dataset = training_model(precision="highest")
+    sizes = (TRAIN_N_PER,) * cfg.num_tasks
+    batches = (TRAIN_B,) * cfg.num_tasks
+    offsets = ttrain.draw_offset_stream(
+        torch.Generator().manual_seed(SEED + 4), sizes, batches, AB_STEPS)
+    means = {}
+    for prec in ("highest", "high"):
+        c = dataclasses.replace(cfg, ve_fwd_precision=prec)
+        run = tp.make_scan_trainer(c, tc, sizes, batches,
+                                   steps_per_call=GRAPH_CALL_STEPS)
+        _, e = run(tp.init_train_state(params, c), dataset, offsets=offsets)
+        e = e.double().cpu()
+        if not torch.isfinite(e).all():
+            raise AssertionError(f"trajectory at {prec!r} not finite")
+        means[prec] = e.reshape(-1, AB_EVERY).mean(dim=1)
+        del run
+    rel = ((means["high"] - means["highest"]).abs()
+           / means["highest"].abs())
+    print(f"trajectory A/B, {AB_STEPS} graphed steps from one state and "
+          f"offset stream, mean ELBO per {AB_EVERY} steps [card: {smi}]:")
+    for i, (a, b, r) in enumerate(zip(means["highest"].tolist(),
+                                      means["high"].tolist(), rel.tolist())):
+        print(f"  steps {i * AB_EVERY + 1:5d}-{(i + 1) * AB_EVERY:5d}: "
+              f"highest {a:.3f}, high {b:.3f}, relative {r:.3e} [card: {smi}]")
+    worst = float(rel.max())
+    print(f"  worst relative difference {worst:.3e} (bound {AB_TOL:g})"
+          f" [card: {smi}]")
+    if not worst < AB_TOL:
+        raise AssertionError("high and highest trajectories disagree")
+
+
+# kernel symbol -> launcher name: what a graphed call's profile must show
+_SYMBOLS = {"rbf_cross_kernel": "rbf_K_batched",
+            "tril_proj_kernel": "tril_projection",
+            "tril_proj3_kernel": "tril_projection_3pass"}
+
+
+def graphed_trainer_phase(smi: str, precision: str):
+    """The main path at ``precision``: a fresh make_scan_trainer with the
+    launch counts from 0 around its first call (capture and 1,000 steps),
+    steps/s over GRAPH_CALLS timed calls, the ELBO, peak memory, and a
+    profile of a PROFILE_STEPS-step call of the same graphs.  Returns the
+    launch counts of the first call and the kernel launches its replays
+    made."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    cfg, tc, params, dataset = training_model(precision=precision)
+    sizes = (TRAIN_N_PER,) * cfg.num_tasks
+    batches = (TRAIN_B,) * cfg.num_tasks
+    gen = torch.Generator().manual_seed(SEED + 2)
+    what = f"graphed trainer (make_scan_trainer, \"{precision}\")"
+
+    ck.zero_launch_counts()
+    run = tp.make_scan_trainer(cfg, tc, sizes, batches,
+                               steps_per_call=GRAPH_CALL_STEPS)
+    t0 = time.perf_counter()
+    state, first = run(tp.init_train_state(params, cfg), dataset, gen)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    counts = ck.launch_counts()
+    replayed = {k: sum(run.capture_launches[kind][k] * run.replays[kind]
+                       for kind in run.graphs) for k in counts}
+    print(f"{what}, first call of {GRAPH_CALL_STEPS} steps: {warm:.3f} s, "
+          f"of which warm-up and capture {run.capture_seconds:.3f} s; "
+          f"launches counted from 0 (warm-up and capture) {counts}; "
+          f"launches per graph {run.capture_launches}; replays "
+          f"{run.replays}; kernel launches by the replays {replayed} "
+          f"[card: {smi}]")
+    n_vm = run.replays["vm"]
+    want = {"rbf_K_batched": GRAPH_CALL_STEPS, "rbf_backward": n_vm,
+            "tril_projection": (n_vm if precision == "high"
+                                else GRAPH_CALL_STEPS),
+            "tril_projection_3pass": (GRAPH_CALL_STEPS - n_vm
+                                      if precision == "high" else 0)}
+    if replayed != want or any(counts[k] < 1 for k in want if want[k]):
+        raise AssertionError(f"the graphs did not run the kernels: {replayed}"
+                             f" replayed, {want} expected")
+
+    calls, rates, host = [first], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(GRAPH_CALLS):
+        t0 = time.perf_counter()
+        state, e = run(state, dataset, gen)
+        t1 = time.perf_counter()  # the host has enqueued every replay
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rates.append(GRAPH_CALL_STEPS / (t2 - t0))
+        host.append((t1 - t0) / (t2 - t0))
+        calls.append(e)
+    med = report_rates(what, rates, GRAPH_CALL_STEPS, smi)
+    # near 1: the host's replay loop, not the device, sets the pace
+    print(f"{what}: share of a call's wall time until the host has "
+          f"enqueued its last replay, median {statistics.median(host):.4f} "
+          f"(min {min(host):.4f}, max {max(host):.4f}) [card: {smi}]")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    e = torch.cat(calls).double().cpu()
+    start, end = float(e[:10].mean()), float(e[-10:].mean())
+    print(f"{what}: ELBO over {e.numel()} steps, mean of the first ten "
+          f"{start:.3f}, of the last ten {end:.3f}, final "
+          f"{float(e[-1]):.3f}; peak memory {peak:.2f} GiB [card: {smi}]")
+    if not (torch.isfinite(e).all() and end > start):
+        raise AssertionError("ELBO not finite or not rising")
+
+    offsets = ttrain.draw_offset_stream(gen, sizes, batches, PROFILE_STEPS)
+    before = dict(run.replays)
+    rows = profile(lambda: run(state, dataset, offsets=offsets),
+                   f"{what}, one call of {PROFILE_STEPS} steps", smi)
+    if rows:
+        steps = {k: run.replays[k] - before[k] for k in run.replays}
+        for sym, launcher in _SYMBOLS.items():
+            pat = re.compile(rf"(?<![A-Za-z_]){sym}(?![a-z0-9_])")
+            seen = sum(n for key, (_, n) in rows.items() if pat.search(key))
+            per_graph = sum(run.capture_launches[kind][launcher] * steps[kind]
+                            for kind in steps)
+            print(f"  {sym}: {seen} calls in the profile, {per_graph} "
+                  f"expected from the replays [card: {smi}]")
+            if seen != per_graph:
+                raise AssertionError(f"the profile shows {seen} calls of "
+                                     f"{sym}, the replays {per_graph}")
+    return counts, replayed, med
 
 
 def serving_model(device="cuda", m=M, q=Q):
@@ -532,7 +925,7 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q):
     rows = cfg.num_tasks * X.shape[0]
     print(f"serving pass: {rows} rows, {len(out)} chunk requests, "
           f"rbf kernel launches {launches}, projection kernel launches "
-          f"{tril}")
+          f"{tril} [card: {smi}]")
     if launches < len(out) or tril < len(out):
         raise AssertionError("the serving pass did not go through the "
                              "kernels")
@@ -560,7 +953,7 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q):
         e64 = [normwise(a, b) for a, b in zip(got, ref64)]
         print(f"task {t} {type(lik).__name__}: normwise error (mean, var) "
               f"vs plain f32 {e32[0]:.3e}, {e32[1]:.3e}; "
-              f"vs f64 {e64[0]:.3e}, {e64[1]:.3e}")
+              f"vs f64 {e64[0]:.3e}, {e64[1]:.3e} [card: {smi}]")
         worst["plain_f32"] = max(worst["plain_f32"], *e32)
         worst["f64"] = max(worst["f64"], *e64)
     if not worst["plain_f32"] <= PLAIN_F32_BOUND:
@@ -583,16 +976,29 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q):
 
 def main():
     smi = device_phase()
-    build_phase()
+    build_phase(smi)
     rbf = kernel_phase(smi)
-    rbf_backward_phase()
-    counts, Kfu, iLuu = training_phase(smi)
+    rbf_backward_phase(smi)
+    Kfu, iLuu = training_phase(smi)
     proj = projection_phase(smi, Kfu, iLuu)
+    proj3 = projection3_phase(smi, Kfu, iLuu)
     del Kfu, iLuu
+    graphed_parity_phase(smi)
+    trajectory_ab_phase(smi)
+    # in turns, "highest", "high", "high", "highest", each a fresh trainer:
+    # the steps/s of two trainers of one configuration differ by more than
+    # the spread within one; the last "high" is the main path, the
+    # flagship as bench.py runs it
+    graphed_trainer_phase(smi, "highest")
+    graphed_trainer_phase(smi, "high")
+    counts, _, _ = graphed_trainer_phase(smi, "high")
+    graphed_trainer_phase(smi, "highest")
     serving_phase(smi)
-    proj["launches"], rbf["launches"] = counts[0], counts[1]
+    for entry, key in ((rbf, "rbf_K_batched"), (proj, "tril_projection"),
+                       (proj3, "tril_projection_3pass")):
+        entry["launches"] = counts[key]
     print(smi)
-    print(json.dumps({"kernels": [rbf, proj]}))
+    print(json.dumps({"kernels": [rbf, proj, proj3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

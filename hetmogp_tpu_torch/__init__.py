@@ -2,16 +2,22 @@
 
 The port serves and trains: the observation-space predictive of a trained
 heterogeneous multi-output GP, and the flagship stochastic VEM trainer
-(adam, the cached fast projection, slice minibatches).  Two kernels are
-written by hand for the H100: the RBF cross-covariance
-(``csrc/rbf_kernel.cu``) and the triangular projection P = Kfu iLuu^T
-(``csrc/tril_proj_kernel.cu``).  Trained parameters cross from the JAX
-package with ``params_from_jax`` and ``ModelConfig.from_dict``.  Importing
-the package needs neither CUDA nor the JAX package; the kernels are built
-when a CUDA tensor first reaches one.
+(adam, the cached fast projection, slice minibatches), as the JAX
+package's on-device loop (``make_scan_trainer``, captured CUDA graphs on
+the card; ``svi_fit_on_device``) and as a host loop (``make_trainer``).
+Three kernels are written by hand for the H100: the RBF cross-covariance
+(``csrc/rbf_kernel.cu``) and the triangular projection P = Kfu iLuu^T, in
+float32 (``csrc/tril_proj_kernel.cu``) and in three bf16 tensor-core passes
+for ``ve_fwd_precision="high"`` (``csrc/tril_proj3_kernel.cu``).  Trained
+parameters cross from the JAX package with ``params_from_jax`` and
+``ModelConfig.from_dict``.  Entry points put their tensors on the card
+unless the caller passes ``device="cpu"``.  Importing the package needs
+neither CUDA nor the JAX package; the kernels are built when a CUDA tensor
+first reaches one.
 """
 
 from hetmogp_tpu_torch.config import ModelConfig, TrainConfig
+from hetmogp_tpu_torch.data import full_batch
 from hetmogp_tpu_torch.likelihoods import (Bernoulli, Categorical, Exponential,
                                            Gamma, HetGaussian, Likelihood,
                                            Poisson)
@@ -22,7 +28,9 @@ from hetmogp_tpu_torch.models.predict import (make_serving_predictive,
                                               predict_f, predict_f_all,
                                               predictive)
 from hetmogp_tpu_torch.train import (TrainState, init_train_state,
-                                     make_dataset, make_trainer)
+                                     make_dataset, make_scan_trainer,
+                                     make_trainer, prepare_dataset_on_device,
+                                     svi_fit_on_device)
 
 __all__ = [
     "ModelConfig",
@@ -43,6 +51,10 @@ __all__ = [
     "init_train_state",
     "make_dataset",
     "make_trainer",
+    "make_scan_trainer",
+    "svi_fit_on_device",
+    "prepare_dataset_on_device",
+    "full_batch",
     "make_serving_predictive",
     "predict_f",
     "predict_f_all",

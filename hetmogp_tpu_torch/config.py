@@ -6,9 +6,9 @@ properties, so that a config written by the JAX package (``to_dict()``, or
 ``dataclasses.asdict`` of a ``TrainConfig``) loads here with ``from_dict``.
 What the port cannot run yet raises ``NotImplementedError`` when the
 config is made: a kernel other than RBF, coregionalization rank > 1,
-adaptive jitter, the float64 factorization island, the reduced precision
-forward projection, and every optimizer, schedule and sampler but the
-flagship trainer's.
+adaptive jitter, the float64 factorization island, a forward projection
+below ``"high"`` precision, and every optimizer, schedule and sampler but
+the flagship trainer's.
 """
 
 from __future__ import annotations
@@ -48,7 +48,10 @@ class ModelConfig:
       kernel: latent kernel family; "rbf" only, for now.
       ard: per-dimension lengthscales.
       chol_dtype: "same" only, for now.
-      ve_fwd_precision: "highest" only: full float32 matmuls.
+      ve_fwd_precision: the VE projection P = Kfu iLuu^T's precision:
+        "highest" (full float32) or "high" (three bf16 passes of the
+        bit-mask split, the 3-pass tensor-core kernel on the card).  The
+        VM step's cached solve stays at "highest" either way.
       fuse_task_rows: the ELBO projects all tasks' rows at once.
     """
 
@@ -77,10 +80,11 @@ class ModelConfig:
                               "jitter)", 4)
         if self.chol_dtype != "same":
             raise _not_ported(f"chol_dtype={self.chol_dtype!r}", 4)
-        if self.ve_fwd_precision != "highest":
+        if self.ve_fwd_precision not in ("highest", "high"):
             raise NotImplementedError(
                 f"ve_fwd_precision={self.ve_fwd_precision!r}: the port runs "
-                "the projection in full float32 only (TF32 ruins it)")
+                "the projection in full float32 ('highest') or in three "
+                "bf16 passes ('high') only; one bf16 or TF32 pass ruins it")
         if self.dtype not in _DTYPES:
             raise NotImplementedError(
                 f"dtype={self.dtype!r}; the port has {sorted(_DTYPES)}")

@@ -5,13 +5,13 @@ Counterpart of ``hetmogp_tpu/models/elbo.py`` on the cached-inverse path:
     ELBO = sum_t scale_t * sum_i E_{q(f)}[log p(y_ti | f_ti)]
            - sum_q KL(q(u_q) || p(u_q)),
 
-with every projection through (Luu, Luu^{-1}): P = Kfu @ iLuu^T, the
-triangular projection kernel on CUDA float32.  ``cache_grad=True`` is the
-VM step's path, where the hyperparameter gradients flow through the cache
-by the cached-inverse adjoints (``linalg.chol_cached``,
-``linalg.solve_tri_cached``).  The triangular-solve path of the JAX
-package (no cached inverse) and the un-whitened KL are not ported
-(ROADMAP.md section 1, item 7).
+with every projection through (Luu, Luu^{-1}): P = Kfu @ iLuu^T, a
+triangular projection kernel on CUDA float32 (at the config's
+``ve_fwd_precision``).  ``cache_grad=True`` is the VM step's path, where
+the hyperparameter gradients flow through the cache by the cached-inverse
+adjoints (``linalg.chol_cached``, ``linalg.solve_tri_cached``).  The
+triangular-solve path of the JAX package (no cached inverse) and the
+un-whitened KL are not ported (ROADMAP.md section 1, item 7).
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ class TaskData(NamedTuple):
     mask: torch.Tensor  # (N_t,)
 
 
-def task_data(X, Y, mask=None, dtype=None, device=None) -> TaskData:
+def task_data(X, Y, mask=None, dtype=None, device="cuda") -> TaskData:
+    """One task's rows as tensors on ``device`` (the card unless the caller
+    names another), Y as a column, mask 1 unless given."""
     X = torch.as_tensor(X, dtype=dtype, device=device)
     Y = torch.as_tensor(Y, dtype=X.dtype, device=X.device)
     if Y.ndim == 1:
@@ -87,9 +89,14 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
     ``chol_cached``, the hypers) as well as Kfu; without it Luu is not read
     (it stays in the signature of the JAX function).
 
-    P feeds the kdiag - |P|^2 cancellation, so its matmul must run in full
-    float32: at reduced precision the JAX package measured a relative error
-    of 1.5e0 in P at M=1024, against 2.3e-4 at full precision.
+    P feeds the kdiag - |P|^2 cancellation, so its matmul must not round
+    its operands to one bf16 pass: the JAX package measured a relative
+    error of 1.5e0 in P at M=1024 that way, against 2.3e-4 in full float32.
+    Without ``cache_grad`` (the VE step and serving) P is formed at the
+    config's ``ve_fwd_precision``: "high" is three bf16 passes, which the
+    JAX package measured at 6.3e-3 relative in P and adopted for its bench
+    after a 1,500-step trajectory A/B.  The VM step's solve stays at full
+    float32, as the JAX package's does.
     """
     Kfu = kernels.K_batched(config.kernel, X, params.Z, params.lengthscale,
                             params.variance, use_kernel=use_kernel)  # (Q, N, M)
@@ -98,7 +105,9 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
     if cache_grad:
         P = linalg.solve_tri_cached(Luu, Kfu, iLuu, use_kernel=use_kernel)
     else:
-        P = linalg.matmul_tril_t(Kfu, iLuu, use_kernel=use_kernel)
+        P = linalg.matmul_tril_t(Kfu, iLuu,
+                                 precision=config.ve_fwd_precision,
+                                 use_kernel=use_kernel)
     if config.whiten:
         mean_q = (P @ m_u[..., None])[..., 0]
         gamma_q = (kdiag + linalg.quad_diag(P, Lq)

@@ -63,7 +63,7 @@ def random_W(rng: np.random.Generator, Q: int, D: int) -> np.ndarray:
 
 def init_params(rng: np.random.Generator, config: ModelConfig, Z, *,
                 W=None, lengthscale=1.0, variance=1.0,
-                q_mu_scale: float = 2.5, device="cpu") -> SVMOGPParams:
+                q_mu_scale: float = 2.5, device="cuda") -> SVMOGPParams:
     """Initial parameters, drawn from ``rng``.
 
     Args:
@@ -72,6 +72,8 @@ def init_params(rng: np.random.Generator, config: ModelConfig, Z, *,
       W: optional (Q, D) mixing weights; random_W(rng, ...) otherwise.
       lengthscale, variance: scalars or per-q arrays.
       q_mu_scale: std of the q(u) mean init.
+      device: where the tensors go; the card unless the caller names
+        another.
     q_sqrt starts at the identity.
     """
     Q, M, Dx = config.num_latent, config.num_inducing, config.input_dim
@@ -95,9 +97,10 @@ def init_params(rng: np.random.Generator, config: ModelConfig, Z, *,
                                        device=device) for a in leaves))
 
 
-def params_from_jax(src, device="cpu",
+def params_from_jax(src, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> SVMOGPParams:
-    """Parameters trained by the JAX package, as tensors on ``device``.
+    """Parameters trained by the JAX package, as tensors on ``device`` (the
+    card unless the caller names another).
 
     src: the JAX ``SVMOGPParams`` with its leaves converted to numpy (or
       anything else with the seven fields as arrays), or the path of an

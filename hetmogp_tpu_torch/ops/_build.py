@@ -1,7 +1,8 @@
 """Build the package's CUDA sources into a shared library at first use.
 
 The sources in ``hetmogp_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, which
+``sm_90a``, one ``nvcc`` per source, all started together, and linked into
+one shared library with a plain C interface, which
 ``ops/cuda_kernels.py`` loads with ``ctypes``.  The library goes to
 ``build/hetmogp_tpu_torch/`` under the repository root and its name carries
 a hash of the sources and flags, so an edit to a source rebuilds it and an
@@ -55,8 +56,10 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its path.
 
-    nvcc's output (``-Xptxas -v``: registers, shared memory and spills of
-    each kernel) is kept beside the library as ``<name>.log``.
+    Each source compiles to an object in its own ``nvcc`` process, all in
+    parallel; one more ``nvcc`` links them.  nvcc's output (``-Xptxas -v``:
+    registers, shared memory and spills of each kernel) is kept beside the
+    library as ``<name>.log``.
     """
     out = library_path()
     if out.exists():
@@ -64,12 +67,32 @@ def build() -> Path:
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+            *(str(obj) for _, obj, _ in jobs)]
+    log, failed = [], None
+    for cmd, _, proc in jobs:
+        log.append(proc.communicate()[0])
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode)
+    if failed is None:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = (link, proc.returncode)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(log))
+    if failed is not None:
+        cmd, rc = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                           + "".join(log))
     os.replace(tmp, out)
     return out

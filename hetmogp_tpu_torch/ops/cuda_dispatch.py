@@ -11,6 +11,12 @@ same for every kernel:
 
 The kernels are reached through their ``autograd.Function``s, so the
 dispatched ops are differentiable on either route.
+
+The triangular projection has two kernels, chosen by ``precision`` (the
+config's ``ve_fwd_precision``): ``"highest"`` is the float32 kernel,
+``"high"`` the 3-pass bf16 tensor-core kernel.  ``"high"`` on float64
+takes the full-precision route: the 3-pass split is a float32 scheme, and
+the JAX package's ``Precision.HIGH`` is a no-op in float64 as well.
 """
 
 from __future__ import annotations
@@ -48,9 +54,19 @@ def rbf_K_batched(X, Z, lengthscale, variance, *, use_kernel: bool = True):
     return cuda_kernels.rbf_K_batched_plain(X, Z, lengthscale, variance)
 
 
-def matmul_tril_t(A, L, *, use_kernel: bool = True):
+PRECISIONS = ("highest", "high")
+
+
+def matmul_tril_t(A, L, *, precision: str = "highest",
+                  use_kernel: bool = True):
     from hetmogp_tpu_torch.ops import cuda_kernels
 
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    if precision == "high" and A.dtype == torch.float32:
+        return cuda_kernels.TrilProjection3Pass.apply(
+            A, L, use_tril_kernel(A, use_kernel))
     if use_tril_kernel(A, use_kernel):
         return cuda_kernels.TrilProjection.apply(A, L)
     return cuda_kernels.tril_projection_plain(A, L)

@@ -1,21 +1,25 @@
 """Hand-written CUDA kernels, their plain PyTorch versions and gradients.
 
-Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py`` and of the Pallas
-projection of ``tools/probe_pallas_proj.py``.  The kernels are
-``csrc/rbf_kernel.cu`` (the RBF cross-covariance) and
-``csrc/tril_proj_kernel.cu`` (the triangular projection A tril(L)^T), built
-by ``ops/_build.py`` when a CUDA tensor first reaches one and bound with
-``ctypes``.  Importing this module builds and loads nothing.
+Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py`` and of the two Pallas
+projections of ``tools/probe_pallas_proj.py``.  The kernels are
+``csrc/rbf_kernel.cu`` (the RBF cross-covariance),
+``csrc/tril_proj_kernel.cu`` (the triangular projection A tril(L)^T in
+float32) and ``csrc/tril_proj3_kernel.cu`` (the same projection as three
+bf16 tensor-core passes), built by ``ops/_build.py`` when a CUDA tensor
+first reaches one and bound with ``ctypes``.  Importing this module builds
+and loads nothing.
 
 For each kernel:
 
-* the raw launcher (``rbf_K_batched``, ``tril_projection``) runs it on
-  float32 CUDA tensors, counts its launches in ``<launcher>.launches``, and
-  refuses inputs that require grad: it records no graph;
+* the raw launcher (``rbf_K_batched``, ``tril_projection``,
+  ``tril_projection_3pass``) runs it on float32 CUDA tensors, counts its
+  launches in ``<launcher>.launches``, and refuses inputs that require
+  grad: it records no graph;
 * the plain version (``*_plain``) is what CPU tensors take and what the
   kernel is checked against on the card;
-* an ``autograd.Function`` (``RBFCrossCovariance``, ``TrilProjection``)
-  runs the launcher forward and a plain PyTorch backward.  The JAX package
+* an ``autograd.Function`` (``RBFCrossCovariance``, ``TrilProjection``,
+  ``TrilProjection3Pass``) runs the launcher forward and a plain PyTorch
+  backward.  The JAX package
   differentiates its Pallas RBF with XLA einsums (``_rbf_bwd``), so
   ``rbf_K_batched_bwd`` is that algebra on tensors.
 """
@@ -40,9 +44,10 @@ def _library() -> ctypes.CDLL:
     fn = lib.hetmogp_rbf_cross_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn = lib.hetmogp_tril_proj_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.hetmogp_tril_proj_f32, lib.hetmogp_tril_proj3_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -180,15 +185,12 @@ def tril_projection_plain(A, L):
     return A @ torch.tril(L).mT
 
 
-def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] on the card.
-
-    A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
-    upper entries are not read.  Full float32 (no TF32).  Launches on the
-    current stream and does not synchronise.  ``tril_projection.launches``
-    counts the launches.
-    """
-    _check_launch_inputs("tril_projection", (A, L))
+def _launch_tril(wrapper, entry: str, A: torch.Tensor,
+                 L: torch.Tensor) -> torch.Tensor:
+    """Check (A, L), launch the projection kernel ``entry`` and count the
+    launch on ``wrapper``."""
+    name = wrapper.__name__
+    _check_launch_inputs(name, (A, L))
     if A.ndim != 3 or L.ndim != 3 or L.shape != (A.shape[0], A.shape[2],
                                                   A.shape[2]):
         raise ValueError(f"A must be (Q, N, M) and L (Q, M, M); got "
@@ -206,15 +208,33 @@ def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.hetmogp_tril_proj_f32(A.data_ptr(), L.data_ptr(),
-                                        out.data_ptr(), Q, N, M, int(aligned),
-                                        stream)
-    _raise_on(err, "tril_projection")
-    tril_projection.launches += 1
+        err = getattr(lib, entry)(A.data_ptr(), L.data_ptr(), out.data_ptr(),
+                                  Q, N, M, int(aligned), stream)
+    _raise_on(err, name)
+    wrapper.launches += 1
     return out
 
 
+def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] on the card.
+
+    A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
+    upper entries are not read.  Full float32 (no TF32).  Launches on the
+    current stream and does not synchronise.  ``tril_projection.launches``
+    counts the launches.
+    """
+    return _launch_tril(tril_projection, "hetmogp_tril_proj_f32", A, L)
+
+
 tril_projection.launches = 0
+
+
+def _backward_tril(ctx, g):
+    """dA = g tril(L), dL = tril(g^T A): the projection's plain backward."""
+    A, L = ctx.saved_tensors
+    dA = g @ torch.tril(L) if ctx.needs_input_grad[0] else None
+    dL = torch.tril(g.mT @ A) if ctx.needs_input_grad[1] else None
+    return dA, dL
 
 
 class TrilProjection(torch.autograd.Function):
@@ -226,9 +246,78 @@ class TrilProjection(torch.autograd.Function):
         ctx.save_for_backward(A, L)
         return tril_projection(A.detach(), L.detach())
 
+    backward = staticmethod(_backward_tril)
+
+
+# ---- triangular projection in three bf16 passes -----------------------------
+
+def split_bf16(x: torch.Tensor):
+    """The bit-mask split of float32 ``x`` into (hi, lo), float32 tensors
+    holding bf16 values: hi = x with its low 16 bits cleared, lo =
+    bf16_rn(x - hi).  x - hi is exact, and hi + lo equals x to ~2^-16."""
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def tril_projection_3pass_plain(A, L):
+    """Plain version of the 3-pass kernel: A tril(L)^T as three float32
+    matmuls of bf16-exact operands, (alo lhi^T + ahi llo^T) + ahi lhi^T,
+    with the kernel's bit-mask split.  Float32 only: every product of two
+    bf16 values is exact in float32, so only the sums round."""
+    if A.dtype != torch.float32 or L.dtype != torch.float32:
+        raise TypeError(f"the 3-pass projection splits float32 only, got "
+                        f"{A.dtype} and {L.dtype}")
+    ahi, alo = split_bf16(A.detach())
+    lhi, llo = split_bf16(torch.tril(L.detach()))
+    return (alo @ lhi.mT + ahi @ llo.mT) + ahi @ lhi.mT
+
+
+def tril_projection_3pass(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] on the card's
+    tensor cores, as hi*lo + lo*hi + hi*hi bf16 products of the bit-mask
+    split with float32 accumulation (``ve_fwd_precision="high"``).
+
+    A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
+    upper entries are not read.  Launches on the current stream and does
+    not synchronise.  ``tril_projection_3pass.launches`` counts the
+    launches.
+    """
+    return _launch_tril(tril_projection_3pass, "hetmogp_tril_proj3_f32", A,
+                        L)
+
+
+tril_projection_3pass.launches = 0
+
+
+class TrilProjection3Pass(torch.autograd.Function):
+    """A tril(L)^T in three bf16 passes with a gradient: the 3-pass kernel
+    forward on CUDA tensors (its plain version on CPU tensors, or where
+    ``use_kernel`` is False), and ``TrilProjection``'s plain float32
+    backward."""
+
+    @staticmethod
+    def forward(ctx, A, L, use_kernel=True):
+        ctx.save_for_backward(A, L)
+        fwd = (tril_projection_3pass if use_kernel and A.is_cuda
+               else tril_projection_3pass_plain)
+        return fwd(A.detach(), L.detach())
+
     @staticmethod
     def backward(ctx, g):
-        A, L = ctx.saved_tensors
-        dA = g @ torch.tril(L) if ctx.needs_input_grad[0] else None
-        dL = torch.tril(g.mT @ A) if ctx.needs_input_grad[1] else None
-        return dA, dL
+        return (*_backward_tril(ctx, g), None)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, and the RBF backward passes."""
+    return {"rbf_K_batched": rbf_K_batched.launches,
+            "tril_projection": tril_projection.launches,
+            "tril_projection_3pass": tril_projection_3pass.launches,
+            "rbf_backward": RBFCrossCovariance.backwards}
+
+
+def zero_launch_counts() -> None:
+    """Set every count of ``launch_counts`` to 0."""
+    rbf_K_batched.launches = 0
+    tril_projection.launches = 0
+    tril_projection_3pass.launches = 0
+    RBFCrossCovariance.backwards = 0

@@ -3,14 +3,16 @@
 Counterpart of the main-path subset of ``hetmogp_tpu/ops/linalg.py``.  The
 JAX package blocks these by hand for the TPU's matrix unit; here they are
 plain PyTorch calls (cuSOLVER and cuBLAS on the card), except the
-triangular projection A tril(L)^T, which CUDA float32 tensors run as the
-hand-written kernel ``csrc/tril_proj_kernel.cu`` (``ops/cuda_dispatch.py``
-decides).  The ``*_tril*`` helpers mask their triangular operand with
-``torch.tril`` where the JAX package skips its zero blocks; on an exactly
-triangular operand the two agree.  Float32 matmuls must run in full
-float32: TF32 ruins the projection P = Kfu @ iLuu^T (see
-``models/elbo.py``), so nothing here may run under
-``torch.set_float32_matmul_precision("high")``.
+triangular projection A tril(L)^T, which CUDA float32 tensors run as a
+hand-written kernel: ``csrc/tril_proj_kernel.cu`` in float32, or
+``csrc/tril_proj3_kernel.cu`` in three bf16 passes at ``precision="high"``
+(``ops/cuda_dispatch.py`` decides).  The ``*_tril*`` helpers mask their
+triangular operand with ``torch.tril`` where the JAX package skips its
+zero blocks; on an exactly triangular operand the two agree.  Float32
+matmuls must run in full float32: TF32 ruins the projection P = Kfu @
+iLuu^T (see ``models/elbo.py``), so nothing here may run under
+``torch.set_float32_matmul_precision("high")`` (TF32, not the 3-pass
+``precision="high"`` of ``matmul_tril_t``).
 
 ``chol_cached`` and ``solve_tri_cached`` are the trainer's cached-inverse
 adjoints (``autograd.Function``s with the JAX custom VJPs' algebra): the
@@ -49,14 +51,21 @@ def blocked_cholesky_inverse(K: torch.Tensor):
 
 
 def matmul_tril_t(A: torch.Tensor, L: torch.Tensor, *,
+                  precision: str = "highest",
                   use_kernel: bool = True) -> torch.Tensor:
     """A @ tril(L)^T: (Q, N, M), (Q, M, M) -> (Q, N, M), the projection
     P = Kfu iLuu^T.  out[..., n, k] = sum_{m <= k} A[..., n, m] L[..., k, m].
 
-    CUDA float32 runs the triangular projection kernel, which skips L's
-    zero blocks; CPU tensors (or ``use_kernel=False``) the plain version.
+    precision: "highest" multiplies in full float32; "high" (float32 only)
+      in three bf16 passes of the bit-mask split, hi*lo + lo*hi + hi*hi
+      (the JAX package's ``Precision.HIGH``).  Float64 runs at full
+      precision either way: the split is a float32 scheme, and the JAX
+      package's float64 products ignore the precision too.
+    CUDA float32 runs the matching kernel, which skips L's zero blocks;
+    CPU tensors (or ``use_kernel=False``) its plain version.
     """
-    return cuda_dispatch.matmul_tril_t(A, L, use_kernel=use_kernel)
+    return cuda_dispatch.matmul_tril_t(A, L, precision=precision,
+                                       use_kernel=use_kernel)
 
 
 def matmul_tril(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:

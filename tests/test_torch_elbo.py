@@ -69,8 +69,9 @@ def model():
     jp = JParams(**{k: jnp.asarray(v) for k, v in leaves.items()})
     jdata = tuple(jelbo.task_data(x, y) for x, y in zip(X, Y))
     tcfg = tp.ModelConfig.from_dict(cfg.to_dict())
-    tparams = tp.params_from_jax(types.SimpleNamespace(**leaves))
-    tdata = tp.make_dataset(X, Y, tcfg)
+    tparams = tp.params_from_jax(types.SimpleNamespace(**leaves),
+                                 device="cpu")
+    tdata = tp.make_dataset(X, Y, tcfg, device="cpu")
     return cfg, jp, jdata, tcfg, tparams, tdata, scales
 
 
@@ -159,7 +160,7 @@ def test_vm_gradients_match_jax(model):
 def test_task_data_and_kl_checks(model):
     cfg, jp, _, tcfg, tparams, _, _ = model
     td = telbo.task_data(np.zeros((3, DX)), np.arange(3.0),
-                         dtype=torch.float64)
+                         dtype=torch.float64, device="cpu")
     assert td.Y.shape == (3, 1) and torch.equal(td.mask, torch.ones(3,
                                                 dtype=torch.float64))
     np.testing.assert_allclose(

@@ -128,9 +128,10 @@ def test_build_is_keyed_by_the_sources(monkeypatch, tmp_path):
     assert path.parent == _build.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "hetmogp_tpu_torch")
     assert path == _build.library_path()
-    for name in ("rbf_kernel.cu", "tril_proj_kernel.cu"):
+    for name in ("rbf_kernel.cu", "tril_proj_kernel.cu",
+                 "tril_proj3_kernel.cu"):
         assert (_build.CSRC / name).is_file()
-        # an edit to either source gives another library
+        # an edit to any source gives another library
         src = tmp_path / name
         for f in _build.CSRC.glob("*.cu"):
             (tmp_path / f.name).write_bytes(f.read_bytes())
@@ -139,6 +140,37 @@ def test_build_is_keyed_by_the_sources(monkeypatch, tmp_path):
         src.write_bytes(src.read_bytes() + b"\n")
         assert _build.library_path() != path
         monkeypatch.undo()
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One nvcc per source (-c, without -shared), then one link of the
+    objects; the objects are removed and nvcc's output kept in the log.
+    A stand-in nvcc writes its -o file and logs its arguments."""
+    calls = tmp_path / "calls.txt"
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\n"
+                    f'echo "$@" >> {calls}\n'
+                    'while [ "$#" -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then echo x > "$2"; fi; shift\n'
+                    "done\necho 'ptxas info : Used 1 registers'\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    path = _build.build()
+    assert path.is_file() and path.parent == tmp_path / "build"
+    lines = calls.read_text().splitlines()
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    compiles, link = lines[:-1], lines[-1]
+    assert len(compiles) == len(sources) >= 3
+    for src in sources:
+        (line,) = [c for c in compiles if c.endswith(str(src))]
+        assert " -c " in line and "-shared" not in line and "sm_90a" in line
+    assert "-shared" in link and link.count(".o") == len(sources)
+    assert sorted(p.name for p in path.parent.iterdir()) == sorted(
+        [path.name, path.with_suffix(".log").name])
+    assert path.with_suffix(".log").read_text().count("ptxas") == len(
+        sources) + 1
 
 
 # ---- the triangular projection's wrapper -----------------------------------

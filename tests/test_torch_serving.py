@@ -71,7 +71,8 @@ def _model(whiten=True):
 
 def _port(cfg, jparams):
     tcfg = tp.ModelConfig.from_dict(cfg.to_dict())
-    tparams = tp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = tp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                                 device="cpu")
     return tcfg, tparams
 
 
@@ -209,7 +210,7 @@ def test_params_npz_roundtrip(tmp_path):
     path = tmp_path / "ckpt.npz"
     jcheckpoint.save_checkpoint(path, jparams, step=3)
     tcfg, direct = _port(cfg, jparams)
-    loaded = tp.params_from_jax(path)
+    loaded = tp.params_from_jax(path, device="cpu")
     for f in ("Z", "q_mu", "q_sqrt", "log_lengthscale", "log_variance", "W",
               "kappa"):
         torch.testing.assert_close(getattr(loaded, f), getattr(direct, f),
@@ -238,7 +239,7 @@ def test_config_from_jax_dict_roundtrips():
     (dict(adaptive_jitter=True), "item 4"),
     (dict(rank=2), "item 2"),
     (dict(chol_dtype="float64"), "item 4"),
-    (dict(ve_fwd_precision="high"), "float32"),
+    (dict(ve_fwd_precision="default"), "float32"),
 ], ids=["family", "kernel", "adaptive", "rank", "chol_dtype", "precision"])
 def test_config_refuses_what_is_not_ported(change, match):
     cfg, _, _ = _model()
@@ -252,9 +253,9 @@ def test_init_params_is_seeded():
     tcfg = tp.ModelConfig.from_dict(cfg.to_dict())
     Z = np.random.RandomState(0).rand(M, DX)
     a = tp.init_params(np.random.default_rng(5), tcfg, Z, lengthscale=0.2,
-                       variance=0.5, q_mu_scale=0.1)
+                       variance=0.5, q_mu_scale=0.1, device="cpu")
     b = tp.init_params(np.random.default_rng(5), tcfg, Z, lengthscale=0.2,
-                       variance=0.5, q_mu_scale=0.1)
+                       variance=0.5, q_mu_scale=0.1, device="cpu")
     D = tcfg.num_output_functions
     shapes = dict(Z=(Q, M, DX), q_mu=(Q, M), q_sqrt=(Q, M, M),
                   log_lengthscale=(Q, DX), log_variance=(Q,), W=(Q, D),

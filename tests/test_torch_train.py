@@ -84,7 +84,7 @@ def test_ten_steps_match_jax_make_svi_step():
     tcfg = tp.ModelConfig.from_dict(cfg.to_dict())
     ttc = tp.TrainConfig.from_dict(dataclasses.asdict(tc))
     ts = tp.init_train_state(tp.params_from_jax(
-        types.SimpleNamespace(**leaves)), tcfg)
+        types.SimpleNamespace(**leaves), device="cpu"), tcfg)
     tstep = ttrain.make_step(tcfg, ttc)
     scales = np.full(len(NAMES), 100.0)
     for s in range(10):
@@ -92,7 +92,7 @@ def test_ten_steps_match_jax_make_svi_step():
         Y = _observations(rng, B)
         js, jm = jstep(js, tuple(jelbo.task_data(x, y) for x, y in zip(X, Y)),
                        jnp.asarray(scales))
-        ts, tm = tstep(ts, tp.make_dataset(X, Y, tcfg),
+        ts, tm = tstep(ts, tp.make_dataset(X, Y, tcfg, device="cpu"),
                        torch.from_numpy(scales))
         np.testing.assert_allclose(tm["elbo"].item(), float(jm["elbo"]),
                                    rtol=1e-12, err_msg=f"step {s}")
@@ -187,9 +187,10 @@ def _small_trainer(tc_kw=None, m=16):
     tcfg = tp.ModelConfig.from_dict(cfg.to_dict())
     ttc = tp.TrainConfig(**{**TC, **(tc_kw or {})})
     state = tp.init_train_state(tp.params_from_jax(
-        types.SimpleNamespace(**leaves)), tcfg)
+        types.SimpleNamespace(**leaves), device="cpu"), tcfg)
     X = [rng.rand(100, DX) for _ in NAMES]
-    return tcfg, ttc, state, tp.make_dataset(X, _observations(rng, 100), tcfg)
+    return tcfg, ttc, state, tp.make_dataset(X, _observations(rng, 100), tcfg,
+                                             device="cpu")
 
 
 def test_skip_nonfinite_steps_keeps_the_state():
