@@ -8,14 +8,19 @@ Run from the repository root, on a machine with one H100:
 It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
 ``build/hetmogp_tpu_torch/``) and, phase by phase:
 
-1. checks the RBF kernel against its plain PyTorch version and times both;
-2. checks the triangular projection kernel (kernel A, float32) against
-   float64 next to cuBLAS, on random and on the trainer's real
-   (Kfu, iLuu), and times both;
-3. checks the 3-pass bf16 projection kernel (kernel 3) against its plain
-   version and float64 (of the split and of the unsplit operands, next to
-   a 1-pass bf16 product) on the same shapes, and times it in turns with
-   kernel A, cuBLAS and the plain version;
+1. checks the RBF kernel against its plain PyTorch version and times both
+   at the trainer's VE and VM shapes and the serving chunk's;
+2. checks the triangular projection kernel (kernel A, float32), the
+   TMA-fed design and the register-staged one it replaced, against float64
+   next to cuBLAS (bitwise equal to cuBLAS where the TMA route takes the
+   shape), on random and on the trainer's real (Kfu, iLuu), and times both
+   in turns with cuBLAS and the plain version at the VE, VM and serving
+   shapes;
+3. checks the 3-pass bf16 projection kernel (kernel 3), the wgmma and TMA
+   design and the mma.sync one it replaced, against its plain version and
+   float64 (of the split and of the unsplit operands, next to a 1-pass bf16
+   product) on the same cases, and times both in turns with kernel A,
+   cuBLAS and the plain version at the same three shapes;
 4. checks the RBF backward (its autograd.Function) against autograd
    through the plain RBF;
 5. trains the flagship model of ``bench.py`` at full width (six
@@ -35,12 +40,16 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
       around each trainer's first call, the final ELBO, peak memory,
       capture time, the host's share of a call and a profile;
 6. serves the bench serving model at full width (2 chunks of 65536 rows
-   per task) through the kernels, checks what it serves, and times it.
+   per task) through the kernels, checks what it serves, times it and
+   profiles it;
+7. serves the same model at 777 inducing points, which only the staged
+   kernels take, at both precisions, against the plain versions.
 
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  About four
-and a half minutes on one H100.
+JSON (every kernel launcher, each route included); the last line is
+``{"ok": true, "device": {...}}``.  About four and a half minutes on one
+H100.
 """
 
 from __future__ import annotations
@@ -146,6 +155,14 @@ GRAPH_F64 = 5e-3
 # one offset stream: per-100-step mean ELBOs within 2e-3 relative, the
 # JAX package's adoption criterion (docs/DESIGN.md:387-393).
 AB_STEPS, AB_EVERY, AB_TOL = 1500, 100, 2e-3
+# The staged kernels' path: serving a model of 777 inducing points, a depth
+# whose rows TMA cannot address (M % 4 != 0).  At "high" its moments
+# against the plain 3-pass path differ by kernel 3's summation order, which
+# moves P by ~3e-4 of max|P| on a model's own (Kfu, iLuu) (phase 3), and
+# the variance's cancellation kdiag + quad - |P|^2 loses about a digit
+# more: 1e-2.  A lost lo term moves P by ~2^-8 of it, ten times that.
+RAGGED_M = 777
+RAGGED_HIGH_BOUND = 1e-2
 
 
 def card() -> str:
@@ -174,6 +191,20 @@ def device_phase() -> str:
     return smi
 
 
+def kernel_symbol(line: str) -> str:
+    """The ``*_kernel`` identifier in a mangled name on a ptxas line (each
+    identifier is preceded by its length)."""
+    name = line.strip()
+    for digits in re.finditer(r"\d+", line):
+        for i in range(len(digits.group())):
+            n = int(digits.group()[i:])
+            cand = line[digits.end():digits.end() + n]
+            if cand.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
+                                                          cand):
+                name = cand
+    return name
+
+
 def build_phase(smi: str):
     from hetmogp_tpu_torch.ops import _build, cuda_kernels
 
@@ -182,9 +213,15 @@ def build_phase(smi: str):
     cuda_kernels.load()
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s"
           f" [card: {smi}]")
+    # ptxas -v: each kernel's entry line, then its spills, registers and
+    # shared memory (the dynamic shared memory of the TMA kernels is set at
+    # launch: csrc/*.cu SMEM_BYTES)
+    kernel = None
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()} [card: {smi}]")
+        if "entry function" in line:
+            kernel = kernel_symbol(line)
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas, {kernel}: {line.strip()} [card: {smi}]")
 
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): the bounds below are the
@@ -203,6 +240,13 @@ def bound_ms(nbytes: float, ops: float, peak: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# a sleep on the device ahead of each timed call, longer than the host
+# takes to enqueue the call (~2 ms at the card's clock): the events then
+# bracket the call's device work, not the host's launch overhead, which
+# exceeds the device time of the small shapes
+SLEEP_CYCLES = 4_000_000
+
+
 def device_times_ms(fn, reps=20, warmup=3):
     """Device time of each of `reps` calls of fn() in ms, by CUDA events."""
     for _ in range(warmup):
@@ -212,6 +256,7 @@ def device_times_ms(fn, reps=20, warmup=3):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -247,98 +292,150 @@ def kernel_phase(smi: str) -> dict:
               f"(atol {KERNEL_ATOL:g}) [card: {smi}]")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"kernel disagrees with plain: {name}")
-    serving = next(iter(cases))
-    args = inputs(*cases[serving])
-    # in turns, plain, kernel, kernel, plain, on the same inputs
-    p1, k1, k2, p2 = (device_times_ms(lambda f=f: f(*args))
-                      for f in (plain, kern, kern, plain))
-    ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
-    out_bytes = Q * CHUNK * M * 4
-    # each input read once, the output written once; exp and ~3 Dx + 2
-    # float32 operations per output element
-    nbytes = sum(a.numel() * 4 for a in args) + out_bytes
-    bound = bound_ms(nbytes, Q * CHUNK * M * (3 * DX + 3), F32_PEAK)
-    print(f"kernel time at serving shape: {ms:.4f} ms "
-          f"({out_bytes / (ms * 1e-3) / 1e12:.3f} TB/s of output), plain "
-          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); no "
-          f"single PyTorch call computes it; median of {len(k1 + k2)} calls "
-          f"each [card: {smi}]")
+    # the trainer's shapes (a VE step's 6 x 512 rows, a VM step's quarter of
+    # them) and the serving chunk, each in turns, plain, kernel, kernel, plain
+    times = {}
+    for name, rows in (("training", 6 * TRAIN_B), ("VM", 6 * TRAIN_B // 4),
+                       ("serving", CHUNK)):
+        args = inputs(Q, rows, M, DX, False)
+        p1, k1, k2, p2 = (device_times_ms(lambda f=f: f(*args))
+                          for f in (plain, kern, kern, plain))
+        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        out_bytes = Q * rows * M * 4
+        # each input read once, the output written once; exp and ~3 Dx + 2
+        # float32 operations per output element
+        nbytes = sum(a.numel() * 4 for a in args) + out_bytes
+        bound = bound_ms(nbytes, Q * rows * M * (3 * DX + 3), F32_PEAK)
+        times[name] = (ms, plain_ms, bound)
+        print(f"rbf kernel time, {name} (4, {rows}, 1024): {ms:.4f} ms "
+              f"({out_bytes / (ms * 1e-3) / 1e12:.3f} TB/s of output), plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+              f"{bound[0] / ms * 100:.1f}% of it); no single PyTorch call "
+              f"computes it; median of {len(k1 + k2)} calls each "
+              f"[card: {smi}]")
+    ms, plain_ms, bound = times["training"]
     return {"name": "rbf_cross_covariance", "route": "cuda",
             "source": "hetmogp_tpu_torch/csrc/rbf_kernel.cu",
             "replaces": "hetmogp_tpu/ops/pallas_kernels.py:43",
-            "max_abs_err": errs[serving], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+            "max_abs_err": errs["serving (4, 65536, 1024, Dx=2, ARD)"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
 
 
-def projection_phase(smi: str, Kfu: torch.Tensor, iLuu: torch.Tensor) -> dict:
-    """Kernel A against a float64 product next to cuBLAS, and its time."""
-    from hetmogp_tpu_torch.ops import cuda_kernels
+def random_projection_case(gen, q, n, m):
+    """A (q, n, m) and a well-conditioned lower-triangular L (q, m, m),
+    standard normal, from ``gen``."""
+    A = torch.randn(q, n, m, generator=gen, device="cuda")
+    L = (torch.tril(torch.randn(q, m, m, generator=gen, device="cuda"))
+         / m ** 0.5 + 2.0 * torch.eye(m, device="cuda"))
+    return A, L
 
-    kern = cuda_kernels.tril_projection
-    plain = cuda_kernels.tril_projection_plain
+
+# the projection's timed shapes: the VE step's P, the VM step's, a serving
+# chunk's
+PROJ_SHAPES = {"training (4, 3072, 1024)": (Q, 6 * TRAIN_B, M),
+               "VM (4, 768, 1024)": (Q, 6 * TRAIN_B // 4, M),
+               "serving (4, 65536, 1024)": (Q, CHUNK, M)}
+
+
+def time_in_turns(fns: dict, A, L):
+    """Median device ms of each of ``fns`` on (A, L), timed in turns there
+    and back (the order of ``fns``, then reversed)."""
+    samples = {k: [] for k in fns}
+    order = list(fns.items())
+    for k, f in order + order[::-1]:
+        samples[k] += device_times_ms(lambda f=f: f(A, L))
+    return ({k: statistics.median(v) for k, v in samples.items()},
+            len(samples[order[0][0]]))
+
+
+def proj_entry(name, source, replaces, err, t, yardstick, plain, bound):
+    return {"name": name, "route": "cuda",
+            "source": f"hetmogp_tpu_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": err, "ms": t[yardstick],
+            "plain_ms": t[plain], "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def projection_phase(smi: str, Kfu: torch.Tensor,
+                     iLuu: torch.Tensor) -> list:
+    """Kernel A, both routes, against a float64 product next to cuBLAS,
+    and their times in turns with cuBLAS and the plain version."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    def random_case(q, n, m):
-        A = torch.randn(q, n, m, generator=gen, device="cuda")
-        L = (torch.tril(torch.randn(q, m, m, generator=gen, device="cuda"))
-             / m ** 0.5 + 2.0 * torch.eye(m, device="cuda"))
-        return A, L
-
-    cases = {"training (4, 3072, 1024)": random_case(Q, 3072, M),
-             "serving (4, 65536, 1024)": random_case(Q, CHUNK, M),
-             "ragged (3, 1000, 777)": random_case(3, 1000, 777),
+    cases = {"training (4, 3072, 1024)": random_projection_case(gen, Q, 3072,
+                                                                M),
+             "serving (4, 65536, 1024)": random_projection_case(gen, Q, CHUNK,
+                                                                M),
+             "ragged (3, 1000, 777)": random_projection_case(gen, 3, 1000,
+                                                             777),
              "training Kfu, iLuu of the model": (Kfu, iLuu)}
     errs = {}
     for name, (A, L) in cases.items():
-        got = kern(A, L)
         cub = A @ torch.tril(L).mT
         ref = A.double() @ torch.tril(L).double().mT
         scale = ref.abs().max()
-        ek = float((got.double() - ref).abs().max() / scale)
         ec = float((cub.double() - ref).abs().max() / scale)
-        errs[name] = float((got - cub).abs().max())
-        print(f"projection kernel, {name}: normwise error vs f64 {ek:.3e}, "
-              f"plain version (cuBLAS) {ec:.3e} (bound {PROJ_VS_CUBLAS:g}x "
-              f"plain); max abs difference from plain {errs[name]:.3e}, "
-              f"bitwise equal {bool(torch.equal(got, cub))} [card: {smi}]")
-        if not ek <= PROJ_VS_CUBLAS * ec:
-            raise AssertionError(f"projection kernel error {ek} > "
-                                 f"{PROJ_VS_CUBLAS} x cuBLAS {ec}: {name}")
-        del got, cub, ref
+        routed = ck.tril_route(A.shape[-1], True)
+        # the routed kernel; at the aligned shapes the previous design too
+        kernels = {routed: ck.tril_projection}
+        if routed == "tma":
+            kernels["staged"] = ck.tril_projection_staged
+        for route, kern in kernels.items():
+            got = kern(A, L)
+            ek = float((got.double() - ref).abs().max() / scale)
+            bitwise = bool(torch.equal(got, cub))
+            errs[name, route] = float((got - cub).abs().max())
+            print(f"projection kernel ({route}), {name}: normwise error vs "
+                  f"f64 {ek:.3e}, plain version (cuBLAS) {ec:.3e} (bound "
+                  f"{PROJ_VS_CUBLAS:g}x plain); max abs difference from "
+                  f"plain {errs[name, route]:.3e}, bitwise equal {bitwise}"
+                  f"{' (required: aligned shape)' if routed == 'tma' else ''}"
+                  f" [card: {smi}]")
+            if not ek <= PROJ_VS_CUBLAS * ec:
+                raise AssertionError(f"projection kernel error {ek} > "
+                                     f"{PROJ_VS_CUBLAS} x cuBLAS {ec}: {name}")
+            # one float32 FMA chain per output in increasing m, as cuBLAS
+            # sums: the host loop's TRAIN_PLAIN_F32_VE rests on it
+            if routed == "tma" and not bitwise:
+                raise AssertionError(f"projection kernel ({route}) not "
+                                     f"bitwise equal to cuBLAS: {name}")
+            del got
+        del cub, ref
+    del cases
     times = {}
-    for name in ("training (4, 3072, 1024)", "serving (4, 65536, 1024)"):
-        A, L = cases[name]
+    for name, shape in PROJ_SHAPES.items():
+        A, L = random_projection_case(gen, *shape)
         Lt = torch.tril(L)
-        # in turns: plain, kernel, cuBLAS, cuBLAS, kernel, plain
-        p1, k1, c1, c2, k2, p2 = (device_times_ms(lambda f=f: f(A, L))
-                                  for f in (plain, kern,
-                                            lambda a, _: a @ Lt.mT,
-                                            lambda a, _: a @ Lt.mT,
-                                            kern, plain))
-        q, n, m = A.shape
-        flop = q * n * m * (m + 1)  # the triangular FLOPs
-        t = {"kernel": statistics.median(k1 + k2),
-             "cublas": statistics.median(c1 + c2),
-             "plain": statistics.median(p1 + p2)}
-        times[name] = t
-        print(f"projection time, {name}: kernel {t['kernel']:.4f} ms "
-              f"({flop / t['kernel'] / 1e9:.2f} TFLOP/s), cuBLAS "
-              f"{t['cublas']:.4f} ms ({flop / t['cublas'] / 1e9:.2f} "
-              f"TFLOP/s), plain version {t['plain']:.4f} ms; TFLOP/s on "
-              f"Q*N*M*(M+1) = {flop:.3e}; median of {len(k1 + k2)} calls "
-              f"each [card: {smi}]")
-    train = times["training (4, 3072, 1024)"]
-    bound = proj_bound(*cases["training (4, 3072, 1024)"], 1, F32_PEAK)
-    print(f"projection bound at the training shape: {bound[0]:.4f} ms "
-          f"({bound[1]}, float32 at {F32_PEAK / 1e12:g} TFLOP/s) "
-          f"[card: {smi}]")
-    return {"name": "tril_projection", "route": "cuda",
-            "source": "hetmogp_tpu_torch/csrc/tril_proj_kernel.cu",
-            "replaces": "tools/probe_pallas_proj.py:20",
-            "max_abs_err": errs["training Kfu, iLuu of the model"],
-            "ms": train["kernel"], "plain_ms": train["plain"],
-            "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": train["cublas"]}
+        t, n = time_in_turns({"plain": ck.tril_projection_plain,
+                              "kernel A (tma)": ck.tril_projection_tma,
+                              "kernel A (staged)": ck.tril_projection_staged,
+                              "cuBLAS": lambda a, _: a @ Lt.mT}, A, L)
+        bound = proj_bound(A, L, 1, F32_PEAK)
+        times[name] = t, bound
+        q, n_, m = A.shape
+        flop = q * n_ * m * (m + 1)  # the triangular FLOPs
+        new, old = t["kernel A (tma)"], t["kernel A (staged)"]
+        print(f"projection time, {name}: kernel A (tma) {new:.4f} ms "
+              f"({flop / new / 1e9:.2f} TFLOP/s, {bound[0] / new * 100:.1f}% "
+              f"of the bound), previous design (staged) {old:.4f} ms "
+              f"({bound[0] / old * 100:.1f}%), cuBLAS "
+              f"{t['cuBLAS']:.4f} ms, plain version {t['plain']:.4f} ms; "
+              f"bound {bound[0]:.4f} ms ({bound[1]}, float32 at "
+              f"{F32_PEAK / 1e12:g} TFLOP/s); TFLOP/s on Q*N*M*(M+1) = "
+              f"{flop:.3e}; median of {n} calls each [card: {smi}]")
+        del A, L, Lt
+    t, bound = times["training (4, 3072, 1024)"]
+    model = "training Kfu, iLuu of the model"
+    return [dict(proj_entry("tril_projection_tma", "tril_proj_kernel.cu",
+                            "tools/probe_pallas_proj.py:20",
+                            errs[model, "tma"], t, "kernel A (tma)", "plain",
+                            bound), library_ms=t["cuBLAS"]),
+            dict(proj_entry("tril_projection_staged", "tril_proj_kernel.cu",
+                            "tools/probe_pallas_proj.py:20",
+                            errs["ragged (3, 1000, 777)", "staged"], t,
+                            "kernel A (staged)", "plain", bound),
+                 library_ms=t["cuBLAS"])]
 
 
 def proj_bound(A, L, passes: int, peak: float):
@@ -349,79 +446,92 @@ def proj_bound(A, L, passes: int, peak: float):
     return bound_ms(nbytes, passes * q * n * m * (m + 1), peak)
 
 
-def projection3_phase(smi: str, Kfu: torch.Tensor, iLuu: torch.Tensor) -> dict:
-    """Kernel 3 against its plain version and float64 (of the split and
-    of the unsplit operands), and its time in turns with kernel A, cuBLAS
-    float32 and the plain version."""
-    from hetmogp_tpu_torch.ops import cuda_kernels
+def projection3_phase(smi: str, Kfu: torch.Tensor,
+                      iLuu: torch.Tensor) -> list:
+    """Kernel 3, both routes, against its plain version and float64 (of
+    the split and of the unsplit operands), and their times in turns with
+    kernel A, cuBLAS float32 and the plain version."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
-    kern = cuda_kernels.tril_projection_3pass
-    plain = cuda_kernels.tril_projection_3pass_plain
+    plain = ck.tril_projection_3pass_plain
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-
-    def random_case(q, n, m):
-        A = torch.randn(q, n, m, generator=gen, device="cuda")
-        L = (torch.tril(torch.randn(q, m, m, generator=gen, device="cuda"))
-             / m ** 0.5 + 2.0 * torch.eye(m, device="cuda"))
-        return A, L
-
-    cases = {"training (4, 3072, 1024)": random_case(Q, 3072, M),
-             "serving (4, 65536, 1024)": random_case(Q, CHUNK, M),
-             "ragged (3, 1000, 777)": random_case(3, 1000, 777),
+    cases = {"training (4, 3072, 1024)": random_projection_case(gen, Q, 3072,
+                                                                M),
+             "serving (4, 65536, 1024)": random_projection_case(gen, Q, CHUNK,
+                                                                M),
+             "ragged (3, 1000, 777)": random_projection_case(gen, 3, 1000,
+                                                             777),
              "training Kfu, iLuu of the model": (Kfu, iLuu)}
     errs = {}
     for name, (A, L) in cases.items():
-        got, want = kern(A, L), plain(A, L)
-        ahi, alo = cuda_kernels.split_bf16(A)
-        lhi, llo = (t.double() for t in cuda_kernels.split_bf16(torch.tril(L)))
+        want = plain(A, L)
+        ahi, alo = ck.split_bf16(A)
+        lhi, llo = (t.double() for t in ck.split_bf16(torch.tril(L)))
         ahi, alo = ahi.double(), alo.double()
         ref_split = (alo @ lhi.mT + ahi @ llo.mT) + ahi @ lhi.mT
         del ahi, alo, lhi, llo
         ref = A.double() @ torch.tril(L).double().mT
         one = (A.to(torch.bfloat16).float()
                @ torch.tril(L).to(torch.bfloat16).float().mT)
-        e_k, e_p = normwise(got, ref_split), normwise(want, ref_split)
-        f_k, f_p, f_1 = normwise(got, ref), normwise(want, ref), normwise(one,
-                                                                         ref)
-        errs[name] = float((got - want).abs().max())
-        print(f"3-pass kernel, {name}: normwise error vs f64 of the split "
-              f"operands {e_k:.3e}, plain version {e_p:.3e} (bound "
-              f"{PROJ3_VS_PLAIN:g}x plain); vs f64 of the unsplit operands "
-              f"{f_k:.3e}, plain {f_p:.3e}, 1-pass bf16 {f_1:.3e} (bound "
-              f"{PROJ3_VS_ONE_PASS:g}x 1-pass); max abs difference from "
-              f"plain {errs[name]:.3e} [card: {smi}]")
-        if not (e_k <= PROJ3_VS_PLAIN * e_p
-                and f_k <= PROJ3_VS_ONE_PASS * f_1):
-            raise AssertionError(f"3-pass kernel out of bounds: {name}")
-        del got, want, ref_split, ref, one
+        e_p, f_p, f_1 = (normwise(want, ref_split), normwise(want, ref),
+                         normwise(one, ref))
+        routed = ck.tril_route(A.shape[-1], True)
+        kernels = {routed: ck.tril_projection_3pass}
+        if routed == "tma":
+            kernels["staged"] = ck.tril_projection_3pass_staged
+        for route, kern in kernels.items():
+            got = kern(A, L)
+            e_k, f_k = normwise(got, ref_split), normwise(got, ref)
+            errs[name, route] = float((got - want).abs().max())
+            print(f"3-pass kernel ({route}), {name}: normwise error vs f64 "
+                  f"of the split operands {e_k:.3e}, plain version "
+                  f"{e_p:.3e} (bound {PROJ3_VS_PLAIN:g}x plain); vs f64 of "
+                  f"the unsplit operands {f_k:.3e}, plain {f_p:.3e}, 1-pass "
+                  f"bf16 {f_1:.3e} (bound {PROJ3_VS_ONE_PASS:g}x 1-pass); max "
+                  f"abs difference from plain {errs[name, route]:.3e} "
+                  f"[card: {smi}]")
+            if not (e_k <= PROJ3_VS_PLAIN * e_p
+                    and f_k <= PROJ3_VS_ONE_PASS * f_1):
+                raise AssertionError(f"3-pass kernel ({route}) out of bounds:"
+                                     f" {name}")
+            del got
+        del want, ref_split, ref, one
+    del cases
     times = {}
-    for name in ("training (4, 3072, 1024)", "serving (4, 65536, 1024)"):
-        A, L = cases[name]
+    for name, shape in PROJ_SHAPES.items():
+        A, L = random_projection_case(gen, *shape)
         Lt = torch.tril(L)
-        order = (("plain", plain), ("kernel 3", kern),
-                 ("kernel A", cuda_kernels.tril_projection),
-                 ("cuBLAS f32", lambda a, _: a @ Lt.mT))
-        samples = {k: [] for k, _ in order}
-        for k, f in order + order[::-1]:  # in turns, there and back
-            samples[k] += device_times_ms(lambda f=f: f(A, L))
-        t = {k: statistics.median(v) for k, v in samples.items()}
-        times[name] = t
+        t, n = time_in_turns({"plain": plain,
+                              "kernel 3 (tma)": ck.tril_projection_3pass_tma,
+                              "kernel 3 (staged)":
+                                  ck.tril_projection_3pass_staged,
+                              "kernel A (tma)": ck.tril_projection_tma,
+                              "cuBLAS f32": lambda a, _: a @ Lt.mT}, A, L)
         bound = proj_bound(A, L, 3, BF16_PEAK)
-        print(f"3-pass projection time, {name}: kernel 3 {t['kernel 3']:.4f} "
-              f"ms (bound {bound[0]:.4f} ms, {bound[1]}, "
-              f"{bound[0] / t['kernel 3'] * 100:.1f}% of it), kernel A "
-              f"{t['kernel A']:.4f} ms, cuBLAS f32 {t['cuBLAS f32']:.4f} ms, "
-              f"plain version {t['plain']:.4f} ms; no PyTorch call computes "
-              f"the 3-pass product; median of {len(samples['plain'])} calls "
-              f"each [card: {smi}]")
-    train = times["training (4, 3072, 1024)"]
-    bound = proj_bound(*cases["training (4, 3072, 1024)"], 3, BF16_PEAK)
-    return {"name": "tril_projection_3pass", "route": "cuda",
-            "source": "hetmogp_tpu_torch/csrc/tril_proj3_kernel.cu",
-            "replaces": "tools/probe_pallas_proj.py:110",
-            "max_abs_err": errs["training Kfu, iLuu of the model"],
-            "ms": train["kernel 3"], "plain_ms": train["plain"],
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+        times[name] = t, bound
+        new, old = t["kernel 3 (tma)"], t["kernel 3 (staged)"]
+        print(f"3-pass projection time, {name}: kernel 3 (tma) {new:.4f} ms "
+              f"({bound[0] / new * 100:.1f}% of the bound), previous design "
+              f"(staged) {old:.4f} ms ({bound[0] / old * 100:.1f}%), kernel "
+              f"A (tma) {t['kernel A (tma)']:.4f} ms, cuBLAS f32 "
+              f"{t['cuBLAS f32']:.4f} ms, plain version {t['plain']:.4f} ms; "
+              f"bound {bound[0]:.4f} ms ({bound[1]}, bf16); no PyTorch call "
+              f"computes the 3-pass product; median of {n} calls each "
+              f"[card: {smi}]")
+        del A, L, Lt
+    t, bound = times["training (4, 3072, 1024)"]
+    model = "training Kfu, iLuu of the model"
+    return [dict(proj_entry("tril_projection_3pass_tma",
+                            "tril_proj3_kernel.cu",
+                            "tools/probe_pallas_proj.py:110",
+                            errs[model, "tma"], t, "kernel 3 (tma)", "plain",
+                            bound), library_ms=None),
+            dict(proj_entry("tril_projection_3pass_staged",
+                            "tril_proj3_kernel.cu",
+                            "tools/probe_pallas_proj.py:110",
+                            errs["ragged (3, 1000, 777)", "staged"], t,
+                            "kernel 3 (staged)", "plain", bound),
+                 library_ms=None)]
 
 
 def rbf_backward_phase(smi: str):
@@ -493,7 +603,8 @@ def _counts():
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
     c = ck.launch_counts()
-    return c["tril_projection"], c["rbf_K_batched"], c["rbf_backward"]
+    return (c["tril_projection_tma"] + c["tril_projection_staged"],
+            c["rbf_K_batched"], c["rbf_backward"])
 
 
 def _zero_counts():
@@ -787,8 +898,22 @@ def trajectory_ab_phase(smi: str):
 
 # kernel symbol -> launcher name: what a graphed call's profile must show
 _SYMBOLS = {"rbf_cross_kernel": "rbf_K_batched",
-            "tril_proj_kernel": "tril_projection",
-            "tril_proj3_kernel": "tril_projection_3pass"}
+            "tril_proj_tma_kernel": "tril_projection_tma",
+            "tril_proj_kernel": "tril_projection_staged",
+            "tril_proj3_tma_kernel": "tril_projection_3pass_tma",
+            "tril_split_bf16_kernel": "tril_projection_3pass_tma",
+            "tril_proj3_kernel": "tril_projection_3pass_staged"}
+
+
+def own_kernel_rows(rows: dict) -> dict:
+    """{kernel symbol of _SYMBOLS: (device ms, calls)} from a profile's
+    rows."""
+    out = {}
+    for sym in _SYMBOLS:
+        pat = re.compile(rf"(?<![A-Za-z_]){sym}(?![a-z0-9_])")
+        hits = [v for key, v in rows.items() if pat.search(key)]
+        out[sym] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+    return out
 
 
 def graphed_trainer_phase(smi: str, precision: str):
@@ -826,10 +951,12 @@ def graphed_trainer_phase(smi: str, precision: str):
           f"[card: {smi}]")
     n_vm = run.replays["vm"]
     want = {"rbf_K_batched": GRAPH_CALL_STEPS, "rbf_backward": n_vm,
-            "tril_projection": (n_vm if precision == "high"
-                                else GRAPH_CALL_STEPS),
-            "tril_projection_3pass": (GRAPH_CALL_STEPS - n_vm
-                                      if precision == "high" else 0)}
+            "tril_projection_tma": (n_vm if precision == "high"
+                                    else GRAPH_CALL_STEPS),
+            "tril_projection_3pass_tma": (GRAPH_CALL_STEPS - n_vm
+                                          if precision == "high" else 0),
+            # M = 1024 is aligned: the staged kernels never run here
+            "tril_projection_staged": 0, "tril_projection_3pass_staged": 0}
     if replayed != want or any(counts[k] < 1 for k in want if want[k]):
         raise AssertionError(f"the graphs did not run the kernels: {replayed}"
                              f" replayed, {want} expected")
@@ -865,13 +992,14 @@ def graphed_trainer_phase(smi: str, precision: str):
                    f"{what}, one call of {PROFILE_STEPS} steps", smi)
     if rows:
         steps = {k: run.replays[k] - before[k] for k in run.replays}
-        for sym, launcher in _SYMBOLS.items():
-            pat = re.compile(rf"(?<![A-Za-z_]){sym}(?![a-z0-9_])")
-            seen = sum(n for key, (_, n) in rows.items() if pat.search(key))
+        for sym, (ms, seen) in own_kernel_rows(rows).items():
+            launcher = _SYMBOLS[sym]
             per_graph = sum(run.capture_launches[kind][launcher] * steps[kind]
                             for kind in steps)
             print(f"  {sym}: {seen} calls in the profile, {per_graph} "
-                  f"expected from the replays [card: {smi}]")
+                  f"expected from the replays; device time {ms:.3f} ms"
+                  f"{f', {ms / seen:.4f} ms a call' if seen else ''} "
+                  f"[card: {smi}]")
             if seen != per_graph:
                 raise AssertionError(f"the profile shows {seen} calls of "
                                      f"{sym}, the replays {per_graph}")
@@ -925,7 +1053,8 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q):
     rows = cfg.num_tasks * X.shape[0]
     print(f"serving pass: {rows} rows, {len(out)} chunk requests, "
           f"rbf kernel launches {launches}, projection kernel launches "
-          f"{tril} [card: {smi}]")
+          f"{tril}; launches per serving pass by launcher "
+          f"{cuda_kernels.launch_counts()} [card: {smi}]")
     if launches < len(out) or tril < len(out):
         raise AssertionError("the serving pass did not go through the "
                              "kernels")
@@ -972,6 +1101,55 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q):
     print(f"serving throughput: {med:.1f} rows/s, median of 5 passes of "
           f"{rows} rows, min {rates[0]:.1f}, max {rates[-1]:.1f}, spread "
           f"{(rates[-1] - rates[0]) / med * 100:.2f}% [card: {smi}]")
+    prof = profile(serve_all, "serving pass", smi)
+    for sym, (ms, calls) in own_kernel_rows(prof).items():
+        if calls:
+            print(f"  {sym}: {calls} calls in the serving pass, device time "
+                  f"{ms:.3f} ms, {ms / calls:.4f} ms a call [card: {smi}]")
+
+
+def ragged_serving_phase(smi: str) -> dict:
+    """The staged kernels' own path: the serving model at RAGGED_M inducing
+    points, which TMA cannot address (tril_route sends them to the staged
+    kernels), at "highest" (kernel A) and "high" (kernel 3): an
+    ACC_ROWS-row chunk of each task with the counts from 0, checked
+    against the same path with the plain versions.  Returns the launch
+    counts of both passes together."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    cfg, params, X = serving_model(m=RAGGED_M)
+    Xs = X[:ACC_ROWS]
+    total = {}
+    for prec, staged, bound in (
+            ("highest", "tril_projection_staged", PLAIN_F32_BOUND),
+            ("high", "tril_projection_3pass_staged", RAGGED_HIGH_BOUND)):
+        c = dataclasses.replace(cfg, ve_fwd_precision=prec)
+        ck.zero_launch_counts()
+        got = [tp.make_serving_predictive(params, c, t)(Xs)
+               for t in range(c.num_tasks)]
+        torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        worst = 0.0
+        for t, moments in enumerate(got):
+            ref = tp.make_serving_predictive(params, c, t,
+                                             use_kernel=False)(Xs)
+            if not all(torch.isfinite(a).all() for a in moments):
+                raise AssertionError(f"ragged serving, task {t}: non-finite")
+            worst = max(worst, *(normwise(a, b) for a, b in zip(moments,
+                                                                 ref)))
+        print(f"ragged serving (M={RAGGED_M}, \"{prec}\"), {c.num_tasks} "
+              f"chunks of {ACC_ROWS} rows: launches {counts}; worst normwise "
+              f"error of the moments vs plain f32 {worst:.3e} (bound "
+              f"{bound:g}) [card: {smi}]")
+        tma = (counts["tril_projection_tma"]
+               + counts["tril_projection_3pass_tma"])
+        if counts[staged] < c.num_tasks or tma or not worst <= bound:
+            raise AssertionError(f"ragged serving at {prec!r} did not go "
+                                 "through the staged kernel, or disagrees")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def main():
@@ -994,11 +1172,18 @@ def main():
     counts, _, _ = graphed_trainer_phase(smi, "high")
     graphed_trainer_phase(smi, "highest")
     serving_phase(smi)
-    for entry, key in ((rbf, "rbf_K_batched"), (proj, "tril_projection"),
-                       (proj3, "tril_projection_3pass")):
-        entry["launches"] = counts[key]
+    ragged = ragged_serving_phase(smi)
+    # launches: the main path's for the RBF kernel and the TMA routes; the
+    # staged routes never run at M = 1024, so theirs are from the ragged
+    # serving path, their own
+    kernels = [rbf, *proj, *proj3]
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches"] = (ragged[name] if name.endswith("_staged") else
+                             counts["rbf_K_batched" if name ==
+                                    "rbf_cross_covariance" else name])
     print(smi)
-    print(json.dumps({"kernels": [rbf, proj, proj3]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,10 @@ The sources in ``hetmogp_tpu_torch/csrc/`` are compiled by ``nvcc`` for
 one shared library with a plain C interface, which
 ``ops/cuda_kernels.py`` loads with ``ctypes``.  The library goes to
 ``build/hetmogp_tpu_torch/`` under the repository root and its name carries
-a hash of the sources and flags, so an edit to a source rebuilds it and an
-unchanged tree reuses it.  ``nvcc`` is found through ``CUDA_HOME``,
-``PATH`` or ``/usr/local/cuda``; without it the build raises.
+a hash of the sources (``*.cu`` and the ``*.cuh`` they include) and flags,
+so an edit to a source rebuilds it and an unchanged tree reuses it.
+``nvcc`` is found through ``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``;
+without it the build raises.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    # the headers too: an edit to a shared .cuh must not reuse a library
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhetmogp_kernels-{h.hexdigest()[:16]}.so"

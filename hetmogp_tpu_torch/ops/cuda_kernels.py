@@ -3,18 +3,23 @@
 Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py`` and of the two Pallas
 projections of ``tools/probe_pallas_proj.py``.  The kernels are
 ``csrc/rbf_kernel.cu`` (the RBF cross-covariance),
-``csrc/tril_proj_kernel.cu`` (the triangular projection A tril(L)^T in
-float32) and ``csrc/tril_proj3_kernel.cu`` (the same projection as three
-bf16 tensor-core passes), built by ``ops/_build.py`` when a CUDA tensor
-first reaches one and bound with ``ctypes``.  Importing this module builds
-and loads nothing.
+``csrc/tril_proj_kernel.cu`` (kernel A: the triangular projection
+A tril(L)^T in float32) and ``csrc/tril_proj3_kernel.cu`` (kernel 3: the
+same projection as three bf16 tensor-core passes), each projection in two
+designs, a TMA-fed one (sharing ``csrc/tril_tma.cuh``) and the
+register-staged one of the first port, chosen by shape (``tril_route``).
+``ops/_build.py`` builds them when a CUDA tensor first reaches one, and
+they are bound with ``ctypes``.  Importing this module builds and loads
+nothing.
 
 For each kernel:
 
-* the raw launcher (``rbf_K_batched``, ``tril_projection``,
-  ``tril_projection_3pass``) runs it on float32 CUDA tensors, counts its
-  launches in ``<launcher>.launches``, and refuses inputs that require
-  grad: it records no graph;
+* the raw launcher (``rbf_K_batched``, ``tril_projection_tma``,
+  ``tril_projection_staged``, ``tril_projection_3pass_tma``,
+  ``tril_projection_3pass_staged``) runs it on float32 CUDA tensors,
+  counts its launches in ``<launcher>.launches``, and refuses inputs that
+  require grad: it records no graph; ``tril_projection`` and
+  ``tril_projection_3pass`` route to the launcher of the shape;
 * the plain version (``*_plain``) is what CPU tensors take and what the
   kernel is checked against on the card;
 * an ``autograd.Function`` (``RBFCrossCovariance``, ``TrilProjection``,
@@ -44,9 +49,17 @@ def _library() -> ctypes.CDLL:
     fn = lib.hetmogp_rbf_cross_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    for fn in (lib.hetmogp_tril_proj_f32, lib.hetmogp_tril_proj3_f32):
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+    proj = [ctypes.c_void_p] * 3  # A, L, out
+    shape = [ctypes.c_int] * 3  # Q, N, M
+    signatures = {
+        "hetmogp_tril_proj_f32": proj + shape,
+        "hetmogp_tril_proj_staged_f32": proj + [ctypes.c_int] + shape,
+        "hetmogp_tril_proj3_f32": proj + [ctypes.c_void_p] * 2 + shape,
+        "hetmogp_tril_proj3_staged_f32": proj + [ctypes.c_int] + shape,
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args + [ctypes.c_void_p]  # and the stream
         fn.restype = ctypes.c_int
     return lib
 
@@ -179,16 +192,37 @@ class RBFCrossCovariance(torch.autograd.Function):
 
 
 # ---- triangular projection -------------------------------------------------
+#
+# Two kernels per precision, chosen by shape alone (``tril_route``): the
+# TMA-fed designs where TMA can address the operands (M % 4 == 0, rows of a
+# multiple of 16 bytes, and 16-byte-aligned bases: the main path's
+# M = 1024), the register-staged designs of the first port everywhere
+# else.  Each launcher counts its own launches; a failed launch raises, and
+# nothing falls back from one route to the other.
+
+def tril_route(M: int, aligned: bool) -> str:
+    """The kernel a float32 projection of depth ``M`` takes on the card:
+    ``"tma"`` when M % 4 == 0 and the operands start on 16-byte boundaries
+    (``aligned``), else ``"staged"``."""
+    return "tma" if aligned and M % 4 == 0 else "staged"
+
+
+def _routed(A: torch.Tensor, L: torch.Tensor, tma, staged) -> torch.Tensor:
+    A, L = A.contiguous(), L.contiguous()
+    aligned = A.data_ptr() % 16 == 0 and L.data_ptr() % 16 == 0
+    launcher = tma if tril_route(A.shape[-1], aligned) == "tma" else staged
+    return launcher(A, L)
+
 
 def tril_projection_plain(A, L):
     """Plain version of the kernel: A tril(L)^T, (..., N, M), (..., M, M)."""
     return A @ torch.tril(L).mT
 
 
-def _launch_tril(wrapper, entry: str, A: torch.Tensor,
-                 L: torch.Tensor) -> torch.Tensor:
-    """Check (A, L), launch the projection kernel ``entry`` and count the
-    launch on ``wrapper``."""
+def _tril_launch_args(wrapper, A: torch.Tensor, L: torch.Tensor):
+    """Check (A, L) for the projection launcher ``wrapper``; return the
+    contiguous operands, the output, and whether the three are 16-byte
+    aligned with M % 4 == 0."""
     name = wrapper.__name__
     _check_launch_inputs(name, (A, L))
     if A.ndim != 3 or L.ndim != 3 or L.shape != (A.shape[0], A.shape[2],
@@ -200,33 +234,72 @@ def _launch_tril(wrapper, entry: str, A: torch.Tensor,
         raise ValueError(f"shape out of the kernel's range: Q={Q}, N={N}, "
                          f"M={M} (Q <= 65535)")
     out = torch.empty((Q, N, M), dtype=torch.float32, device=A.device)
-    if out.numel() == 0:
-        return out
     A = A.contiguous()
     L = L.contiguous()
     aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (A, L, out))
+    return A, L, out, aligned
+
+
+def _launch(wrapper, entry: str, A, L, out, *extra) -> torch.Tensor:
+    """Launch the projection kernel ``entry`` on the current stream and
+    count the launch on ``wrapper``."""
+    Q, N, M = A.shape
     lib = _library()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = getattr(lib, entry)(A.data_ptr(), L.data_ptr(), out.data_ptr(),
-                                  Q, N, M, int(aligned), stream)
-    _raise_on(err, name)
+                                  *extra, Q, N, M, stream)
+    _raise_on(err, wrapper.__name__)
     wrapper.launches += 1
     return out
+
+
+def _require_tma(wrapper, aligned: bool, M: int) -> None:
+    if tril_route(M, aligned) != "tma":
+        raise ValueError(
+            f"{wrapper.__name__} takes M % 4 == 0 and 16-byte-aligned "
+            f"operands (got M={M}); tril_route sends other shapes to the "
+            "staged kernel")
+
+
+def tril_projection_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """Kernel A's TMA-fed design (``hetmogp_tril_proj_f32``): A tril(L)^T in
+    full float32 for M % 4 == 0 and 16-byte-aligned operands.  Counts its
+    launches in ``tril_projection_tma.launches``."""
+    A, L, out, aligned = _tril_launch_args(tril_projection_tma, A, L)
+    if out.numel() == 0:
+        return out
+    _require_tma(tril_projection_tma, aligned, A.shape[-1])
+    return _launch(tril_projection_tma, "hetmogp_tril_proj_f32", A, L, out)
+
+
+tril_projection_tma.launches = 0
+
+
+def tril_projection_staged(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """Kernel A's register-staged design (``hetmogp_tril_proj_staged_f32``),
+    for any shape.  Counts its launches in
+    ``tril_projection_staged.launches``."""
+    A, L, out, aligned = _tril_launch_args(tril_projection_staged, A, L)
+    if out.numel() == 0:
+        return out
+    return _launch(tril_projection_staged, "hetmogp_tril_proj_staged_f32", A,
+                   L, out, int(aligned))
+
+
+tril_projection_staged.launches = 0
 
 
 def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] on the card.
 
     A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
-    upper entries are not read.  Full float32 (no TF32).  Launches on the
-    current stream and does not synchronise.  ``tril_projection.launches``
-    counts the launches.
+    upper entries are not read.  Full float32 (no TF32): one FMA chain per
+    output in increasing m.  Routed by ``tril_route`` to
+    ``tril_projection_tma`` or ``tril_projection_staged``; launches on the
+    current stream and does not synchronise.
     """
-    return _launch_tril(tril_projection, "hetmogp_tril_proj_f32", A, L)
-
-
-tril_projection.launches = 0
+    return _routed(A, L, tril_projection_tma, tril_projection_staged)
 
 
 def _backward_tril(ctx, g):
@@ -238,8 +311,8 @@ def _backward_tril(ctx, g):
 
 
 class TrilProjection(torch.autograd.Function):
-    """A tril(L)^T on the card with a gradient: the kernel forward; the
-    backward dA = g tril(L), dL = tril(g^T A) as plain matmuls."""
+    """A tril(L)^T on the card with a gradient: the routed kernel forward;
+    the backward dA = g tril(L), dL = tril(g^T A) as plain matmuls."""
 
     @staticmethod
     def forward(ctx, A, L):
@@ -259,6 +332,21 @@ def split_bf16(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def bf16_row(M: int) -> int:
+    """Row length of the split L's bf16 scratch: M rounded up to 8, so that
+    rows are 16-byte multiples (TMA's stride rule)."""
+    return -(-M // 8) * 8
+
+
+def tril_split_bf16_plain(L: torch.Tensor):
+    """Plain version of kernel 3's pre-pass: (hi, lo) of ``split_bf16(
+    tril(L))`` as bf16 (Q, M, bf16_row(M)) arrays, the pad columns zero."""
+    M = L.shape[-1]
+    pad = (0, bf16_row(M) - M)
+    return tuple(torch.nn.functional.pad(h, pad).to(torch.bfloat16)
+                 for h in split_bf16(torch.tril(L)))
+
+
 def tril_projection_3pass_plain(A, L):
     """Plain version of the 3-pass kernel: A tril(L)^T as three float32
     matmuls of bf16-exact operands, (alo lhi^T + ahi llo^T) + ahi lhi^T,
@@ -272,34 +360,67 @@ def tril_projection_3pass_plain(A, L):
     return (alo @ lhi.mT + ahi @ llo.mT) + ahi @ lhi.mT
 
 
+def tril_projection_3pass_tma(A: torch.Tensor,
+                              L: torch.Tensor) -> torch.Tensor:
+    """Kernel 3's wgmma and TMA design (``hetmogp_tril_proj3_f32``) for
+    M % 4 == 0 and 16-byte-aligned operands.  Its pre-pass writes
+    ``tril_split_bf16_plain(L)`` into two scratch arrays taken with
+    ``torch.empty`` (from the graph's pool under capture).  Counts its
+    launches in ``tril_projection_3pass_tma.launches``."""
+    A, L, out, aligned = _tril_launch_args(tril_projection_3pass_tma, A, L)
+    if out.numel() == 0:
+        return out
+    Q, _, M = A.shape
+    _require_tma(tril_projection_3pass_tma, aligned, M)
+    lhi, llo = (torch.empty((Q, M, bf16_row(M)), dtype=torch.bfloat16,
+                            device=A.device) for _ in range(2))
+    return _launch(tril_projection_3pass_tma, "hetmogp_tril_proj3_f32", A, L,
+                   out, lhi.data_ptr(), llo.data_ptr())
+
+
+tril_projection_3pass_tma.launches = 0
+
+
+def tril_projection_3pass_staged(A: torch.Tensor,
+                                 L: torch.Tensor) -> torch.Tensor:
+    """Kernel 3's register-staged mma.sync design
+    (``hetmogp_tril_proj3_staged_f32``), for any shape.  Counts its
+    launches in ``tril_projection_3pass_staged.launches``."""
+    A, L, out, aligned = _tril_launch_args(tril_projection_3pass_staged, A, L)
+    if out.numel() == 0:
+        return out
+    return _launch(tril_projection_3pass_staged,
+                   "hetmogp_tril_proj3_staged_f32", A, L, out, int(aligned))
+
+
+tril_projection_3pass_staged.launches = 0
+
+
 def tril_projection_3pass(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] on the card's
-    tensor cores, as hi*lo + lo*hi + hi*hi bf16 products of the bit-mask
+    tensor cores, as lo*hi + hi*lo + hi*hi bf16 products of the bit-mask
     split with float32 accumulation (``ve_fwd_precision="high"``).
 
     A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
-    upper entries are not read.  Launches on the current stream and does
-    not synchronise.  ``tril_projection_3pass.launches`` counts the
-    launches.
+    upper entries are not read.  Routed by ``tril_route`` to
+    ``tril_projection_3pass_tma`` or ``tril_projection_3pass_staged``;
+    launches on the current stream and does not synchronise.
     """
-    return _launch_tril(tril_projection_3pass, "hetmogp_tril_proj3_f32", A,
-                        L)
-
-
-tril_projection_3pass.launches = 0
+    return _routed(A, L, tril_projection_3pass_tma,
+                   tril_projection_3pass_staged)
 
 
 class TrilProjection3Pass(torch.autograd.Function):
-    """A tril(L)^T in three bf16 passes with a gradient: the 3-pass kernel
-    forward on CUDA tensors (its plain version on CPU tensors, or where
-    ``use_kernel`` is False), and ``TrilProjection``'s plain float32
-    backward."""
+    """A tril(L)^T in three bf16 passes with a gradient: the routed 3-pass
+    kernel forward (its plain version where ``use_kernel`` is False, as
+    dispatch passes it for CPU tensors), and ``TrilProjection``'s plain
+    float32 backward."""
 
     @staticmethod
     def forward(ctx, A, L, use_kernel=True):
         ctx.save_for_backward(A, L)
-        fwd = (tril_projection_3pass if use_kernel and A.is_cuda
-               else tril_projection_3pass_plain)
+        fwd = tril_projection_3pass if use_kernel else \
+            tril_projection_3pass_plain
         return fwd(A.detach(), L.detach())
 
     @staticmethod
@@ -307,17 +428,19 @@ class TrilProjection3Pass(torch.autograd.Function):
         return (*_backward_tril(ctx, g), None)
 
 
+_LAUNCHERS = (rbf_K_batched, tril_projection_tma, tril_projection_staged,
+              tril_projection_3pass_tma, tril_projection_3pass_staged)
+
+
 def launch_counts() -> dict:
-    """Every kernel's launch count, and the RBF backward passes."""
-    return {"rbf_K_batched": rbf_K_batched.launches,
-            "tril_projection": tril_projection.launches,
-            "tril_projection_3pass": tril_projection_3pass.launches,
-            "rbf_backward": RBFCrossCovariance.backwards}
+    """Every kernel launcher's launch count, and the RBF backward passes."""
+    counts = {f.__name__: f.launches for f in _LAUNCHERS}
+    counts["rbf_backward"] = RBFCrossCovariance.backwards
+    return counts
 
 
 def zero_launch_counts() -> None:
     """Set every count of ``launch_counts`` to 0."""
-    rbf_K_batched.launches = 0
-    tril_projection.launches = 0
-    tril_projection_3pass.launches = 0
+    for f in _LAUNCHERS:
+        f.launches = 0
     RBFCrossCovariance.backwards = 0

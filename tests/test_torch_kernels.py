@@ -129,11 +129,12 @@ def test_build_is_keyed_by_the_sources(monkeypatch, tmp_path):
     assert path.parent.parts[-2:] == ("build", "hetmogp_tpu_torch")
     assert path == _build.library_path()
     for name in ("rbf_kernel.cu", "tril_proj_kernel.cu",
-                 "tril_proj3_kernel.cu"):
+                 "tril_proj3_kernel.cu", "tril_tma.cuh"):
         assert (_build.CSRC / name).is_file()
-        # an edit to any source gives another library
+        # an edit to any source, or to the header two of them include,
+        # gives another library
         src = tmp_path / name
-        for f in _build.CSRC.glob("*.cu"):
+        for f in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
             (tmp_path / f.name).write_bytes(f.read_bytes())
         monkeypatch.setattr(_build, "CSRC", tmp_path)
         assert _build.library_path() == path
@@ -185,8 +186,7 @@ def test_cpu_tensors_take_the_plain_projection():
     A, L = _tri()
     got = linalg.matmul_tril_t(A, L)
     assert not cuda_dispatch.use_tril_kernel(A)
-    assert cuda_kernels.tril_projection.launches == 0
-    assert cuda_kernels.rbf_K_batched.launches == 0
+    assert not any(cuda_kernels.launch_counts().values())
     torch.testing.assert_close(got, cuda_kernels.tril_projection_plain(A, L),
                                rtol=0, atol=0)
 
@@ -194,9 +194,12 @@ def test_cpu_tensors_take_the_plain_projection():
 @pytest.mark.parametrize("dtype,err", [(np.float32, ValueError),
                                        (np.float64, TypeError)])
 def test_projection_wrapper_refuses_cpu_and_non_f32(dtype, err):
-    with pytest.raises(err):
-        cuda_kernels.tril_projection(*_tri(dtype))
-    assert cuda_kernels.tril_projection.launches == 0
+    for launcher in (cuda_kernels.tril_projection,
+                     cuda_kernels.tril_projection_tma,
+                     cuda_kernels.tril_projection_staged):
+        with pytest.raises(err):
+            launcher(*_tri(dtype))
+    assert not any(cuda_kernels.launch_counts().values())
 
 
 def test_projection_wrapper_refuses_grad():

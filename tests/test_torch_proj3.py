@@ -156,11 +156,14 @@ def test_3pass_gradient_is_the_projection_gradient():
                                        (np.float64, TypeError)])
 def test_3pass_launcher_refuses_cpu_and_non_f32(dtype, err):
     A, L = (torch.from_numpy(a) for a in _tri_inputs(1, 8, 8, dtype=dtype))
-    with pytest.raises(err):
-        cuda_kernels.tril_projection_3pass(A, L)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        cuda_kernels.tril_projection_3pass(A, L.requires_grad_())
-    assert cuda_kernels.tril_projection_3pass.launches == 0
+    for launcher in (cuda_kernels.tril_projection_3pass,
+                     cuda_kernels.tril_projection_3pass_tma,
+                     cuda_kernels.tril_projection_3pass_staged):
+        with pytest.raises(err):
+            launcher(A, L)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            launcher(A, L.clone().requires_grad_())
+    assert not any(cuda_kernels.launch_counts().values())
     if dtype == np.float64:
         with pytest.raises(TypeError, match="float32"):
             cuda_kernels.tril_projection_3pass_plain(A, L.detach())

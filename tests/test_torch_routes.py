@@ -1,0 +1,167 @@
+"""The triangular projection's two routes per precision on the card: the
+TMA-fed kernels (``csrc/tril_proj_kernel.cu`` and ``tril_proj3_kernel.cu``,
+sharing ``csrc/tril_tma.cuh``) where TMA can address the operands, the
+register-staged kernels elsewhere.
+
+The kernels run only on the card.  Here: the shape router, the launch
+counters of every route, the autograd.Functions going through the router
+(with the launchers swapped for recording plain versions), and the plain
+version of kernel 3's L pre-pass against the JAX package's bit-mask split
+(``tools/probe_pallas_proj.py:pallas_proj2``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hetmogp_tpu_torch.ops import cuda_kernels, linalg
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("M,aligned,route", [
+    (1024, True, "tma"),     # the main path: trainer, VM step and serving
+    (1000, True, "tma"),     # M % 4 == 0, not a multiple of the tile
+    (4, True, "tma"),
+    (777, True, "staged"),   # chip_smoke's ragged case
+    (1022, True, "staged"),  # rows not a multiple of 16 bytes
+    (7, True, "staged"),
+    (1024, False, "staged"),  # an unaligned base
+])
+def test_tril_route_picks_by_shape(M, aligned, route):
+    assert cuda_kernels.tril_route(M, aligned) == route
+
+
+def _inputs(Q, N, M, offset=0, seed=0):
+    """float32 (A, L); ``offset`` floats into a buffer shifts A's base off
+    16-byte alignment while keeping it contiguous."""
+    rng = np.random.RandomState(seed)
+    buf = torch.empty(offset + Q * N * M)  # 64-byte aligned
+    A = buf[offset:].view(Q, N, M)
+    A.copy_(torch.from_numpy(rng.randn(Q, N, M).astype(np.float32)))
+    assert (A.data_ptr() % 16 == 0) == (offset % 4 == 0)
+    L = torch.from_numpy((np.tril(rng.randn(Q, M, M)) / np.sqrt(M)
+                          + 2.0 * np.eye(M)).astype(np.float32))
+    return A, L
+
+
+def _recorders(monkeypatch, names, plain):
+    """Swap the launchers ``names`` for the plain version, recording which
+    one each call reached."""
+    calls = []
+    for name in names:
+        def launcher(A, L, name=name):
+            calls.append(name)
+            return plain(A, L)
+        launcher.__name__ = name
+        monkeypatch.setattr(cuda_kernels, name, launcher)
+    return calls
+
+
+ROUTE_CASES = [((2, 40, 64, 0), "tma"), ((2, 40, 77, 0), "staged"),
+               ((2, 40, 64, 1), "staged")]
+
+
+@pytest.mark.parametrize("case,route", ROUTE_CASES,
+                         ids=["aligned", "ragged-M", "unaligned-base"])
+def test_projection_router_reaches_the_launcher_of_the_route(
+        monkeypatch, case, route):
+    A, L = _inputs(*case)
+    calls = _recorders(monkeypatch, ("tril_projection_tma",
+                                     "tril_projection_staged"),
+                       cuda_kernels.tril_projection_plain)
+    got = cuda_kernels.tril_projection(A, L)
+    assert calls == [f"tril_projection_{route}"]
+    assert torch.equal(got, cuda_kernels.tril_projection_plain(A, L))
+
+
+@pytest.mark.parametrize("case,route", ROUTE_CASES,
+                         ids=["aligned", "ragged-M", "unaligned-base"])
+def test_3pass_function_goes_through_the_router(monkeypatch, case, route):
+    """TrilProjection3Pass with the kernel asked for: its forward is the
+    routed launcher's, its gradient the full float32 product's (rtol 1e-6,
+    as test_torch_proj3.py), and the dispatch of a CPU tensor still takes
+    the plain version without reaching the router."""
+    A, L = _inputs(*case)
+    calls = _recorders(monkeypatch, ("tril_projection_3pass_tma",
+                                     "tril_projection_3pass_staged"),
+                       cuda_kernels.tril_projection_3pass_plain)
+    # detach() keeps the storage, and so A's alignment
+    a, l = A.detach().requires_grad_(), L.detach().requires_grad_()
+    out = cuda_kernels.TrilProjection3Pass.apply(a, l, True)
+    assert calls == [f"tril_projection_3pass_{route}"]
+    assert torch.equal(out.detach(),
+                       cuda_kernels.tril_projection_3pass_plain(A, L))
+    g = torch.from_numpy(np.random.RandomState(5).randn(*A.shape).astype(
+        np.float32))
+    got = torch.autograd.grad(out, (a, l), g)
+    a1, l1 = A.clone().requires_grad_(), L.clone().requires_grad_()
+    want = torch.autograd.grad(a1 @ torch.tril(l1).mT, (a1, l1), g)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+    linalg.matmul_tril_t(A, L, precision="high")
+    assert len(calls) == 1
+
+
+def test_projection_function_goes_through_the_router(monkeypatch):
+    A, L = _inputs(2, 30, 64)
+    calls = _recorders(monkeypatch, ("tril_projection_tma",
+                                     "tril_projection_staged"),
+                       cuda_kernels.tril_projection_plain)
+    a = A.double().requires_grad_()
+    out = cuda_kernels.TrilProjection.apply(a, L.double())
+    assert calls == ["tril_projection_tma"]
+    g = torch.ones_like(out)
+    (da,) = torch.autograd.grad(out, (a,), g)
+    torch.testing.assert_close(da, g @ torch.tril(L.double()), rtol=1e-12,
+                               atol=1e-12)
+
+
+LAUNCHERS = ("rbf_K_batched", "tril_projection_tma", "tril_projection_staged",
+             "tril_projection_3pass_tma", "tril_projection_3pass_staged")
+
+
+@pytest.mark.parametrize("name", LAUNCHERS)
+def test_every_route_has_a_launch_counter(monkeypatch, name):
+    launcher = getattr(cuda_kernels, name)
+    monkeypatch.setattr(launcher, "launches", 7)
+    counts = cuda_kernels.launch_counts()
+    assert set(counts) == {*LAUNCHERS, "rbf_backward"}
+    assert counts[name] == 7
+    cuda_kernels.zero_launch_counts()
+    assert launcher.launches == 0
+    assert not any(cuda_kernels.launch_counts().values())
+
+
+def _jax_split(X):
+    """The JAX package's split of float32 X, as ``pallas_proj2.split``
+    (``tools/probe_pallas_proj.py:135-140``) writes it: (hi, lo) as bf16
+    bit patterns (uint16)."""
+    bits = jax.lax.bitcast_convert_type(jnp.asarray(X), jnp.uint32)
+    hi = jax.lax.bitcast_convert_type(bits & jnp.uint32(0xFFFF0000),
+                                      jnp.float32)
+    lo = (jnp.asarray(X) - hi).astype(jnp.bfloat16)
+    return tuple(np.asarray(h).view(np.uint16)
+                 for h in (hi.astype(jnp.bfloat16), lo))
+
+
+@pytest.mark.parametrize("M", [64, 77])
+def test_split_prepass_plain_matches_the_jax_split(M):
+    """Kernel 3's pre-pass, plain: the same hi and lo bits as the JAX
+    package's split of tril(L), exact zeros above the diagonal and in the
+    pad columns (rows padded to a multiple of 8 bf16)."""
+    rng = np.random.RandomState(3)
+    L = (rng.randn(2, M, M) * np.logspace(-6, 6, M)).astype(np.float32)
+    hi, lo = cuda_kernels.tril_split_bf16_plain(torch.from_numpy(L))
+    Mp = cuda_kernels.bf16_row(M)
+    assert Mp % 8 == 0 and M <= Mp < M + 8
+    assert hi.shape == lo.shape == (2, M, Mp)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    want_hi, want_lo = _jax_split(np.tril(L))
+    for got, want in ((hi, want_hi), (lo, want_lo)):
+        bits = got.view(torch.int16).numpy().view(np.uint16)
+        np.testing.assert_array_equal(bits[..., :M], want)
+        assert not bits[..., M:].any()
+        assert not np.triu(bits[..., :M].astype(np.int64), 1).any()
