@@ -8,8 +8,11 @@ Run from the repository root, on a machine with one H100:
 It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
 ``build/hetmogp_tpu_torch/``) and, phase by phase:
 
-1. checks the RBF kernel against its plain PyTorch version and times both
-   at the trainer's VE and VM shapes and the serving chunk's;
+1. checks the RBF kernel, the vector design and the scalar one it
+   replaced (kept for ragged shapes), against its plain PyTorch version at
+   the main path's shapes, the projected path's and a ragged one, and times
+   both in turns with the plain version and an empty kernel at the
+   trainer's VE and VM shapes and the serving chunk's;
 2. checks the triangular projection kernel (kernel A, float32), the
    TMA-fed design and the register-staged one it replaced, against float64
    next to cuBLAS (bitwise equal to cuBLAS where the TMA route takes the
@@ -35,21 +38,36 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
       steps a call.  Ten graphed steps against ten eager steps and the
       plain versions in float32 and float64; a 1,500-step trajectory A/B
       of ``"high"`` against ``"highest"`` from one state and offset
-      stream; steps/s over five calls of 1,000 steps, for two trainers
-      of each precision in turns, with the launches counted from zero
+      stream; steps/s over three and five calls of 1,000 steps, for two
+      trainers of each precision in turns, with the launches counted from zero
       around each trainer's first call, the final ELBO, peak memory,
       capture time, the host's share of a call and a profile;
 6. serves the bench serving model at full width (2 chunks of 65536 rows
    per task) through the kernels, checks what it serves, times it and
    profiles it;
-7. serves the same model at 777 inducing points, which only the staged
-   kernels take, at both precisions, against the plain versions.
+7. runs the rest of the prediction API on the serving model at full
+   width: ``predict_latent_u`` and ``predict_f`` with full covariances and
+   ``sample_f`` on 4,096 rows, ``predict_f_projected_task`` from a
+   2,048-row anchor to 4,096 and 4,095 new rows (the vector and the
+   scalar RBF route), ``predictive`` on the solve path and
+   ``negative_log_predictive`` with 1,000 samples on 6 x 4,096 rows, each
+   against float64 and the plain route, with the launches counted from
+   zero around it;
+8. serves the same model at 777 inducing points, which only the staged
+   and scalar kernels take, at both precisions, against the plain
+   versions.
+
+They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b.  The serving pass is
+the process's first profiled call: as its sixth, after the trainers', the
+profiler lost one of its twelve requests' records (and a prediction is
+then the first to ask for each quadrature grid, as in a process that
+serves before it trains).  Phases 2 and 3 take the model's (Kfu, iLuu)
+from 5a.
 
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
 JSON (every kernel launcher, each route included); the last line is
-``{"ok": true, "device": {...}}``.  About four and a half minutes on one
-H100.
+``{"ok": true, "device": {...}}``.  About four minutes on one H100.
 """
 
 from __future__ import annotations
@@ -265,11 +283,19 @@ def device_times_ms(fn, reps=20, warmup=3):
     return times
 
 
-def kernel_phase(smi: str) -> dict:
-    from hetmogp_tpu_torch.ops import cuda_kernels
+# the RBF kernel's timed shapes: the VE step's Kfu (6 x 512 rows), the VM
+# step's (a quarter of them), a serving chunk's
+RBF_SHAPES = {"training": 6 * TRAIN_B, "VM": 6 * TRAIN_B // 4,
+              "serving": CHUNK}
+PROJECTED_ANCHOR, PROJECTED_NS = 2048, 4096  # the projected path's Kx
 
-    kern = cuda_kernels.rbf_K_batched
-    plain = cuda_kernels.rbf_K_batched_plain
+
+def kernel_phase(smi: str) -> list:
+    """The RBF kernel, both routes, against its plain version, and their
+    times in turns with the plain version and an empty kernel."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    plain = ck.rbf_K_batched_plain
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def inputs(q, n, m, dx, iso):
@@ -278,48 +304,87 @@ def kernel_phase(smi: str) -> dict:
         return (u(n, dx), u(q, m, dx), 0.2 + 0.1 * u(q, 1 if iso else dx),
                 0.5 + u(q))
 
-    cases = {"serving (4, 65536, 1024, Dx=2, ARD)": (Q, CHUNK, M, DX, False),
-             "isotropic (4, 5000, 1000, Dx=3)": (4, 5000, 1000, 3, True),
-             "ragged (3, 13, 7, Dx=1)": (3, 13, 7, 1, False)}
-    errs = {}
+    proj = f"(4, {PROJECTED_ANCHOR}, "
+    # the main path's three shapes (on an H100's 132 SMs a block of the
+    # vector kernel gets 24 rows at the VE shape: the unrolled loop only; 6
+    # at the VM shape: the tail loop only; 497 at the serving shape: both),
+    # then the other routes'
+    cases = {f"{name} (4, {rows}, 1024, Dx=2, ARD)": (Q, rows, M, DX, False)
+             for name, rows in RBF_SHAPES.items()}
+    cases.update({
+        "isotropic (4, 5000, 1000, Dx=3)": (4, 5000, 1000, 3, True),
+        "ragged (3, 13, 7, Dx=1)": (3, 13, 7, 1, False),
+        f"projected {proj}{PROJECTED_NS}, Dx=2)":
+            (Q, PROJECTED_ANCHOR, PROJECTED_NS, DX, False),
+        f"projected, odd Ns {proj}{PROJECTED_NS - 1}, Dx=2)":
+            (Q, PROJECTED_ANCHOR, PROJECTED_NS - 1, DX, False)})
+    errs = {"vec": {}, "scalar": {}}
     for name, shape in cases.items():
         args = inputs(*shape)
-        got, want = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        errs[name] = err
-        print(f"kernel vs plain, {name}: max_abs_err {err:.3e} "
-              f"(atol {KERNEL_ATOL:g}) [card: {smi}]")
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"kernel disagrees with plain: {name}")
-    # the trainer's shapes (a VE step's 6 x 512 rows, a VM step's quarter of
-    # them) and the serving chunk, each in turns, plain, kernel, kernel, plain
+        want = plain(*args)
+        routed = ck.rbf_route(shape[2], shape[3], True)
+        # the scalar kernel takes every shape; the vector kernel its own
+        kernels = {"scalar": ck.rbf_K_batched_scalar}
+        if routed == "vec":
+            kernels["vec"] = ck.rbf_K_batched_vec
+        before = ck.launch_counts()
+        via_router = ck.rbf_K_batched(*args)
+        took = {k: v - before[k] for k, v in ck.launch_counts().items() if
+                v != before[k]}
+        if took != {f"rbf_K_batched_{routed}": 1}:
+            raise AssertionError(f"{name}: routed to {took}, not {routed}")
+        for route, kern in kernels.items():
+            got = kern(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs[route][name] = err
+            same = bool(torch.equal(got, via_router))
+            print(f"rbf kernel ({route}) vs plain, {name}: max_abs_err "
+                  f"{err:.3e} (atol {KERNEL_ATOL:g}); the router takes "
+                  f"{routed}; bitwise equal to the routed kernel {same} "
+                  f"[card: {smi}]")
+            if not err <= KERNEL_ATOL:
+                raise AssertionError(f"rbf kernel ({route}) disagrees with "
+                                     f"plain: {name}")
+            # one reciprocal, one sum order: the routes agree to the bit
+            if not same:
+                raise AssertionError(f"rbf routes disagree: {name}")
+        del want, via_router, got
+    # what any launch costs on the device: the floor under the small shapes
+    floor = statistics.median(device_times_ms(ck.empty_launch, reps=40))
+    print(f"empty kernel: {floor:.4f} ms, median of 40 launches behind the "
+          f"device sleep [card: {smi}]")
     times = {}
-    for name, rows in (("training", 6 * TRAIN_B), ("VM", 6 * TRAIN_B // 4),
-                       ("serving", CHUNK)):
+    for name, rows in RBF_SHAPES.items():
         args = inputs(Q, rows, M, DX, False)
-        p1, k1, k2, p2 = (device_times_ms(lambda f=f: f(*args))
-                          for f in (plain, kern, kern, plain))
-        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        t, n = time_in_turns({"plain": plain,
+                              "scalar": ck.rbf_K_batched_scalar,
+                              "vec": ck.rbf_K_batched_vec}, *args)
         out_bytes = Q * rows * M * 4
         # each input read once, the output written once; exp and ~3 Dx + 2
         # float32 operations per output element
         nbytes = sum(a.numel() * 4 for a in args) + out_bytes
         bound = bound_ms(nbytes, Q * rows * M * (3 * DX + 3), F32_PEAK)
-        times[name] = (ms, plain_ms, bound)
-        print(f"rbf kernel time, {name} (4, {rows}, 1024): {ms:.4f} ms "
-              f"({out_bytes / (ms * 1e-3) / 1e12:.3f} TB/s of output), plain "
-              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
-              f"{bound[0] / ms * 100:.1f}% of it); no single PyTorch call "
-              f"computes it; median of {len(k1 + k2)} calls each "
-              f"[card: {smi}]")
-    ms, plain_ms, bound = times["training"]
-    return {"name": "rbf_cross_covariance", "route": "cuda",
-            "source": "hetmogp_tpu_torch/csrc/rbf_kernel.cu",
-            "replaces": "hetmogp_tpu/ops/pallas_kernels.py:43",
-            "max_abs_err": errs["serving (4, 65536, 1024, Dx=2, ARD)"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None}
+        times[name] = t, bound
+        new, old = t["vec"], t["scalar"]
+        print(f"rbf kernel time, {name} (4, {rows}, 1024): vec {new:.4f} ms "
+              f"({out_bytes / (new * 1e-3) / 1e12:.3f} TB/s of output, "
+              f"{bound[0] / new * 100:.1f}% of the bound), first design "
+              f"(scalar) {old:.4f} ms ({out_bytes / (old * 1e-3) / 1e12:.3f} "
+              f"TB/s, {bound[0] / old * 100:.1f}%), plain {t['plain']:.4f} "
+              f"ms; bound {bound[0]:.4f} ms ({bound[1]}); empty kernel "
+              f"{floor:.4f} ms; no single PyTorch call computes it; median "
+              f"of {n} calls each [card: {smi}]")
+    # the entry's time and its error are of one shape: the VE step's
+    t, bound = times["training"]
+    training = f"training (4, {RBF_SHAPES['training']}, 1024, Dx=2, ARD)"
+    return [{"name": f"rbf_K_batched_{route}", "route": "cuda",
+             "source": "hetmogp_tpu_torch/csrc/rbf_kernel.cu",
+             "replaces": "hetmogp_tpu/ops/pallas_kernels.py:43",
+             "max_abs_err": errs[route][training], "ms": t[route],
+             "plain_ms": t["plain"], "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": None}
+            for route in ("vec", "scalar")]
 
 
 def random_projection_case(gen, q, n, m):
@@ -338,13 +403,13 @@ PROJ_SHAPES = {"training (4, 3072, 1024)": (Q, 6 * TRAIN_B, M),
                "serving (4, 65536, 1024)": (Q, CHUNK, M)}
 
 
-def time_in_turns(fns: dict, A, L):
-    """Median device ms of each of ``fns`` on (A, L), timed in turns there
-    and back (the order of ``fns``, then reversed)."""
+def time_in_turns(fns: dict, *args):
+    """Median device ms of each of ``fns`` on ``args``, timed in turns
+    there and back (the order of ``fns``, then reversed)."""
     samples = {k: [] for k in fns}
     order = list(fns.items())
     for k, f in order + order[::-1]:
-        samples[k] += device_times_ms(lambda f=f: f(A, L))
+        samples[k] += device_times_ms(lambda f=f: f(*args))
     return ({k: statistics.median(v) for k, v in samples.items()},
             len(samples[order[0][0]]))
 
@@ -604,7 +669,8 @@ def _counts():
 
     c = ck.launch_counts()
     return (c["tril_projection_tma"] + c["tril_projection_staged"],
-            c["rbf_K_batched"], c["rbf_backward"])
+            c["rbf_K_batched_vec"] + c["rbf_K_batched_scalar"],
+            c["rbf_backward"])
 
 
 def _zero_counts():
@@ -897,7 +963,8 @@ def trajectory_ab_phase(smi: str):
 
 
 # kernel symbol -> launcher name: what a graphed call's profile must show
-_SYMBOLS = {"rbf_cross_kernel": "rbf_K_batched",
+_SYMBOLS = {"rbf_cross_vec_kernel": "rbf_K_batched_vec",
+            "rbf_cross_kernel": "rbf_K_batched_scalar",
             "tril_proj_tma_kernel": "tril_projection_tma",
             "tril_proj_kernel": "tril_projection_staged",
             "tril_proj3_tma_kernel": "tril_projection_3pass_tma",
@@ -916,10 +983,11 @@ def own_kernel_rows(rows: dict) -> dict:
     return out
 
 
-def graphed_trainer_phase(smi: str, precision: str):
+def graphed_trainer_phase(smi: str, precision: str,
+                          timed_calls=GRAPH_CALLS):
     """The main path at ``precision``: a fresh make_scan_trainer with the
     launch counts from 0 around its first call (capture and 1,000 steps),
-    steps/s over GRAPH_CALLS timed calls, the ELBO, peak memory, and a
+    steps/s over ``timed_calls`` calls, the ELBO, peak memory, and a
     profile of a PROFILE_STEPS-step call of the same graphs.  Returns the
     launch counts of the first call and the kernel launches its replays
     made."""
@@ -950,12 +1018,14 @@ def graphed_trainer_phase(smi: str, precision: str):
           f"{run.replays}; kernel launches by the replays {replayed} "
           f"[card: {smi}]")
     n_vm = run.replays["vm"]
-    want = {"rbf_K_batched": GRAPH_CALL_STEPS, "rbf_backward": n_vm,
+    want = {"rbf_K_batched_vec": GRAPH_CALL_STEPS, "rbf_backward": n_vm,
+            "rbf_K_batched_scalar": 0,
             "tril_projection_tma": (n_vm if precision == "high"
                                     else GRAPH_CALL_STEPS),
             "tril_projection_3pass_tma": (GRAPH_CALL_STEPS - n_vm
                                           if precision == "high" else 0),
-            # M = 1024 is aligned: the staged kernels never run here
+            # M = 1024 is aligned: the staged and scalar kernels never run
+            # here
             "tril_projection_staged": 0, "tril_projection_3pass_staged": 0}
     if replayed != want or any(counts[k] < 1 for k in want if want[k]):
         raise AssertionError(f"the graphs did not run the kernels: {replayed}"
@@ -963,7 +1033,7 @@ def graphed_trainer_phase(smi: str, precision: str):
 
     calls, rates, host = [first], [], []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(GRAPH_CALLS):
+    for _ in range(timed_calls):
         t0 = time.perf_counter()
         state, e = run(state, dataset, gen)
         t1 = time.perf_counter()  # the host has enqueued every replay
@@ -1108,6 +1178,177 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q):
                   f"{ms:.3f} ms, {ms / calls:.4f} ms a call [card: {smi}]")
 
 
+# The prediction entries at full width, each against the same call in
+# float64 and with the plain versions (use_kernel=False), normwise.
+# Marginal moments and means: the serving path's bounds and reasons (Kfu's
+# rounding through a factor with entries ~1e2; float32 projection ~2.3e-4
+# and a digit of cancellation).  Full covariances the same, over max|cov|:
+# Kxx + (P Lq)(P Lq)^T - P P^T cancels as the marginal variance does.
+# Samples mu + eps L^T: L factorizes a covariance that is singular to
+# float32, so its last pivots sit at the adaptive jitter level and single
+# samples are not comparable across precisions.  What is: the covariance
+# L L^T that the sampler draws with (identity draws return L^T), against
+# the float64 sampler's.  jitchol adds at most mean(diag) * 1e-2 (its
+# fifth level) to a diagonal of order max|cov|, on top of the full
+# covariance's own error: 2e-2 on both sides.  The projected path solves
+# against the (N, N) prior Gram of the anchor at the config's jitter 1e-4,
+# ill-conditioned beyond float32; but the solve's error lies in the
+# directions of the small eigenvalues, which Kx damps again, so its mean
+# and variance hold the served moments' bound, 1e-2, on both sides.  NLPD
+# sums 24,576 logsumexp rows of the marginal moments, whose errors average
+# out: 1e-3 relative.
+PRED_ROWS = 4096
+PRED_SAMPLES = 1000
+SAMPLE_COV_BOUND = 2e-2
+PROJECTED_BOUND = 1e-2
+NLPD_BOUND = 1e-3
+
+
+def prediction_phase(smi: str):
+    """The rest of the prediction API on the serving model at full width:
+    every entry runs through the RBF kernel (the counts say which route),
+    is checked against float64 and the plain route, and is timed."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    cfg, params, X = serving_model()
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    params64 = params.to(dtype=torch.float64)
+    Xs = X[:PRED_ROWS]
+    anchor = X[CHUNK:CHUNK + PROJECTED_ANCHOR]
+    rng = np.random.RandomState(SEED + 7)
+    n = PRED_ROWS
+    Y = [rng.randn(n, 1), (rng.rand(n, 1) > 0.5).astype(float),
+         rng.randint(1, 4, (n, 1)).astype(float),
+         rng.poisson(3.0, (n, 1)).astype(float),
+         rng.gamma(2.0, 1.0, (n, 1)) + 1e-3,
+         rng.exponential(1.0, (n, 1)) + 1e-3]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    eps_nlpd = [torch.randn(n, PRED_SAMPLES, lik.dim_f, generator=gen,
+                            device="cuda") for lik in cfg.likelihoods]
+    X_tasks = [Xs] * cfg.num_tasks
+
+    def run(what, call, bounds, route="rbf_K_batched_vec", check=None):
+        """``call(params, cfg, X-cast, **kw)`` with the kernels (timed, the
+        counts from 0), with the plain versions, and in float64."""
+        call(params, cfg, lambda x: x)  # warm: allocator, cuSOLVER handles
+        torch.cuda.synchronize()
+        ck.zero_launch_counts()
+        t0 = time.perf_counter()
+        got = call(params, cfg, lambda x: x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
+        ref32 = call(params, cfg, lambda x: x, use_kernel=False)
+        ref64 = call(params64, cfg64, lambda x: x.double(), use_kernel=False)
+        worst32 = max(normwise(a, b) for a, b in zip(got, ref32))
+        worst64 = max(normwise(a, b) for a, b in zip(got, ref64))
+        print(f"prediction, {what}: {ms:.3f} ms; launches {counts}; worst "
+              f"normwise error vs the plain route {worst32:.3e} (bound "
+              f"{bounds[0]:g}), vs float64 {worst64:.3e} (bound "
+              f"{bounds[1]:g}) [card: {smi}]")
+        if not all(bool(torch.isfinite(a).all()) for a in got):
+            raise AssertionError(f"{what}: non-finite")
+        if counts.get(route, 0) < 1:
+            raise AssertionError(f"{what} did not run {route}: {counts}")
+        if not (worst32 <= bounds[0] and worst64 <= bounds[1]):
+            raise AssertionError(f"{what} out of bounds")
+        if check is not None:
+            check(got)
+        return got
+
+    serve_bounds = (PLAIN_F32_BOUND, F64_BOUND)
+
+    def variances_ok(variances):
+        if not all(bool((v >= 0).all()) for v in variances):
+            raise AssertionError("negative variance")
+
+    mean_u, var_u = run(
+        f"predict_latent_u ({PRED_ROWS} rows)",
+        lambda p, c, cast, **kw: tp.predict_latent_u(p, c, cast(Xs), **kw),
+        serve_bounds)
+
+    def diag_is_marginal(what, cov, var):
+        d = torch.diagonal(cov, dim1=-2, dim2=-1)
+        err = normwise(d, var)
+        print(f"  {what}: diag(full cov) vs the marginal variance "
+              f"{err:.3e} (bound {PLAIN_F32_BOUND:g}); min diag "
+              f"{float(d.min()):.3e}; max asymmetry "
+              f"{float((cov - cov.mT).abs().max()):.3e} [card: {smi}]")
+        if not err <= PLAIN_F32_BOUND:
+            raise AssertionError(f"{what}: diag(cov) is not the variance")
+
+    run(f"predict_latent_u (full_cov, {PRED_ROWS} rows)",
+        lambda p, c, cast, **kw: tp.predict_latent_u(p, c, cast(Xs),
+                                                     full_cov=True, **kw),
+        serve_bounds,
+        check=lambda got: diag_is_marginal("latent u", got[1], var_u.mT))
+    d = 2  # Bernoulli's function
+    _, var_f = tp.predict_f(params, cfg, Xs, d)
+    if not bool((var_f >= 0).all() and (var_u >= 0).all()):
+        raise AssertionError("negative marginal variance")
+    run(f"predict_f (full_cov, {PRED_ROWS} rows)",
+        lambda p, c, cast, **kw: tp.predict_f(p, c, cast(Xs), d,
+                                              full_cov=True, **kw),
+        serve_bounds,
+        check=lambda got: diag_is_marginal("f_d", got[1], var_f))
+    eye = torch.eye(PRED_ROWS, device="cuda")
+
+    def sampler_cov(p, c, cast, **kw):
+        """L L^T of the factor sample_f draws with: identity draws give
+        S - mu = L^T."""
+        S = tp.sample_f(p, c, None, cast(Xs), d, num_samples=PRED_ROWS,
+                        eps=cast(eye), **kw)
+        Lt = S - tp.predict_f(p, c, cast(Xs), d, **kw)[0][None]
+        return (Lt.mT @ Lt,)
+
+    run(f"sample_f (identity draws, {PRED_ROWS} rows: the sampler's "
+        "covariance)", sampler_cov, (SAMPLE_COV_BOUND, SAMPLE_COV_BOUND))
+    del eye
+    t0 = time.perf_counter()
+    drawn = tp.sample_f(params, cfg, gen, Xs, d, num_samples=8)
+    torch.cuda.synchronize()
+    print(f"prediction, sample_f (8 samples from a generator, {PRED_ROWS} "
+          f"rows): {(time.perf_counter() - t0) * 1e3:.3f} ms; sample "
+          f"standard deviation over rows {float(drawn.std(dim=1).mean()):.4f}"
+          f" [card: {smi}]")
+    if not (drawn.shape == (8, PRED_ROWS) and bool(torch.isfinite(
+            drawn).all())):
+        raise AssertionError("sample_f from a generator: bad samples")
+
+    for ns, route in ((PROJECTED_NS, "rbf_K_batched_vec"),
+                      (PROJECTED_NS - 1, "rbf_K_batched_scalar")):
+        run(f"predict_f_projected_task (anchor {PROJECTED_ANCHOR}, Ns {ns})",
+            lambda p, c, cast, **kw: tp.predict_f_projected_task(
+                p, c, [cast(anchor)], cast(X[:ns]), 0, **kw),
+            (PROJECTED_BOUND, PROJECTED_BOUND), route=route,
+            check=lambda got: variances_ok(got[1:]))
+
+    def flat(pair):
+        return [t for part in pair for t in part]
+
+    run(f"predictive (solve path, {cfg.num_tasks} x {PRED_ROWS} rows)",
+        lambda p, c, cast, **kw: flat(tp.predictive(
+            p, c, [cast(x) for x in X_tasks], **kw)),
+        serve_bounds,
+        check=lambda got: variances_ok(got[cfg.num_tasks:]))
+    run(f"negative_log_predictive ({PRED_SAMPLES} samples, "
+        f"{cfg.num_tasks} x {PRED_ROWS} rows)",
+        lambda p, c, cast, **kw: (tp.negative_log_predictive(
+            p, c, None, [cast(x) for x in X_tasks], Y,
+            num_samples=PRED_SAMPLES, eps=[cast(e) for e in eps_nlpd],
+            **kw),),
+        (NLPD_BOUND, NLPD_BOUND))
+    nlpd = tp.negative_log_predictive(params, cfg, gen, X_tasks, Y,
+                                      num_samples=PRED_SAMPLES)
+    if not bool(torch.isfinite(nlpd)):
+        raise AssertionError("NLPD from a generator: not finite")
+    print(f"prediction, NLPD with the generator's draws: {float(nlpd):.6f} "
+          f"(reference scaling) [card: {smi}]")
+    del eps_nlpd
+    torch.cuda.empty_cache()
+
+
 def ragged_serving_phase(smi: str) -> dict:
     """The staged kernels' own path: the serving model at RAGGED_M inducing
     points, which TMA cannot address (tril_route sends them to the staged
@@ -1144,7 +1385,9 @@ def ragged_serving_phase(smi: str) -> dict:
               f"{bound:g}) [card: {smi}]")
         tma = (counts["tril_projection_tma"]
                + counts["tril_projection_3pass_tma"])
-        if counts[staged] < c.num_tasks or tma or not worst <= bound:
+        if (counts[staged] < c.num_tasks or tma or not worst <= bound
+                or counts["rbf_K_batched_scalar"] < c.num_tasks
+                or counts["rbf_K_batched_vec"]):
             raise AssertionError(f"ragged serving at {prec!r} did not go "
                                  "through the staged kernel, or disagrees")
         for k, v in counts.items():
@@ -1157,6 +1400,11 @@ def main():
     build_phase(smi)
     rbf = kernel_phase(smi)
     rbf_backward_phase(smi)
+    # the serving and prediction paths before the trainers (see the module
+    # docstring)
+    serving_phase(smi)
+    prediction_phase(smi)
+    ragged = ragged_serving_phase(smi)
     Kfu, iLuu = training_phase(smi)
     proj = projection_phase(smi, Kfu, iLuu)
     proj3 = projection3_phase(smi, Kfu, iLuu)
@@ -1165,23 +1413,22 @@ def main():
     trajectory_ab_phase(smi)
     # in turns, "highest", "high", "high", "highest", each a fresh trainer:
     # the steps/s of two trainers of one configuration differ by more than
-    # the spread within one; the last "high" is the main path, the
-    # flagship as bench.py runs it
-    graphed_trainer_phase(smi, "highest")
-    graphed_trainer_phase(smi, "high")
+    # the spread within one; the first two time three calls, the last two
+    # five; the last "high" is the main path, the flagship as bench.py
+    # runs it
+    graphed_trainer_phase(smi, "highest", timed_calls=3)
+    graphed_trainer_phase(smi, "high", timed_calls=3)
     counts, _, _ = graphed_trainer_phase(smi, "high")
     graphed_trainer_phase(smi, "highest")
-    serving_phase(smi)
-    ragged = ragged_serving_phase(smi)
-    # launches: the main path's for the RBF kernel and the TMA routes; the
-    # staged routes never run at M = 1024, so theirs are from the ragged
-    # serving path, their own
-    kernels = [rbf, *proj, *proj3]
+    # launches: the main path's for the vector RBF kernel and the TMA
+    # routes; the staged and scalar routes never run at M = 1024, so theirs
+    # are from the ragged serving path, their own
+    kernels = [*rbf, *proj, *proj3]
+    own_path = ("_staged", "_scalar")
     for entry in kernels:
         name = entry["name"]
-        entry["launches"] = (ragged[name] if name.endswith("_staged") else
-                             counts["rbf_K_batched" if name ==
-                                    "rbf_cross_covariance" else name])
+        entry["launches"] = (ragged if name.endswith(own_path)
+                             else counts)[name]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

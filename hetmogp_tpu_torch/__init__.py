@@ -1,11 +1,14 @@
 """hetmogp_tpu_torch: the PyTorch and CUDA port of hetmogp_tpu.
 
-The port serves and trains: the observation-space predictive of a trained
-heterogeneous multi-output GP, and the flagship stochastic VEM trainer
-(adam, the cached fast projection, slice minibatches), as the JAX
-package's on-device loop (``make_scan_trainer``, captured CUDA graphs on
-the card; ``svi_fit_on_device``) and as a host loop (``make_trainer``).
-Three kernels are written by hand for the H100: the RBF cross-covariance
+The port predicts, serves and trains: the prediction API of a trained
+heterogeneous multi-output GP (latent u and f with full covariances,
+correlated samples, the projected and stochastic predictions, the
+observation-space predictive, NLPD, and the cached-inverse serving
+entry), and the flagship stochastic VEM trainer (adam, the cached fast
+projection, slice minibatches), as the JAX package's on-device loop
+(``make_scan_trainer``, captured CUDA graphs on the card;
+``svi_fit_on_device``) and as a host loop (``make_trainer``).  Three
+kernels are written by hand for the H100: the RBF cross-covariance
 (``csrc/rbf_kernel.cu``) and the triangular projection P = Kfu iLuu^T, in
 float32 (``csrc/tril_proj_kernel.cu``) and in three bf16 tensor-core passes
 for ``ve_fwd_precision="high"`` (``csrc/tril_proj3_kernel.cu``).  Trained
@@ -25,8 +28,13 @@ from hetmogp_tpu_torch.models.elbo import TaskData, elbo_fn
 from hetmogp_tpu_torch.models.params import (SVMOGPParams, init_params,
                                              params_from_jax)
 from hetmogp_tpu_torch.models.predict import (make_serving_predictive,
+                                              negative_log_predictive,
                                               predict_f, predict_f_all,
-                                              predictive)
+                                              predict_f_projected,
+                                              predict_f_projected_task,
+                                              predict_f_stochastic,
+                                              predict_latent_u, predictive,
+                                              sample_f)
 from hetmogp_tpu_torch.train import (TrainState, init_train_state,
                                      make_dataset, make_scan_trainer,
                                      make_trainer, prepare_dataset_on_device,
@@ -56,7 +64,13 @@ __all__ = [
     "prepare_dataset_on_device",
     "full_batch",
     "make_serving_predictive",
+    "predict_latent_u",
     "predict_f",
     "predict_f_all",
+    "sample_f",
+    "predict_f_projected",
+    "predict_f_projected_task",
+    "predict_f_stochastic",
     "predictive",
+    "negative_log_predictive",
 ]

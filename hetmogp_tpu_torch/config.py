@@ -5,7 +5,7 @@ Counterpart of ``hetmogp_tpu/config.py``'s ``ModelConfig`` and
 properties, so that a config written by the JAX package (``to_dict()``, or
 ``dataclasses.asdict`` of a ``TrainConfig``) loads here with ``from_dict``.
 What the port cannot run yet raises ``NotImplementedError`` when the
-config is made: a kernel other than RBF, coregionalization rank > 1,
+config is made: an unknown kernel family, coregionalization rank > 1,
 adaptive jitter, the float64 factorization island, a forward projection
 below ``"high"`` precision, and every optimizer, schedule and sampler but
 the flagship trainer's.
@@ -17,6 +17,10 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+
+# the stationary kernel families of ``ops/kernels.py`` (its ``KERNEL_NAMES``;
+# named here so that the configuration imports nothing of the ops)
+KERNEL_NAMES = ("exponential", "matern32", "matern52", "rbf", "rq")
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -45,7 +49,8 @@ class ModelConfig:
       jitter: fixed jitter added to Kuu before its Cholesky.
       adaptive_jitter: escalating jitter; must be False for now.
       dtype: "float32" or "float64".
-      kernel: latent kernel family; "rbf" only, for now.
+      kernel: latent kernel family: "rbf" (the hand-written CUDA kernel on
+        the card), "matern32", "matern52", "exponential" or "rq".
       ard: per-dimension lengthscales.
       chol_dtype: "same" only, for now.
       ve_fwd_precision: the VE projection P = Kfu iLuu^T's precision:
@@ -71,8 +76,9 @@ class ModelConfig:
     fuse_task_rows: bool = True
 
     def __post_init__(self):
-        if self.kernel != "rbf":
-            raise _not_ported(f"kernel={self.kernel!r}", 3)
+        if self.kernel not in KERNEL_NAMES:
+            raise NotImplementedError(
+                f"kernel={self.kernel!r}; the port has {list(KERNEL_NAMES)}")
         if self.rank != 1:
             raise _not_ported(f"rank={self.rank}", 2)
         if self.adaptive_jitter:

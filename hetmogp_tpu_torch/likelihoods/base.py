@@ -1,12 +1,13 @@
 """Likelihood protocol.
 
 Counterpart of ``hetmogp_tpu/likelihoods/base.py`` without the trainable
-likelihood parameters (theta) and the Monte-Carlo paths.  A likelihood
+likelihood parameters (theta) and sampling.  A likelihood
 gives ``logpdf`` of y given its parameter functions f and the
 ``conditional_moments`` of y; ``var_exp`` integrates ``logpdf`` against the
 posterior moments (M, V) of f, and ``predictive`` pushes (M, V) through the
 conditional moments: both by the generic Gauss-Hermite engines of
-``ops/quadrature.py``, or in closed form where a subclass has one.
+``ops/quadrature.py``, or in closed form where a subclass has one;
+``log_predictive`` is the Monte-Carlo test density behind NLPD.
 
 Instances are frozen dataclasses, hashable, so the GH engines are cached
 per likelihood.  Array conventions: ``Y`` is (N, dim_y), ``M``/``V`` are
@@ -84,3 +85,17 @@ class Likelihood:
     def predictive(self, M: torch.Tensor, V: torch.Tensor):
         """Observation-space predictive moments -> ((N, dim_p), (N, dim_p))."""
         return _predictive_engine(self)(M, V)
+
+    def log_predictive(self, generator, Ytest: torch.Tensor,
+                       M_star: torch.Tensor, V_star: torch.Tensor,
+                       num_samples: int, reference_scaling: bool = True,
+                       eps=None) -> torch.Tensor:
+        """Monte-Carlo log-predictive density of Ytest (N, dim_y) under
+        (M_star, V_star), each (N, dim_f), with draws from ``generator``
+        (where the JAX package takes a key).  ``reference_scaling=True``
+        keeps the reference's extra 1/num_samples factor (see
+        ``quadrature.mc_log_predictive``); ``eps`` injects the (N, S, J)
+        standard-normal draws."""
+        return quadrature.mc_log_predictive(
+            self.logpdf, generator, Ytest, M_star, V_star, num_samples,
+            reference_scaling=reference_scaling, eps=eps)

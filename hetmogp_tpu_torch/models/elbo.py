@@ -1,17 +1,21 @@
 """The evidence lower bound and the posterior moments of the latent functions.
 
-Counterpart of ``hetmogp_tpu/models/elbo.py`` on the cached-inverse path:
+Counterpart of ``hetmogp_tpu/models/elbo.py``:
 
     ELBO = sum_t scale_t * sum_i E_{q(f)}[log p(y_ti | f_ti)]
-           - sum_q KL(q(u_q) || p(u_q)),
+           - sum_q KL(q(u_q) || p(u_q)).
 
-with every projection through (Luu, Luu^{-1}): P = Kfu @ iLuu^T, a
+The projections have the JAX package's two paths.  With a cached inverse
+(the trainer and ``make_serving_predictive``): P = Kfu @ iLuu^T, a
 triangular projection kernel on CUDA float32 (at the config's
-``ve_fwd_precision``).  ``cache_grad=True`` is the VM step's path, where
+``ve_fwd_precision``); ``cache_grad=True`` is the VM step's path, where
 the hyperparameter gradients flow through the cache by the cached-inverse
-adjoints (``linalg.chol_cached``, ``linalg.solve_tri_cached``).  The
-triangular-solve path of the JAX package (no cached inverse) and the
-un-whitened KL are not ported (ROADMAP.md section 1, item 7).
+adjoints (``linalg.chol_cached``, ``linalg.solve_tri_cached``).  Without
+one (``iLuu=None``: the prediction entries of ``models/predict.py``):
+triangular solves against Luu, and no inverse is ever formed.  The
+full-covariance moments (``latent_projections_full``,
+``task_qf_full_cov``) are on the solve path only.  The un-whitened KL is
+not ported (ROADMAP.md section 1, item 7).
 """
 
 from __future__ import annotations
@@ -73,9 +77,9 @@ def prior_cholesky_inverse(params: SVMOGPParams, config: ModelConfig):
 
 
 def latent_projections(params: SVMOGPParams, config: ModelConfig,
-                       Luu: torch.Tensor, X: torch.Tensor, iLuu: torch.Tensor,
+                       Luu: torch.Tensor, X: torch.Tensor, iLuu=None,
                        *, cache_grad: bool = False, use_kernel: bool = True):
-    """Per-latent projection terms at inputs X, through the cached inverse.
+    """Per-latent projection terms at inputs X.
 
     Returns:
       mean_q:  (Q, N)  posterior mean of each latent projection
@@ -83,11 +87,13 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
                variance before the mixing weights
       kdiag:   (Q, N)  prior diagonal per latent
 
-    Whitened: P = (Luu^{-1} Kuf)^T = Kfu @ iLuu^T.  Un-whitened:
-    A = P @ iLuu = Kfu Kuu^{-1}.  ``cache_grad`` takes P through
-    ``linalg.solve_tri_cached``, so that gradients reach Luu (and, by
-    ``chol_cached``, the hypers) as well as Kfu; without it Luu is not read
-    (it stays in the signature of the JAX function).
+    Whitened: P = (Luu^{-1} Kuf)^T.  Un-whitened: A = Kfu Kuu^{-1}.
+    ``iLuu=None`` is the solve path: P by a triangular solve against Luu
+    and A by a second, transposed one.  With ``iLuu`` (the cached inverse)
+    P = Kfu @ iLuu^T and A = P @ iLuu are matmuls and Luu is not read,
+    unless ``cache_grad`` takes P through ``linalg.solve_tri_cached``, so
+    that gradients reach Luu (and, by ``chol_cached``, the hypers) as well
+    as Kfu.
 
     P feeds the kdiag - |P|^2 cancellation, so its matmul must not round
     its operands to one bf16 pass: the JAX package measured a relative
@@ -102,7 +108,11 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
                             params.variance, use_kernel=use_kernel)  # (Q, N, M)
     kdiag = kernels.Kdiag_batched(config.kernel, X, params.variance)
     m_u, Lq = params.q_mu, torch.tril(params.q_sqrt)
-    if cache_grad:
+    if iLuu is None:
+        if cache_grad:
+            raise ValueError("cache_grad=True needs the cached inverse iLuu")
+        P = linalg.solve_tri(Luu, Kfu.mT).mT
+    elif cache_grad:
         P = linalg.solve_tri_cached(Luu, Kfu, iLuu, use_kernel=use_kernel)
     else:
         P = linalg.matmul_tril_t(Kfu, iLuu,
@@ -113,7 +123,10 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
         gamma_q = (kdiag + linalg.quad_diag(P, Lq)
                    - torch.sum(torch.square(P), dim=-1))
     else:
-        A = linalg.matmul_tril(P, iLuu)
+        if iLuu is None:
+            A = linalg.solve_tri(Luu, P.mT, trans=True).mT
+        else:
+            A = linalg.matmul_tril(P, iLuu)
         mean_q = (A @ m_u[..., None])[..., 0]
         gamma_q = (kdiag + linalg.quad_diag(A, Lq)
                    - torch.sum(A * Kfu, dim=-1))
@@ -122,11 +135,11 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
 
 def task_qf_moments(params: SVMOGPParams, config: ModelConfig,
                     Luu: torch.Tensor, X: torch.Tensor, task: int, *,
-                    iLuu: torch.Tensor, clip_variance: bool = True,
+                    iLuu=None, clip_variance: bool = True,
                     var_floor: float = 0.0, cache_grad: bool = False,
                     use_kernel: bool = True):
     """Marginal moments (m_F, v_F), each (N, F_t), of q(f_d) for every
-    parameter function d of one task."""
+    parameter function d of one task; ``iLuu=None`` takes the solve path."""
     mean_q, gamma_q, kdiag = latent_projections(
         params, config, Luu, X, iLuu, cache_grad=cache_grad,
         use_kernel=use_kernel)
@@ -168,6 +181,62 @@ def fused_task_moments(params: SVMOGPParams, config: ModelConfig, Luu,
         out.append(_mix_task(mean_q[:, sl], gamma_q[:, sl], kdiag[:, sl],
                              params, config, t, var_floor=var_floor))
     return out
+
+
+def latent_projections_full(params: SVMOGPParams, config: ModelConfig,
+                            Luu: torch.Tensor, X: torch.Tensor, *,
+                            Kxx=None, use_kernel: bool = True):
+    """Full-covariance analogue of ``latent_projections``, on the solve
+    path.  ``Kxx``: the (Q, N, N) prior Gram at X where the caller has
+    built it already (``task_qf_full_cov`` reads it again for the kappa
+    term); None builds it here.
+
+    Returns:
+      mean_q: (Q, N) posterior means of the latent projections at X.
+      cov_q:  (Q, N, N) full posterior covariances.
+
+    Whitened: cov = Kxx + P S P^T - P P^T with P = (Luu^{-1} Kuf)^T.
+    Un-whitened: cov = Kxx + A S A^T - A Kuf with A = Kfu Kuu^{-1}.  The
+    three terms cancel as ``gamma_q`` does, so every product runs in full
+    float32.
+    """
+    Kfu = kernels.K_batched(config.kernel, X, params.Z, params.lengthscale,
+                            params.variance, use_kernel=use_kernel)
+    if Kxx is None:
+        Kxx = kernels.K_self_batched(config.kernel, X, params.lengthscale,
+                                     params.variance, use_kernel=use_kernel)
+    R = linalg.solve_tri(Luu, Kfu.mT)  # (Q, M, N)
+    P = R.mT
+    B = P if config.whiten else linalg.solve_tri(Luu, R, trans=True).mT
+    mean_q = (B @ params.q_mu[..., None])[..., 0]
+    BL = B @ torch.tril(params.q_sqrt)
+    cov_q = Kxx + BL @ BL.mT
+    cov_q = cov_q - (P @ P.mT if config.whiten else B @ Kfu.mT)
+    return mean_q, cov_q
+
+
+def task_qf_full_cov(params: SVMOGPParams, config: ModelConfig,
+                     Luu: torch.Tensor, X: torch.Tensor, task: int, *,
+                     use_kernel: bool = True):
+    """Full-covariance q(f_d) for every parameter function d of a task.
+
+    Returns (m_F, cov_F): (N, F_t) means and (F_t, N, N) covariances,
+    cov_fd = sum_q (w_qd^2 cov_q + kappa_qd k_q(X, X)): kappa scales the
+    full prior kernel of f_d with no posterior reduction, matching the
+    marginal path's kappa * kdiag term.  The d-blocks are independent
+    given the factorized q(u), so there is no cross-d covariance.
+    """
+    start, stop = config.task_function_slices[task]
+    Wt = params.W[:, start:stop]  # (Q, F_t)
+    Kt = params.kappa[:, start:stop]
+    # one Gram build for the posterior covariance and the kappa term
+    Kxx = kernels.K_self_batched(config.kernel, X, params.lengthscale,
+                                 params.variance, use_kernel=use_kernel)
+    mean_q, cov_q = latent_projections_full(params, config, Luu, X, Kxx=Kxx,
+                                            use_kernel=use_kernel)
+    m_F = mean_q.mT @ Wt
+    cov_F = torch.einsum("qj,qnk->jnk", torch.square(Wt), cov_q)
+    return m_F, cov_F + torch.einsum("qj,qnk->jnk", Kt, Kxx)
 
 
 def kl_divergence(params: SVMOGPParams, config: ModelConfig) -> torch.Tensor:

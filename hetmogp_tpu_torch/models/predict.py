@@ -1,24 +1,29 @@
-"""Prediction paths, serving subset: latent f and observation space.
+"""Prediction paths: latent u, latent f, observation space, NLPD.
 
-Counterpart of the serving subset of ``hetmogp_tpu/models/predict.py``.
-Every path here goes through the cached-inverse projection
-(``elbo.latent_projections``).  Where the JAX ``predict_f`` and
-``predictive`` factorize Kuu and use triangular solves, these compute
-(Luu, Luu^{-1}) and use matmuls; the two agree to rounding (the tests hold
-them to 1e-8 relative in float64).  Full covariances, sampling, the
-projected and stochastic paths and NLPD come later (ROADMAP.md section 1,
-item 10).  Everything runs under ``torch.inference_mode()``.
+Counterpart of ``hetmogp_tpu/models/predict.py`` without
+``predictive_sharded`` (it waits for the parallelism slice).  As there,
+``make_serving_predictive`` factorizes once and projects every request
+through the cached inverse (matmuls; its error grows with cond(Kuu)),
+while every other entry factorizes Kuu and uses triangular solves, and
+never forms an inverse.  Every entry starts with
+``kernels.K_batched``: the hand-written RBF kernel on the card.
+
+The JAX package wraps each entry in a cached ``jax.jit``; here they are
+plain functions under ``torch.inference_mode()``.  Random draws come from
+a ``torch.Generator`` the caller passes (where the JAX package takes a
+key).  Tensors live on the parameters' device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from hetmogp_tpu_torch.config import ModelConfig
 from hetmogp_tpu_torch.models import elbo as elbo_mod
 from hetmogp_tpu_torch.models.params import SVMOGPParams
+from hetmogp_tpu_torch.ops import kernels, linalg, quadrature
 
 
 def _as_inputs(Xnew, config: ModelConfig, device) -> torch.Tensor:
@@ -40,8 +45,10 @@ def make_serving_predictive(params: SVMOGPParams, config: ModelConfig,
     Computes (Luu, Luu^{-1}) once and returns ``X -> (m_pred, v_pred)``,
     each (N, dim_p), which projects every request through the cached
     inverse.  The inverse's error grows with cond(Kuu): keep a jitter floor
-    (``ModelConfig.jitter``).  ``use_kernel=False`` takes the plain PyTorch
-    RBF in place of the CUDA kernel (the reference it is checked against).
+    (``ModelConfig.jitter``), and use ``predictive`` when the solve path's
+    exactness matters more than latency.  ``use_kernel=False`` takes the
+    plain PyTorch versions in place of the CUDA kernels (the reference they
+    are checked against).
     """
     with torch.inference_mode():
         Luu, iLuu = elbo_mod.prior_cholesky_inverse(params, config)
@@ -59,36 +66,200 @@ def make_serving_predictive(params: SVMOGPParams, config: ModelConfig,
     return serve
 
 
-def predict_f_all(params: SVMOGPParams, config: ModelConfig,
-                  X_list: Sequence) -> list:
-    """q(f) moments for every task: [(m_F_t, v_F_t)], each (N_t, F_t)."""
-    device = params.Z.device
+def predict_latent_u(params: SVMOGPParams, config: ModelConfig, Xnew,
+                     latent_ind: Optional[int] = None,
+                     full_cov: bool = False, *, use_kernel: bool = True):
+    """Posterior moments of the latent GPs u_q at Xnew.
+
+    Returns (mean, var), each (N, Q), or an (N,) pair if ``latent_ind`` is
+    given.  With ``full_cov=True`` the second element is the full (Q, N, N)
+    posterior covariance (or (N, N) for one latent); full covariances are
+    not clamped (their diagonals are non-negative up to roundoff by
+    construction).
+    """
     with torch.inference_mode():
-        Luu, iLuu = elbo_mod.prior_cholesky_inverse(params, config)
-        return [elbo_mod.task_qf_moments(params, config, Luu,
-                                         _as_inputs(X_t, config, device), t,
-                                         iLuu=iLuu)
-                for t, X_t in enumerate(X_list)]
+        X = _as_inputs(Xnew, config, params.Z.device)
+        Luu = elbo_mod.prior_cholesky(params, config)
+        if full_cov:
+            mean_q, cov_q = elbo_mod.latent_projections_full(
+                params, config, Luu, X, use_kernel=use_kernel)
+            if latent_ind is not None:
+                return mean_q[latent_ind], cov_q[latent_ind]
+            return mean_q.mT, cov_q
+        mean_q, gamma_q, _ = elbo_mod.latent_projections(
+            params, config, Luu, X, use_kernel=use_kernel)
+        mean, var = mean_q.mT, torch.clamp(gamma_q, min=0.0).mT
+    if latent_ind is not None:
+        return mean[:, latent_ind], var[:, latent_ind]
+    return mean, var
 
 
 def predict_f(params: SVMOGPParams, config: ModelConfig, Xnew,
-              output_function_ind: int = 0):
-    """Posterior moments (mean, var), each (N,), of one output parameter
-    function f_d at Xnew (diagonal only)."""
+              output_function_ind: int = 0, full_cov: bool = False, *,
+              use_kernel: bool = True):
+    """Posterior moments of one output parameter function f_d at Xnew:
+    (mean, var), each (N,), or (mean, cov (N, N)) with ``full_cov=True``,
+    which is what correlated samples of f* need."""
     d = output_function_ind
     t, j = config.function_index[d], config.d_index[d]
     with torch.inference_mode():
-        Luu, iLuu = elbo_mod.prior_cholesky_inverse(params, config)
-        m_F, v_F = elbo_mod.task_qf_moments(
-            params, config, Luu, _as_inputs(Xnew, config, params.Z.device),
-            t, iLuu=iLuu)
+        X = _as_inputs(Xnew, config, params.Z.device)
+        Luu = elbo_mod.prior_cholesky(params, config)
+        if full_cov:
+            m_F, cov_F = elbo_mod.task_qf_full_cov(params, config, Luu, X, t,
+                                                   use_kernel=use_kernel)
+            return m_F[:, j], cov_F[j]
+        m_F, v_F = elbo_mod.task_qf_moments(params, config, Luu, X, t,
+                                            use_kernel=use_kernel)
     return m_F[:, j], v_F[:, j]
 
 
-def predictive(params: SVMOGPParams, config: ModelConfig, X_list: Sequence):
-    """Observation-space predictive moments per task, on the direct
-    inducing-point path.  Returns (m_pred, v_pred): lists of (N_t, dim_p)."""
-    moments = predict_f_all(params, config, X_list)
+def sample_f(params: SVMOGPParams, config: ModelConfig,
+             generator: torch.Generator, Xnew, output_function_ind: int = 0,
+             num_samples: int = 1, jitter: float = 1e-8, *, eps=None,
+             use_kernel: bool = True):
+    """Correlated posterior samples of f_d at Xnew: (num_samples, N), drawn
+    from the full-covariance q(f_d) (the diagonal path would sample each
+    point independently).  The covariance is factorized by the adaptive
+    ``jitchol``: in float32 the base jitter is below the covariance's
+    resolution and the escalation is what makes the factorization succeed.
+    ``eps`` injects the (num_samples, N) standard-normal draws."""
+    mu, cov = predict_f(params, config, Xnew, output_function_ind,
+                        full_cov=True, use_kernel=use_kernel)
+    with torch.inference_mode():
+        L = linalg.jitchol(cov[None], jitter=jitter, adaptive=True)[0]
+        if eps is None:
+            eps = quadrature.standard_normal((num_samples, mu.shape[0]),
+                                             generator, mu)
+        else:
+            eps = torch.as_tensor(eps, dtype=mu.dtype, device=mu.device)
+        return mu[None, :] + eps @ L.mT
+
+
+def predict_f_projected(params: SVMOGPParams, config: ModelConfig,
+                        Xtrain_list: Sequence, Xnew,
+                        output_function_ind: int = 0, *,
+                        use_kernel: bool = True):
+    """The reference implementation's ``_raw_predict_f`` for one output
+    function: the task-batched projection (``predict_f_projected_task``),
+    sliced."""
+    d = output_function_ind
+    t, j = config.function_index[d], config.d_index[d]
+    mu, var = predict_f_projected_task(params, config, Xtrain_list, Xnew, t,
+                                       use_kernel=use_kernel)
+    return mu[j], var[j]
+
+
+def predict_f_stochastic(params: SVMOGPParams, config: ModelConfig,
+                         Xanchor_list: Sequence, Xnew,
+                         output_function_ind: int = 0, *,
+                         use_kernel: bool = True):
+    """The reference implementation's ``_raw_predict_stochastic``: the same
+    projection under the name minibatch-trained models use.
+    ``Xanchor_list`` may be the full training inputs (then it equals
+    ``predict_f_projected``) or any subset such as the current minibatch:
+    the projection identity holds for any anchor set, and a B-row anchor
+    cuts the O(N_t^3) re-projection to O(B^3)."""
+    return predict_f_projected(params, config, Xanchor_list, Xnew,
+                               output_function_ind, use_kernel=use_kernel)
+
+
+def predict_f_projected_task(params: SVMOGPParams, config: ModelConfig,
+                             Xtrain_list: Sequence, Xnew, task: int, *,
+                             use_kernel: bool = True):
+    """The reference implementation's ``_raw_predict_f`` for every output
+    function of one task at once: (mu (F_t, Ns), var (F_t, Ns)).
+
+    It forms the q(f_d) posterior at the task's training (anchor) inputs,
+    then re-projects it to Xnew through the function-space prior K_fdfd.
+    This is O(N^3) in the anchor size and not the recommended path
+    (``predict_f`` computes the inducing-point posterior at Xnew directly),
+    but it reproduces the reference's numbers.  The d-independent work
+    (prior Cholesky, Kfu, the solves, the per-latent grams, the posterior
+    correction G) is shared across the task's F_t functions, whose O(N^3)
+    factorizations run as one batched adaptive ``jitchol``.  Variances are
+    clamped non-negative.
+    """
+    device = params.Z.device
+    with torch.inference_mode():
+        X = _as_inputs(Xtrain_list[task], config, device)
+        Xs = _as_inputs(Xnew, config, device)
+        Luu = elbo_mod.prior_cholesky(params, config)
+        kw = dict(use_kernel=use_kernel)
+
+        # d-independent: the q(f) ingredients at the anchor inputs
+        Kfu = kernels.K_batched(config.kernel, X, params.Z,
+                                params.lengthscale, params.variance, **kw)
+        R = linalg.solve_tri(Luu, Kfu.mT)  # (Q, M, N)
+        P = R.mT if config.whiten else linalg.solve_tri(Luu, R,
+                                                        trans=True).mT
+        mean_q = (P @ params.q_mu[..., None])[..., 0]
+        Kq_full = kernels.K_self_batched(config.kernel, X, params.lengthscale,
+                                         params.variance, **kw)  # (Q, N, N)
+        Kx = kernels.K_batched(
+            config.kernel, X, Xs[None].expand(config.num_latent_eff,
+                                              *Xs.shape),
+            params.lengthscale, params.variance, **kw)  # (Q, N, Ns)
+        PL = P @ torch.tril(params.q_sqrt)
+        # whitened: P S P^T - P P^T; un-whitened: A S A^T - A Kuf, A = P
+        G = PL @ PL.mT - P @ (P if config.whiten else Kfu).mT
+
+        # per output function: (Q,)-sized mixing weights, batched over F_t
+        start, stop = config.task_function_slices[task]
+        Wt = params.W[:, start:stop]  # (Q, F)
+        B = kernels.lmc_coregionalization(Wt, params.kappa[:, start:stop])
+        m_f = Wt.mT @ mean_q  # (F, N)
+        Kdd = torch.einsum("qf,qnk->fnk", B, Kq_full)  # (F, N, N)
+        S_f = Kdd + torch.einsum("qf,qnk->fnk", torch.square(Wt), G)
+        Kx_f = torch.einsum("qf,qns->fns", B, Kx)  # (F, N, Ns)
+        # stationary kernels: Kdiag = variance
+        kxx_diag = (B.mT @ params.variance)[:, None]  # (F, 1)
+
+        LK = linalg.jitchol(Kdd, jitter=config.jitter, adaptive=True)
+        wv = linalg.cho_solve_batched(LK, m_f[:, :, None])[..., 0]  # (F, N)
+        tmp = linalg.cho_solve_batched(LK, Kx_f)  # (F, N, Ns): K^-1 Kx
+        mu = torch.einsum("fns,fn->fs", Kx_f, wv)
+        var = (kxx_diag - torch.sum(tmp * Kx_f, dim=1)
+               + torch.sum(tmp * (S_f @ tmp), dim=1))
+        return mu, torch.clamp(var, min=0.0)
+
+
+def predict_f_all(params: SVMOGPParams, config: ModelConfig,
+                  X_list: Sequence, *, use_kernel: bool = True) -> list:
+    """q(f) moments for every task: [(m_F_t, v_F_t)], each (N_t, F_t)."""
+    device = params.Z.device
+    with torch.inference_mode():
+        Luu = elbo_mod.prior_cholesky(params, config)
+        return [elbo_mod.task_qf_moments(params, config, Luu,
+                                         _as_inputs(X_t, config, device), t,
+                                         use_kernel=use_kernel)
+                for t, X_t in enumerate(X_list)]
+
+
+def predictive(params: SVMOGPParams, config: ModelConfig, X_list: Sequence,
+               Xtrain_list: Optional[Sequence] = None,
+               projected: bool = False, *, use_kernel: bool = True):
+    """Observation-space predictive moments per task: the latent moments
+    pushed through each likelihood's predictive moments.
+
+    The default uses the direct inducing-point moments on the solve path.
+    ``projected=True`` with ``Xtrain_list`` routes them through the O(N^3)
+    training-set projection instead (``predict_f_projected_task``), the
+    reference implementation's own semantics.
+    Returns (m_pred, v_pred): lists of (N_t, dim_p).
+    """
+    if projected:
+        if Xtrain_list is None:
+            raise ValueError("projected=True requires Xtrain_list")
+        moments = []
+        for t in range(config.num_tasks):
+            mu, var = predict_f_projected_task(params, config, Xtrain_list,
+                                               X_list[t], t,
+                                               use_kernel=use_kernel)
+            moments.append((mu.mT, var.mT))  # (N, F_t) each
+    else:
+        moments = predict_f_all(params, config, X_list,
+                                use_kernel=use_kernel)
     m_pred, v_pred = [], []
     with torch.inference_mode():
         for lik, (m_F, v_F) in zip(config.likelihoods, moments):
@@ -96,3 +267,45 @@ def predictive(params: SVMOGPParams, config: ModelConfig, X_list: Sequence):
             m_pred.append(m)
             v_pred.append(v)
     return m_pred, v_pred
+
+
+def negative_log_predictive(params: SVMOGPParams, config: ModelConfig,
+                            generator: torch.Generator, Xtest: Sequence,
+                            Ytest: Sequence, num_samples: int = 1000,
+                            reference_scaling: bool = True,
+                            tasks: Optional[Sequence[int]] = None, *,
+                            eps: Optional[Sequence] = None,
+                            use_kernel: bool = True):
+    """Test NLPD by per-task Monte-Carlo logsumexp, including the
+    reference implementation's 1/num_samples scaling quirk unless
+    ``reference_scaling=False``.
+
+    tasks: optional task indices to evaluate (Xtest/Ytest aligned to this
+      list), e.g. ``tasks=[1]`` scores only task 1's held-out region
+      without dummy inputs for the other tasks.
+    eps: optional per-evaluated-task (N, num_samples, dim_f) draws, in
+      place of the generator's.
+    """
+    tasks = list(range(config.num_tasks)) if tasks is None else list(tasks)
+    if len(Xtest) != len(tasks) or len(Ytest) != len(tasks):
+        raise ValueError(
+            f"Xtest/Ytest must have one entry per evaluated task "
+            f"({len(tasks)}: tasks={tasks}); got {len(Xtest)}/{len(Ytest)}. "
+            "Pass tasks=[...] to score a subset of tasks.")
+    device = params.Z.device
+    total = 0.0
+    with torch.inference_mode():
+        Luu = elbo_mod.prior_cholesky(params, config)
+        for i, t in enumerate(tasks):
+            m_F, v_F = elbo_mod.task_qf_moments(
+                params, config, Luu, _as_inputs(Xtest[i], config, device), t,
+                use_kernel=use_kernel)
+            Y_t = torch.as_tensor(Ytest[i], dtype=config.torch_dtype,
+                                  device=device)
+            if Y_t.ndim == 1:
+                Y_t = Y_t[:, None]
+            total = total + config.likelihoods[t].log_predictive(
+                generator, Y_t, m_F, v_F, num_samples,
+                reference_scaling=reference_scaling,
+                eps=None if eps is None else eps[i])
+    return -total

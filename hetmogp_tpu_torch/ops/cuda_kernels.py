@@ -2,24 +2,27 @@
 
 Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py`` and of the two Pallas
 projections of ``tools/probe_pallas_proj.py``.  The kernels are
-``csrc/rbf_kernel.cu`` (the RBF cross-covariance),
-``csrc/tril_proj_kernel.cu`` (kernel A: the triangular projection
-A tril(L)^T in float32) and ``csrc/tril_proj3_kernel.cu`` (kernel 3: the
-same projection as three bf16 tensor-core passes), each projection in two
-designs, a TMA-fed one (sharing ``csrc/tril_tma.cuh``) and the
-register-staged one of the first port, chosen by shape (``tril_route``).
+``csrc/rbf_kernel.cu`` (the RBF cross-covariance, in two designs chosen by
+shape, ``rbf_route``: float4 stores from blocks that walk rows, and the
+scalar one of the first port), ``csrc/tril_proj_kernel.cu`` (kernel A: the
+triangular projection A tril(L)^T in float32) and
+``csrc/tril_proj3_kernel.cu`` (kernel 3: the same projection as three bf16
+tensor-core passes), each projection in two designs, a TMA-fed one
+(sharing ``csrc/tril_tma.cuh``) and the register-staged one of the first
+port, chosen by shape (``tril_route``).
 ``ops/_build.py`` builds them when a CUDA tensor first reaches one, and
 they are bound with ``ctypes``.  Importing this module builds and loads
 nothing.
 
 For each kernel:
 
-* the raw launcher (``rbf_K_batched``, ``tril_projection_tma``,
-  ``tril_projection_staged``, ``tril_projection_3pass_tma``,
-  ``tril_projection_3pass_staged``) runs it on float32 CUDA tensors,
-  counts its launches in ``<launcher>.launches``, and refuses inputs that
-  require grad: it records no graph; ``tril_projection`` and
-  ``tril_projection_3pass`` route to the launcher of the shape;
+* the raw launcher (``rbf_K_batched_vec``, ``rbf_K_batched_scalar``,
+  ``tril_projection_tma``, ``tril_projection_staged``,
+  ``tril_projection_3pass_tma``, ``tril_projection_3pass_staged``) runs it
+  on float32 CUDA tensors, counts its launches in ``<launcher>.launches``,
+  and refuses inputs that require grad: it records no graph;
+  ``rbf_K_batched``, ``tril_projection`` and ``tril_projection_3pass``
+  route to the launcher of the shape;
 * the plain version (``*_plain``) is what CPU tensors take and what the
   kernel is checked against on the card;
 * an ``autograd.Function`` (``RBFCrossCovariance``, ``TrilProjection``,
@@ -38,20 +41,25 @@ import torch
 
 from hetmogp_tpu_torch.ops import _build, kernels
 
-# The RBF kernel stages (128 + 32) * Dx floats of shared memory per block
-# and stays under the 48 KiB that needs no opt-in (csrc/rbf_kernel.cu).
+# The scalar RBF kernel stages (128 + 32) * Dx floats of shared memory per
+# block and stays under the 48 KiB that needs no opt-in; the vector kernel
+# keeps a thread's four Z points in registers, for Dx up to 4
+# (csrc/rbf_kernel.cu).
 MAX_DX = 64
+VEC_MAX_DX = 4
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build()))
-    fn = lib.hetmogp_rbf_cross_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     proj = [ctypes.c_void_p] * 3  # A, L, out
     shape = [ctypes.c_int] * 3  # Q, N, M
+    # X, Z, lengthscale, variance, out; Q, N, M, Dx, lengthscale columns
+    rbf = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     signatures = {
+        "hetmogp_rbf_cross_vec_f32": rbf,
+        "hetmogp_rbf_cross_f32": rbf,
+        "hetmogp_empty_launch": [],
         "hetmogp_tril_proj_f32": proj + shape,
         "hetmogp_tril_proj_staged_f32": proj + [ctypes.c_int] + shape,
         "hetmogp_tril_proj3_f32": proj + [ctypes.c_void_p] * 2 + shape,
@@ -96,17 +104,29 @@ def rbf_K_batched_plain(X, Z, lengthscale, variance):
     return kernels.rbf(X, Z, lengthscale, variance)
 
 
-def rbf_K_batched(X: torch.Tensor, Z: torch.Tensor, lengthscale: torch.Tensor,
-                  variance: torch.Tensor) -> torch.Tensor:
-    """Batched RBF cross-covariance on the card: (Q, N, M) float32.
+# Two kernels, chosen by shape alone (``rbf_route``): the vector kernel
+# (float4 stores, Z in registers, blocks that walk rows) where the output's
+# rows are whole float4s, the scalar kernel of the first port everywhere
+# else.  Neither wrapper launches anything but its kernel: 1 / lengthscale
+# is computed on the card, inside it.  Each counts its own launches; a
+# failed launch raises, and nothing falls back from one route to the other.
 
-    X: (N, Dx), Z: (Q, M, Dx), lengthscale: (Q, Dx) or isotropic (Q, 1),
-    variance: (Q,); all float32 on one CUDA device.  Launches on the current
-    stream and does not synchronise.  ``rbf_K_batched.launches`` counts the
-    launches.
-    """
-    tensors = (X, Z, lengthscale, variance)
-    _check_launch_inputs("rbf_K_batched", tensors)
+def rbf_route(M: int, Dx: int, aligned: bool) -> str:
+    """The kernel an RBF cross-covariance with ``M`` columns and ``Dx``
+    input dimensions takes on the card: ``"vec"`` when M % 4 == 0,
+    Dx <= 4 and the output starts on a 16-byte boundary (``aligned``),
+    else ``"scalar"``."""
+    return ("vec" if aligned and M % 4 == 0 and 0 < Dx <= VEC_MAX_DX
+            else "scalar")
+
+
+def _rbf_launch(wrapper, entry: str, X, Z, lengthscale, variance,
+                route=None) -> torch.Tensor:
+    """Check the inputs of the RBF launcher ``wrapper``, launch ``entry`` on
+    the current stream and count the launch.  ``route`` is the route the
+    kernel requires, None for any."""
+    name = wrapper.__name__
+    _check_launch_inputs(name, (X, Z, lengthscale, variance))
     if X.ndim != 2 or Z.ndim != 3 or Z.shape[-1] != X.shape[-1]:
         raise ValueError(f"X must be (N, Dx) and Z (Q, M, Dx); got "
                          f"{tuple(X.shape)} and {tuple(Z.shape)}")
@@ -122,22 +142,74 @@ def rbf_K_batched(X: torch.Tensor, Z: torch.Tensor, lengthscale: torch.Tensor,
     out = torch.empty((Q, N, M), dtype=torch.float32, device=X.device)
     if out.numel() == 0:
         return out
-    X = X.contiguous()
-    Z = Z.contiguous()
-    ils = (1.0 / lengthscale.expand(Q, Dx)).contiguous()
-    var = variance.contiguous()
+    if route is not None and rbf_route(M, Dx,
+                                       out.data_ptr() % 16 == 0) != route:
+        raise ValueError(
+            f"{name} takes M % 4 == 0, Dx <= {VEC_MAX_DX} and a 16-byte-"
+            f"aligned output (got M={M}, Dx={Dx}); rbf_route sends other "
+            "shapes to the scalar kernel")
+    # no-ops on contiguous tensors: nothing is launched ahead of the kernel
+    X, Z = X.contiguous(), Z.contiguous()
+    lengthscale, variance = lengthscale.contiguous(), variance.contiguous()
     lib = _library()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = lib.hetmogp_rbf_cross_f32(
-            X.data_ptr(), Z.data_ptr(), ils.data_ptr(), var.data_ptr(),
-            out.data_ptr(), Q, N, M, Dx, stream)
-    _raise_on(err, "rbf_K_batched")
-    rbf_K_batched.launches += 1
+        err = getattr(lib, entry)(
+            X.data_ptr(), Z.data_ptr(), lengthscale.data_ptr(),
+            variance.data_ptr(), out.data_ptr(), Q, N, M, Dx,
+            lengthscale.shape[1], stream)
+    _raise_on(err, name)
+    wrapper.launches += 1
     return out
 
 
-rbf_K_batched.launches = 0
+def rbf_K_batched_vec(X: torch.Tensor, Z: torch.Tensor,
+                      lengthscale: torch.Tensor,
+                      variance: torch.Tensor) -> torch.Tensor:
+    """The RBF vector kernel (``hetmogp_rbf_cross_vec_f32``): float4 stores,
+    for M % 4 == 0 and Dx <= 4.  Counts its launches in
+    ``rbf_K_batched_vec.launches``."""
+    return _rbf_launch(rbf_K_batched_vec, "hetmogp_rbf_cross_vec_f32", X, Z,
+                       lengthscale, variance, route="vec")
+
+
+rbf_K_batched_vec.launches = 0
+
+
+def rbf_K_batched_scalar(X: torch.Tensor, Z: torch.Tensor,
+                         lengthscale: torch.Tensor,
+                         variance: torch.Tensor) -> torch.Tensor:
+    """The RBF scalar kernel of the first port (``hetmogp_rbf_cross_f32``),
+    for any shape.  Counts its launches in
+    ``rbf_K_batched_scalar.launches``."""
+    return _rbf_launch(rbf_K_batched_scalar, "hetmogp_rbf_cross_f32", X, Z,
+                       lengthscale, variance)
+
+
+rbf_K_batched_scalar.launches = 0
+
+
+def rbf_K_batched(X: torch.Tensor, Z: torch.Tensor, lengthscale: torch.Tensor,
+                  variance: torch.Tensor) -> torch.Tensor:
+    """Batched RBF cross-covariance on the card: (Q, N, M) float32.
+
+    X: (N, Dx), Z: (Q, M, Dx), lengthscale: (Q, Dx) or isotropic (Q, 1),
+    variance: (Q,); all float32 on one CUDA device.  Routed by ``rbf_route``
+    to ``rbf_K_batched_vec`` or ``rbf_K_batched_scalar`` (a fresh CUDA
+    allocation is 16-byte aligned, so the shape decides); launches on the
+    current stream and does not synchronise.
+    """
+    route = rbf_route(Z.shape[-2], X.shape[-1], True) if Z.ndim == 3 else None
+    launcher = rbf_K_batched_vec if route == "vec" else rbf_K_batched_scalar
+    return launcher(X, Z, lengthscale, variance)
+
+
+def empty_launch() -> None:
+    """Launch a kernel that does nothing on the current stream: the floor
+    under any kernel's device time (``chip_smoke.py`` times it beside the
+    small shapes)."""
+    _raise_on(_library().hetmogp_empty_launch(
+        torch.cuda.current_stream().cuda_stream), "empty_launch")
 
 
 def rbf_K_batched_bwd(X, Z, lengthscale, variance, K, g):
@@ -428,8 +500,9 @@ class TrilProjection3Pass(torch.autograd.Function):
         return (*_backward_tril(ctx, g), None)
 
 
-_LAUNCHERS = (rbf_K_batched, tril_projection_tma, tril_projection_staged,
-              tril_projection_3pass_tma, tril_projection_3pass_staged)
+_LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,
+              tril_projection_staged, tril_projection_3pass_tma,
+              tril_projection_3pass_staged)
 
 
 def launch_counts() -> dict:

@@ -1,8 +1,10 @@
-"""Dense linear algebra of the serving and training paths.
+"""Dense linear algebra of the serving, prediction and training paths.
 
-Counterpart of the main-path subset of ``hetmogp_tpu/ops/linalg.py``.  The
-JAX package blocks these by hand for the TPU's matrix unit; here they are
-plain PyTorch calls (cuSOLVER and cuBLAS on the card), except the
+Counterpart of ``hetmogp_tpu/ops/linalg.py`` without the packing helpers
+and the float64 island.  The JAX package blocks these by hand for the
+TPU's matrix unit; here they are plain PyTorch calls (cuSOLVER and cuBLAS
+on the card: ``solve_tri`` is ``trsm``, which the JAX package too computes
+outside any Pallas kernel), except the
 triangular projection A tril(L)^T, which CUDA float32 tensors run as a
 hand-written kernel: ``csrc/tril_proj_kernel.cu`` in float32, or
 ``csrc/tril_proj3_kernel.cu`` in three bf16 passes at ``precision="high"``
@@ -35,6 +37,57 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
     L, info = torch.linalg.cholesky_ex(K)
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(L, float("nan")), L)
+
+
+def jitchol(K: torch.Tensor, jitter: float = 0.0, adaptive: bool = True,
+            maxtries: int = 5) -> torch.Tensor:
+    """Batched Cholesky with escalating jitter on failure.
+
+    GPy's ``jitchol`` policy, as the JAX package has it: try K + jitter I
+    first, then give each batch member that failed mean(diag) * 1e-6 * 10^i
+    more, i = 0 .. maxtries - 1, until every member factorizes.  The level
+    is found without gradient, on ``cholesky_ex``'s ``info`` in a host loop
+    (one synchronisation per try: this runs outside any captured graph);
+    then one differentiable Cholesky of K + (jitter + level) I is returned,
+    NaN where even the last level failed.
+
+    Args:
+      K: (..., M, M) SPD matrices.
+      jitter: base jitter added unconditionally.
+      adaptive: False returns the single Cholesky of K + jitter I.
+    """
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    K0 = K + jitter * eye if jitter else K
+    if not adaptive:
+        return cholesky(K0)
+    with torch.no_grad():
+        Ksg = K0.detach()
+        diag_mean = torch.mean(torch.diagonal(Ksg, dim1=-2, dim2=-1), dim=-1)
+        level = torch.zeros_like(diag_mean)
+        ok = torch.linalg.cholesky_ex(Ksg)[1] == 0
+        for i in range(maxtries):
+            if bool(ok.all()):
+                break
+            level = torch.where(ok, level, diag_mean * (1e-6 * 10.0 ** i))
+            ok = ok | (torch.linalg.cholesky_ex(
+                Ksg + level[..., None, None] * eye)[1] == 0)
+    return cholesky(K0 + level[..., None, None] * eye)
+
+
+def solve_tri(L: torch.Tensor, B: torch.Tensor, *,
+              trans: bool = False) -> torch.Tensor:
+    """Batched lower-triangular solve: L X = B (or L^T X = B if ``trans``).
+
+    L: (..., M, M) lower-triangular; B: (..., M, N).
+    """
+    if trans:
+        return torch.linalg.solve_triangular(L.mT, B, upper=True)
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def cho_solve_batched(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) X = B given lower Cholesky factors; batched."""
+    return solve_tri(L, solve_tri(L, B), trans=True)
 
 
 def blocked_cholesky_inverse(K: torch.Tensor):

@@ -1,9 +1,11 @@
-"""Gauss-Hermite variational expectations and predictive moments.
+"""Gauss-Hermite variational expectations and predictive moments, and
+the Monte-Carlo log-predictive density.
 
-Counterpart of ``hetmogp_tpu/ops/quadrature.py`` without the Monte-Carlo
+Counterpart of ``hetmogp_tpu/ops/quadrature.py`` without the quasi-MC
 nodes and the theta engine (ROADMAP.md section 1, item 5).  The nodes and
 weights come from numpy's ``hermgauss``, so they are the JAX package's to
-the bit.
+the bit.  Random draws come from an explicit ``torch.Generator`` or are
+injected; nothing reads a global seed.
 
 ``make_var_exp`` keeps the JAX engine's gradient semantics: the value is
 the T-node GH sum of ``logpdf``, and its (m, v)-gradients are the
@@ -23,6 +25,7 @@ per node only to keep its diagonal.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -57,10 +60,14 @@ def tensor_grid(T: int, J: int):
 @functools.lru_cache(maxsize=None)
 def _grid_tensors(T: int, J: int, dtype: torch.dtype, device: torch.device):
     """``tensor_grid(T, J)`` as tensors on ``device``, made once: a copy
-    from host memory per call would synchronise the stream every step."""
+    from host memory per call would synchronise the stream every step.
+    Made outside inference mode even when a prediction entry asks first:
+    autograd cannot save an inference tensor, and the trainer's sweeps
+    reuse the cached grid."""
     nodes, weights = tensor_grid(T, J)
-    return (torch.as_tensor(nodes, dtype=dtype, device=device),
-            torch.as_tensor(weights, dtype=dtype, device=device))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(nodes, dtype=dtype, device=device),
+                torch.as_tensor(weights, dtype=dtype, device=device))
 
 
 def _expand_nodes(m, v, nodes):
@@ -134,3 +141,41 @@ def make_var_exp(logpdf, J: int, T: int):
             return None, Ed1 * g[:, None], 0.5 * Ed2 * g[:, None]
 
     return VarExp.apply
+
+
+def standard_normal(shape, generator, like: torch.Tensor) -> torch.Tensor:
+    """Standard-normal draws of ``like``'s dtype on its device, from
+    ``generator``: drawn on the generator's own device (a CPU generator
+    serves a model on the card), then moved."""
+    if generator is None:
+        raise ValueError("random draws need a torch.Generator (or injected "
+                         "eps): the port reads no global seed")
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=generator.device).to(like.device)
+
+
+def mc_log_predictive(logpdf, generator, y, m_star, v_star, num_samples: int,
+                      reference_scaling: bool = True, eps=None):
+    """Monte-Carlo log-predictive density, summed over the rows.
+
+    Samples F* ~ N(m*, v*) per latent dimension, computes
+    log(1/S sum_s p(y | f_s)) by logsumexp, sums over points, and applies
+    the reference implementation's extra 1/num_samples factor (a quirk
+    the JAX package reproduces for parity; ``reference_scaling=False``
+    gives the plain sum).
+
+    Args:
+      logpdf: batched log-density, (F: (..., J), y: (..., dim_y)) -> (...).
+      generator: ``torch.Generator`` for the (N, S, J) draws; unused when
+        ``eps`` injects them.
+      y: (N, dim_y); m_star, v_star: (N, J).
+    """
+    n, J = m_star.shape
+    if eps is None:
+        eps = standard_normal((n, num_samples, J), generator, m_star)
+    else:
+        eps = torch.as_tensor(eps, dtype=m_star.dtype, device=m_star.device)
+    F = m_star[:, None, :] + torch.sqrt(v_star)[:, None, :] * eps
+    lp = logpdf(F, y[:, None, :])  # (N, S)
+    total = torch.sum(torch.logsumexp(lp, dim=-1) - math.log(num_samples))
+    return total / num_samples if reference_scaling else total

@@ -21,6 +21,7 @@ import torch
 
 from hetmogp_tpu.ops import kernels as jkernels
 from hetmogp_tpu.ops import pallas_kernels
+from hetmogp_tpu_torch import config
 from hetmogp_tpu_torch.ops import (_build, cuda_dispatch, cuda_kernels,
                                    kernels, linalg)
 
@@ -43,8 +44,8 @@ def _inputs(N, M, Q, Dx, iso, dtype, seed=0):
     return [a.astype(dtype) for a in (X, Z, ls, var)]
 
 
-def _port(arrays, **kw):
-    return kernels.K_batched("rbf", *map(torch.from_numpy, arrays),
+def _port(arrays, kind="rbf", **kw):
+    return kernels.K_batched(kind, *map(torch.from_numpy, arrays),
                              **kw).numpy()
 
 
@@ -82,10 +83,9 @@ def test_gram_and_kdiag_match_jax():
 def test_cpu_tensors_take_the_plain_version():
     arrays = [torch.from_numpy(a) for a in
               _inputs(**CASES["ard"], dtype=np.float32)]
-    before = cuda_kernels.rbf_K_batched.launches
     got = kernels.K_batched("rbf", *arrays)
     assert not cuda_dispatch.use_rbf_kernel(arrays[0])
-    assert cuda_kernels.rbf_K_batched.launches == before == 0
+    assert not any(cuda_kernels.launch_counts().values())
     torch.testing.assert_close(
         got, cuda_kernels.rbf_K_batched_plain(*arrays), rtol=0, atol=0)
 
@@ -94,9 +94,12 @@ def test_cpu_tensors_take_the_plain_version():
 def test_cuda_wrapper_refuses_cpu_tensors(dtype):
     arrays = [torch.from_numpy(a) for a in
               _inputs(**CASES["ard"], dtype=dtype)]
-    with pytest.raises((ValueError, TypeError)):
-        cuda_kernels.rbf_K_batched(*arrays)
-    assert cuda_kernels.rbf_K_batched.launches == 0
+    for launcher in (cuda_kernels.rbf_K_batched,
+                     cuda_kernels.rbf_K_batched_vec,
+                     cuda_kernels.rbf_K_batched_scalar):
+        with pytest.raises(TypeError if dtype == np.float64 else ValueError):
+            launcher(*arrays)
+    assert not any(cuda_kernels.launch_counts().values())
 
 
 def test_cuda_wrapper_refuses_grad():
@@ -107,10 +110,118 @@ def test_cuda_wrapper_refuses_grad():
 
 
 def test_unported_kernel_raises():
+    """Every kernel family of the JAX package is ported; an unknown name
+    raises ``ValueError``, as the JAX ``kern_fn`` does."""
     X, Z, ls, var = [torch.from_numpy(a) for a in
                      _inputs(**CASES["ard"], dtype=np.float64)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.K_batched("matern32", X, Z, ls, var)
+    assert kernels.KERNEL_NAMES == tuple(sorted(jkernels._KERNELS))
+    assert config.KERNEL_NAMES == kernels.KERNEL_NAMES
+    with pytest.raises(ValueError, match="unknown kernel"):
+        kernels.K_batched("periodic", X, Z, ls, var)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        jkernels.K_batched("periodic", X, Z, ls, var)
+
+
+STATIONARY = ("matern32", "matern52", "exponential", "rq")
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float64, 1e-12),
+                                        (np.float32, 2e-6)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", STATIONARY)
+def test_stationary_kernels_match_jax(kind, dtype, atol):
+    """The four other families, plain PyTorch with explicit batch
+    dimensions, against the JAX package's vmapped ones: cross-covariance
+    and Gram, direct and matmul distance forms (atol as the RBF's).  No
+    Gram in the matmul form: its diagonal r2 is the rounding noise of
+    |a|^2 + |a|^2 - 2 a.a, of which the root keeps half the digits, so the
+    two packages' diagonals differ by sqrt(eps)."""
+    for case in ("ard", "iso", "wide"):
+        X, Z, ls, var = _inputs(**CASES[case], dtype=dtype)
+        got = _port((X, Z, ls, var), kind=kind)
+        assert got.dtype == dtype
+        want = jkernels.K_batched(kind, X, Z, ls, var)
+        np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=0)
+        if case == "wide":
+            continue
+        gram = kernels.K_gram_batched(kind, *map(torch.from_numpy,
+                                                 (Z, ls, var)))
+        np.testing.assert_allclose(
+            gram.numpy(), np.asarray(jkernels.K_gram_batched(kind, Z, ls,
+                                                             var)),
+            atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ("rbf",) + STATIONARY)
+def test_kernel_gradients_finite_at_coincident_points(kind):
+    """X contains Z's points, so r = 0 on some entries: the 1e-36 under
+    the root keeps every gradient finite, as in the JAX package."""
+    X, Z, ls, var = [torch.from_numpy(a) for a in
+                     _inputs(**CASES["ragged"], dtype=np.float32)]
+    X = torch.cat([X, Z[0, :3]])
+    t = [a.clone().requires_grad_() for a in (X, Z, ls, var)]
+    K = kernels.K_batched(kind, *t)
+    assert float(K.detach()[0, -1, 2]) == pytest.approx(float(var[0]))
+    for g in torch.autograd.grad(K.sum(), t):
+        assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("kind", ("rbf", "matern52"))
+def test_K_self_is_the_gram_of_broadcast_inputs(kind):
+    """``K_self_batched`` against the JAX ``K_gram_batched`` on a broadcast
+    X (what the JAX prediction paths call), symmetric to the bit."""
+    X, _, ls, var = _inputs(**CASES["ard"], dtype=np.float64)
+    got = kernels.K_self_batched(kind, *map(torch.from_numpy, (X, ls, var)))
+    want = jkernels.K_gram_batched(kind, np.broadcast_to(X, (2, *X.shape)),
+                                   ls, var)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-12)
+    assert torch.equal(got, got.mT)
+    assert torch.equal(torch.diagonal(got, dim1=-2, dim2=-1),
+                       torch.from_numpy(var)[:, None].expand(2, X.shape[0]))
+
+
+def test_lmc_coregionalization_matches_jax():
+    rng = np.random.RandomState(0)
+    W, kappa = rng.randn(3, 5), rng.rand(3, 5)
+    for dtype in (np.float64, np.float32):
+        got = kernels.lmc_coregionalization(
+            torch.from_numpy(W.astype(dtype)),
+            torch.from_numpy(kappa.astype(dtype)))
+        want = jkernels.lmc_coregionalization(W.astype(dtype),
+                                              kappa.astype(dtype))
+        assert got.numpy().dtype == dtype
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("M,Dx,aligned,route", [
+    (1024, 2, True, "vec"),     # the main path: trainer and serving
+    (4096, 2, True, "vec"),     # the projected path's Kx at Ns = 4096
+    (1000, 3, True, "vec"),     # M % 4 == 0, not a multiple of the tile
+    (4, 1, True, "vec"),
+    (4095, 2, True, "scalar"),  # an odd Ns on the projected path
+    (7, 1, True, "scalar"),     # the ragged case
+    (1024, 6, True, "scalar"),  # Dx beyond the registers of the vec kernel
+    (1024, 2, False, "scalar"),  # an unaligned output
+])
+def test_rbf_route_picks_by_shape(M, Dx, aligned, route):
+    assert cuda_kernels.rbf_route(M, Dx, aligned) == route
+
+
+@pytest.mark.parametrize("M,route", [(8, "vec"), (7, "scalar")])
+def test_rbf_router_reaches_the_launcher_of_the_route(monkeypatch, M, route):
+    """``rbf_K_batched`` (and so ``RBFCrossCovariance``) with the launchers
+    swapped for recording plain versions."""
+    calls = []
+    for name in ("rbf_K_batched_vec", "rbf_K_batched_scalar"):
+        def launcher(*args, name=name):
+            calls.append(name)
+            return cuda_kernels.rbf_K_batched_plain(*args)
+        monkeypatch.setattr(cuda_kernels, name, launcher)
+    arrays = [torch.from_numpy(a) for a in
+              _inputs(N=5, M=M, Q=2, Dx=2, iso=False, dtype=np.float32)]
+    got = cuda_kernels.RBFCrossCovariance.apply(*arrays)
+    assert calls == [f"rbf_K_batched_{route}"]
+    assert torch.equal(got, cuda_kernels.rbf_K_batched_plain(*arrays))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -160,3 +160,87 @@ def test_analytic_gradients_finite_at_v_zero(name, yval):
     Y = np.full((3, 1), yval, np.float32)
     for arr in _port_var_exp(lik, Y, m, v):
         assert np.isfinite(arr).all(), (name, arr)
+
+
+# ---- the Monte-Carlo log-predictive density ---------------------------------
+
+@pytest.mark.parametrize("reference_scaling", [True, False],
+                         ids=["reference", "plain"])
+@pytest.mark.parametrize("name", NAMES)
+def test_log_predictive_matches_jax_on_injected_draws(name, reference_scaling):
+    """``Likelihood.log_predictive`` with the same (N, S, J) draws on both
+    sides, float64: the same logpdf values through the same logsumexp
+    (rtol 1e-10), the reference's extra 1/S factor included or not."""
+    jlik, tlik = getattr(jliks, name)(), getattr(tliks, name)()
+    rng = np.random.RandomState(2)
+    n, S = 25, 30
+    Y = _observations(name, rng, n)
+    m, v = _moments(rng, n, jlik.dim_f)
+    eps = rng.randn(n, S, jlik.dim_f)
+    want = jlik.log_predictive(None, jnp.asarray(Y), jnp.asarray(m),
+                               jnp.asarray(v), S,
+                               reference_scaling=reference_scaling, eps=eps)
+    got = tlik.log_predictive(None, torch.from_numpy(Y), torch.from_numpy(m),
+                              torch.from_numpy(v), S,
+                              reference_scaling=reference_scaling, eps=eps)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
+    if reference_scaling:
+        plain = tlik.log_predictive(None, torch.from_numpy(Y),
+                                    torch.from_numpy(m), torch.from_numpy(v),
+                                    S, reference_scaling=False, eps=eps)
+        np.testing.assert_allclose(float(got) * S, float(plain), rtol=1e-12)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_log_predictive_f32_extremes_finite_where_jax_is(name):
+    """float32 at m = +-50, v = 30, where the clipped likelihoods saturate
+    and a row's logpdf may be -inf at every draw: the port is finite
+    wherever the JAX package is, -inf where it is -inf, and never NaN
+    unless the reference is."""
+    jlik, tlik = getattr(jliks, name)(), getattr(tliks, name)()
+    rng = np.random.RandomState(3)
+    n, S = 8, 16
+    Y = _observations(name, rng, n).astype(np.float32)
+    m = np.repeat(np.where(np.arange(n) % 2, 50.0, -50.0)[:, None],
+                  jlik.dim_f, 1).astype(np.float32)
+    v = np.full_like(m, 30.0)
+    eps = rng.randn(n, S, jlik.dim_f).astype(np.float32)
+    want = float(jlik.log_predictive(None, jnp.asarray(Y), jnp.asarray(m),
+                                     jnp.asarray(v), S, eps=eps))
+    got = tlik.log_predictive(None, torch.from_numpy(Y), torch.from_numpy(m),
+                              torch.from_numpy(v), S, eps=eps)
+    assert got.dtype == torch.float32
+    got = float(got)
+    if np.isfinite(want):
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+    else:
+        assert got == want or (np.isnan(want) and np.isnan(got))
+
+
+def test_log_predictive_needs_a_generator_or_draws():
+    lik = tliks.Poisson()
+    Y, m, v = torch.ones(4, 1), torch.zeros(4, 1), torch.ones(4, 1)
+    with pytest.raises(ValueError, match="Generator"):
+        lik.log_predictive(None, Y, m, v, 10)
+    a = lik.log_predictive(torch.Generator().manual_seed(1), Y, m, v, 10)
+    b = lik.log_predictive(torch.Generator().manual_seed(1), Y, m, v, 10)
+    assert float(a) == float(b) and np.isfinite(float(a))
+
+
+def test_grid_made_under_inference_mode_serves_autograd_later():
+    """A prediction (inference mode) that is the first to ask for a GH grid
+    must not leave an inference tensor in the cache: the trainer's
+    ``var_exp`` saves the grid for its backward."""
+    tquad._grid_tensors.cache_clear()
+    lik = tliks.Bernoulli()
+    rng = np.random.RandomState(0)
+    m, v = (torch.from_numpy(a) for a in _moments(rng, 6, 1))
+    with torch.inference_mode():
+        lik.predictive(m, v)
+    nodes, w = tquad._grid_tensors(lik.T_pred, 1, m.dtype, m.device)
+    assert not nodes.is_inference() and not w.is_inference()
+    Y = torch.from_numpy(_observations("Bernoulli", rng, 6))
+    m.requires_grad_()
+    v.requires_grad_()  # sqrt(2 v) * nodes saves the grid
+    for g in torch.autograd.grad(lik.var_exp(Y, m, v).sum(), (m, v)):
+        assert bool(torch.isfinite(g).all())

@@ -192,3 +192,86 @@ def test_phi_matches_jax():
     A = np.random.RandomState(8).randn(3, 9, 9)
     np.testing.assert_array_equal(linalg._phi(torch.from_numpy(A)).numpy(),
                                   np.asarray(jlinalg._phi(jnp.asarray(A))))
+
+
+# ---- triangular solves and the adaptive Cholesky ----------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_solve_tri_and_cho_solve_match_jax(dtype, tol):
+    """``solve_tri`` (both transposes) and ``cho_solve_batched`` on a
+    well-conditioned factor: the same substitution in another blocking."""
+    _, L = _tri_inputs(3, 1, 24, dtype=dtype)
+    B = np.random.RandomState(1).randn(3, 24, 7).astype(dtype)
+    tL, tB = torch.from_numpy(L), torch.from_numpy(B)
+    for trans in (False, True):
+        want = jlinalg.solve_tri(jnp.asarray(L), jnp.asarray(B), trans=trans)
+        got = linalg.solve_tri(tL, tB, trans=trans)
+        assert got.numpy().dtype == dtype
+        assert _normwise(got, want) <= tol
+    want = jlinalg.cho_solve_batched(jnp.asarray(L), jnp.asarray(B))
+    assert _normwise(linalg.cho_solve_batched(tL, tB), want) <= tol
+    K = tL @ tL.mT
+    assert _normwise(K @ linalg.cho_solve_batched(tL, tB), B) <= 10 * tol
+
+
+def _jitchol_batch(dtype):
+    """Four (8, 8) members: well-conditioned, exactly singular (rank 3),
+    near-singular in the working precision, and indefinite beyond what the
+    five levels can repair."""
+    rng = np.random.RandomState(0)
+    A = rng.randn(8, 8)
+    good = A @ A.T + 8.0 * np.eye(8)
+    V = rng.randn(8, 3)
+    singular = V @ V.T
+    eps = np.finfo(dtype).eps
+    near = singular + 1e-3 * eps * np.eye(8)
+    hopeless = singular - 10.0 * np.eye(8)
+    return np.stack([good, singular, near, hopeless]).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_jitchol_finds_the_jax_level_and_factor(dtype):
+    """GPy's policy on both sides: the member that factorizes keeps level
+    0, the singular ones get the same level (read off the factor:
+    mean diag(L L^T - K) over mean diag(K), the same decade and within
+    1%), the hopeless one is NaN on both; the factors agree to 1e-3
+    normwise (the repaired pivots sit at the level, where two LAPACKs
+    round differently) and reproduce K + level I to 100 eps."""
+    K = _jitchol_batch(dtype)
+    want = np.asarray(jlinalg.jitchol(jnp.asarray(K), jitter=0.0))
+    got = linalg.jitchol(torch.from_numpy(K)).numpy()
+    assert got.dtype == dtype
+    assert np.isnan(got[3]).all() and np.isnan(np.diag(want[3])).all()
+    eps = np.finfo(dtype).eps
+    for i in range(3):
+        assert np.isfinite(got[i]).all(), i
+        assert _normwise(got[i], want[i]) <= 1e-3, i
+        levels = [np.mean(np.diag(np.float64(L[i]) @ np.float64(L[i]).T
+                                  - np.float64(K[i])))
+                  / np.mean(np.diag(K[i])) for L in (got, want)]
+        if i == 0:
+            assert abs(levels[0]) <= 100 * eps
+            np.testing.assert_allclose(got[0], np.linalg.cholesky(K[0]),
+                                       rtol=1e3 * eps, atol=1e3 * eps)
+        else:
+            assert levels[0] >= 0.99e-6, (i, levels)
+            assert levels[0] == pytest.approx(levels[1], rel=1e-2), i
+
+
+def test_jitchol_fixed_jitter_and_gradient():
+    """``adaptive=False`` is one Cholesky of K + jitter I (NaN on failure,
+    no exception); the adaptive factor is differentiable through the final
+    factorization, with the level held constant, as in the JAX package."""
+    K = _jitchol_batch(np.float64)
+    fixed = linalg.jitchol(torch.from_numpy(K), jitter=1e-3, adaptive=False)
+    want = jlinalg.jitchol(jnp.asarray(K), jitter=1e-3, adaptive=False)
+    assert _normwise(fixed[:3], np.asarray(want)[:3]) <= 1e-9
+    assert bool(torch.isnan(fixed[3]).all())
+
+    Kt = torch.from_numpy(K[:3]).requires_grad_()
+    (g,) = torch.autograd.grad(linalg.jitchol(Kt).sum(), Kt)
+    gj = jax.grad(lambda k: jnp.sum(jlinalg.jitchol(k)))(jnp.asarray(K[:3]))
+    assert bool(torch.isfinite(g[0]).all())
+    assert _normwise(g[0], np.asarray(gj)[0]) <= 1e-9
