@@ -55,9 +55,19 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    zero around it;
 8. serves the same model at 777 inducing points, which only the staged
    and scalar kernels take, at both precisions, against the plain
-   versions.
+   versions;
+9. trains the other ten likelihood families at the flagship's width
+   (``families_phase``: Gaussian, Beta, Binomial, Dirichlet, LogNormal,
+   Ordinal, NegativeBinomial, StudentT, Weibull, ZeroInflatedPoisson, one
+   task each, 1e6 rows, the flagship's trainer at "high" with
+   ``learn_lik_params``): ten graphed steps bitwise against eager ones,
+   theta included, and against the plain versions in float32 and float64;
+   two timed calls of 1,000 steps with the kernels' launches per cycle, a
+   profile, and every learned theta finite and moved; then serves the
+   trained model (``with_trained_likelihoods``) and scores its NLPD,
+   against the plain route and float64.
 
-They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b.  The serving pass is
+They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b, 9.  The serving pass is
 the process's first profiled call: as its sixth, after the trainers', the
 profiler lost one of its twelve requests' records (and a prediction is
 then the first to ask for each quadrature grid, as in a process that
@@ -67,7 +77,7 @@ from 5a.
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
 JSON (every kernel launcher, each route included); the last line is
-``{"ok": true, "device": {...}}``.  About four minutes on one H100.
+``{"ok": true, "device": {...}}``.  About five minutes on one H100.
 """
 
 from __future__ import annotations
@@ -1057,23 +1067,31 @@ def graphed_trainer_phase(smi: str, precision: str,
         raise AssertionError("ELBO not finite or not rising")
 
     offsets = ttrain.draw_offset_stream(gen, sizes, batches, PROFILE_STEPS)
-    before = dict(run.replays)
-    rows = profile(lambda: run(state, dataset, offsets=offsets),
-                   f"{what}, one call of {PROFILE_STEPS} steps", smi)
-    if rows:
-        steps = {k: run.replays[k] - before[k] for k in run.replays}
-        for sym, (ms, seen) in own_kernel_rows(rows).items():
-            launcher = _SYMBOLS[sym]
-            per_graph = sum(run.capture_launches[kind][launcher] * steps[kind]
-                            for kind in steps)
-            print(f"  {sym}: {seen} calls in the profile, {per_graph} "
-                  f"expected from the replays; device time {ms:.3f} ms"
-                  f"{f', {ms / seen:.4f} ms a call' if seen else ''} "
-                  f"[card: {smi}]")
-            if seen != per_graph:
-                raise AssertionError(f"the profile shows {seen} calls of "
-                                     f"{sym}, the replays {per_graph}")
+    profile_replays(run, lambda: run(state, dataset, offsets=offsets),
+                    f"{what}, one call of {PROFILE_STEPS} steps", smi)
     return counts, replayed, med
+
+
+def profile_replays(run, call, what: str, smi: str) -> None:
+    """Profile ``call``, a call of the trainer ``run``'s graphs, and hold
+    the calls of each hand kernel in the trace to the launches that its
+    replays hold."""
+    before = dict(run.replays)
+    rows = profile(call, what, smi)
+    if not rows:
+        return
+    steps = {k: run.replays[k] - before[k] for k in run.replays}
+    for sym, (ms, seen) in own_kernel_rows(rows).items():
+        launcher = _SYMBOLS[sym]
+        per_graph = sum(run.capture_launches[kind][launcher] * steps[kind]
+                        for kind in steps)
+        print(f"  {sym}: {seen} calls in the profile, {per_graph} "
+              f"expected from the replays; device time {ms:.3f} ms"
+              f"{f', {ms / seen:.4f} ms a call' if seen else ''} "
+              f"[card: {smi}]")
+        if seen != per_graph:
+            raise AssertionError(f"the profile shows {seen} calls of "
+                                 f"{sym}, the replays {per_graph}")
 
 
 def serving_model(device="cuda", m=M, q=Q):
@@ -1395,6 +1413,333 @@ def ragged_serving_phase(smi: str) -> dict:
     return total
 
 
+# The ten-family model (families_phase): the flagship's width with the
+# ten families that the six bench ones leave, each trainable theta set
+# away from its truth so that training has to move it.
+FAMILY_N_PER = 100_000  # 1.0e6 rows over ten tasks, as the flagship has
+FAMILY_SAMPLES = 1000  # NLPD draws a row
+
+
+def families_true_likelihoods():
+    """The ten families with the parameters the data is drawn from."""
+    import hetmogp_tpu_torch as tp
+
+    return (tp.Gaussian(sigma=0.3), tp.Beta(), tp.Binomial(n=10),
+            tp.Dirichlet(K=3), tp.LogNormal(sigma=0.3),
+            tp.Ordinal(K=4, thresholds=(-1.2, 0.1, 0.9)),
+            tp.NegativeBinomial(r=5.0), tp.StudentT(df=8.0),
+            tp.Weibull(k=1.8), tp.ZeroInflatedPoisson())
+
+
+# the true parameter functions f_d(x) = c_d + a_d sin(2 pi w_d . x + phi_d),
+# (c_d, a_d) per column in task order: Beta's and Dirichlet's
+# concentrations e^f stay in [1.5, 5] (no draw rounds to 0 or 1 in
+# float32), the counts' rates and the Ordinal's f within the data's scale
+FAMILY_F_SHAPE = ((0.0, 1.0), (1.0, 0.4), (1.0, 0.4), (0.0, 0.8),
+                  (1.0, 0.4), (1.0, 0.4), (1.0, 0.4), (0.0, 0.5),
+                  (0.0, 1.5), (1.0, 0.5), (0.0, 1.0), (-1.0, 0.2),
+                  (0.0, 0.5), (1.0, 0.5), (-0.5, 0.5))
+
+
+def families_model(device="cuda"):
+    """The flagship's model and trainer (bench.py:172-217: Q=4, M=1024,
+    Dx=2, 1.0e6 rows, B=512 a task, float32, jitter 1e-4, adam at 0.005,
+    slice minibatches, vm_batch_fraction 0.25, "high") with the ten other
+    families and ``learn_lik_params``: X from RandomState(SEED), Y drawn by
+    ``HetLikelihood.samples`` from a seeded CPU generator at the true f
+    and the true theta; the initial theta are the families' defaults
+    (sigma 0.5, r 2, df 4, k 1.0, evenly spaced thresholds)."""
+    import hetmogp_tpu_torch as tp
+
+    liks = (tp.Gaussian(learn_sigma=True), tp.Beta(), tp.Binomial(n=10),
+            tp.Dirichlet(K=3), tp.LogNormal(learn_sigma=True),
+            tp.Ordinal(K=4), tp.NegativeBinomial(learn_r=True),
+            tp.StudentT(learn_df=True), tp.Weibull(k=1.0, learn_k=True),
+            tp.ZeroInflatedPoisson())
+    cfg = tp.ModelConfig(likelihoods=liks, num_latent=Q, num_inducing=M,
+                         input_dim=DX, dtype="float32", jitter=1e-4,
+                         adaptive_jitter=False, fuse_task_rows=True,
+                         ve_fwd_precision="high")
+    tc = tp.TrainConfig(optimizer="adam", step_rate=0.005, minibatch="slice",
+                        vm_batch_fraction=0.25, learn_lik_params=True)
+    rng = np.random.RandomState(SEED)
+    X_list = [rng.rand(FAMILY_N_PER, DX).astype(np.float32) for _ in liks]
+    w = 2.0 * rng.rand(cfg.num_output_functions, DX)
+    phi = 2.0 * np.pi * rng.rand(cfg.num_output_functions)
+    F = []
+    for t, (start, stop) in enumerate(cfg.task_function_slices):
+        cols = [FAMILY_F_SHAPE[d][0] + FAMILY_F_SHAPE[d][1] * np.sin(
+            2.0 * np.pi * X_list[t] @ w[d] + phi[d])
+            for d in range(start, stop)]
+        F.append(torch.from_numpy(np.stack(cols, axis=1)))
+    truth = tp.HetLikelihood(families_true_likelihoods())
+    Y_list = [y.numpy().astype(np.float32) for y in truth.samples(
+        torch.Generator().manual_seed(SEED + 9), F)]
+    Z = rng.rand(M, DX).astype(np.float32)
+    params = tp.init_params(rng, cfg, Z, lengthscale=0.2, variance=0.5,
+                            q_mu_scale=0.1, with_lik_theta=True,
+                            device=device)
+    dataset = tp.prepare_dataset_on_device(cfg, X_list, Y_list, device=device)
+    return cfg, tc, params, dataset, X_list, Y_list
+
+
+def natural_theta(lik, theta) -> list:
+    """A learned theta in the family's own units: sigma, r, df, k, or the
+    Ordinal's thresholds."""
+    return [round(float(x), 4) for x in
+            (lik.with_theta(theta).thresholds if hasattr(lik, "thresholds")
+             else torch.exp(theta.detach().double().cpu()))]
+
+
+def families_phase(smi: str, device="cuda") -> dict:
+    """The ten other likelihood families, trained with their theta through
+    the graphed trainer and served, at the flagship's width:
+
+    1. ten graphed steps from the initial state against ten eager steps
+       (bitwise, ELBO and every parameter, theta included) and against the
+       plain versions in float32 and float64 (the flagship's bounds);
+    2. two timed calls of GRAPH_CALL_STEPS graphed steps: steps/s, capture
+       time, peak memory, the hand kernels' launches per 5-step cycle, a
+       rising ELBO, a profile of a PROFILE_STEPS-step call, and every
+       learned theta finite and moved;
+    3. serving through ``make_serving_predictive`` on
+       ``config.with_trained_likelihoods(params)`` (at "highest", the
+       serving cell's precision): ten tasks x CHUNK rows, rows/s; ACC_ROWS
+       rows of each task against the plain float32 route and float64; the
+       moments finite, variances non-negative, Binomial and Ordinal
+       probabilities in [0, 1], Dirichlet means on the simplex;
+    4. NLPD of the ten tasks on ACC_ROWS rows against float64, on the
+       generator's draws.
+
+    The launch counts go to 0 just before the first call and are read just
+    after it.  Returns them."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    cfg, tc, params, dataset, X_list, Y_list = families_model(device)
+    T = cfg.num_tasks
+    sizes, batches = (FAMILY_N_PER,) * T, (TRAIN_B,) * T
+    what = ("ten-family trainer (make_scan_trainer, \"high\", "
+            "learn_lik_params)")
+    names = ", ".join(type(lik).__name__ for lik in cfg.likelihoods)
+    print(f"{what}: {T} tasks ({names}), D={cfg.num_output_functions}, "
+          f"{T * FAMILY_N_PER} rows, data made in "
+          f"{time.perf_counter() - t_phase:.3f} s [card: {smi}]")
+
+    # 1. ten graphed steps against eager and plain
+    offsets = ttrain.draw_offset_stream(
+        torch.Generator().manual_seed(SEED + 10), sizes, batches, 10)
+    run = tp.make_scan_trainer(cfg, tc, sizes, batches,
+                               steps_per_call=GRAPH_CALL_STEPS)
+    ck.zero_launch_counts()
+    t0 = time.perf_counter()
+    state, graphed = run(tp.init_train_state(params, cfg), dataset,
+                         offsets=offsets)
+    torch.cuda.synchronize()
+    first_call = time.perf_counter() - t0
+    counts = ck.launch_counts()
+    cycle = {k: sum(run.capture_launches[kind][k]
+                    * (tc.ve_steps_per_vm if kind == "ve" else 1)
+                    for kind in run.graphs) for k in counts}
+    print(f"{what}, first call of 10 steps: {first_call:.3f} s, of which "
+          f"warm-up and capture {run.capture_seconds:.3f} s; launches "
+          f"counted from 0 {counts}; launches per graph "
+          f"{run.capture_launches}; per 5-step cycle: rbf "
+          f"{cycle['rbf_K_batched_vec']}, kernel 3 "
+          f"{cycle['tril_projection_3pass_tma']}, kernel A "
+          f"{cycle['tril_projection_tma']} [card: {smi}]")
+    want = {"rbf_K_batched_vec": 5, "tril_projection_3pass_tma": 4,
+            "tril_projection_tma": 1, "rbf_K_batched_scalar": 0,
+            "tril_projection_staged": 0, "tril_projection_3pass_staged": 0}
+    if ({k: cycle[k] for k in want} != want
+            or any(counts[k] < 1 for k in want if want[k])):
+        raise AssertionError(f"the ten-family graphs did not run the "
+                             f"kernels: {cycle} a cycle, {want} expected")
+    ext = ttrain.extend_for_wraparound(dataset, batches, sizes)
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    ext64 = tuple(tp.TaskData(*(a.double() for a in td)) for td in ext)
+    elbos = {"graphed": graphed.double().cpu()}
+    for name, c, data, p, use_kernel in (
+            ("eager", cfg, ext, params, True),
+            ("plain_f32", cfg, ext, params, False),
+            ("plain_f64", cfg64, ext64, params.to(dtype=torch.float64),
+             False)):
+        step = ttrain.make_step(c, tc, use_kernel=use_kernel)
+        s = tp.init_train_state(p, c)
+        scales = ttrain.batch_scales(sizes, batches, c.torch_dtype, device)
+        out = []
+        for off in offsets.tolist():
+            s, metrics = step(s, ttrain.slice_batch(data, off, sizes,
+                                                    batches), scales)
+            out.append(metrics["elbo"])
+        elbos[name] = torch.stack(out).double().cpu()
+        if name == "eager":
+            eager_state = s
+    from hetmogp_tpu_torch.models.params import leaves
+    same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves(state.params), leaves(eager_state.params)))
+    bitwise = torch.equal(elbos["graphed"], elbos["eager"])
+
+    def rel(b, upto=None):
+        r = (elbos["graphed"] - elbos[b]).abs() / elbos[b].abs()
+        return float(r[:upto].max())
+
+    first_vm = tc.ve_steps_per_vm + 1
+    r32_ve, r32, r64 = (rel("plain_f32", first_vm), rel("plain_f32"),
+                        rel("plain_f64"))
+    for name in elbos:
+        print(f"  {name:9s} ELBO {elbos[name].numpy().round(3).tolist()}"
+              f" [card: {smi}]")
+    print(f"{what}, ten graphed steps: bitwise equal to ten eager steps: "
+          f"ELBO {bitwise}, every parameter with theta {same_params}; vs "
+          f"plain f32 {r32_ve:.3e} up to the first VM step (bound "
+          f"{GRAPH_PLAIN_F32_VE:g}), {r32:.3e} over all ten (bound "
+          f"{GRAPH_PLAIN_F32:g}); vs plain f64 {r64:.3e} (bound "
+          f"{GRAPH_F64:g}) [card: {smi}]")
+    if not (bitwise and same_params and torch.isfinite(elbos["graphed"]).all()
+            and r32_ve <= GRAPH_PLAIN_F32_VE and r32 <= GRAPH_PLAIN_F32
+            and r64 <= GRAPH_F64):
+        raise AssertionError("ten-family graphed steps disagree with eager "
+                             "or plain")
+    del ext, ext64, eager_state
+
+    # 2. two timed calls
+    gen = torch.Generator().manual_seed(SEED + 11)
+    calls, rates = [graphed], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, e = run(state, dataset, gen)
+        torch.cuda.synchronize()
+        rates.append(GRAPH_CALL_STEPS / (time.perf_counter() - t0))
+        calls.append(e)
+    report_rates(what, rates, GRAPH_CALL_STEPS, smi)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    e = torch.cat(calls).double().cpu()
+    start, end = float(e[:10].mean()), float(e[-10:].mean())
+    print(f"{what}: ELBO over {e.numel()} steps, mean of the first ten "
+          f"{start:.3f}, of the last ten {end:.3f}; peak memory "
+          f"{peak:.2f} GiB; capture {run.capture_seconds:.3f} s "
+          f"[card: {smi}]")
+    if not (torch.isfinite(e).all() and end > start):
+        raise AssertionError("ten-family ELBO not finite or not rising")
+    held = {}
+    offsets = ttrain.draw_offset_stream(gen, sizes, batches, PROFILE_STEPS)
+    profile_replays(run, lambda: held.update(
+        out=run(state, dataset, offsets=offsets)),
+        f"{what}, one call of {PROFILE_STEPS} steps", smi)
+    state = held["out"][0]
+    truth = families_true_likelihoods()
+    for t, lik in enumerate(cfg.likelihoods):
+        if not lik.n_theta:
+            continue
+        new, old = state.params.lik_theta[t], params.lik_theta[t]
+        true = torch.from_numpy(truth[t].default_theta())
+        print(f"  {type(lik).__name__} theta: start "
+              f"{natural_theta(lik, old)}, learned {natural_theta(lik, new)}"
+              f", truth {natural_theta(lik, true)} [card: {smi}]")
+        if not (torch.isfinite(new).all() and not torch.equal(new, old)):
+            raise AssertionError(f"task {t}: theta not finite or not moved")
+    trained = state.params
+
+    # 3. serving the trained model
+    serve_cfg = dataclasses.replace(cfg.with_trained_likelihoods(trained),
+                                    ve_fwd_precision="highest")
+    student = serve_cfg.likelihoods[7]
+    if not student.df > 2.0:
+        raise AssertionError(f"learned df {student.df} <= 2")
+    Xs = torch.tensor(np.random.RandomState(SEED + 12).rand(CHUNK, DX),
+                      dtype=torch.float32, device=device)
+    serve = [tp.make_serving_predictive(trained, serve_cfg, t)
+             for t in range(T)]
+
+    def serve_all():
+        return [serve[t](Xs) for t in range(T)]
+
+    ck.zero_launch_counts()
+    out = serve_all()
+    torch.cuda.synchronize()
+    served = {k: v for k, v in ck.launch_counts().items() if v}
+    print(f"ten-family serving pass: {T} x {CHUNK} rows; launches {served}"
+          f" [card: {smi}]")
+    if (served.get("rbf_K_batched_vec", 0) < T
+            or served.get("tril_projection_tma", 0) < T):
+        raise AssertionError("ten-family serving did not run the kernels")
+    for t, (lik, (mean, var)) in enumerate(zip(serve_cfg.likelihoods, out)):
+        name = type(lik).__name__
+        if not (torch.isfinite(mean).all() and torch.isfinite(var).all()
+                and bool((var >= 0).all())):
+            raise AssertionError(f"task {t} {name}: non-finite moments or a "
+                                 "negative variance")
+        if name == "Binomial":
+            mean = mean / lik.n
+        if name in ("Binomial", "Ordinal") and not bool(
+                ((mean >= 0) & (mean <= 1)).all()):
+            raise AssertionError(f"task {t} {name}: probability outside "
+                                 "[0, 1]")
+        if name == "Dirichlet" and not (bool((mean >= 0).all()) and float(
+                (mean.sum(dim=1) - 1.0).abs().max()) <= 1e-5):
+            raise AssertionError(f"task {t}: Dirichlet mean off the simplex")
+    params64 = trained.to(dtype=torch.float64)
+    cfg64 = dataclasses.replace(serve_cfg, dtype="float64")
+    worst = {"plain_f32": 0.0, "f64": 0.0}
+    for t, lik in enumerate(serve_cfg.likelihoods):
+        got = serve[t](Xs[:ACC_ROWS])
+        ref32 = tp.make_serving_predictive(trained, serve_cfg, t,
+                                           use_kernel=False)(Xs[:ACC_ROWS])
+        ref64 = tp.make_serving_predictive(params64, cfg64, t,
+                                           use_kernel=False)(
+                                               Xs[:ACC_ROWS].double())
+        e32 = [normwise(a, b) for a, b in zip(got, ref32)]
+        e64 = [normwise(a, b) for a, b in zip(got, ref64)]
+        print(f"  task {t} {type(lik).__name__}: normwise error (mean, var) "
+              f"vs plain f32 {e32[0]:.3e}, {e32[1]:.3e}; vs f64 "
+              f"{e64[0]:.3e}, {e64[1]:.3e} [card: {smi}]")
+        worst["plain_f32"] = max(worst["plain_f32"], *e32)
+        worst["f64"] = max(worst["f64"], *e64)
+    if not (worst["plain_f32"] <= PLAIN_F32_BOUND
+            and worst["f64"] <= F64_BOUND):
+        raise AssertionError(f"ten-family served moments: {worst}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        serve_all()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rates = sorted(T * CHUNK / dt for dt in times)
+    print(f"ten-family serving throughput: {statistics.median(rates):.1f} "
+          f"rows/s, median of 3 passes of {T * CHUNK} rows, min "
+          f"{rates[0]:.1f}, max {rates[-1]:.1f} [card: {smi}]")
+
+    # 4. NLPD against float64 on the same draws
+    Xn = [X_list[t][:ACC_ROWS] for t in range(T)]
+    Yn = [Y_list[t][:ACC_ROWS] for t in range(T)]
+    dgen = torch.Generator(device=device).manual_seed(SEED + 13)
+    eps = [torch.randn(ACC_ROWS, FAMILY_SAMPLES, lik.dim_f, generator=dgen,
+                       device=device) for lik in serve_cfg.likelihoods]
+    nlpd = tp.negative_log_predictive(trained, serve_cfg, None, Xn, Yn,
+                                      num_samples=FAMILY_SAMPLES, eps=eps)
+    nlpd64 = tp.negative_log_predictive(params64, cfg64, None, Xn, Yn,
+                                        num_samples=FAMILY_SAMPLES,
+                                        eps=[e.double() for e in eps],
+                                        use_kernel=False)
+    drawn = tp.negative_log_predictive(trained, serve_cfg, dgen, Xn, Yn,
+                                       num_samples=FAMILY_SAMPLES)
+    r = abs(float(nlpd) - float(nlpd64)) / abs(float(nlpd64))
+    print(f"ten-family NLPD ({T} x {ACC_ROWS} rows, {FAMILY_SAMPLES} draws, "
+          f"reference scaling): {float(nlpd):.6f}, float64 "
+          f"{float(nlpd64):.6f}, relative {r:.3e} (bound {NLPD_BOUND:g}); "
+          f"with the generator's own draws {float(drawn):.6f}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [card: {smi}]")
+    if not (r <= NLPD_BOUND and bool(torch.isfinite(drawn))):
+        raise AssertionError("ten-family NLPD disagrees with float64")
+    del run, state, serve, out, eps
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     smi = device_phase()
     build_phase(smi)
@@ -1420,6 +1765,7 @@ def main():
     graphed_trainer_phase(smi, "high", timed_calls=3)
     counts, _, _ = graphed_trainer_phase(smi, "high")
     graphed_trainer_phase(smi, "highest")
+    families_phase(smi)
     # launches: the main path's for the vector RBF kernel and the TMA
     # routes; the staged and scalar routes never run at M = 1024, so theirs
     # are from the ragged serving path, their own

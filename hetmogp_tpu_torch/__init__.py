@@ -1,6 +1,8 @@
 """hetmogp_tpu_torch: the PyTorch and CUDA port of hetmogp_tpu.
 
-The port predicts, serves and trains: the prediction API of a trained
+The port predicts, serves and trains: the sixteen likelihood families of
+the JAX package with their trainable likelihood parameters (theta) and
+the ``HetLikelihood`` dispatcher; the prediction API of a trained
 heterogeneous multi-output GP (latent u and f with full covariances,
 correlated samples, the projected and stochastic predictions, the
 observation-space predictive, NLPD, and the cached-inverse serving
@@ -21,12 +23,17 @@ first reaches one.
 
 from hetmogp_tpu_torch.config import ModelConfig, TrainConfig
 from hetmogp_tpu_torch.data import full_batch
-from hetmogp_tpu_torch.likelihoods import (Bernoulli, Categorical, Exponential,
-                                           Gamma, HetGaussian, Likelihood,
-                                           Poisson)
+from hetmogp_tpu_torch.likelihoods import (Bernoulli, Beta, Binomial,
+                                           Categorical, Dirichlet,
+                                           Exponential, Gamma, Gaussian,
+                                           HetGaussian, HetLikelihood,
+                                           Likelihood, LogNormal,
+                                           NegativeBinomial, Ordinal, Poisson,
+                                           StudentT, Weibull,
+                                           ZeroInflatedPoisson)
 from hetmogp_tpu_torch.models.elbo import TaskData, elbo_fn
-from hetmogp_tpu_torch.models.params import (SVMOGPParams, init_params,
-                                             params_from_jax)
+from hetmogp_tpu_torch.models.params import (SVMOGPParams, default_lik_theta,
+                                             init_params, params_from_jax)
 from hetmogp_tpu_torch.models.predict import (make_serving_predictive,
                                               negative_log_predictive,
                                               predict_f, predict_f_all,
@@ -44,14 +51,26 @@ __all__ = [
     "ModelConfig",
     "TrainConfig",
     "Likelihood",
+    "Gaussian",
     "HetGaussian",
     "Bernoulli",
+    "Binomial",
     "Categorical",
-    "Poisson",
+    "Beta",
     "Gamma",
     "Exponential",
+    "LogNormal",
+    "NegativeBinomial",
+    "Poisson",
+    "StudentT",
+    "Ordinal",
+    "Dirichlet",
+    "Weibull",
+    "ZeroInflatedPoisson",
+    "HetLikelihood",
     "SVMOGPParams",
     "init_params",
+    "default_lik_theta",
     "params_from_jax",
     "TaskData",
     "elbo_fn",

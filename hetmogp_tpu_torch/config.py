@@ -8,7 +8,8 @@ What the port cannot run yet raises ``NotImplementedError`` when the
 config is made: an unknown kernel family, coregionalization rank > 1,
 adaptive jitter, the float64 factorization island, a forward projection
 below ``"high"`` precision, and every optimizer, schedule and sampler but
-the flagship trainer's.
+the flagship trainer's.  All sixteen likelihood families of the JAX
+package load.
 """
 
 from __future__ import annotations
@@ -23,11 +24,6 @@ import torch
 KERNEL_NAMES = ("exponential", "matern32", "matern52", "rbf", "rq")
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-# JAX likelihood families that the port does not have yet
-_UNPORTED_FAMILIES = ("Gaussian", "Beta", "Binomial", "Dirichlet", "LogNormal",
-                      "Ordinal", "NegativeBinomial", "StudentT", "Weibull",
-                      "ZeroInflatedPoisson")
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -114,8 +110,6 @@ class ModelConfig:
         for spec in d["likelihoods"]:
             spec = dict(spec)
             name = spec.pop("cls")
-            if name in _UNPORTED_FAMILIES:
-                raise _not_ported(f"likelihood {name}", 11)
             if name not in lik_mod.__all__:
                 raise ValueError(f"unknown likelihood class {name!r}")
             liks.append(getattr(lik_mod, name)(**{
@@ -168,6 +162,19 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
+    def with_trained_likelihoods(self, params) -> "ModelConfig":
+        """A config whose likelihoods take the trained ``params.lik_theta``
+        as their static constants (``Likelihood.with_theta``), for
+        prediction after training with ``TrainConfig.learn_lik_params``.
+        The same config when ``lik_theta`` is None.  Reads theta on the
+        host."""
+        if getattr(params, "lik_theta", None) is None:
+            return self
+        liks = tuple(lik.with_theta(theta) if lik.n_theta else lik
+                     for lik, theta in zip(self.likelihoods,
+                                           params.lik_theta))
+        return dataclasses.replace(self, likelihoods=liks)
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -176,9 +183,10 @@ class TrainConfig:
     The port trains what the flagship trainer runs: adam with a constant
     ``step_rate``, the cached fast projection, contiguous ``"slice"``
     minibatches and the VE/VM flip-flop with ``ve_steps_per_vm`` VE steps
-    per VM step.  The other optimizers, the schedules, gradient clipping,
-    the ``"gather"`` sampler and trainable likelihood parameters raise
-    ``NotImplementedError`` (ROADMAP.md section 1); since the JAX defaults
+    per VM step, and ``learn_lik_params`` frees ``params.lik_theta`` in
+    the VM steps.  The other optimizers, the schedules, gradient clipping
+    and the ``"gather"`` sampler raise ``NotImplementedError`` (ROADMAP.md
+    section 1); since the JAX defaults
     are ``optimizer="adadelta"`` and ``minibatch="gather"``, a config for
     the port names ``optimizer="adam"`` and ``minibatch="slice"``.  Fields
     that only those paths read (``momentum``, ``natgrad_*``, ...) are
@@ -222,8 +230,6 @@ class TrainConfig:
         if self.minibatch != "slice":
             raise _not_ported(f"minibatch={self.minibatch!r} (pass "
                               "minibatch='slice')", 8)
-        if self.learn_lik_params:
-            raise _not_ported("learn_lik_params=True", 11)
         if not self.fast_projection:
             raise _not_ported("fast_projection=False (the solve path)", 7)
         if not 0.0 < self.vm_batch_fraction <= 1.0:

@@ -12,7 +12,8 @@ import math
 
 import torch
 
-from hetmogp_tpu_torch.likelihoods.base import Likelihood, safe_exp
+from hetmogp_tpu_torch.likelihoods.base import (Likelihood, logaddexp,
+                                                on_generator, safe_exp)
 
 
 def _prob(f):
@@ -24,16 +25,17 @@ def _prob(f):
 # package does it: log p = -softplus(-f) and log(1 - p) = -softplus(f) are
 # exact at any f, where log1p(-p) through a float32 p rounds p to 1 for
 # f >~ 17 and gives log(0) = -inf, then 0 * -inf = NaN in the y-weighted
-# sum.  softplus as logaddexp(f, 0), exact like jax.nn.softplus (torch's
-# softplus turns linear past its threshold).
+# sum.  softplus as the stable logaddexp(f, 0) of ``base``, exact like
+# jax.nn.softplus (torch's softplus turns linear past its threshold) and
+# with a finite second derivative at any f.
 _LOG_LO = math.log(1e-9)
 _LOG_HI = math.log1p(-1e-9)
 
 
 def _log_probs(f):
     zero = torch.zeros_like(f)
-    log_p = torch.clamp(-torch.logaddexp(-f, zero), _LOG_LO, _LOG_HI)
-    log_1mp = torch.clamp(-torch.logaddexp(f, zero), _LOG_LO, _LOG_HI)
+    log_p = torch.clamp(-logaddexp(-f, zero), _LOG_LO, _LOG_HI)
+    log_1mp = torch.clamp(-logaddexp(f, zero), _LOG_LO, _LOG_HI)
     return log_p, log_1mp
 
 
@@ -48,3 +50,7 @@ class Bernoulli(Likelihood):
     def conditional_moments(self, F):
         p = _prob(F[..., :1])
         return p, p * (1.0 - p)
+
+    def sample(self, generator, F):
+        (p,) = on_generator(generator, _prob(F[:, :1]))
+        return torch.bernoulli(p, generator=generator).to(F.device)

@@ -10,8 +10,8 @@ import dataclasses
 
 import torch
 
-from hetmogp_tpu_torch.likelihoods.base import (Likelihood, safe_exp,
-                                                safe_square)
+from hetmogp_tpu_torch.likelihoods.base import (Likelihood, on_generator,
+                                                safe_exp, safe_square)
 
 
 def _scale(f):
@@ -50,3 +50,8 @@ class Exponential(Likelihood):
     def conditional_moments(self, F):
         b = _scale(F[..., :1])
         return b, safe_square(b)
+
+    def sample(self, generator, F):
+        (b,) = on_generator(generator, _scale(F[:, :1]))
+        e = torch.empty_like(b).exponential_(generator=generator)
+        return (b * e).to(F.device)

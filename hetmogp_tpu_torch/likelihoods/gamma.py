@@ -12,7 +12,8 @@ from typing import ClassVar
 
 import torch
 
-from hetmogp_tpu_torch.likelihoods.base import Likelihood, safe_exp
+from hetmogp_tpu_torch.likelihoods.base import (Likelihood, on_generator,
+                                                safe_exp)
 from hetmogp_tpu_torch.ops import quadrature
 
 
@@ -85,3 +86,8 @@ class Gamma(Likelihood):
     def conditional_moments(self, F):
         a, b = _ab(F)
         return (a / b)[..., None], (a / torch.square(b))[..., None]
+
+    def sample(self, generator, F):
+        a, b = on_generator(generator, *_ab(F[:, None, :]))
+        return (torch._standard_gamma(a, generator=generator) / b).to(
+            F.device)

@@ -15,6 +15,7 @@ import torch
 
 from hetmogp_tpu_torch.likelihoods.base import (Likelihood, safe_exp,
                                                 safe_square)
+from hetmogp_tpu_torch.ops import quadrature
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -54,3 +55,8 @@ class HetGaussian(Likelihood):
 
     def conditional_moments(self, F):
         return F[..., :1], safe_exp(F[..., 1:2])
+
+    def sample(self, generator, F):
+        std = torch.sqrt(safe_exp(F[:, 1:2]))
+        return F[:, :1] + std * quadrature.standard_normal(std.shape,
+                                                           generator, std)

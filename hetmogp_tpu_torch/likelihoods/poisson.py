@@ -10,7 +10,8 @@ import dataclasses
 
 import torch
 
-from hetmogp_tpu_torch.likelihoods.base import Likelihood, safe_exp
+from hetmogp_tpu_torch.likelihoods.base import (Likelihood, on_generator,
+                                                safe_exp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,3 +45,7 @@ class Poisson(Likelihood):
     def conditional_moments(self, F):
         lam = safe_exp(F[..., :1])
         return lam, lam
+
+    def sample(self, generator, F):
+        (lam,) = on_generator(generator, safe_exp(F[:, :1]))
+        return torch.poisson(lam, generator=generator).to(F.device)

@@ -268,6 +268,8 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
         cached-inverse adjoints.  Needs both and the whitened model.
       use_kernel: False takes the plain PyTorch versions of the CUDA
         kernels on any device.
+    A task whose likelihood has theta (``n_theta`` > 0) takes it from
+    ``params.lik_theta`` where that is not None.
     Returns:
       (elbo, aux) with aux = {'ve': (T,), 'kl': scalar}.
     """
@@ -288,8 +290,14 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
                                    cache_grad=cache_grad,
                                    use_kernel=use_kernel)
                    for t, td in enumerate(data)]
-    ve_sums = torch.stack([
-        scales[t] * torch.sum(lik.var_exp(td.Y, *moments[t]) * td.mask)
-        for t, (lik, td) in enumerate(zip(config.likelihoods, data))])
+    ve_sums = []
+    for t, (lik, td) in enumerate(zip(config.likelihoods, data)):
+        if params.lik_theta is not None and lik.n_theta:
+            # the trainable likelihood parameters, with their gradient
+            ve = lik.var_exp(td.Y, *moments[t], theta=params.lik_theta[t])
+        else:
+            ve = lik.var_exp(td.Y, *moments[t])
+        ve_sums.append(scales[t] * torch.sum(ve * td.mask))
+    ve_sums = torch.stack(ve_sums)
     kl = kl_divergence(params, config)
     return torch.sum(ve_sums) - kl, {"ve": ve_sums, "kl": kl}

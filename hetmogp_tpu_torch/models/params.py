@@ -10,6 +10,9 @@ and shapes (Q latents, M inducing, D output functions, Dx input dims):
   log_variance:    (Q,)        RBF variances (log)
   W:               (Q, D)      LMC mixing weights
   kappa:           (Q, D)      coregionalization diagonal, fixed at 0
+  lik_theta:       None, or one (n_theta_t,) tensor per task: the trainable
+                   likelihood parameters (``default_lik_theta``), trained
+                   when ``TrainConfig.learn_lik_params`` is on
 
 Trained parameters cross from the JAX package with ``params_from_jax``.
 """
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ class SVMOGPParams:
     log_variance: torch.Tensor
     W: torch.Tensor
     kappa: torch.Tensor
+    lik_theta: Optional[Tuple[torch.Tensor, ...]] = None
 
     @property
     def lengthscale(self) -> torch.Tensor:
@@ -48,8 +52,33 @@ class SVMOGPParams:
         return torch.exp(self.log_variance)
 
     def to(self, device=None, dtype=None) -> "SVMOGPParams":
-        return SVMOGPParams(*(getattr(self, f).to(device=device, dtype=dtype)
-                              for f in FIELDS))
+        return from_leaves(self, [t.to(device=device, dtype=dtype)
+                                  for _, t in leaves(self)])
+
+
+def leaves(params: SVMOGPParams) -> List[Tuple[str, torch.Tensor]]:
+    """The tensors of ``params`` in a fixed order, by leaf name: the seven
+    fields, then one ``"lik_theta"`` entry per task where there is theta."""
+    return ([(f, getattr(params, f)) for f in FIELDS]
+            + [("lik_theta", t) for t in params.lik_theta or ()])
+
+
+def from_leaves(like: SVMOGPParams, tensors) -> SVMOGPParams:
+    """The params of ``like``'s structure with ``tensors`` in the order of
+    ``leaves(like)``."""
+    tensors = list(tensors)
+    theta = None if like.lik_theta is None else tuple(tensors[len(FIELDS):])
+    return SVMOGPParams(*tensors[:len(FIELDS)], lik_theta=theta)
+
+
+def default_lik_theta(config: ModelConfig, device="cuda",
+                      dtype: Optional[torch.dtype] = None) -> tuple:
+    """Initial ``lik_theta``: each task's ``default_theta()``, a (0,)
+    tensor for a family without theta, on ``device`` (the card unless the
+    caller names another) in the config's dtype unless ``dtype``."""
+    dtype = dtype or config.torch_dtype
+    return tuple(torch.tensor(lik.default_theta(), dtype=dtype, device=device)
+                 for lik in config.likelihoods)
 
 
 def random_W(rng: np.random.Generator, Q: int, D: int) -> np.ndarray:
@@ -63,7 +92,8 @@ def random_W(rng: np.random.Generator, Q: int, D: int) -> np.ndarray:
 
 def init_params(rng: np.random.Generator, config: ModelConfig, Z, *,
                 W=None, lengthscale=1.0, variance=1.0,
-                q_mu_scale: float = 2.5, device="cuda") -> SVMOGPParams:
+                q_mu_scale: float = 2.5, with_lik_theta: bool = False,
+                device="cuda") -> SVMOGPParams:
     """Initial parameters, drawn from ``rng``.
 
     Args:
@@ -72,6 +102,7 @@ def init_params(rng: np.random.Generator, config: ModelConfig, Z, *,
       W: optional (Q, D) mixing weights; random_W(rng, ...) otherwise.
       lengthscale, variance: scalars or per-q arrays.
       q_mu_scale: std of the q(u) mean init.
+      with_lik_theta: give ``lik_theta`` its ``default_lik_theta``.
       device: where the tensors go; the card unless the caller names
         another.
     q_sqrt starts at the identity.
@@ -91,10 +122,12 @@ def init_params(rng: np.random.Generator, config: ModelConfig, Z, *,
     ls = np.broadcast_to(np.asarray(lengthscale, np.float64),
                          (Q, Dx if config.ard else 1))
     var = np.broadcast_to(np.asarray(variance, np.float64), (Q,))
-    leaves = (Z, q_mu, np.broadcast_to(np.eye(M), (Q, M, M)), np.log(ls),
+    arrays = (Z, q_mu, np.broadcast_to(np.eye(M), (Q, M, M)), np.log(ls),
               np.log(var), W, np.zeros((Q, D)))
+    theta = (default_lik_theta(config, device) if with_lik_theta else None)
     return SVMOGPParams(*(torch.tensor(np.array(a), dtype=config.torch_dtype,
-                                       device=device) for a in leaves))
+                                       device=device) for a in arrays),
+                        lik_theta=theta)
 
 
 def params_from_jax(src, device="cuda",
@@ -103,28 +136,33 @@ def params_from_jax(src, device="cuda",
     card unless the caller names another).
 
     src: the JAX ``SVMOGPParams`` with its leaves converted to numpy (or
-      anything else with the seven fields as arrays), or the path of an
-      ``.npz`` written by ``hetmogp_tpu.checkpoint.save_checkpoint``, which
-      stores them as ``param_0`` ... ``param_6`` in field order.
+      anything else with the seven fields as arrays, and ``lik_theta``
+      None or one array per task), or the path of an ``.npz`` written by
+      ``hetmogp_tpu.checkpoint.save_checkpoint``, which stores them as
+      ``param_0`` ... ``param_6`` in field order, then ``param_7`` ... one
+      per task where the params held ``lik_theta``.
     dtype: None keeps each leaf's dtype.
-    Trainable likelihood parameters (``lik_theta``) and rank > 1 are not
-    ported yet and raise.
+    Rank > 1 is not ported yet and raises.
     """
     if isinstance(src, (str, os.PathLike)):
         with np.load(src, allow_pickle=False) as z:
-            if "param_7" in z.files:
-                raise NotImplementedError(
-                    "checkpoint holds lik_theta leaves; trainable likelihood "
-                    "parameters are not ported yet (ROADMAP.md section 1, "
-                    "item 11)")
-            leaves = [z[f"param_{i}"] for i in range(len(FIELDS))]
+            arrays = [z[f"param_{i}"] for i in range(len(FIELDS))]
+            theta = []
+            while f"param_{len(FIELDS) + len(theta)}" in z.files:
+                theta.append(z[f"param_{len(FIELDS) + len(theta)}"])
+            theta = tuple(theta) or None
     else:
-        if getattr(src, "lik_theta", None) is not None:
-            raise NotImplementedError(
-                "lik_theta is not ported yet (ROADMAP.md section 1, item 11)")
         if getattr(src, "rank", 1) != 1:
             raise NotImplementedError(
                 "rank > 1 is not ported yet (ROADMAP.md section 1, item 2)")
-        leaves = [np.asarray(getattr(src, f)) for f in FIELDS]
-    return SVMOGPParams(*(torch.tensor(a, dtype=dtype, device=device)
-                          for a in leaves))
+        arrays = [np.asarray(getattr(src, f)) for f in FIELDS]
+        theta = getattr(src, "lik_theta", None)
+        if theta is not None:
+            theta = tuple(np.asarray(t) for t in theta)
+
+    def tensor(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return SVMOGPParams(*(tensor(a) for a in arrays),
+                        lik_theta=None if theta is None else tuple(
+                            tensor(t) for t in theta))

@@ -1,11 +1,11 @@
 """Gauss-Hermite variational expectations and predictive moments, and
 the Monte-Carlo log-predictive density.
 
-Counterpart of ``hetmogp_tpu/ops/quadrature.py`` without the quasi-MC
-nodes and the theta engine (ROADMAP.md section 1, item 5).  The nodes and
-weights come from numpy's ``hermgauss``, so they are the JAX package's to
-the bit.  Random draws come from an explicit ``torch.Generator`` or are
-injected; nothing reads a global seed.
+Counterpart of ``hetmogp_tpu/ops/quadrature.py``.  The GH nodes and
+weights come from numpy's ``hermgauss`` and the quasi-MC nodes from numpy's
+``RandomState`` (``mc_nodes``), so both are the JAX package's to the bit.
+Random draws come from an explicit ``torch.Generator`` or are injected;
+nothing reads a global seed.
 
 ``make_var_exp`` keeps the JAX engine's gradient semantics: the value is
 the T-node GH sum of ``logpdf``, and its (m, v)-gradients are the
@@ -20,6 +20,12 @@ sum(d lp / dF_j) gives the diagonal second derivative.  That is J + 1
 backward passes over tensors the size of the grid, all batched, where
 ``torch.func``'s vmapped ``hessian`` would build the full J x J Hessian
 per node only to keep its diagonal.
+
+``make_var_exp_theta`` adds a trainable likelihood-parameter vector theta,
+shared by the rows: the (m, v)-gradients as above, and dtheta =
+sum_n g_n sum_s w_s d logp(F_ns, y_n; theta) / d theta.  theta reaches the
+log-density as one copy per row, so the weighted backward of the sweep
+gives each row's sum over its nodes at once, with no per-node Jacobian.
 """
 
 from __future__ import annotations
@@ -58,16 +64,49 @@ def tensor_grid(T: int, J: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_tensors(T: int, J: int, dtype: torch.dtype, device: torch.device):
-    """``tensor_grid(T, J)`` as tensors on ``device``, made once: a copy
-    from host memory per call would synchronise the stream every step.
-    Made outside inference mode even when a prediction entry asks first:
-    autograd cannot save an inference tensor, and the trainer's sweeps
-    reuse the cached grid."""
-    nodes, weights = tensor_grid(T, J)
+def mc_nodes(S: int, J: int, seed: int = 0):
+    """Fixed standard-normal nodes for quasi-MC expectations, where the T^J
+    tensor grid is infeasible: S antithetic draws from numpy's
+    ``RandomState(seed)`` (one more draw when S is odd), scaled by
+    1/sqrt(2) to the engine's F = m + sqrt(2 v) node convention, with
+    uniform weights 1/S."""
+    rng = np.random.RandomState(seed)
+    half = rng.standard_normal((S // 2, J))
+    eps = np.concatenate([half, -half], axis=0)
+    if eps.shape[0] < S:
+        eps = np.concatenate([eps, rng.standard_normal((1, J))], axis=0)
+    return eps / np.sqrt(2.0), np.full((eps.shape[0],), 1.0 / eps.shape[0])
+
+
+def _as_tensors(nodes, weights, dtype, device):
+    """Node table as tensors on ``device``.  Made outside inference mode
+    even when a prediction entry asks first: autograd cannot save an
+    inference tensor, and the trainer's sweeps reuse the cached tables."""
     with torch.inference_mode(False):
         return (torch.as_tensor(nodes, dtype=dtype, device=device),
                 torch.as_tensor(weights, dtype=dtype, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_tensors(T: int, J: int, dtype: torch.dtype, device: torch.device):
+    """``tensor_grid(T, J)`` as tensors on ``device``, made once: a copy
+    from host memory per call would synchronise the stream every step (and
+    cannot be captured in a CUDA graph)."""
+    return _as_tensors(*tensor_grid(T, J), dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mc_tensors(S: int, J: int, dtype: torch.dtype, device: torch.device):
+    """``mc_nodes(S, J)`` as tensors on ``device``, made once."""
+    return _as_tensors(*mc_nodes(S, J), dtype, device)
+
+
+def _nodes(T: int, J: int, mc_samples: int, like: torch.Tensor):
+    """The engine's nodes and weights: ``mc_samples`` quasi-MC nodes where
+    it is > 0, else the T^J tensor grid."""
+    if mc_samples:
+        return _mc_tensors(mc_samples, J, like.dtype, like.device)
+    return _grid_tensors(T, J, like.dtype, like.device)
 
 
 def _expand_nodes(m, v, nodes):
@@ -75,18 +114,20 @@ def _expand_nodes(m, v, nodes):
     return m[:, None, :] + torch.sqrt(2.0 * v)[:, None, :] * nodes[None]
 
 
-def make_predictive(cond_moments, J: int, T: int):
+def make_predictive(cond_moments, J: int, T: int, mc_samples: int = 0):
     """Observation-space predictive moments by GH quadrature.
 
     E[y*] = E_q[mean(f)],  V[y*] = E_q[var(f)] + E_q[mean(f)^2] - E[y*]^2.
 
     Args:
       cond_moments: (F: (..., J)) -> (mean, var), each (..., dim_p).
+      mc_samples: if > 0, that many quasi-MC nodes (``mc_nodes``) in place
+        of the T^J tensor grid.
     Returns:
       predictive(m, v) with m, v (N, J) -> (mean, var), each (N, dim_p).
     """
     def predictive(m, v):
-        nodes, w = _grid_tensors(T, J, m.dtype, m.device)
+        nodes, w = _nodes(T, J, mc_samples, m)
         cm, cv = cond_moments(_expand_nodes(m, v, nodes))  # (N, S, dim_p)
         Em = cm.mT @ w
         Em2 = torch.square(cm).mT @ w
@@ -106,7 +147,7 @@ def _diag_second(d1, F, j):
     return torch.zeros_like(F[..., j]) if g is None else g[..., j]
 
 
-def make_var_exp(logpdf, J: int, T: int):
+def make_var_exp(logpdf, J: int, T: int, mc_samples: int = 0):
     """Build ve(y, m, v) -> (N,), E_{N(f; m, v)}[log p(y | f)] per row.
 
     Args:
@@ -114,6 +155,8 @@ def make_var_exp(logpdf, J: int, T: int):
         broadcasting y over the node axis.
       J: number of latent parameter functions (dim_f).
       T: GH nodes per dimension (tensor grid of T^J nodes).
+      mc_samples: if > 0, that many quasi-MC nodes (``mc_nodes``) in place
+        of the tensor grid, for large J where T^J explodes.
     The gradient with respect to (m, v) is (E[dlogp], 1/2 E[d2logp]) on the
     same nodes; y gets none.
     """
@@ -121,7 +164,7 @@ def make_var_exp(logpdf, J: int, T: int):
 
         @staticmethod
         def forward(ctx, y, m, v):
-            nodes, w = _grid_tensors(T, J, m.dtype, m.device)
+            nodes, w = _nodes(T, J, mc_samples, m)
             if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
                 return logpdf(_expand_nodes(m, v, nodes), y[:, None, :]) @ w
             with torch.enable_grad():
@@ -141,6 +184,56 @@ def make_var_exp(logpdf, J: int, T: int):
             return None, Ed1 * g[:, None], 0.5 * Ed2 * g[:, None]
 
     return VarExp.apply
+
+
+def make_var_exp_theta(logpdf_t, J: int, T: int, mc_samples: int = 0):
+    """Build ve(y, m, v, theta) -> (N,), ``make_var_exp`` with a trainable
+    likelihood-parameter vector theta (P,) shared by the rows.
+
+    Args:
+      logpdf_t: batched log-density (F: (..., J), y: (..., dim_y),
+        theta: (..., P)) -> (...), broadcasting y and theta over the node
+        axis.
+    The (m, v)-gradients are the Bonnet/Price forms of ``make_var_exp``;
+    dtheta = sum_n g_n E[d logp / d theta] on the same nodes.  theta enters
+    the sweep as one (1, P) copy per row, so one backward of the weighted
+    sweep gives the per-row E[d logp / d theta] (rows differ in g through
+    the mask) without a per-node Jacobian.
+    """
+    class VarExpTheta(torch.autograd.Function):
+
+        @staticmethod
+        def forward(ctx, y, m, v, theta):
+            nodes, w = _nodes(T, J, mc_samples, m)
+            n, P = m.shape[0], theta.shape[-1]
+            rows = theta.detach().reshape(1, 1, P).expand(n, 1, P)
+            if not any(ctx.needs_input_grad[1:]):
+                return logpdf_t(_expand_nodes(m, v, nodes), y[:, None, :],
+                                rows) @ w
+            with torch.enable_grad():
+                F = _expand_nodes(m, v, nodes).detach().requires_grad_()
+                th = rows.clone().requires_grad_()
+                lp = logpdf_t(F, y[:, None, :], th)  # (N, S)
+                # the weighted sweep: w_s dlogp per node, and per row the
+                # node sum of w_s dlogp/dtheta
+                d1w, dth = torch.autograd.grad(
+                    lp, (F, th), grad_outputs=w.expand_as(lp),
+                    create_graph=True)
+                d2w = torch.stack([_diag_second(d1w, F, j) for j in range(J)],
+                                  dim=-1)
+            Ed1 = d1w.detach().sum(dim=1)  # (N, J)
+            Ed2 = d2w.sum(dim=1)
+            Edt = dth.detach()[:, 0, :]  # (N, P)
+            ctx.save_for_backward(Ed1, Ed2, Edt)
+            return lp.detach() @ w
+
+        @staticmethod
+        def backward(ctx, g):
+            Ed1, Ed2, Edt = ctx.saved_tensors
+            return (None, Ed1 * g[:, None], 0.5 * Ed2 * g[:, None],
+                    Edt.mT @ g)
+
+    return VarExpTheta.apply
 
 
 def standard_normal(shape, generator, like: torch.Tensor) -> torch.Tensor:

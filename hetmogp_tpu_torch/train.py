@@ -16,7 +16,9 @@ One step:
   (Luu, Luu^{-1}) of the frozen hypers, so no gradient runs through the
   projection, the kernel or the factorization.
 * **VM** differentiates the hypers, Z and W (per ``learn_inducing`` and
-  ``learn_W``) on the ``vm_batch_fraction`` prefix of each task's batch,
+  ``learn_W``) and the likelihoods' theta (``params.lik_theta``, per
+  ``learn_lik_params``) on the ``vm_batch_fraction`` prefix of each task's
+  batch,
   with the ELBO scales re-derived from the mask sums, through the
   cached-inverse adjoints; then (Luu, Luu^{-1}) is refreshed at the new
   hypers.
@@ -43,7 +45,8 @@ import torch
 from hetmogp_tpu_torch.config import ModelConfig, TrainConfig
 from hetmogp_tpu_torch.data import full_batch
 from hetmogp_tpu_torch.models import elbo as elbo_mod
-from hetmogp_tpu_torch.models.params import FIELDS, SVMOGPParams
+from hetmogp_tpu_torch.models.params import (SVMOGPParams, from_leaves,
+                                             leaves)
 from hetmogp_tpu_torch.ops import cuda_kernels
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
@@ -55,13 +58,16 @@ def ve_mask() -> Tuple[str, ...]:
 
 
 def vm_mask(train_config: TrainConfig) -> Tuple[str, ...]:
-    """The leaves a VM step frees: the kernel hypers, plus Z and W per
-    ``learn_inducing`` and ``learn_W``; kappa stays fixed always."""
+    """The leaves a VM step frees: the kernel hypers, plus Z, W and
+    ``lik_theta`` per ``learn_inducing``, ``learn_W`` and
+    ``learn_lik_params``; kappa stays fixed always."""
     free = ["log_lengthscale", "log_variance"]
     if train_config.learn_inducing:
         free.append("Z")
     if train_config.learn_W:
         free.append("W")
+    if train_config.learn_lik_params:
+        free.append("lik_theta")
     return tuple(free)
 
 
@@ -88,36 +94,38 @@ def init_train_state(params: SVMOGPParams, config: ModelConfig) -> TrainState:
     """Step 0: zero adam moments and the (Luu, Luu^{-1}) cache."""
     with torch.no_grad():
         Luu, iLuu = elbo_mod.prior_cholesky_inverse(params, config)
-        zeros = SVMOGPParams(*(torch.zeros_like(getattr(params, f))
-                               for f in FIELDS))
+        zeros = from_leaves(params, [torch.zeros_like(t)
+                                     for _, t in leaves(params)])
     count = torch.zeros((), dtype=torch.int64, device=params.Z.device)
     return TrainState(params, AdamState(count, zeros, zeros), 0, Luu, iLuu)
 
 
-def _adam(params: SVMOGPParams, opt: AdamState, grads: Dict[str, torch.Tensor],
-          free: Sequence[str], lr: float):
-    """One masked ``optax.adam`` step.  ``grads`` holds the free leaves'
-    gradients; every other leaf's moments decay as with a zero gradient,
-    and only the free leaves move."""
+def _adam(params: SVMOGPParams, opt: AdamState,
+          grads: Sequence[Optional[torch.Tensor]], lr: float):
+    """One masked ``optax.adam`` step.  ``grads`` holds a gradient for each
+    free leaf and None for the others, in the order of ``leaves``; every
+    other leaf's moments decay as with a zero gradient, and only the free
+    leaves move."""
     count = opt.count + 1
     c = count.to(params.Z.dtype)
     bc1 = 1.0 - torch.pow(ADAM_B1, c)
     bc2 = 1.0 - torch.pow(ADAM_B2, c)
-    new_p, new_mu, new_nu = {}, {}, {}
-    for f in FIELDS:
-        p, mu, nu = getattr(params, f), getattr(opt.mu, f), getattr(opt.nu, f)
-        g = grads.get(f)
+    new_p, new_mu, new_nu = [], [], []
+    for (_, p), (_, mu), (_, nu), g in zip(leaves(params), leaves(opt.mu),
+                                           leaves(opt.nu), grads):
         if g is None:
-            new_mu[f], new_nu[f], new_p[f] = ADAM_B1 * mu, ADAM_B2 * nu, p
+            new_mu.append(ADAM_B1 * mu)
+            new_nu.append(ADAM_B2 * nu)
+            new_p.append(p)
             continue
         mu = (1.0 - ADAM_B1) * g + ADAM_B1 * mu
         nu = (1.0 - ADAM_B2) * torch.square(g) + ADAM_B2 * nu
-        new_mu[f], new_nu[f] = mu, nu
-        if f in free:
-            p = p - lr * (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
-        new_p[f] = p
-    return (SVMOGPParams(**new_p),
-            AdamState(count, SVMOGPParams(**new_mu), SVMOGPParams(**new_nu)))
+        new_mu.append(mu)
+        new_nu.append(nu)
+        new_p.append(p - lr * (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS))
+    return (from_leaves(params, new_p),
+            AdamState(count, from_leaves(params, new_mu),
+                      from_leaves(params, new_nu)))
 
 
 def vm_sub_batch(data: Sequence[elbo_mod.TaskData], scales: torch.Tensor,
@@ -158,9 +166,10 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
         params = state.params
         is_ve = state.step % cycle < train_config.ve_steps_per_vm
         free = ve_mask() if is_ve else vm_mask(train_config)
-        leaves = {f: getattr(params, f).detach().requires_grad_(f in free)
-                  for f in FIELDS}
-        p = SVMOGPParams(**leaves)
+        names = [name for name, _ in leaves(params)]
+        tensors = [t.detach().requires_grad_(name in free)
+                   for name, t in leaves(params)]
+        p = from_leaves(params, tensors)
         if is_ve:
             elbo, aux = elbo_mod.elbo_fn(p, data, scales, config,
                                          Luu=state.Luu, iLuu=state.iLuu,
@@ -171,10 +180,15 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
                                          Luu=state.Luu, iLuu=state.iLuu,
                                          cache_grad=True,
                                          use_kernel=use_kernel)
-        g = torch.autograd.grad(-elbo, [leaves[f] for f in free])
-        grads = dict(zip(free, g))
+        free_at = [i for i, name in enumerate(names) if name in free]
+        grads = [None] * len(names)
+        for i, gi in zip(free_at, torch.autograd.grad(
+                -elbo, [tensors[i] for i in free_at], allow_unused=True)):
+            # a theta leaf of a family without theta is not in the graph:
+            # its gradient is zero
+            grads[i] = torch.zeros_like(tensors[i]) if gi is None else gi
         with torch.no_grad():
-            new_params, opt = _adam(params, state.opt_state, grads, free, lr)
+            new_params, opt = _adam(params, state.opt_state, grads, lr)
             if is_ve:
                 Luu, iLuu = state.Luu, state.iLuu
             else:  # hypers and Z moved: refresh the cache
@@ -185,7 +199,7 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
             new = TrainState(new_params, opt, state.step + 1, Luu, iLuu)
             if train_config.skip_nonfinite_steps:
                 new, metrics["skipped"] = _keep_if_nonfinite(
-                    state, new, elbo, g)
+                    state, new, elbo, [grads[i] for i in free_at])
         return new, metrics
 
     return step
@@ -203,8 +217,8 @@ def _keep_if_nonfinite(old: TrainState, new: TrainState, elbo, grads):
         return torch.where(ok, a, b)
 
     def sel_params(a, b):
-        return SVMOGPParams(*(sel(getattr(a, f), getattr(b, f))
-                              for f in FIELDS))
+        return from_leaves(a, [sel(x, y) for (_, x), (_, y) in
+                               zip(leaves(a), leaves(b))])
 
     opt = AdamState(sel(new.opt_state.count, old.opt_state.count),
                     sel_params(new.opt_state.mu, old.opt_state.mu),
@@ -328,12 +342,15 @@ def make_batch_sampler(task_sizes, batch_sizes, device="cuda") -> Callable:
 
 
 def _state_tensors(state: TrainState):
-    """The state's tensors in a fixed order: params, adam count and
-    moments, Luu, iLuu."""
+    """The state's tensors in a fixed order: params (theta included), adam
+    count and moments, Luu, iLuu."""
     opt = state.opt_state
-    return ([getattr(state.params, f) for f in FIELDS] + [opt.count]
-            + [getattr(opt.mu, f) for f in FIELDS]
-            + [getattr(opt.nu, f) for f in FIELDS] + [state.Luu, state.iLuu])
+
+    def flat(p):
+        return [t for _, t in leaves(p)]
+
+    return (flat(state.params) + [opt.count] + flat(opt.mu) + flat(opt.nu)
+            + [state.Luu, state.iLuu])
 
 
 def _assign(dst: TrainState, src: TrainState) -> None:
@@ -347,7 +364,7 @@ def _clone_state(state: TrainState) -> TrainState:
     params, opt = state.params, state.opt_state
 
     def clone(p):
-        return SVMOGPParams(*(getattr(p, f).detach().clone() for f in FIELDS))
+        return from_leaves(p, [t.detach().clone() for _, t in leaves(p)])
 
     return TrainState(clone(params),
                       AdamState(opt.count.clone(), clone(opt.mu),
@@ -422,6 +439,10 @@ class ScanTrainer:
         elif device != self.device:
             raise ValueError(f"this trainer runs on {self.device}; the state "
                              f"is on {device}")
+        elif ([tuple(t.shape) for t in _state_tensors(state)]
+              != [tuple(t.shape) for t in _state_tensors(self.state)]):
+            raise ValueError("a trainer runs on states of one structure: the "
+                             "graphs read its buffers (lik_theta included)")
         elif any(a is not b for a, b in zip(_state_tensors(state),
                                              _state_tensors(self.state))):
             with torch.no_grad():

@@ -258,7 +258,6 @@ def test_train_config_matches_jax_and_refuses_the_unported():
                           ({"lr_schedule": "cosine"}, "item 12"),
                           ({"clip_grad_norm": 1.0}, "item 12"),
                           ({"minibatch": "gather"}, "item 8"),
-                          ({"learn_lik_params": True}, "item 11"),
                           ({"fast_projection": False}, "item 7")]:
         with pytest.raises(NotImplementedError, match=match):
             tp.TrainConfig(**{**TC, **change})
@@ -269,3 +268,39 @@ def test_train_config_matches_jax_and_refuses_the_unported():
         ttrain.make_step(dataclasses.replace(
             tp.ModelConfig.from_dict(cfg.to_dict()), whiten=False),
             tp.TrainConfig(**TC))
+
+
+def test_learn_lik_params_trains_theta():
+    """``TrainConfig(learn_lik_params=True)`` trains: the host loop moves
+    every theta of the likelihoods that have one (the Ordinal's
+    thresholds, a Gaussian's and a StudentT's), in the VM steps only, with
+    a finite ELBO, and a Poisson's (0,) leaf stays empty."""
+    liks = (tp.Ordinal(K=3), tp.Gaussian(learn_sigma=True),
+            tp.StudentT(learn_df=True), tp.Poisson())
+    cfg = tp.ModelConfig(likelihoods=liks, num_latent=Q, num_inducing=16,
+                         input_dim=DX, dtype="float64", jitter=1e-4,
+                         adaptive_jitter=False)
+    rng = np.random.RandomState(2)
+    n = 60
+    X = [rng.rand(n, DX) for _ in liks]
+    Y = [rng.randint(1, 4, (n, 1)).astype(float), 2.0 * rng.randn(n, 1),
+         rng.standard_t(3.0, (n, 1)), rng.poisson(2.0, (n, 1)).astype(float)]
+    params = tp.init_params(np.random.default_rng(0), cfg, rng.rand(16, DX),
+                            lengthscale=0.3, q_mu_scale=0.1,
+                            with_lik_theta=True, device="cpu")
+    tc = tp.TrainConfig(**TC, learn_lik_params=True)
+    assert "lik_theta" in ttrain.vm_mask(tc)
+    assert "lik_theta" not in ttrain.vm_mask(tp.TrainConfig(**TC))
+    sizes, batches = (n,) * len(liks), (16,) * len(liks)
+    run = tp.make_trainer(cfg, tc, sizes, batches, steps_per_call=4)
+    state = tp.init_train_state(params, cfg)
+    gen = torch.Generator().manual_seed(1)
+    state, e_ve = run(state, tp.make_dataset(X, Y, cfg, device="cpu"), gen)
+    for a, b in zip(state.params.lik_theta, params.lik_theta):
+        assert torch.equal(a, b)  # four VE steps: theta frozen
+    state, e = run(state, tp.make_dataset(X, Y, cfg, device="cpu"), gen)
+    assert torch.isfinite(torch.cat([e_ve, e])).all()
+    for lik, a, b in zip(liks, state.params.lik_theta, params.lik_theta):
+        assert torch.isfinite(a).all()
+        assert (not torch.equal(a, b)) == bool(lik.n_theta), lik
+    assert state.params.lik_theta[-1].shape == (0,)
