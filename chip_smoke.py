@@ -65,9 +65,18 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    two timed calls of 1,000 steps with the kernels' launches per cycle, a
    profile, and every learned theta finite and moved; then serves the
    trained model (``with_trained_likelihoods``) and scores its NLPD,
-   against the plain route and float64.
+   against the plain route and float64;
+10. trains with the other optimizers and loops at the flagship's width
+   (``optimizers_phase``): ``examples/large_scale.py --natgrad`` (natural
+   gradients, both retractions) through the graphed trainer, against
+   eager, plain float32 and float64, timed, with its backoff codes and a
+   profile; Adadelta with its lookahead, adam with a warmup-cosine
+   schedule and clipping, adam on the gather sampler and joint-mode
+   natural gradients, ten graphed steps each against eager and a rising
+   ELBO; batch VEM by L-BFGS; ``svi_fit`` of the un-whitened model on the
+   solve path over a ``MinibatchStream``.
 
-They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b, 9.  The serving pass is
+They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b, 9, 10.  The serving pass is
 the process's first profiled call: as its sixth, after the trainers', the
 profiler lost one of its twelve requests' records (and a prediction is
 then the first to ask for each quadrature grid, as in a process that
@@ -77,7 +86,7 @@ from 5a.
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
 JSON (every kernel launcher, each route included); the last line is
-``{"ok": true, "device": {...}}``.  About five minutes on one H100.
+``{"ok": true, "device": {...}}``.  About six minutes on one H100.
 """
 
 from __future__ import annotations
@@ -1740,6 +1749,350 @@ def families_phase(smi: str, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the other optimizers and loops
+# ---------------------------------------------------------------------------
+
+# examples/large_scale.py:63-66 with --natgrad: the flagship trainer with
+# natural gradients on q(u) (natgrad_lr 0.1) and adam at 0.005 on the rest
+NATGRAD_TC = dict(optimizer="natgrad_adam", step_rate=0.005, natgrad_lr=0.1,
+                  minibatch="slice", vm_batch_fraction=0.25)
+NATGRAD_CALLS = 3
+# The natural-gradient trainers against their plain versions, relative
+# ELBO.  The "cholesky" retraction's update is P's contractions (g_m =
+# P^T g_mean, g_S = P^T diag(c) P) through three triangular products,
+# trust-damped: it inherits kernel 3's summation-order difference from
+# the plain 3-pass product (~3e-4 of max|P|) as the adam trainer does, so
+# the flagship's bounds hold.  The "exact" retraction factorizes A = S^-1
+# - 2 lr g_S, whose condition number grows with the data's weight
+# (N_t / B_t = 325 times 512 rows of P^T P): its float32 factor carries
+# cond(A) * eps of error into S and the KL's log-determinant, so its
+# bounds are five times the flagship's.
+NATGRAD_BOUNDS = {"cholesky": (GRAPH_PLAIN_F32_VE, GRAPH_PLAIN_F32, GRAPH_F64),
+                  "exact": (5 * GRAPH_PLAIN_F32_VE, 5 * GRAPH_PLAIN_F32,
+                            5 * GRAPH_F64)}
+# the rest of the optimizers, one trainer each: the steps of its call
+OTHER_STEPS = 300
+OTHER_TCS = {
+    # climin Adadelta with its lookahead (momentum 0.9), at the step rate
+    # of examples/optimizers.py
+    "adadelta": dict(optimizer="adadelta", step_rate=0.05, momentum=0.9,
+                     minibatch="slice", vm_batch_fraction=0.25),
+    # examples/production_training.py:64-68 at the flagship's rate
+    "adam, warmup_cosine, clip 100": dict(
+        optimizer="adam", step_rate=0.005, minibatch="slice",
+        vm_batch_fraction=0.25, lr_schedule="warmup_cosine",
+        lr_schedule_kwargs=(("warmup_steps", 20), ("decay_steps", 1000)),
+        clip_grad_norm=100.0),
+    "adam, gather": dict(optimizer="adam", step_rate=0.005,
+                         minibatch="gather", vm_batch_fraction=0.25),
+    "natgrad, vem=False": dict(NATGRAD_TC),
+}
+VEM_ROWS = 8192  # rows a task of the batch VEM run
+VEM_TC = dict(vem_iters=2, batch_inner_iters=25)
+SVI_FIT_STEPS = 50
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def per_cycle(run, cycle: int) -> dict:
+    """The hand kernels' launches per ``cycle`` steps of the trainer
+    ``run``'s graphs (the VE/VM schedule's cycle, or as many joint
+    steps)."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    reps = ({"ve": cycle - 1, "vm": 1} if run.vem else {"joint": cycle})
+    return {k: sum(run.capture_launches[kind][k] * reps[kind]
+                   for kind in run.capture_launches)
+            for k in ck.launch_counts()}
+
+
+def graphed_against_eager(cfg, tc, params, dataset, sizes, batches, vem,
+                          seed, what, smi, plain_bounds=None):
+    """A fresh make_scan_trainer's first call, ten steps on a drawn
+    stream, against ten eager steps of the same body on the same rows:
+    bitwise (the ELBO, every parameter and the optimizer's state and
+    S^-1); with ``plain_bounds`` (f32 up to the first VM step, f32, f64)
+    also against the plain versions.  Returns (run, state, elbos)."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+
+    device = params.Z.device
+    run = tp.make_scan_trainer(cfg, tc, sizes, batches,
+                               steps_per_call=GRAPH_CALL_STEPS, vem=vem)
+    stream = run.sampler.draw(torch.Generator().manual_seed(seed), 10)
+    t0 = time.perf_counter()
+    state, graphed = run(tp.init_train_state(params, cfg, tc, cache_luu=vem),
+                         dataset, **{run.sampler.name: stream})
+    _sync(device)
+    first = time.perf_counter() - t0
+    prepared = run.sampler.prepare(dataset)
+    runs = [("eager", cfg, prepared, params, True)]
+    if plain_bounds is not None:
+        cfg64 = dataclasses.replace(cfg, dtype="float64")
+        runs += [("plain_f32", cfg, prepared, params, False),
+                 ("plain_f64", cfg64,
+                  tuple(tp.TaskData(*(a.double() for a in td))
+                        for td in prepared),
+                  params.to(dtype=torch.float64), False)]
+    elbos = {"graphed": graphed.double().cpu()}
+    for name, c, data, p, use_kernel in runs:
+        step = ttrain.make_step(c, tc, vem=vem, use_kernel=use_kernel)
+        s = tp.init_train_state(p, c, tc, cache_luu=vem)
+        scales = ttrain.batch_scales(sizes, batches, c.torch_dtype, device,
+                                     tc.minibatch)
+        out = []
+        for row in stream:
+            s, metrics = step(s, run.sampler.on_host(data, row), scales)
+            out.append(metrics["elbo"])
+        elbos[name] = torch.stack(out).double().cpu()
+        if name == "eager":
+            eager = s
+    same = all(torch.equal(a, b) for a, b in zip(
+        ttrain._state_tensors(state), ttrain._state_tensors(eager)))
+    bitwise = torch.equal(elbos["graphed"], elbos["eager"])
+    for name in elbos:
+        print(f"  {name:9s} ELBO {elbos[name].numpy().round(3).tolist()}"
+              f" [card: {smi}]")
+    msg = (f"{what}: first call of 10 steps {first:.3f} s, of which warm-up "
+           f"and capture {run.capture_seconds or 0.0:.3f} s; launches per "
+           f"graph {run.capture_launches}; ten graphed steps bitwise equal "
+           f"to ten eager steps: ELBO {bitwise}, every parameter, the "
+           f"optimizer's state and the caches {same}")
+    ok = bitwise and same and bool(torch.isfinite(elbos["graphed"]).all())
+    if plain_bounds is not None:
+        def rel(b, upto=None):
+            r = (elbos["graphed"] - elbos[b]).abs() / elbos[b].abs()
+            return float(r[:upto].max())
+
+        first_vm = tc.ve_steps_per_vm + 1 if vem else None
+        got = (rel("plain_f32", first_vm), rel("plain_f32"),
+               rel("plain_f64"))
+        msg += (f"; vs plain f32 {got[0]:.3e} up to the first VM step "
+                f"(bound {plain_bounds[0]:g}), {got[1]:.3e} over all ten "
+                f"(bound {plain_bounds[1]:g}); vs plain f64 {got[2]:.3e} "
+                f"(bound {plain_bounds[2]:g})")
+        ok = ok and all(g <= b for g, b in zip(got, plain_bounds))
+    print(f"{msg} [card: {smi}]")
+    if not ok:
+        raise AssertionError(f"{what}: graphed steps disagree with eager "
+                             "or plain")
+    return run, state, graphed
+
+
+def backoff_counts(run) -> tuple:
+    """(steps at lr/4, steps skipped) among the last call's VE (or joint)
+    steps: ng_backoff 1 and 2."""
+    ve = torch.tensor([k != "vm" for k in run.step_kinds])
+    codes = run.ng_backoff.cpu()[ve]
+    return int((codes == 1).sum()), int((codes == 2).sum())
+
+
+def attempt_ms(S_inv, Lq, m, jitter: float, lr: float) -> dict:
+    """Device time of one attempt of each retraction at the step's shapes,
+    by CUDA events: what computing the lr/4 attempt beside the first costs
+    a VE step (the backoff is selected on the device, so both attempts
+    always run).  The operations are natgrad_ve_step's, on a trained
+    S^-1 and q."""
+    from hetmogp_tpu_torch.ops import linalg
+
+    eye = torch.eye(Lq.shape[-1], dtype=Lq.dtype, device=Lq.device)
+    theta1 = (S_inv @ m[..., None])[..., 0]
+    H = 0.5 * (S_inv + S_inv.mT)
+
+    def exact():
+        _, iL_r = linalg.blocked_cholesky_inverse(
+            torch.flip(S_inv, dims=(-2, -1)) + jitter * eye)
+        L_new = torch.flip(iL_r, dims=(-2, -1)).mT
+        return (L_new @ (L_new.mT @ theta1[..., None]))[..., 0]
+
+    def cholesky():
+        X = 2.0 * lr * linalg._phi(H)
+        mx = torch.amax(torch.abs(X), dim=(-2, -1), keepdim=True)
+        X = X * torch.clamp(0.3 / torch.clamp(mx, min=1e-30), max=1.0)
+        return Lq + linalg.matmul_tril(Lq, X)
+
+    return {name: statistics.median(device_times_ms(fn))
+            for name, fn in (("exact", exact), ("cholesky", cholesky))}
+
+
+def optimizers_phase(smi: str, device="cuda") -> dict:
+    """The other optimizers and loops at the flagship's width:
+
+    1. examples/large_scale.py --natgrad: the flagship trainer with
+       natural gradients, "cholesky" (the default) and "exact" at
+       natgrad_lr 0.1, each through a fresh make_scan_trainer: ten graphed
+       steps against eager (bitwise) and the plain versions in float32 and
+       float64, NATGRAD_CALLS timed calls of GRAPH_CALL_STEPS steps, the
+       backoff codes, a rising ELBO, a profile of PROFILE_STEPS steps with
+       the hand kernels' calls held to the replays; the launch counts go
+       to 0 before the "cholesky" trainer's first call and are read after
+       its timed calls; then the cost of the backoff's second attempt;
+    2. Adadelta with its lookahead, adam with warmup_cosine and clipping,
+       adam on the gather sampler, and natural gradients in joint mode
+       (vem=False), one trainer each: ten graphed steps bitwise against
+       eager, then a call of OTHER_STEPS steps with a rising ELBO;
+    3. batch VEM (vem_algorithm, masked L-BFGS) on VEM_ROWS rows a task:
+       the ELBO before and after each half-step, rising; and svi_fit over
+       a MinibatchStream for SVI_FIT_STEPS steps of the un-whitened model
+       on the solve path (fast_projection=False).
+
+    Returns the natural-gradient trainer's launch counts."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+    from hetmogp_tpu_torch.models import elbo as telbo
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    cfg, _, params, dataset = training_model(device, precision="high")
+    T = cfg.num_tasks
+    sizes, batches = (TRAIN_N_PER,) * T, (TRAIN_B,) * T
+    cycle = 5  # ve_steps_per_vm + 1
+    profiled = torch.device(device).type == "cuda"
+
+    # 1. large_scale --natgrad, both retractions
+    counts, trained = None, {}
+    for retraction in ("cholesky", "exact"):
+        tc = tp.TrainConfig(**NATGRAD_TC, natgrad_retraction=retraction)
+        what = (f"natgrad trainer (make_scan_trainer, \"high\", "
+                f"{retraction}, natgrad_lr {tc.natgrad_lr})")
+        if counts is None:
+            ck.zero_launch_counts()
+        run, state, first = graphed_against_eager(
+            cfg, tc, params, dataset, sizes, batches, True, SEED + 20, what,
+            smi, plain_bounds=NATGRAD_BOUNDS[retraction])
+        gen = torch.Generator().manual_seed(SEED + 21)
+        calls, rates, backoffs = [first], [], [backoff_counts(run)]
+        for _ in range(NATGRAD_CALLS):
+            t0 = time.perf_counter()
+            state, e = run(state, dataset, gen)
+            _sync(device)
+            rates.append(GRAPH_CALL_STEPS / (time.perf_counter() - t0))
+            calls.append(e)
+            backoffs.append(backoff_counts(run))
+        if counts is None:
+            counts = ck.launch_counts()
+        report_rates(what, rates, GRAPH_CALL_STEPS, smi)
+        e = torch.cat(calls).double().cpu()
+        start, end = float(e[:10].mean()), float(e[-10:].mean())
+        n1, n2 = (sum(b[i] for b in backoffs) for i in (0, 1))
+        print(f"{what}: ELBO over {e.numel()} steps, mean of the first ten "
+              f"{start:.3f}, of the last ten {end:.3f}; ng_backoff 1 (lr/4) "
+              f"in {n1} VE steps, 2 (skipped) in {n2}; launches per "
+              f"{cycle}-step cycle {per_cycle(run, cycle)} [card: {smi}]")
+        if not (torch.isfinite(e).all() and end > start):
+            raise AssertionError(f"{what}: ELBO not finite or not rising")
+        if profiled:
+            offsets = ttrain.draw_offset_stream(gen, sizes, batches,
+                                                PROFILE_STEPS)
+            held = {}
+            profile_replays(run, lambda: held.update(
+                out=run(state, dataset, offsets=offsets)),
+                f"{what}, one call of {PROFILE_STEPS} steps", smi)
+            state = held["out"][0]
+        trained[retraction] = (state.params, state.S_inv)
+        del run
+    print(f"natgrad trainer launches counted from 0 around the \"cholesky\" "
+          f"trainer's calls: {counts} [card: {smi}]")
+    want = ("rbf_K_batched_vec", "rbf_backward", "tril_projection_3pass_tma",
+            "tril_projection_tma")
+    if profiled and any(counts[k] < 1 for k in want):
+        raise AssertionError(f"the natgrad trainer did not run the kernels: "
+                             f"{counts}")
+    if profiled:
+        p, S_inv = trained["exact"]
+        cost = attempt_ms(S_inv, torch.tril(p.q_sqrt), p.q_mu, cfg.jitter,
+                          NATGRAD_TC["natgrad_lr"])
+        print(f"natgrad backoff, both attempts computed and selected on the "
+              f"device: one attempt takes {cost['exact']:.4f} ms (exact) and "
+              f"{cost['cholesky']:.4f} ms (cholesky) of device time at "
+              f"(Q, M, M) = ({Q}, {M}, {M}), median of 20 [card: {smi}]")
+    del trained
+
+    # 2. the rest of the optimizers
+    for i, (name, kw) in enumerate(OTHER_TCS.items()):
+        tc = tp.TrainConfig(**kw)
+        vem = name != "natgrad, vem=False"
+        what = f"{name} trainer (make_scan_trainer, \"high\")"
+        run, state, first = graphed_against_eager(
+            cfg, tc, params, dataset, sizes, batches, vem, SEED + 30 + i,
+            what, smi)
+        rows = run.sampler.draw(torch.Generator().manual_seed(SEED + 40 + i),
+                                OTHER_STEPS)
+        t0 = time.perf_counter()
+        state, e = run(state, dataset, **{run.sampler.name: rows})
+        _sync(device)
+        rate = OTHER_STEPS / (time.perf_counter() - t0)
+        e = torch.cat([first, e]).double().cpu()
+        start, end = float(e[:10].mean()), float(e[-10:].mean())
+        extra = ""
+        if run.ng_backoff is not None:
+            extra = ("; ng_backoff (1, 2) in the call's steps "
+                     f"{backoff_counts(run)}")
+        print(f"{what}: one call of {OTHER_STEPS} steps "
+              f"({tc.minibatch}), "
+              f"{rate:.2f} steps/s; ELBO mean of the first ten {start:.3f}, "
+              f"of the last ten {end:.3f}; launches per {cycle}-step cycle "
+              f"{per_cycle(run, cycle)}{extra} [card: {smi}]")
+        if not (torch.isfinite(e).all() and end > start):
+            raise AssertionError(f"{what}: ELBO not finite or not rising")
+        del run, state
+
+    # 3. batch VEM, and svi_fit on the un-whitened model
+    X_list = [td.X.cpu().numpy() for td in dataset]
+    Y_list = [td.Y.cpu().numpy() for td in dataset]
+    Xv, Yv = [x[:VEM_ROWS] for x in X_list], [y[:VEM_ROWS] for y in Y_list]
+    data, _ = tp.full_batch(Xv, Yv, dtype=cfg.torch_dtype, device=device)
+    ones = torch.ones(T, dtype=cfg.torch_dtype, device=device)
+
+    def elbo(p, c):  # the ELBO of the VEM_ROWS rows a task
+        with torch.no_grad():
+            return float(telbo.elbo_fn(p, data, ones, c)[0])
+
+    vtc = tp.TrainConfig(**VEM_TC)
+    e0 = elbo(params, cfg)
+    t0 = time.perf_counter()
+    _, hist = tp.vem_algorithm(params, cfg, Xv, Yv, vtc)
+    _sync(device)
+    half = (time.perf_counter() - t0) / len(hist)
+    path = [e0, *hist.tolist()]
+    print(f"batch VEM (vem_algorithm, {VEM_TC['vem_iters']} x VE and VM "
+          f"L-BFGS of {VEM_TC['batch_inner_iters']} iterations, {T} x "
+          f"{VEM_ROWS} rows, M {M}, Q {Q}): ELBO at the start and after each "
+          f"half-step {[round(v, 3) for v in path]}; {half:.3f} s a "
+          f"half-step (mean) [card: {smi}]")
+    if not (np.isfinite(path).all() and all(b > a for a, b in
+                                            zip(path, path[1:]))):
+        raise AssertionError("batch VEM: ELBO not finite or not rising")
+
+    ucfg = dataclasses.replace(cfg, whiten=False)
+    utc = tp.TrainConfig(optimizer="adam", step_rate=0.005, minibatch="slice",
+                         vm_batch_fraction=0.25, fast_projection=False)
+    stream = tp.MinibatchStream(X_list, Y_list, TRAIN_B, seed=SEED + 50,
+                                dtype=cfg.torch_dtype, device=device)
+    # the flagship's q in u-space: u = Luu v (S = Kuu for q_sqrt = I)
+    uparams = telbo.unwhiten_params(params, ucfg)
+    t0 = time.perf_counter()
+    fitted, hist = tp.svi_fit(uparams, ucfg, utc, stream, SVI_FIT_STEPS)
+    dt = time.perf_counter() - t0
+    before, after = elbo(uparams, ucfg), elbo(fitted, ucfg)
+    print(f"svi_fit, un-whitened, fast_projection=False, {SVI_FIT_STEPS} "
+          f"steps over a MinibatchStream: {SVI_FIT_STEPS / dt:.2f} steps/s; "
+          f"ELBO of the first {VEM_ROWS} rows a task before {before:.3f}, "
+          f"after {after:.3f}; minibatch ELBOs {hist[0]:.3f} ... "
+          f"{hist[-1]:.3f}; phase {time.perf_counter() - t_phase:.1f} s "
+          f"[card: {smi}]")
+    if not (np.isfinite(hist).all() and after > before):
+        raise AssertionError("svi_fit: ELBO not finite or not rising")
+    del dataset, stream, uparams, fitted, data
+    if profiled:
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     smi = device_phase()
     build_phase(smi)
@@ -1758,14 +2111,14 @@ def main():
     trajectory_ab_phase(smi)
     # in turns, "highest", "high", "high", "highest", each a fresh trainer:
     # the steps/s of two trainers of one configuration differ by more than
-    # the spread within one; the first two time three calls, the last two
-    # five; the last "high" is the main path, the flagship as bench.py
-    # runs it
+    # the spread within one; the third times five calls, the others three;
+    # the last "high" is the main path, the flagship as bench.py runs it
     graphed_trainer_phase(smi, "highest", timed_calls=3)
     graphed_trainer_phase(smi, "high", timed_calls=3)
     counts, _, _ = graphed_trainer_phase(smi, "high")
-    graphed_trainer_phase(smi, "highest")
+    graphed_trainer_phase(smi, "highest", timed_calls=3)
     families_phase(smi)
+    optimizers_phase(smi)
     # launches: the main path's for the vector RBF kernel and the TMA
     # routes; the staged and scalar routes never run at M = 1024, so theirs
     # are from the ragged serving path, their own

@@ -6,10 +6,14 @@ the ``HetLikelihood`` dispatcher; the prediction API of a trained
 heterogeneous multi-output GP (latent u and f with full covariances,
 correlated samples, the projected and stochastic predictions, the
 observation-space predictive, NLPD, and the cached-inverse serving
-entry), and the flagship stochastic VEM trainer (adam, the cached fast
-projection, slice minibatches), as the JAX package's on-device loop
-(``make_scan_trainer``, captured CUDA graphs on the card;
-``svi_fit_on_device``) and as a host loop (``make_trainer``).  Three
+entry), and the trainers: stochastic VEM or joint SVI with adam (LR
+schedules, clipping), climin Adadelta with its lookahead or natural
+gradients (both retractions), on the cached inverse or the solve path,
+whitened or not, slice or gather minibatches, as the JAX package's
+on-device loop (``make_scan_trainer``, captured CUDA graphs on the card;
+``svi_fit_on_device``), as host loops (``make_trainer``, and ``svi_fit``
+over a ``MinibatchStream``), and batch VEM by L-BFGS
+(``vem_algorithm``).  Three
 kernels are written by hand for the H100: the RBF cross-covariance
 (``csrc/rbf_kernel.cu``) and the triangular projection P = Kfu iLuu^T, in
 float32 (``csrc/tril_proj_kernel.cu``) and in three bf16 tensor-core passes
@@ -22,7 +26,7 @@ first reaches one.
 """
 
 from hetmogp_tpu_torch.config import ModelConfig, TrainConfig
-from hetmogp_tpu_torch.data import full_batch
+from hetmogp_tpu_torch.data import MinibatchStream, batch_scales, full_batch
 from hetmogp_tpu_torch.likelihoods import (Bernoulli, Beta, Binomial,
                                            Categorical, Dirichlet,
                                            Exponential, Gamma, Gaussian,
@@ -31,7 +35,8 @@ from hetmogp_tpu_torch.likelihoods import (Bernoulli, Beta, Binomial,
                                            NegativeBinomial, Ordinal, Poisson,
                                            StudentT, Weibull,
                                            ZeroInflatedPoisson)
-from hetmogp_tpu_torch.models.elbo import TaskData, elbo_fn
+from hetmogp_tpu_torch.metrics import MetricsLogger
+from hetmogp_tpu_torch.models.elbo import TaskData, build_elbo, elbo_fn
 from hetmogp_tpu_torch.models.params import (SVMOGPParams, default_lik_theta,
                                              init_params, params_from_jax)
 from hetmogp_tpu_torch.models.predict import (make_serving_predictive,
@@ -44,8 +49,10 @@ from hetmogp_tpu_torch.models.predict import (make_serving_predictive,
                                               sample_f)
 from hetmogp_tpu_torch.train import (TrainState, init_train_state,
                                      make_dataset, make_scan_trainer,
-                                     make_trainer, prepare_dataset_on_device,
-                                     svi_fit_on_device)
+                                     make_trainer, plot_callback,
+                                     prepare_dataset_on_device,
+                                     print_callback, svi_fit,
+                                     svi_fit_on_device, vem_algorithm)
 
 __all__ = [
     "ModelConfig",
@@ -74,14 +81,22 @@ __all__ = [
     "params_from_jax",
     "TaskData",
     "elbo_fn",
+    "build_elbo",
     "TrainState",
     "init_train_state",
     "make_dataset",
     "make_trainer",
     "make_scan_trainer",
+    "svi_fit",
     "svi_fit_on_device",
+    "vem_algorithm",
+    "print_callback",
+    "plot_callback",
     "prepare_dataset_on_device",
     "full_batch",
+    "MinibatchStream",
+    "batch_scales",
+    "MetricsLogger",
     "make_serving_predictive",
     "predict_latent_u",
     "predict_f",

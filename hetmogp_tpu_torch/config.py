@@ -5,11 +5,11 @@ Counterpart of ``hetmogp_tpu/config.py``'s ``ModelConfig`` and
 properties, so that a config written by the JAX package (``to_dict()``, or
 ``dataclasses.asdict`` of a ``TrainConfig``) loads here with ``from_dict``.
 What the port cannot run yet raises ``NotImplementedError`` when the
-config is made: an unknown kernel family, coregionalization rank > 1,
-adaptive jitter, the float64 factorization island, a forward projection
-below ``"high"`` precision, and every optimizer, schedule and sampler but
-the flagship trainer's.  All sixteen likelihood families of the JAX
-package load.
+config is made: coregionalization rank > 1 and the float64 factorization
+island (``chol_dtype``).  An unknown kernel family and a forward
+projection below ``"high"`` precision are refused too.  All sixteen
+likelihood families, every optimizer, schedule and sampler of the JAX
+package load; a JAX config with its defaults loads as it is.
 """
 
 from __future__ import annotations
@@ -43,7 +43,9 @@ class ModelConfig:
       rank: coregionalization rank; 1 only, for now.
       whiten: q(u_q) parameterized in the whitened space u_q = Luu_q v_q.
       jitter: fixed jitter added to Kuu before its Cholesky.
-      adaptive_jitter: escalating jitter; must be False for now.
+      adaptive_jitter: escalating jitter (GPy's ``jitchol``): the
+        factorization reads its ``info`` on the host, so the graphed
+        trainer refuses it on the card (``make_scan_trainer``).
       dtype: "float32" or "float64".
       kernel: latent kernel family: "rbf" (the hand-written CUDA kernel on
         the card), "matern32", "matern52", "exponential" or "rq".
@@ -77,9 +79,6 @@ class ModelConfig:
                 f"kernel={self.kernel!r}; the port has {list(KERNEL_NAMES)}")
         if self.rank != 1:
             raise _not_ported(f"rank={self.rank}", 2)
-        if self.adaptive_jitter:
-            raise _not_ported("adaptive_jitter=True (pass False and a fixed "
-                              "jitter)", 4)
         if self.chol_dtype != "same":
             raise _not_ported(f"chol_dtype={self.chol_dtype!r}", 4)
         if self.ve_fwd_precision not in ("highest", "high"):
@@ -180,17 +179,14 @@ class ModelConfig:
 class TrainConfig:
     """Training hyperparameters, with the JAX package's fields and defaults.
 
-    The port trains what the flagship trainer runs: adam with a constant
-    ``step_rate``, the cached fast projection, contiguous ``"slice"``
-    minibatches and the VE/VM flip-flop with ``ve_steps_per_vm`` VE steps
-    per VM step, and ``learn_lik_params`` frees ``params.lik_theta`` in
-    the VM steps.  The other optimizers, the schedules, gradient clipping
-    and the ``"gather"`` sampler raise ``NotImplementedError`` (ROADMAP.md
-    section 1); since the JAX defaults
-    are ``optimizer="adadelta"`` and ``minibatch="gather"``, a config for
-    the port names ``optimizer="adam"`` and ``minibatch="slice"``.  Fields
-    that only those paths read (``momentum``, ``natgrad_*``, ...) are
-    accepted and not read.
+    Every field is read as the JAX package reads it: ``optimizer`` is
+    ``"adadelta"`` (climin's rule with its momentum lookahead),
+    ``"adam"`` or ``"natgrad_adam"`` (natural gradients on q(u) by
+    ``natgrad_retraction``, adam on the rest); ``lr_schedule`` and
+    ``clip_grad_norm`` shape adam's step (adadelta refuses them, as the
+    JAX ``make_optimizer`` does); ``minibatch`` is ``"gather"`` (iid rows)
+    or ``"slice"`` (a contiguous wraparound block); ``fast_projection``
+    picks the cached inverse or the solve path.
     """
 
     vem_iters: int = 5
@@ -218,20 +214,14 @@ class TrainConfig:
     skip_nonfinite_steps: bool = False
 
     def __post_init__(self):
-        if self.optimizer in ("adadelta", "natgrad_adam"):
-            raise _not_ported(f"optimizer={self.optimizer!r} (pass "
-                              "optimizer='adam')", 12)
-        if self.optimizer != "adam":
+        if self.optimizer not in ("adadelta", "adam", "natgrad_adam"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
-        if self.lr_schedule is not None:
-            raise _not_ported(f"lr_schedule={self.lr_schedule!r}", 12)
-        if self.clip_grad_norm is not None:
-            raise _not_ported("clip_grad_norm", 12)
-        if self.minibatch != "slice":
-            raise _not_ported(f"minibatch={self.minibatch!r} (pass "
-                              "minibatch='slice')", 8)
-        if not self.fast_projection:
-            raise _not_ported("fast_projection=False (the solve path)", 7)
+        if self.natgrad_retraction not in ("exact", "cholesky"):
+            raise ValueError(f"unknown natgrad retraction "
+                             f"{self.natgrad_retraction!r}; use 'exact' or "
+                             "'cholesky'")
+        if self.minibatch not in ("gather", "slice"):
+            raise ValueError(f"unknown minibatch sampler {self.minibatch!r}")
         if not 0.0 < self.vm_batch_fraction <= 1.0:
             raise ValueError("vm_batch_fraction must be in (0, 1], got "
                              f"{self.vm_batch_fraction}")

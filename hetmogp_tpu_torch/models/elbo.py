@@ -11,16 +11,19 @@ triangular projection kernel on CUDA float32 (at the config's
 ``ve_fwd_precision``); ``cache_grad=True`` is the VM step's path, where
 the hyperparameter gradients flow through the cache by the cached-inverse
 adjoints (``linalg.chol_cached``, ``linalg.solve_tri_cached``).  Without
-one (``iLuu=None``: the prediction entries of ``models/predict.py``):
-triangular solves against Luu, and no inverse is ever formed.  The
+one (``iLuu=None``: ``elbo_fn`` without a cache, the solve-path trainers
+and the prediction entries of ``models/predict.py``): triangular solves
+against Luu, per task, and no inverse is ever formed.  The
 full-covariance moments (``latent_projections_full``,
-``task_qf_full_cov``) are on the solve path only.  The un-whitened KL is
-not ported (ROADMAP.md section 1, item 7).
+``task_qf_full_cov``) are on the solve path only.  Both the whitened and
+the un-whitened q(u) are supported, with ``whiten_params`` and
+``unwhiten_params`` between them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+import dataclasses
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -64,16 +67,46 @@ def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
     cached: optional (Luu, iLuu) valid for the current hypers (the VM
     step): the forward reuses the factor, and the backward runs the
     Cholesky pullback as matmuls against the cached inverse.
+    ``config.adaptive_jitter`` escalates the jitter where the factorization
+    fails (``linalg.jitchol``, which reads ``info`` on the host).
     """
-    K = _jittered_gram(params, config)
     if cached is not None:
-        return linalg.chol_cached(K, *cached)
-    return linalg.cholesky(K)
+        return linalg.chol_cached(_jittered_gram(params, config), *cached)
+    if config.adaptive_jitter:
+        Kuu = kernels.K_gram_batched(config.kernel, params.Z,
+                                     params.lengthscale, params.variance)
+        return linalg.jitchol(Kuu, jitter=config.jitter, adaptive=True)
+    return linalg.cholesky(_jittered_gram(params, config))
 
 
 def prior_cholesky_inverse(params: SVMOGPParams, config: ModelConfig):
-    """(Luu, Luu^{-1}) of Kuu + jitter I, each (Q, M, M), fixed jitter."""
-    return linalg.blocked_cholesky_inverse(_jittered_gram(params, config))
+    """(Luu, Luu^{-1}) of Kuu + jitter I, each (Q, M, M): the fused
+    factorization and inverse at fixed jitter, else ``prior_cholesky`` and
+    a triangular solve against I."""
+    if not config.adaptive_jitter:
+        return linalg.blocked_cholesky_inverse(_jittered_gram(params, config))
+    Luu = prior_cholesky(params, config)
+    return Luu, linalg.tri_inverse(Luu)
+
+
+def latent_projection_P(params: SVMOGPParams, config: ModelConfig,
+                        Luu: torch.Tensor, X: torch.Tensor, iLuu=None, *,
+                        use_kernel: bool = True):
+    """(P, kdiag) with P = (Luu^{-1} K_uf)^T, (Q, N, M), and the prior
+    diagonal (Q, N): the whitened projection itself, for the
+    natural-gradient step, which contracts P directly.  With ``iLuu`` P is
+    the triangular projection at the config's ``ve_fwd_precision`` (kernel
+    3 at ``"high"``, kernel A at ``"highest"`` on CUDA float32), else a
+    triangular solve against Luu."""
+    Kfu = kernels.K_batched(config.kernel, X, params.Z, params.lengthscale,
+                            params.variance, use_kernel=use_kernel)
+    kdiag = kernels.Kdiag_batched(config.kernel, X, params.variance)
+    if iLuu is not None:
+        P = linalg.matmul_tril_t(Kfu, iLuu, precision=config.ve_fwd_precision,
+                                 use_kernel=use_kernel)
+    else:
+        P = linalg.solve_tri(Luu, Kfu.mT).mT
+    return P, kdiag
 
 
 def latent_projections(params: SVMOGPParams, config: ModelConfig,
@@ -239,18 +272,29 @@ def task_qf_full_cov(params: SVMOGPParams, config: ModelConfig,
     return m_F, cov_F + torch.einsum("qj,qnk->jnk", Kt, Kxx)
 
 
-def kl_divergence(params: SVMOGPParams, config: ModelConfig) -> torch.Tensor:
-    """sum_q KL(q(v_q) || N(0, I)) of the whitened q(u):
-    KL_q = 0.5 (||L~||_F^2 + ||m~||^2 - M - 2 sum log |diag L~|)."""
-    if not config.whiten:
-        raise NotImplementedError(
-            "the un-whitened KL is not ported yet (ROADMAP.md section 1, "
-            "item 7)")
+def kl_divergence(params: SVMOGPParams, config: ModelConfig,
+                  Luu: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sum_q KL(q(u_q) || p(u_q)).
+
+    Whitened, p(v) = N(0, I) and Luu is not read:
+      KL_q = 0.5 (||L~||_F^2 + ||m~||^2 - M - 2 sum log |diag L~|).
+    Un-whitened, by triangular solves against Luu:
+      tr(Kuu^{-1} S) = ||Luu^{-1} L||_F^2,  m^T Kuu^{-1} m = ||Luu^{-1} m||^2.
+    """
+    M = config.num_inducing
     Lq = torch.tril(params.q_sqrt)
-    tr = torch.sum(torch.square(Lq), dim=(-2, -1))
-    mah = torch.sum(torch.square(params.q_mu), dim=-1)
-    kl = 0.5 * (tr + mah - config.num_inducing - linalg.logdet_from_chol(Lq))
-    return torch.sum(kl)
+    logdet_q = linalg.logdet_from_chol(Lq)
+    if config.whiten:
+        tr = torch.sum(torch.square(Lq), dim=(-2, -1))
+        mah = torch.sum(torch.square(params.q_mu), dim=-1)
+        return torch.sum(0.5 * (tr + mah - M - logdet_q))
+    if Luu is None:
+        raise ValueError("the un-whitened KL needs Luu")
+    tr = torch.sum(torch.square(linalg.solve_tri(Luu, Lq)), dim=(-2, -1))
+    mah = torch.sum(torch.square(linalg.solve_tri(Luu, params.q_mu[..., None])),
+                    dim=(-2, -1))
+    return torch.sum(0.5 * (tr + mah - M + linalg.logdet_from_chol(Luu)
+                            - logdet_q))
 
 
 def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
@@ -261,8 +305,11 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
     Args:
       data: one TaskData per task.
       scales: (T,) minibatch scales N_full_t / N_batch_t.
-      Luu, iLuu: the cached (Luu, Luu^{-1}) for the current hypers.  None
-        computes them here, differentiably (``prior_cholesky_inverse``).
+      Luu, iLuu: the cached (Luu, Luu^{-1}) for the current hypers.
+        ``Luu=None`` factorizes here, differentiably (``prior_cholesky``),
+        and forms no inverse; ``iLuu=None`` takes the solve path, per task
+        (``config.fuse_task_rows`` applies only with ``iLuu``, as in the
+        JAX package).
       cache_grad: the VM step's path: (Luu, iLuu) are value-correct caches
         and the hyperparameter gradients flow through them by the
         cached-inverse adjoints.  Needs both and the whitened model.
@@ -279,9 +326,9 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
         if not config.whiten:
             raise ValueError("cache_grad fast path requires config.whiten")
         Luu = prior_cholesky(params, config, cached=(Luu, iLuu))
-    elif Luu is None or iLuu is None:
-        Luu, iLuu = prior_cholesky_inverse(params, config)
-    if config.fuse_task_rows:
+    elif Luu is None:
+        Luu = prior_cholesky(params, config)
+    if config.fuse_task_rows and iLuu is not None:
         moments = fused_task_moments(params, config, Luu, data, iLuu,
                                      cache_grad=cache_grad,
                                      use_kernel=use_kernel)
@@ -299,5 +346,49 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
             ve = lik.var_exp(td.Y, *moments[t])
         ve_sums.append(scales[t] * torch.sum(ve * td.mask))
     ve_sums = torch.stack(ve_sums)
-    kl = kl_divergence(params, config)
+    kl = kl_divergence(params, config, Luu)
     return torch.sum(ve_sums) - kl, {"ve": ve_sums, "kl": kl}
+
+
+def build_elbo(config: ModelConfig):
+    """elbo(params, data, scales) -> (elbo, aux): ``elbo_fn`` with the
+    static config closed over."""
+
+    def f(params, data, scales):
+        return elbo_fn(params, data, scales, config)
+
+    return f
+
+
+def batch_qf_moments(params: SVMOGPParams, config: ModelConfig, X_list,
+                     tasks: Optional[Sequence[int]] = None, *,
+                     use_kernel: bool = True):
+    """q(f) moments (m_F, v_F) of several tasks at once, on the solve path:
+    one factorization, then ``task_qf_moments`` for each task of ``tasks``
+    (all by default) at its X, taken to the params' device and dtype."""
+    Luu = prior_cholesky(params, config)
+    tasks = range(config.num_tasks) if tasks is None else tasks
+    return [task_qf_moments(params, config, Luu,
+                            torch.as_tensor(X, dtype=params.Z.dtype,
+                                            device=params.Z.device), t,
+                            use_kernel=use_kernel)
+            for t, X in zip(tasks, X_list)]
+
+
+def whiten_params(params: SVMOGPParams,
+                  config: ModelConfig) -> SVMOGPParams:
+    """Un-whitened (m, L) to the whitened coordinates v = Luu^{-1} u; the
+    ELBO is invariant under the map."""
+    Luu = prior_cholesky(params, config)
+    return dataclasses.replace(
+        params, q_mu=linalg.solve_tri(Luu, params.q_mu[..., None])[..., 0],
+        q_sqrt=linalg.solve_tri(Luu, torch.tril(params.q_sqrt)))
+
+
+def unwhiten_params(params: SVMOGPParams,
+                    config: ModelConfig) -> SVMOGPParams:
+    """The inverse of ``whiten_params``: u = Luu v."""
+    Luu = prior_cholesky(params, config)
+    return dataclasses.replace(
+        params, q_mu=(Luu @ params.q_mu[..., None])[..., 0],
+        q_sqrt=Luu @ torch.tril(params.q_sqrt))

@@ -90,6 +90,13 @@ def cho_solve_batched(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return solve_tri(L, solve_tri(L, B), trans=True)
 
 
+def tri_inverse(L: torch.Tensor) -> torch.Tensor:
+    """tril(L)^{-1} of (..., M, M) lower-triangular L, by a triangular
+    solve against I (``trsm``; the JAX package's ``rec_tri_inverse``)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+
 def blocked_cholesky_inverse(K: torch.Tensor):
     """(chol(K), inv(chol(K))) for (..., M, M) SPD K.
 
@@ -98,9 +105,7 @@ def blocked_cholesky_inverse(K: torch.Tensor):
     in both, not as an exception (and without a host synchronisation).
     """
     L = cholesky(K)
-    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-    iL = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    return L, iL
+    return L, tri_inverse(L)
 
 
 def matmul_tril_t(A: torch.Tensor, L: torch.Tensor, *,

@@ -166,7 +166,15 @@ def test_task_data_and_kl_checks(model):
     np.testing.assert_allclose(
         telbo.kl_divergence(tparams, tcfg).item(),
         float(jelbo.kl_divergence(jp, cfg, None)), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="un-whitened"):
-        telbo.kl_divergence(tparams, dataclasses.replace(tcfg, whiten=False))
+    # the un-whitened KL, by solves against Luu (1e-9: the factorization's
+    # rounding, as above)
+    uw, tuw = (dataclasses.replace(c, whiten=False) for c in (cfg, tcfg))
+    tL = telbo.prior_cholesky(tparams, tuw)
+    np.testing.assert_allclose(
+        telbo.kl_divergence(tparams, tuw, tL).item(),
+        float(jelbo.kl_divergence(jp, uw, jelbo.prior_cholesky(jp, uw))),
+        rtol=1e-9)
+    with pytest.raises(ValueError, match="needs Luu"):
+        telbo.kl_divergence(tparams, tuw)
     with pytest.raises(ValueError, match="Luu and iLuu"):
         telbo.elbo_fn(tparams, (), torch.ones(6), tcfg, cache_grad=True)
