@@ -74,9 +74,23 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    schedule and clipping, adam on the gather sampler and joint-mode
    natural gradients, ten graphed steps each against eager and a rising
    ELBO; batch VEM by L-BFGS; ``svi_fit`` of the un-whitened model on the
-   solve path over a ``MinibatchStream``.
+   solve path over a ``MinibatchStream``;
+11. walks the user's lifecycle at the flagship's width
+   (``lifecycle_phase``, the launches counted from 0 around it): an
+   ``SVMOGP`` trained for 200 graphed steps with checkpoints every 50,
+   a run cut at 100 and resumed to 200 (params and ELBOs bitwise equal to
+   the uninterrupted run, the kept ``step_`` directories), the checkpoint's
+   size and save and load times; ``save``/``load`` with equal full-data
+   ELBOs; ``export_serving_predictive`` of 65,536 rows loaded and run
+   (bitwise equal to ``make_serving_predictive``, the same launches, the
+   ``hetmogp::`` nodes, rows/s of both in turns); ``export_predictive`` of
+   six tasks against the eager ``predictive``; the rank-2 flagship (8
+   latent copies: ten graphed steps bitwise against eager and within the
+   plain bounds, the kernels launched at batch 8, steps/s); and
+   ``chol_dtype="float64"`` against ``"same"`` (steps/s in turns, the
+   ELBO difference).
 
-They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b, 9, 10.  The serving pass is
+They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b, 9, 10, 11.  The serving pass is
 the process's first profiled call: as its sixth, after the trainers', the
 profiler lost one of its twelve requests' records (and a prediction is
 then the first to ask for each quadrature grid, as in a process that
@@ -86,7 +100,7 @@ from 5a.
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
 JSON (every kernel launcher, each route included); the last line is
-``{"ok": true, "device": {...}}``.  About six minutes on one H100.
+``{"ok": true, "device": {...}}``.  About nine minutes on one H100.
 """
 
 from __future__ import annotations
@@ -341,7 +355,7 @@ def kernel_phase(smi: str) -> list:
     for name, shape in cases.items():
         args = inputs(*shape)
         want = plain(*args)
-        routed = ck.rbf_route(shape[2], shape[3], True)
+        routed = ck.rbf_route(shape[2], shape[3])
         # the scalar kernel takes every shape; the vector kernel its own
         kernels = {"scalar": ck.rbf_K_batched_scalar}
         if routed == "vec":
@@ -652,11 +666,12 @@ def rbf_backward_phase(smi: str):
             raise AssertionError(f"rbf backward {name} disagrees")
 
 
-def training_model(device="cuda", precision="highest"):
-    """The flagship model and data of bench.py:172-217 at full width: the
-    bench's own arrays from RandomState(0), Z = rng.rand(M, 2), lengthscale
-    0.2, variance 0.5, q_mu_scale 0.1, jitter 1e-4, float32, the VE
-    projection at ``precision`` (the bench runs "high")."""
+def training_arrays():
+    """(config, train config, X_list, Y_list, rng) of the flagship of
+    bench.py:172-217 at full width: the bench's own arrays from
+    RandomState(0), jitter 1e-4, float32, adam, slice minibatches, the VM
+    step on a quarter of the batch; ``rng`` is left where the arrays end,
+    for Z and the initial parameters."""
     import hetmogp_tpu_torch as tp
 
     liks = (tp.HetGaussian(), tp.Bernoulli(), tp.Categorical(K=3),
@@ -671,10 +686,21 @@ def training_model(device="cuda", precision="highest"):
               rng.exponential(1.0, (n, 1)) + 1e-3]
     cfg = tp.ModelConfig(likelihoods=liks, num_latent=Q, num_inducing=M,
                          input_dim=DX, dtype="float32", jitter=1e-4,
-                         adaptive_jitter=False, fuse_task_rows=True,
-                         ve_fwd_precision=precision)
+                         adaptive_jitter=False, fuse_task_rows=True)
     tc = tp.TrainConfig(optimizer="adam", step_rate=0.005, minibatch="slice",
                         vm_batch_fraction=0.25)
+    return cfg, tc, X_list, Y_list, rng
+
+
+def training_model(device="cuda", precision="highest", **config):
+    """The flagship model and data of bench.py:172-217 at full width
+    (``training_arrays``): Z = rng.rand(M, 2), lengthscale 0.2, variance
+    0.5, q_mu_scale 0.1, the VE projection at ``precision`` (the bench runs
+    "high"), other ModelConfig fields from ``config`` (rank, chol_dtype)."""
+    import hetmogp_tpu_torch as tp
+
+    cfg, tc, X_list, Y_list, rng = training_arrays()
+    cfg = dataclasses.replace(cfg, ve_fwd_precision=precision, **config)
     Z = rng.rand(M, DX).astype(np.float32)
     params = tp.init_params(rng, cfg, Z, lengthscale=0.2, variance=0.5,
                             q_mu_scale=0.1, device=device)
@@ -2093,6 +2119,316 @@ def optimizers_phase(smi: str, device="cuda") -> dict:
     return counts
 
 
+# The lifecycle of the flagship (examples/production_training.py's path):
+# checkpointed training with a crash and an exact resume, the whole model
+# saved and loaded, and the serving and predictive paths exported with
+# torch.export and run from the exported programs.
+LIFE_STEPS, LIFE_CHUNK, LIFE_KEEP = 200, 50, 2
+LIFE_STOP = 100  # where the second run is cut
+LIFE_PRED_ROWS = 4096  # rows a task of the exported predictive
+# The exported predictive replays the eager path's operators and kernels
+# on the same inputs: anything but a reordering of a sum is a fault.
+EXPORT_PRED_BOUND = 1e-6
+SERVE_TURNS = 5  # eager and exported serving calls, each, in turns
+F64_ISLAND_STEPS, F64_ISLAND_TURNS = 50, 3
+RANK_STEPS, RANK_CALLS = 200, 3
+
+
+def _leaves_equal(a, b) -> bool:
+    from hetmogp_tpu_torch.models.params import leaves
+
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(leaves(a),
+                                                           leaves(b)))
+
+
+def _dirs(d) -> list:
+    from hetmogp_tpu_torch import train as ttrain
+
+    return [p.name for _, p in ttrain._step_checkpoints(d)]
+
+
+def _serving_rates(fns: dict, X, rows: int, turns: int) -> dict:
+    """rows/s of each function of ``fns`` (name -> callable of X), called
+    in turns ``turns`` times each, under inference mode."""
+    rates = {k: [] for k in fns}
+    with torch.inference_mode():
+        for i in range(turns):
+            order = list(fns) if i % 2 == 0 else list(fns)[::-1]
+            for k in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[k](X)
+                torch.cuda.synchronize()
+                rates[k].append(rows / (time.perf_counter() - t0))
+    return rates
+
+
+def _median_line(name: str, rates, unit: str) -> str:
+    r = sorted(rates)
+    med = statistics.median(r)
+    return (f"{name} {med:.1f} {unit} (median of {len(r)}, min {r[0]:.1f}, "
+            f"max {r[-1]:.1f}, spread {(r[-1] - r[0]) / med * 100:.2f}%)")
+
+
+def lifecycle_phase(smi: str) -> dict:
+    """The user's lifecycle at the flagship's width; returns the hand
+    kernels' launches over the phase, counted from 0 at its start.  The
+    checkpoints (~250 MB) go to a temporary directory, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="hetmogp_lifecycle_") as root:
+        return _lifecycle(smi, root)
+
+
+def _lifecycle(smi: str, root: str) -> dict:
+    from pathlib import Path
+
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import checkpoint, export
+    from hetmogp_tpu_torch import train as ttrain
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    root = Path(root)
+    t_phase = time.perf_counter()
+    ck.zero_launch_counts()
+
+    # 1. checkpoints, a crash at LIFE_STOP and a resume to LIFE_STEPS
+    cfg, tc, X_list, Y_list, rng = training_arrays()
+    cfg = dataclasses.replace(cfg, ve_fwd_precision="high")
+    Z = rng.rand(M, DX).astype(np.float32)
+    params = tp.init_params(rng, cfg, Z, lengthscale=0.2, variance=0.5,
+                            q_mu_scale=0.1, device="cuda")
+    fit = dict(batch_size=TRAIN_B, train_config=tc,
+               steps_per_call=LIFE_CHUNK, checkpoint_every=LIFE_CHUNK,
+               keep_last=LIFE_KEEP)
+
+    def model():
+        return tp.SVMOGP(cfg, X_list, Y_list, None, params=params)
+
+    def gen():
+        return torch.Generator().manual_seed(SEED + 7)
+
+    t0 = time.perf_counter()
+    whole = model().fit_svi_on_device(num_steps=LIFE_STEPS, generator=gen(),
+                                      checkpoint_dir=root / "whole", **fit)
+    t_whole = time.perf_counter() - t0
+    cut = model().fit_svi_on_device(num_steps=LIFE_STOP, generator=gen(),
+                                    checkpoint_dir=root / "resumed", **fit)
+    resumed = model().fit_svi_on_device(num_steps=LIFE_STEPS,
+                                        generator=torch.Generator(),
+                                        checkpoint_dir=root / "resumed",
+                                        resume=True, **fit)
+    hist = np.concatenate([cut.elbo_history, resumed.elbo_history])
+    same_params = _leaves_equal(whole.params, resumed.params)
+    same_hist = np.array_equal(hist, whole.elbo_history)
+    kept = {k: _dirs(root / k) for k in ("whole", "resumed")}
+    want = [f"step_{LIFE_STEPS - LIFE_CHUNK}", f"step_{LIFE_STEPS}"]
+    print(f"lifecycle: {LIFE_STEPS} graphed steps with checkpoints every "
+          f"{LIFE_CHUNK} (keep_last={LIFE_KEEP}) in {t_whole:.3f} s; a run "
+          f"cut at {LIFE_STOP} and resumed to {LIFE_STEPS}: params bitwise "
+          f"equal to the uninterrupted run {same_params}, ELBO history "
+          f"({hist.size} steps) bitwise equal {same_hist}; kept "
+          f"directories {kept}; final ELBO {whole.elbo_history[-1]:.3f} "
+          f"[card: {smi}]")
+    if not (same_params and same_hist and all(v == want
+                                              for v in kept.values())
+            and np.isfinite(hist).all()):
+        raise AssertionError("the resumed run is not the uninterrupted one")
+    path = root / "whole" / want[-1] / ttrain.STEP_CHECKPOINT
+    template = (params, ttrain.init_optimizer_state(params, tc))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_loaded, opt, step, _ = checkpoint.load_checkpoint(path, *template)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(root / "again.npz", p_loaded, opt_state=opt,
+                               step=step, generator=gen())
+    t_save = time.perf_counter() - t0
+    print(f"checkpoint: {path.stat().st_size / 1e6:.3f} MB (params, adam's "
+          f"moments, the generator), save {t_save:.3f} s, load "
+          f"{t_load:.3f} s [card: {smi}]")
+
+    # 2. the whole model saved and loaded
+    whole.save(root / "model.npz")
+    back = tp.SVMOGP.load(root / "model.npz", X_list, Y_list,
+                           device="cuda")
+    e_saved, e_loaded = whole.log_likelihood(), back.log_likelihood()
+    print(f"SVMOGP.save/load: full-data ELBO before {e_saved!r}, after "
+          f"{e_loaded!r}, equal {e_saved == e_loaded} [card: {smi}]")
+    if not (e_saved == e_loaded and np.isfinite(e_saved)
+            and _leaves_equal(whole.params, back.params)):
+        raise AssertionError("the loaded model is not the saved one")
+
+    # 3. the exported serving path against the eager one, one task
+    trained = whole.params
+    task = 2  # Categorical(K=3): the 2-D quadrature grid
+    Xs = torch.tensor(np.random.default_rng(SEED).random((CHUNK, DX)),
+                      dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    blob = export.export_serving_predictive(trained, cfg, Xs, task)
+    t_export = time.perf_counter() - t0
+    ops = export.exported_ops(blob)
+    own = {k: v for k, v in ops.items() if k.startswith("hetmogp::")}
+    served = export.load_predictive(blob)
+    state = export.serving_state(trained, cfg)
+    args = (*export.params_args(trained), *state)
+    eager = tp.make_serving_predictive(trained, cfg, task)
+    with torch.inference_mode():
+        before = ck.launch_counts()
+        want_out = eager(Xs)
+        torch.cuda.synchronize()
+        mid = ck.launch_counts()
+        got = served(*args, Xs)
+        torch.cuda.synchronize()
+        after = ck.launch_counts()
+    n_eager = {k: mid[k] - before[k] for k in mid}
+    n_export = {k: after[k] - mid[k] for k in mid}
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want_out))
+    print(f"exported serving ({CHUNK} rows, task {task}): export "
+          f"{t_export:.3f} s, {len(blob) / 1e6:.3f} MB, hetmogp:: nodes "
+          f"{own}; moments bitwise equal to make_serving_predictive "
+          f"{bitwise}; launches of one call, exported {n_export}, eager "
+          f"{n_eager} [card: {smi}]")
+    if not (bitwise and own.get("hetmogp::rbf_K_batched", 0) >= 1
+            and own.get("hetmogp::tril_projection_3pass", 0)
+            + own.get("hetmogp::tril_projection", 0) >= 1
+            and n_export == n_eager and any(n_export.values())):
+        raise AssertionError("the exported serving path is not the eager one")
+    rates = _serving_rates({"eager": eager,
+                            "exported": lambda X: served(*args, X)},
+                           Xs, CHUNK, SERVE_TURNS)
+    print("serving rows/s in turns: "
+          + "; ".join(_median_line(k, v, "rows/s") for k, v in rates.items())
+          + f" [card: {smi}]")
+
+    # 4. the exported predictive of all six tasks on the solve path
+    Xp = [torch.tensor(np.random.default_rng(SEED + t).random(
+        (LIFE_PRED_ROWS, DX)), dtype=torch.float32, device="cuda")
+        for t in range(cfg.num_tasks)]
+    blob = export.export_predictive(trained, cfg, Xp)
+    pred = export.load_predictive(blob)
+    with torch.inference_mode():
+        got = pred(*export.params_args(trained), *Xp)
+    m_ref, v_ref = tp.predictive(trained, cfg, Xp)
+    ref = [a for mv in zip(m_ref, v_ref) for a in mv]
+    err = max(normwise(a, b) for a, b in zip(got, ref))
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    own = {k: v for k, v in export.exported_ops(blob).items()
+           if k.startswith("hetmogp::")}
+    print(f"exported predictive (6 x {LIFE_PRED_ROWS} rows): hetmogp:: "
+          f"nodes {own}; normwise error against the eager predictive "
+          f"{err:.3e} (bound {EXPORT_PRED_BOUND:g}), bitwise {same} "
+          f"[card: {smi}]")
+    if not (err <= EXPORT_PRED_BOUND and own):
+        raise AssertionError("the exported predictive disagrees")
+
+    # 5. rank 2: eight latent copies through the graphed trainer
+    rank_phase(smi)
+
+    # 6. the float64 factorization island against "same", in turns
+    island_phase(smi)
+
+    counts = ck.launch_counts()
+    print(f"lifecycle phase: {time.perf_counter() - t_phase:.3f} s; "
+          f"launches counted from 0 at its start {counts} [card: {smi}]")
+    for k in ("rbf_K_batched_vec", "tril_projection_tma",
+              "tril_projection_3pass_tma", "rbf_backward"):
+        if counts[k] < 1:
+            raise AssertionError(f"the lifecycle path did not run {k}")
+    return counts
+
+
+def rank_phase(smi: str) -> None:
+    """The flagship at coregionalization rank 2 (Q=4 groups, 8 latent
+    copies): ten graphed steps bitwise against eager and within the
+    flagship's bounds of the plain versions in float32 and float64, with
+    the RBF kernel and kernel 3 launched at batch 8."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    cfg, tc, params, dataset = training_model(precision="high", rank=2)
+    sizes = (TRAIN_N_PER,) * cfg.num_tasks
+    batches = (TRAIN_B,) * cfg.num_tasks
+    # the launchers look their launch helpers up in the module at each
+    # call: wrappers there record the batch (Q*R) of every launch
+    seen, originals = {}, {}
+    for helper, batch in (("_rbf_launch", lambda w, e, X, Z, *a, **k:
+                           Z.shape[0]),
+                          ("_launch", lambda w, e, A, *a: A.shape[0])):
+        originals[helper] = getattr(ck, helper)
+
+        def record(wrapper, *a, _f=originals[helper], _b=batch, **k):
+            seen.setdefault(wrapper.__name__, set()).add(_b(wrapper, *a, **k))
+            return _f(wrapper, *a, **k)
+        setattr(ck, helper, record)
+    try:
+        run, state, _ = graphed_against_eager(
+            cfg, tc, params, dataset, sizes, batches, True, SEED + 8,
+            "rank 2 (8 latent copies), \"high\"", smi,
+            plain_bounds=(GRAPH_PLAIN_F32_VE, GRAPH_PLAIN_F32, GRAPH_F64))
+    finally:
+        for name, f in originals.items():
+            setattr(ck, name, f)
+    print(f"rank 2: batches the kernels were launched at {seen} "
+          f"[card: {smi}]")
+    gen = torch.Generator().manual_seed(SEED + 10)
+    rates = []
+    for _ in range(RANK_CALLS):
+        stream = run.sampler.draw(gen, RANK_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = run(state, dataset, offsets=stream)
+        torch.cuda.synchronize()
+        rates.append(RANK_STEPS / (time.perf_counter() - t0))
+    report_rates("rank 2 graphed trainer (\"high\")", rates, RANK_STEPS,
+                 smi)
+    if not ({"rbf_K_batched_vec", "tril_projection_3pass_tma"} <= set(seen)
+            and all(b == {Q * 2} for b in seen.values())):
+        raise AssertionError(f"rank 2 did not run the kernels at batch 8: "
+                             f"{seen}")
+
+
+def island_phase(smi: str) -> None:
+    """The flagship with chol_dtype="float64" against "same": the graphed
+    trainer's steps/s over F64_ISLAND_STEPS-step calls in turns, from one
+    state and one offset stream, and the ELBO difference."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+
+    cfg, tc, params, dataset = training_model(precision="high")
+    sizes = (TRAIN_N_PER,) * cfg.num_tasks
+    batches = (TRAIN_B,) * cfg.num_tasks
+    stream = ttrain.draw_offset_stream(torch.Generator().manual_seed(
+        SEED + 9), sizes, batches, F64_ISLAND_STEPS)
+    runs, elbos, rates = {}, {}, {}
+    for chol in ("same", "float64"):
+        c = dataclasses.replace(cfg, chol_dtype=chol)
+        runs[chol] = (tp.make_scan_trainer(c, tc, sizes, batches,
+                                           steps_per_call=GRAPH_CALL_STEPS),
+                      tp.init_train_state(params, c))
+        _, e = runs[chol][0](runs[chol][1], dataset, offsets=stream)
+        elbos[chol] = e.double().cpu()
+        rates[chol] = []
+    for i in range(F64_ISLAND_TURNS):
+        for chol in (("same", "float64") if i % 2 == 0
+                     else ("float64", "same")):
+            run, state = runs[chol]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(state, dataset, offsets=stream)
+            torch.cuda.synchronize()
+            rates[chol].append(F64_ISLAND_STEPS / (time.perf_counter() - t0))
+    rel = float(((elbos["float64"] - elbos["same"]).abs()
+                 / elbos["same"].abs()).max())
+    print("chol_dtype at \"high\", graphed steps/s over calls of "
+          f"{F64_ISLAND_STEPS} steps in turns: "
+          + "; ".join(_median_line(k, v, "steps/s") for k, v in rates.items())
+          + f"; largest relative ELBO difference over the first "
+          f"{F64_ISLAND_STEPS} steps {rel:.3e} [card: {smi}]")
+    if not (torch.isfinite(elbos["float64"]).all() and rel < GRAPH_F64):
+        raise AssertionError("the float64 island's trajectory is off")
+
+
 def main():
     smi = device_phase()
     build_phase(smi)
@@ -2119,6 +2455,7 @@ def main():
     graphed_trainer_phase(smi, "highest", timed_calls=3)
     families_phase(smi)
     optimizers_phase(smi)
+    lifecycle_phase(smi)
     # launches: the main path's for the vector RBF kernel and the TMA
     # routes; the staged and scalar routes never run at M = 1024, so theirs
     # are from the ragged serving path, their own

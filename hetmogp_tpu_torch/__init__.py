@@ -1,30 +1,39 @@
 """hetmogp_tpu_torch: the PyTorch and CUDA port of hetmogp_tpu.
 
-The port predicts, serves and trains: the sixteen likelihood families of
-the JAX package with their trainable likelihood parameters (theta) and
-the ``HetLikelihood`` dispatcher; the prediction API of a trained
-heterogeneous multi-output GP (latent u and f with full covariances,
+The whole user's lifecycle of the JAX package runs here: build an
+``SVMOGP``; train it (stochastic VEM or joint SVI with adam, LR schedules
+and clipping, climin Adadelta with its lookahead or natural gradients of
+both retractions; on the cached inverse or the solve path, whitened or
+not, slice or gather minibatches) with the on-device loop
+(``svi_fit_on_device`` around ``make_scan_trainer``, captured CUDA graphs
+on the card) with periodic npz checkpoints and an exact resume, the host
+loops (``make_trainer``; ``svi_fit`` over a ``MinibatchStream``) or batch
+VEM by L-BFGS (``vem_algorithm``); save and load the whole model
+(``SVMOGP.save``/``load``, ``save_checkpoint``/``load_checkpoint``, in the
+JAX package's npz layout); predict (latent u and f with full covariances,
 correlated samples, the projected and stochastic predictions, the
-observation-space predictive, NLPD, and the cached-inverse serving
-entry), and the trainers: stochastic VEM or joint SVI with adam (LR
-schedules, clipping), climin Adadelta with its lookahead or natural
-gradients (both retractions), on the cached inverse or the solve path,
-whitened or not, slice or gather minibatches, as the JAX package's
-on-device loop (``make_scan_trainer``, captured CUDA graphs on the card;
-``svi_fit_on_device``), as host loops (``make_trainer``, and ``svi_fit``
-over a ``MinibatchStream``), and batch VEM by L-BFGS
-(``vem_algorithm``).  Three
-kernels are written by hand for the H100: the RBF cross-covariance
-(``csrc/rbf_kernel.cu``) and the triangular projection P = Kfu iLuu^T, in
-float32 (``csrc/tril_proj_kernel.cu``) and in three bf16 tensor-core passes
-for ``ve_fwd_precision="high"`` (``csrc/tril_proj3_kernel.cu``).  Trained
-parameters cross from the JAX package with ``params_from_jax`` and
+observation-space predictive, NLPD, the cached-inverse serving entry);
+and export the predictive paths with ``torch.export`` (``export.py``).
+The sixteen likelihood families of the JAX package with their trainable
+likelihood parameters (theta), coregionalization rank R >= 1 and the
+float64 factorization island (``chol_dtype``) are all here.  Three
+kernels are written by hand for the H100 and registered as custom
+operators (``hetmogp::``), so that exported programs keep them: the RBF
+cross-covariance (``csrc/rbf_kernel.cu``) and the triangular projection
+P = Kfu iLuu^T, in float32 (``csrc/tril_proj_kernel.cu``) and in three
+bf16 tensor-core passes for ``ve_fwd_precision="high"``
+(``csrc/tril_proj3_kernel.cu``).  Trained parameters cross from the JAX
+package with ``params_from_jax`` or a checkpoint, and configs with
 ``ModelConfig.from_dict``.  Entry points put their tensors on the card
 unless the caller passes ``device="cpu"``.  Importing the package needs
 neither CUDA nor the JAX package; the kernels are built when a CUDA tensor
-first reaches one.
+first reaches one.  Still to come with the parallelism slice: the
+mesh-sharded trainer and predictive, and ``save_checkpoint_sharded`` /
+``load_checkpoint_sharded``.
 """
 
+from hetmogp_tpu_torch.checkpoint import (load_checkpoint, peek_meta,
+                                          save_checkpoint)
 from hetmogp_tpu_torch.config import ModelConfig, TrainConfig
 from hetmogp_tpu_torch.data import MinibatchStream, batch_scales, full_batch
 from hetmogp_tpu_torch.likelihoods import (Bernoulli, Beta, Binomial,
@@ -47,6 +56,7 @@ from hetmogp_tpu_torch.models.predict import (make_serving_predictive,
                                               predict_f_stochastic,
                                               predict_latent_u, predictive,
                                               sample_f)
+from hetmogp_tpu_torch.models.svmogp import SVMOGP
 from hetmogp_tpu_torch.train import (TrainState, init_train_state,
                                      make_dataset, make_scan_trainer,
                                      make_trainer, plot_callback,
@@ -75,6 +85,7 @@ __all__ = [
     "Weibull",
     "ZeroInflatedPoisson",
     "HetLikelihood",
+    "SVMOGP",
     "SVMOGPParams",
     "init_params",
     "default_lik_theta",
@@ -93,6 +104,9 @@ __all__ = [
     "print_callback",
     "plot_callback",
     "prepare_dataset_on_device",
+    "save_checkpoint",
+    "load_checkpoint",
+    "peek_meta",
     "full_batch",
     "MinibatchStream",
     "batch_scales",

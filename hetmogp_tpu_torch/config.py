@@ -4,12 +4,12 @@ Counterpart of ``hetmogp_tpu/config.py``'s ``ModelConfig`` and
 ``TrainConfig``, with the same field names, defaults and derived
 properties, so that a config written by the JAX package (``to_dict()``, or
 ``dataclasses.asdict`` of a ``TrainConfig``) loads here with ``from_dict``.
-What the port cannot run yet raises ``NotImplementedError`` when the
-config is made: coregionalization rank > 1 and the float64 factorization
-island (``chol_dtype``).  An unknown kernel family and a forward
-projection below ``"high"`` precision are refused too.  All sixteen
-likelihood families, every optimizer, schedule and sampler of the JAX
-package load; a JAX config with its defaults loads as it is.
+Every field of the JAX package's configs runs here: coregionalization
+rank R >= 1, the float64 factorization island (``chol_dtype``), all
+sixteen likelihood families, every optimizer, schedule and sampler; a JAX
+config with its defaults loads as it is.  A bad rank or ``chol_dtype``, an
+unknown kernel family and a forward projection below ``"high"`` precision
+are refused when the config is made.
 """
 
 from __future__ import annotations
@@ -24,11 +24,7 @@ import torch
 KERNEL_NAMES = ("exponential", "matern32", "matern52", "rbf", "rq")
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md section 1, item {item})")
+CHOL_DTYPES = ("same", "float64")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +36,10 @@ class ModelConfig:
       num_latent: Q, number of latent GPs.
       num_inducing: M, inducing points per latent GP.
       input_dim: Dx, dimensionality of X.
-      rank: coregionalization rank; 1 only, for now.
+      rank: coregionalization rank R: B_q = W_q W_q^T of rank R is R
+        latent copies per kernel, Q*R latent GPs in all, each group of R
+        sharing one (lengthscale, variance); Z, q_mu, q_sqrt, W and kappa
+        have Q*R rows (``num_latent_eff``).
       whiten: q(u_q) parameterized in the whitened space u_q = Luu_q v_q.
       jitter: fixed jitter added to Kuu before its Cholesky.
       adaptive_jitter: escalating jitter (GPy's ``jitchol``): the
@@ -50,7 +49,11 @@ class ModelConfig:
       kernel: latent kernel family: "rbf" (the hand-written CUDA kernel on
         the card), "matern32", "matern52", "exponential" or "rq".
       ard: per-dimension lengthscales.
-      chol_dtype: "same" only, for now.
+      chol_dtype: "same", or "float64": a float32 model factorizes Kuu in
+        float64 and casts the factor down (``linalg.chol_mixed``), an
+        accuracy island for large M.  The island takes the fixed
+        ``jitter`` only: ``adaptive_jitter`` does not apply to it, as in
+        the JAX package.  A float64 model ignores it.
       ve_fwd_precision: the VE projection P = Kfu iLuu^T's precision:
         "highest" (full float32) or "high" (three bf16 passes of the
         bit-mask split, the 3-pass tensor-core kernel on the card).  The
@@ -77,10 +80,13 @@ class ModelConfig:
         if self.kernel not in KERNEL_NAMES:
             raise NotImplementedError(
                 f"kernel={self.kernel!r}; the port has {list(KERNEL_NAMES)}")
-        if self.rank != 1:
-            raise _not_ported(f"rank={self.rank}", 2)
-        if self.chol_dtype != "same":
-            raise _not_ported(f"chol_dtype={self.chol_dtype!r}", 4)
+        if isinstance(self.rank, bool) or not isinstance(self.rank, int) \
+                or self.rank < 1:
+            raise ValueError(f"rank must be an integer >= 1, got "
+                             f"{self.rank!r}")
+        if self.chol_dtype not in CHOL_DTYPES:
+            raise ValueError(f"chol_dtype={self.chol_dtype!r}; use one of "
+                             f"{CHOL_DTYPES}")
         if self.ve_fwd_precision not in ("highest", "high"):
             raise NotImplementedError(
                 f"ve_fwd_precision={self.ve_fwd_precision!r}: the port runs "
@@ -160,6 +166,25 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    def metadata(self) -> dict:
+        """The reference's Y_metadata dict: task, y, function, d and pred
+        indices, as numpy arrays."""
+        import numpy as np
+
+        y_index, f_index, d_index, p_index = [], [], [], []
+        for t, lik in enumerate(self.likelihoods):
+            y_index.extend([t] * lik.dim_y)
+            f_index.extend([t] * lik.dim_f)
+            d_index.extend(range(lik.dim_f))
+            p_index.extend([t] * lik.dim_p)
+        return {
+            "task_index": np.arange(self.num_tasks),
+            "y_index": np.asarray(y_index, dtype=np.int64),
+            "function_index": np.asarray(f_index, dtype=np.int64),
+            "d_index": np.asarray(d_index, dtype=np.int64),
+            "pred_index": np.asarray(p_index, dtype=np.int64),
+        }
 
     def with_trained_likelihoods(self, params) -> "ModelConfig":
         """A config whose likelihoods take the trained ``params.lik_theta``

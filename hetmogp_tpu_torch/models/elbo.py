@@ -67,11 +67,15 @@ def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
     cached: optional (Luu, iLuu) valid for the current hypers (the VM
     step): the forward reuses the factor, and the backward runs the
     Cholesky pullback as matmuls against the cached inverse.
+    ``config.chol_dtype="float64"`` on a float32 model factorizes in
+    float64 (``linalg.chol_mixed``) at the fixed jitter.  Otherwise
     ``config.adaptive_jitter`` escalates the jitter where the factorization
     fails (``linalg.jitchol``, which reads ``info`` on the host).
     """
     if cached is not None:
         return linalg.chol_cached(_jittered_gram(params, config), *cached)
+    if _float64_island(params, config):
+        return linalg.chol_mixed(_jittered_gram(params, config))
     if config.adaptive_jitter:
         Kuu = kernels.K_gram_batched(config.kernel, params.Z,
                                      params.lengthscale, params.variance)
@@ -79,11 +83,17 @@ def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
     return linalg.cholesky(_jittered_gram(params, config))
 
 
+def _float64_island(params: SVMOGPParams, config: ModelConfig) -> bool:
+    return (config.chol_dtype == "float64"
+            and params.Z.dtype != torch.float64)
+
+
 def prior_cholesky_inverse(params: SVMOGPParams, config: ModelConfig):
     """(Luu, Luu^{-1}) of Kuu + jitter I, each (Q, M, M): the fused
-    factorization and inverse at fixed jitter, else ``prior_cholesky`` and
-    a triangular solve against I."""
-    if not config.adaptive_jitter:
+    factorization and inverse at fixed jitter in the working dtype, else
+    ``prior_cholesky`` (the float64 island, or the adaptive ``jitchol``)
+    and a triangular solve against I."""
+    if not config.adaptive_jitter and not _float64_island(params, config):
         return linalg.blocked_cholesky_inverse(_jittered_gram(params, config))
     Luu = prior_cholesky(params, config)
     return Luu, linalg.tri_inverse(Luu)

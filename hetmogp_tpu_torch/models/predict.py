@@ -9,13 +9,17 @@ never forms an inverse.  Every entry starts with
 ``kernels.K_batched``: the hand-written RBF kernel on the card.
 
 The JAX package wraps each entry in a cached ``jax.jit``; here they are
-plain functions under ``torch.inference_mode()``.  Random draws come from
-a ``torch.Generator`` the caller passes (where the JAX package takes a
-key).  Tensors live on the parameters' device.
+plain functions under ``torch.inference_mode()``, each the wrapper of an
+undecorated body (``_predict_f`` and so on) that ``export.py`` traces
+under ``torch.no_grad()``.  ``elbo_evaluator`` takes ``jitted_elbo``'s
+role.  Random draws come from a ``torch.Generator`` the caller passes
+(where the JAX package takes a key).  Tensors live on the parameters'
+device.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -24,6 +28,31 @@ from hetmogp_tpu_torch.config import ModelConfig
 from hetmogp_tpu_torch.models import elbo as elbo_mod
 from hetmogp_tpu_torch.models.params import SVMOGPParams
 from hetmogp_tpu_torch.ops import kernels, linalg, quadrature
+
+
+def _inference(body):
+    """The entry point of ``body``: the same call under
+    ``torch.inference_mode()``."""
+    @functools.wraps(body)
+    def entry(*args, **kw):
+        with torch.inference_mode():
+            return body(*args, **kw)
+
+    return entry
+
+
+@functools.lru_cache(maxsize=None)
+def elbo_evaluator(config: ModelConfig):
+    """``(params, data, scales) -> (elbo, aux)`` of ``elbo_fn`` for one
+    config, without gradient: the role of the JAX package's cached
+    ``jitted_elbo`` (there is nothing to compile here, so it is a plain
+    function, cached only so that one config gives one evaluator).  The
+    solve path unless the caller passes a cache to ``elbo_fn`` itself."""
+    def evaluate(params, data, scales):
+        with torch.no_grad():
+            return elbo_mod.elbo_fn(params, data, scales, config)
+
+    return evaluate
 
 
 def _as_inputs(Xnew, config: ModelConfig, device) -> torch.Tensor:
@@ -66,9 +95,9 @@ def make_serving_predictive(params: SVMOGPParams, config: ModelConfig,
     return serve
 
 
-def predict_latent_u(params: SVMOGPParams, config: ModelConfig, Xnew,
-                     latent_ind: Optional[int] = None,
-                     full_cov: bool = False, *, use_kernel: bool = True):
+def _predict_latent_u(params: SVMOGPParams, config: ModelConfig, Xnew,
+                      latent_ind: Optional[int] = None,
+                      full_cov: bool = False, *, use_kernel: bool = True):
     """Posterior moments of the latent GPs u_q at Xnew.
 
     Returns (mean, var), each (N, Q), or an (N,) pair if ``latent_ind`` is
@@ -77,41 +106,45 @@ def predict_latent_u(params: SVMOGPParams, config: ModelConfig, Xnew,
     not clamped (their diagonals are non-negative up to roundoff by
     construction).
     """
-    with torch.inference_mode():
-        X = _as_inputs(Xnew, config, params.Z.device)
-        Luu = elbo_mod.prior_cholesky(params, config)
-        if full_cov:
-            mean_q, cov_q = elbo_mod.latent_projections_full(
-                params, config, Luu, X, use_kernel=use_kernel)
-            if latent_ind is not None:
-                return mean_q[latent_ind], cov_q[latent_ind]
-            return mean_q.mT, cov_q
-        mean_q, gamma_q, _ = elbo_mod.latent_projections(
+    X = _as_inputs(Xnew, config, params.Z.device)
+    Luu = elbo_mod.prior_cholesky(params, config)
+    if full_cov:
+        mean_q, cov_q = elbo_mod.latent_projections_full(
             params, config, Luu, X, use_kernel=use_kernel)
-        mean, var = mean_q.mT, torch.clamp(gamma_q, min=0.0).mT
+        if latent_ind is not None:
+            return mean_q[latent_ind], cov_q[latent_ind]
+        return mean_q.mT, cov_q
+    mean_q, gamma_q, _ = elbo_mod.latent_projections(
+        params, config, Luu, X, use_kernel=use_kernel)
+    mean, var = mean_q.mT, torch.clamp(gamma_q, min=0.0).mT
     if latent_ind is not None:
         return mean[:, latent_ind], var[:, latent_ind]
     return mean, var
 
 
-def predict_f(params: SVMOGPParams, config: ModelConfig, Xnew,
-              output_function_ind: int = 0, full_cov: bool = False, *,
-              use_kernel: bool = True):
+predict_latent_u = _inference(_predict_latent_u)
+
+
+def _predict_f(params: SVMOGPParams, config: ModelConfig, Xnew,
+               output_function_ind: int = 0, full_cov: bool = False, *,
+               use_kernel: bool = True):
     """Posterior moments of one output parameter function f_d at Xnew:
     (mean, var), each (N,), or (mean, cov (N, N)) with ``full_cov=True``,
     which is what correlated samples of f* need."""
     d = output_function_ind
     t, j = config.function_index[d], config.d_index[d]
-    with torch.inference_mode():
-        X = _as_inputs(Xnew, config, params.Z.device)
-        Luu = elbo_mod.prior_cholesky(params, config)
-        if full_cov:
-            m_F, cov_F = elbo_mod.task_qf_full_cov(params, config, Luu, X, t,
-                                                   use_kernel=use_kernel)
-            return m_F[:, j], cov_F[j]
-        m_F, v_F = elbo_mod.task_qf_moments(params, config, Luu, X, t,
-                                            use_kernel=use_kernel)
+    X = _as_inputs(Xnew, config, params.Z.device)
+    Luu = elbo_mod.prior_cholesky(params, config)
+    if full_cov:
+        m_F, cov_F = elbo_mod.task_qf_full_cov(params, config, Luu, X, t,
+                                               use_kernel=use_kernel)
+        return m_F[:, j], cov_F[j]
+    m_F, v_F = elbo_mod.task_qf_moments(params, config, Luu, X, t,
+                                        use_kernel=use_kernel)
     return m_F[:, j], v_F[:, j]
+
+
+predict_f = _inference(_predict_f)
 
 
 def sample_f(params: SVMOGPParams, config: ModelConfig,
@@ -164,9 +197,9 @@ def predict_f_stochastic(params: SVMOGPParams, config: ModelConfig,
                                output_function_ind, use_kernel=use_kernel)
 
 
-def predict_f_projected_task(params: SVMOGPParams, config: ModelConfig,
-                             Xtrain_list: Sequence, Xnew, task: int, *,
-                             use_kernel: bool = True):
+def _predict_f_projected_task(params: SVMOGPParams, config: ModelConfig,
+                              Xtrain_list: Sequence, Xnew, task: int, *,
+                              use_kernel: bool = True):
     """The reference implementation's ``_raw_predict_f`` for every output
     function of one task at once: (mu (F_t, Ns), var (F_t, Ns)).
 
@@ -181,64 +214,68 @@ def predict_f_projected_task(params: SVMOGPParams, config: ModelConfig,
     clamped non-negative.
     """
     device = params.Z.device
-    with torch.inference_mode():
-        X = _as_inputs(Xtrain_list[task], config, device)
-        Xs = _as_inputs(Xnew, config, device)
-        Luu = elbo_mod.prior_cholesky(params, config)
-        kw = dict(use_kernel=use_kernel)
+    X = _as_inputs(Xtrain_list[task], config, device)
+    Xs = _as_inputs(Xnew, config, device)
+    Luu = elbo_mod.prior_cholesky(params, config)
+    kw = dict(use_kernel=use_kernel)
 
-        # d-independent: the q(f) ingredients at the anchor inputs
-        Kfu = kernels.K_batched(config.kernel, X, params.Z,
-                                params.lengthscale, params.variance, **kw)
-        R = linalg.solve_tri(Luu, Kfu.mT)  # (Q, M, N)
-        P = R.mT if config.whiten else linalg.solve_tri(Luu, R,
-                                                        trans=True).mT
-        mean_q = (P @ params.q_mu[..., None])[..., 0]
-        Kq_full = kernels.K_self_batched(config.kernel, X, params.lengthscale,
-                                         params.variance, **kw)  # (Q, N, N)
-        Kx = kernels.K_batched(
-            config.kernel, X, Xs[None].expand(config.num_latent_eff,
-                                              *Xs.shape),
-            params.lengthscale, params.variance, **kw)  # (Q, N, Ns)
-        PL = P @ torch.tril(params.q_sqrt)
-        # whitened: P S P^T - P P^T; un-whitened: A S A^T - A Kuf, A = P
-        G = PL @ PL.mT - P @ (P if config.whiten else Kfu).mT
+    # d-independent: the q(f) ingredients at the anchor inputs
+    Kfu = kernels.K_batched(config.kernel, X, params.Z,
+                            params.lengthscale, params.variance, **kw)
+    R = linalg.solve_tri(Luu, Kfu.mT)  # (Q, M, N)
+    P = R.mT if config.whiten else linalg.solve_tri(Luu, R,
+                                                    trans=True).mT
+    mean_q = (P @ params.q_mu[..., None])[..., 0]
+    Kq_full = kernels.K_self_batched(config.kernel, X, params.lengthscale,
+                                     params.variance, **kw)  # (Q, N, N)
+    Kx = kernels.K_batched(
+        config.kernel, X, Xs[None].expand(config.num_latent_eff,
+                                          *Xs.shape),
+        params.lengthscale, params.variance, **kw)  # (Q, N, Ns)
+    PL = P @ torch.tril(params.q_sqrt)
+    # whitened: P S P^T - P P^T; un-whitened: A S A^T - A Kuf, A = P
+    G = PL @ PL.mT - P @ (P if config.whiten else Kfu).mT
 
-        # per output function: (Q,)-sized mixing weights, batched over F_t
-        start, stop = config.task_function_slices[task]
-        Wt = params.W[:, start:stop]  # (Q, F)
-        B = kernels.lmc_coregionalization(Wt, params.kappa[:, start:stop])
-        m_f = Wt.mT @ mean_q  # (F, N)
-        Kdd = torch.einsum("qf,qnk->fnk", B, Kq_full)  # (F, N, N)
-        S_f = Kdd + torch.einsum("qf,qnk->fnk", torch.square(Wt), G)
-        Kx_f = torch.einsum("qf,qns->fns", B, Kx)  # (F, N, Ns)
-        # stationary kernels: Kdiag = variance
-        kxx_diag = (B.mT @ params.variance)[:, None]  # (F, 1)
+    # per output function: (Q,)-sized mixing weights, batched over F_t
+    start, stop = config.task_function_slices[task]
+    Wt = params.W[:, start:stop]  # (Q, F)
+    B = kernels.lmc_coregionalization(Wt, params.kappa[:, start:stop])
+    m_f = Wt.mT @ mean_q  # (F, N)
+    Kdd = torch.einsum("qf,qnk->fnk", B, Kq_full)  # (F, N, N)
+    S_f = Kdd + torch.einsum("qf,qnk->fnk", torch.square(Wt), G)
+    Kx_f = torch.einsum("qf,qns->fns", B, Kx)  # (F, N, Ns)
+    # stationary kernels: Kdiag = variance
+    kxx_diag = (B.mT @ params.variance)[:, None]  # (F, 1)
 
-        LK = linalg.jitchol(Kdd, jitter=config.jitter, adaptive=True)
-        wv = linalg.cho_solve_batched(LK, m_f[:, :, None])[..., 0]  # (F, N)
-        tmp = linalg.cho_solve_batched(LK, Kx_f)  # (F, N, Ns): K^-1 Kx
-        mu = torch.einsum("fns,fn->fs", Kx_f, wv)
-        var = (kxx_diag - torch.sum(tmp * Kx_f, dim=1)
-               + torch.sum(tmp * (S_f @ tmp), dim=1))
-        return mu, torch.clamp(var, min=0.0)
+    LK = linalg.jitchol(Kdd, jitter=config.jitter, adaptive=True)
+    wv = linalg.cho_solve_batched(LK, m_f[:, :, None])[..., 0]  # (F, N)
+    tmp = linalg.cho_solve_batched(LK, Kx_f)  # (F, N, Ns): K^-1 Kx
+    mu = torch.einsum("fns,fn->fs", Kx_f, wv)
+    var = (kxx_diag - torch.sum(tmp * Kx_f, dim=1)
+           + torch.sum(tmp * (S_f @ tmp), dim=1))
+    return mu, torch.clamp(var, min=0.0)
 
 
-def predict_f_all(params: SVMOGPParams, config: ModelConfig,
-                  X_list: Sequence, *, use_kernel: bool = True) -> list:
+predict_f_projected_task = _inference(_predict_f_projected_task)
+
+
+def _predict_f_all(params: SVMOGPParams, config: ModelConfig,
+                   X_list: Sequence, *, use_kernel: bool = True) -> list:
     """q(f) moments for every task: [(m_F_t, v_F_t)], each (N_t, F_t)."""
     device = params.Z.device
-    with torch.inference_mode():
-        Luu = elbo_mod.prior_cholesky(params, config)
-        return [elbo_mod.task_qf_moments(params, config, Luu,
-                                         _as_inputs(X_t, config, device), t,
-                                         use_kernel=use_kernel)
-                for t, X_t in enumerate(X_list)]
+    Luu = elbo_mod.prior_cholesky(params, config)
+    return [elbo_mod.task_qf_moments(params, config, Luu,
+                                     _as_inputs(X_t, config, device), t,
+                                     use_kernel=use_kernel)
+            for t, X_t in enumerate(X_list)]
 
 
-def predictive(params: SVMOGPParams, config: ModelConfig, X_list: Sequence,
-               Xtrain_list: Optional[Sequence] = None,
-               projected: bool = False, *, use_kernel: bool = True):
+predict_f_all = _inference(_predict_f_all)
+
+
+def _predictive(params: SVMOGPParams, config: ModelConfig, X_list: Sequence,
+                Xtrain_list: Optional[Sequence] = None,
+                projected: bool = False, *, use_kernel: bool = True):
     """Observation-space predictive moments per task: the latent moments
     pushed through each likelihood's predictive moments.
 
@@ -253,20 +290,22 @@ def predictive(params: SVMOGPParams, config: ModelConfig, X_list: Sequence,
             raise ValueError("projected=True requires Xtrain_list")
         moments = []
         for t in range(config.num_tasks):
-            mu, var = predict_f_projected_task(params, config, Xtrain_list,
-                                               X_list[t], t,
-                                               use_kernel=use_kernel)
+            mu, var = _predict_f_projected_task(params, config, Xtrain_list,
+                                                X_list[t], t,
+                                                use_kernel=use_kernel)
             moments.append((mu.mT, var.mT))  # (N, F_t) each
     else:
-        moments = predict_f_all(params, config, X_list,
-                                use_kernel=use_kernel)
+        moments = _predict_f_all(params, config, X_list,
+                                 use_kernel=use_kernel)
     m_pred, v_pred = [], []
-    with torch.inference_mode():
-        for lik, (m_F, v_F) in zip(config.likelihoods, moments):
-            m, v = lik.predictive(m_F, v_F)
-            m_pred.append(m)
-            v_pred.append(v)
+    for lik, (m_F, v_F) in zip(config.likelihoods, moments):
+        m, v = lik.predictive(m_F, v_F)
+        m_pred.append(m)
+        v_pred.append(v)
     return m_pred, v_pred
+
+
+predictive = _inference(_predictive)
 
 
 def negative_log_predictive(params: SVMOGPParams, config: ModelConfig,

@@ -3,14 +3,15 @@
 Counterpart of ``hetmogp_tpu/ops/pallas_dispatch.py``.  The policy, the
 same for every kernel:
 
+* every tensor goes through the kernel's ``autograd.Function`` and its
+  ``hetmogp::`` operator, whose CUDA implementation launches the kernel
+  and whose CPU implementation is the plain PyTorch version;
 * a CUDA float32 tensor goes to the kernel, at every size: there is no
   size gate until a measurement on the card sets one;
 * a CUDA tensor of another dtype raises: the kernels are float32-only, and
   a silent switch to the plain version would hide that from the caller;
-* a CPU tensor, or ``use_kernel=False``, takes the plain PyTorch version.
-
-The kernels are reached through their ``autograd.Function``s, so the
-dispatched ops are differentiable on either route.
+* ``use_kernel=False`` takes the plain PyTorch version on any device,
+  outside the operators (what the kernels are checked against).
 
 The triangular projection has two kernels, chosen by ``precision`` (the
 config's ``ve_fwd_precision``): ``"highest"`` is the float32 kernel,
@@ -48,10 +49,10 @@ def rbf_K_batched(X, Z, lengthscale, variance, *, use_kernel: bool = True):
     # imported here: cuda_kernels builds on ops.kernels, which imports this
     from hetmogp_tpu_torch.ops import cuda_kernels
 
-    if use_rbf_kernel(X, use_kernel):
-        return cuda_kernels.RBFCrossCovariance.apply(X, Z, lengthscale,
-                                                     variance)
-    return cuda_kernels.rbf_K_batched_plain(X, Z, lengthscale, variance)
+    if not use_kernel:
+        return cuda_kernels.rbf_K_batched_plain(X, Z, lengthscale, variance)
+    use_rbf_kernel(X)  # a CUDA tensor of another dtype raises
+    return cuda_kernels.RBFCrossCovariance.apply(X, Z, lengthscale, variance)
 
 
 PRECISIONS = ("highest", "high")
@@ -64,9 +65,9 @@ def matmul_tril_t(A, L, *, precision: str = "highest",
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")
+    use_tril_kernel(A, use_kernel)  # a CUDA tensor of another dtype raises
     if precision == "high" and A.dtype == torch.float32:
-        return cuda_kernels.TrilProjection3Pass.apply(
-            A, L, use_tril_kernel(A, use_kernel))
-    if use_tril_kernel(A, use_kernel):
+        return cuda_kernels.TrilProjection3Pass.apply(A, L, use_kernel)
+    if use_kernel:
         return cuda_kernels.TrilProjection.apply(A, L)
     return cuda_kernels.tril_projection_plain(A, L)

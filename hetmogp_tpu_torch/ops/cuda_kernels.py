@@ -25,8 +25,13 @@ For each kernel:
   route to the launcher of the shape;
 * the plain version (``*_plain``) is what CPU tensors take and what the
   kernel is checked against on the card;
+* a custom operator (``hetmogp::rbf_K_batched``,
+  ``hetmogp::tril_projection``, ``hetmogp::tril_projection_3pass``) whose
+  CUDA implementation is the router and whose CPU implementation is the
+  plain version, so that ``torch.export`` keeps the kernels in an exported
+  graph;
 * an ``autograd.Function`` (``RBFCrossCovariance``, ``TrilProjection``,
-  ``TrilProjection3Pass``) runs the launcher forward and a plain PyTorch
+  ``TrilProjection3Pass``) runs the operator forward and a plain PyTorch
   backward.  The JAX package
   differentiates its Pallas RBF with XLA einsums (``_rbf_bwd``), so
   ``rbf_K_batched_bwd`` is that algebra on tensors.
@@ -99,7 +104,9 @@ def _raise_on(err: int, name: str) -> None:
 
 # ---- RBF cross-covariance --------------------------------------------------
 
-def rbf_K_batched_plain(X, Z, lengthscale, variance):
+def rbf_K_batched_plain(X: torch.Tensor, Z: torch.Tensor,
+                        lengthscale: torch.Tensor,
+                        variance: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel: (N, Dx), (Q, M, Dx) -> (Q, N, M)."""
     return kernels.rbf(X, Z, lengthscale, variance)
 
@@ -111,13 +118,13 @@ def rbf_K_batched_plain(X, Z, lengthscale, variance):
 # is computed on the card, inside it.  Each counts its own launches; a
 # failed launch raises, and nothing falls back from one route to the other.
 
-def rbf_route(M: int, Dx: int, aligned: bool) -> str:
+def rbf_route(M: int, Dx: int) -> str:
     """The kernel an RBF cross-covariance with ``M`` columns and ``Dx``
-    input dimensions takes on the card: ``"vec"`` when M % 4 == 0,
-    Dx <= 4 and the output starts on a 16-byte boundary (``aligned``),
-    else ``"scalar"``."""
-    return ("vec" if aligned and M % 4 == 0 and 0 < Dx <= VEC_MAX_DX
-            else "scalar")
+    input dimensions takes on the card: ``"vec"`` when M % 4 == 0 and
+    Dx <= 4, else ``"scalar"``.  The output is always a fresh allocation,
+    which starts on a 16-byte boundary, so with M % 4 == 0 every row of it
+    is whole float4s."""
+    return "vec" if M % 4 == 0 and 0 < Dx <= VEC_MAX_DX else "scalar"
 
 
 def _rbf_launch(wrapper, entry: str, X, Z, lengthscale, variance,
@@ -142,12 +149,10 @@ def _rbf_launch(wrapper, entry: str, X, Z, lengthscale, variance,
     out = torch.empty((Q, N, M), dtype=torch.float32, device=X.device)
     if out.numel() == 0:
         return out
-    if route is not None and rbf_route(M, Dx,
-                                       out.data_ptr() % 16 == 0) != route:
+    if route is not None and rbf_route(M, Dx) != route:
         raise ValueError(
-            f"{name} takes M % 4 == 0, Dx <= {VEC_MAX_DX} and a 16-byte-"
-            f"aligned output (got M={M}, Dx={Dx}); rbf_route sends other "
-            "shapes to the scalar kernel")
+            f"{name} takes M % 4 == 0 and Dx <= {VEC_MAX_DX} (got M={M}, "
+            f"Dx={Dx}); rbf_route sends other shapes to the scalar kernel")
     # no-ops on contiguous tensors: nothing is launched ahead of the kernel
     X, Z = X.contiguous(), Z.contiguous()
     lengthscale, variance = lengthscale.contiguous(), variance.contiguous()
@@ -195,11 +200,11 @@ def rbf_K_batched(X: torch.Tensor, Z: torch.Tensor, lengthscale: torch.Tensor,
 
     X: (N, Dx), Z: (Q, M, Dx), lengthscale: (Q, Dx) or isotropic (Q, 1),
     variance: (Q,); all float32 on one CUDA device.  Routed by ``rbf_route``
-    to ``rbf_K_batched_vec`` or ``rbf_K_batched_scalar`` (a fresh CUDA
-    allocation is 16-byte aligned, so the shape decides); launches on the
-    current stream and does not synchronise.
+    to ``rbf_K_batched_vec`` or ``rbf_K_batched_scalar``; launches on the
+    current stream and does not synchronise.  The CUDA implementation of
+    the operator ``hetmogp::rbf_K_batched``.
     """
-    route = rbf_route(Z.shape[-2], X.shape[-1], True) if Z.ndim == 3 else None
+    route = rbf_route(Z.shape[-2], X.shape[-1]) if Z.ndim == 3 else None
     launcher = rbf_K_batched_vec if route == "vec" else rbf_K_batched_scalar
     return launcher(X, Z, lengthscale, variance)
 
@@ -244,22 +249,25 @@ def rbf_K_batched_bwd(X, Z, lengthscale, variance, K, g):
 
 
 class RBFCrossCovariance(torch.autograd.Function):
-    """The RBF cross-covariance on the card with a gradient: the kernel
-    forward, ``rbf_K_batched_bwd`` backward.  ``backwards`` counts the
-    backward passes."""
+    """The RBF cross-covariance with a gradient: the operator
+    ``hetmogp::rbf_K_batched`` forward (the kernel for a CUDA tensor, the
+    plain version for a CPU one), ``rbf_K_batched_bwd`` backward.
+    ``backwards`` counts the backward passes on the card (those of CUDA
+    tensors, whose forward launched the kernel)."""
 
     backwards = 0
 
     @staticmethod
     def forward(ctx, X, Z, lengthscale, variance):
-        K = rbf_K_batched(X.detach(), Z.detach(), lengthscale.detach(),
-                          variance.detach())
+        K = torch.ops.hetmogp.rbf_K_batched(
+            X.detach(), Z.detach(), lengthscale.detach(), variance.detach())
         ctx.save_for_backward(X, Z, lengthscale, variance, K)
         return K
 
     @staticmethod
     def backward(ctx, g):
-        RBFCrossCovariance.backwards += 1
+        if g.is_cuda:
+            RBFCrossCovariance.backwards += 1
         return rbf_K_batched_bwd(*ctx.saved_tensors, g)
 
 
@@ -286,7 +294,7 @@ def _routed(A: torch.Tensor, L: torch.Tensor, tma, staged) -> torch.Tensor:
     return launcher(A, L)
 
 
-def tril_projection_plain(A, L):
+def tril_projection_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel: A tril(L)^T, (..., N, M), (..., M, M)."""
     return A @ torch.tril(L).mT
 
@@ -383,13 +391,15 @@ def _backward_tril(ctx, g):
 
 
 class TrilProjection(torch.autograd.Function):
-    """A tril(L)^T on the card with a gradient: the routed kernel forward;
-    the backward dA = g tril(L), dL = tril(g^T A) as plain matmuls."""
+    """A tril(L)^T with a gradient: the operator ``hetmogp::tril_projection``
+    forward (the routed kernel for a CUDA tensor, the plain version for a
+    CPU one); the backward dA = g tril(L), dL = tril(g^T A) as plain
+    matmuls."""
 
     @staticmethod
     def forward(ctx, A, L):
         ctx.save_for_backward(A, L)
-        return tril_projection(A.detach(), L.detach())
+        return torch.ops.hetmogp.tril_projection(A.detach(), L.detach())
 
     backward = staticmethod(_backward_tril)
 
@@ -419,7 +429,8 @@ def tril_split_bf16_plain(L: torch.Tensor):
                  for h in split_bf16(torch.tril(L)))
 
 
-def tril_projection_3pass_plain(A, L):
+def tril_projection_3pass_plain(A: torch.Tensor,
+                                L: torch.Tensor) -> torch.Tensor:
     """Plain version of the 3-pass kernel: A tril(L)^T as three float32
     matmuls of bf16-exact operands, (alo lhi^T + ahi llo^T) + ahi lhi^T,
     with the kernel's bit-mask split.  Float32 only: every product of two
@@ -483,21 +494,48 @@ def tril_projection_3pass(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
 
 
 class TrilProjection3Pass(torch.autograd.Function):
-    """A tril(L)^T in three bf16 passes with a gradient: the routed 3-pass
-    kernel forward (its plain version where ``use_kernel`` is False, as
-    dispatch passes it for CPU tensors), and ``TrilProjection``'s plain
-    float32 backward."""
+    """A tril(L)^T in three bf16 passes with a gradient: the operator
+    ``hetmogp::tril_projection_3pass`` forward (the routed 3-pass kernel
+    for a CUDA tensor, the plain version for a CPU one; the plain version
+    without the operator where ``use_kernel`` is False), and
+    ``TrilProjection``'s plain float32 backward."""
 
     @staticmethod
     def forward(ctx, A, L, use_kernel=True):
         ctx.save_for_backward(A, L)
-        fwd = tril_projection_3pass if use_kernel else \
+        fwd = torch.ops.hetmogp.tril_projection_3pass if use_kernel else \
             tril_projection_3pass_plain
         return fwd(A.detach(), L.detach())
 
     @staticmethod
     def backward(ctx, g):
         return (*_backward_tril(ctx, g), None)
+
+
+# ---- the kernels as operators -----------------------------------------------
+#
+# Each routed forward is a custom operator of the ``hetmogp`` namespace: its
+# CUDA implementation is the router above (the hand kernel, counted; a CUDA
+# tensor launches or raises), its CPU implementation the plain version, and
+# a fake implementation gives the output's shape to tracing.  The
+# ``autograd.Function``s call the operators, so the trainer, the prediction
+# entries and a ``torch.export``ed program reach the same kernels, and an
+# exported graph holds ``hetmogp::`` nodes, never the plain versions.
+# Registering builds and loads nothing.
+
+def _register(name: str, cpu, cuda, out_shape) -> None:
+    op = torch.library.custom_op(f"hetmogp::{name}", mutates_args=(),
+                                 device_types="cpu")(cpu)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(lambda *args: args[0].new_empty(out_shape(*args)))
+
+
+_register("rbf_K_batched", rbf_K_batched_plain, rbf_K_batched,
+          lambda X, Z, ls, var: (Z.shape[0], X.shape[0], Z.shape[1]))
+_register("tril_projection", tril_projection_plain, tril_projection,
+          lambda A, L: A.shape)
+_register("tril_projection_3pass", tril_projection_3pass_plain,
+          tril_projection_3pass, lambda A, L: A.shape)
 
 
 _LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,

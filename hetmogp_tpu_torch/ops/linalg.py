@@ -1,7 +1,8 @@
 """Dense linear algebra of the serving, prediction and training paths.
 
-Counterpart of ``hetmogp_tpu/ops/linalg.py`` without the packing helpers
-and the float64 island.  The JAX package blocks these by hand for the
+Counterpart of ``hetmogp_tpu/ops/linalg.py``, with its packing helpers
+(``pack_tril``, in GPy's order) and its float64 island (``chol_mixed``).
+The JAX package blocks these by hand for the
 TPU's matrix unit; here they are plain PyTorch calls (cuSOLVER and cuBLAS
 on the card: ``solve_tri`` is ``trsm``, which the JAX package too computes
 outside any Pallas kernel), except the
@@ -25,9 +26,42 @@ and triangular solves.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
+import numpy as np
 import torch
 
 from hetmogp_tpu_torch.ops import cuda_dispatch
+
+
+def tril_indices(m: int):
+    """Row-major lower-triangle index order: (0,0), (1,0), (1,1), (2,0), ...
+
+    GPy's ``choleskies._flat_to_triang_pure`` order, the JAX package's, so
+    that packed vectors interchange with both.
+    """
+    return np.tril_indices(m)
+
+
+def pack_tril(L: torch.Tensor) -> torch.Tensor:
+    """(..., M, M) lower-triangular -> (..., M(M+1)/2) flat packing."""
+    rows, cols = tril_indices(L.shape[-1])
+    return L[..., rows, cols]
+
+
+def unpack_tril(flat: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., M(M+1)/2) -> (..., M, M) lower-triangular (zeros above)."""
+    rows, cols = tril_indices(m)
+    out = flat.new_zeros(flat.shape[:-1] + (m, m))
+    out[..., rows, cols] = flat
+    return out
+
+
+def tril_param(L: torch.Tensor) -> torch.Tensor:
+    """A dense square parameter projected onto its lower triangle: the
+    strictly upper entries of a stored (Q, M, M) factor are inert."""
+    return torch.tril(L)
 
 
 def cholesky(K: torch.Tensor) -> torch.Tensor:
@@ -39,6 +73,38 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
                        torch.full_like(L, float("nan")), L)
 
 
+_DEVICE_SIDE_JITCHOL = contextvars.ContextVar("device_side_jitchol",
+                                               default=False)
+
+
+@contextlib.contextmanager
+def device_side_jitchol():
+    """Inside the block, ``jitchol(adaptive=True)`` picks its jitter level on
+    the device: it factorizes at every level and keeps, per batch member,
+    the first that succeeds, with no host read and no data-dependent
+    branch (what ``torch.export`` can trace).  The same levels, so the
+    same factor as the host loop, at maxtries + 1 factorizations a call."""
+    token = _DEVICE_SIDE_JITCHOL.set(True)
+    try:
+        yield
+    finally:
+        _DEVICE_SIDE_JITCHOL.reset(token)
+
+
+def _jitter_level_on_device(Ksg, eye, diag_mean, maxtries: int):
+    """The escalation level of each batch member without a host read: the
+    first of 0, mean(diag) * 1e-6 * 10^i (i < maxtries) at which
+    ``cholesky_ex`` succeeds, the last where none does."""
+    levels = [torch.zeros_like(diag_mean)] + [
+        diag_mean * (1e-6 * 10.0 ** i) for i in range(maxtries)]
+    level, found = levels[-1], torch.zeros_like(diag_mean, dtype=torch.bool)
+    for lev in levels[:-1]:
+        ok = torch.linalg.cholesky_ex(Ksg + lev[..., None, None] * eye)[1] == 0
+        level = torch.where(found | ~ok, level, lev)
+        found = found | ok
+    return level
+
+
 def jitchol(K: torch.Tensor, jitter: float = 0.0, adaptive: bool = True,
             maxtries: int = 5) -> torch.Tensor:
     """Batched Cholesky with escalating jitter on failure.
@@ -47,9 +113,10 @@ def jitchol(K: torch.Tensor, jitter: float = 0.0, adaptive: bool = True,
     first, then give each batch member that failed mean(diag) * 1e-6 * 10^i
     more, i = 0 .. maxtries - 1, until every member factorizes.  The level
     is found without gradient, on ``cholesky_ex``'s ``info`` in a host loop
-    (one synchronisation per try: this runs outside any captured graph);
-    then one differentiable Cholesky of K + (jitter + level) I is returned,
-    NaN where even the last level failed.
+    (one synchronisation per try: this runs outside any captured graph),
+    or on the device inside ``device_side_jitchol()``; then one
+    differentiable Cholesky of K + (jitter + level) I is returned, NaN
+    where even the last level failed.
 
     Args:
       K: (..., M, M) SPD matrices.
@@ -60,6 +127,13 @@ def jitchol(K: torch.Tensor, jitter: float = 0.0, adaptive: bool = True,
     K0 = K + jitter * eye if jitter else K
     if not adaptive:
         return cholesky(K0)
+    if _DEVICE_SIDE_JITCHOL.get():
+        with torch.no_grad():
+            Ksg = K0.detach()
+            diag_mean = torch.mean(torch.diagonal(Ksg, dim1=-2, dim2=-1),
+                                   dim=-1)
+            level = _jitter_level_on_device(Ksg, eye, diag_mean, maxtries)
+        return cholesky(K0 + level[..., None, None] * eye)
     with torch.no_grad():
         Ksg = K0.detach()
         diag_mean = torch.mean(torch.diagonal(Ksg, dim1=-2, dim2=-1), dim=-1)
@@ -145,6 +219,40 @@ def _phi(A: torch.Tensor) -> torch.Tensor:
     """Lower triangle with halved diagonal (Cholesky pullback helper)."""
     return torch.tril(A) - 0.5 * torch.diag_embed(
         torch.diagonal(A, dim1=-2, dim2=-1))
+
+
+class _CholMixed(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, K):
+        L = cholesky(K.double()).to(K.dtype)
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, gL):
+        # the Cholesky pullback Kbar = 0.5 (S + S^T),
+        # S = L^{-T} Phi(L^T gL) L^{-1}, by two triangular solves
+        (L,) = ctx.saved_tensors
+        P = _phi(L.mT @ gL)
+        T1 = solve_tri(L, P, trans=True)  # L^{-T} P
+        S = solve_tri(L, T1.mT, trans=True).mT  # T1 L^{-1}
+        return 0.5 * (S + S.mT)
+
+
+def chol_mixed(K: torch.Tensor) -> torch.Tensor:
+    """Cholesky with a float64 forward and a working-dtype backward.
+
+    For float32 K the factor is computed in float64 and cast down, which
+    recovers the half of the significand a float32 factorization loses at
+    cond(K) ~ 1e6; the backward is the standard Cholesky pullback with
+    triangular solves in K's dtype.  A factorization that fails gives NaNs
+    (``cholesky``), with no host read, so the island runs inside a captured
+    graph.  Float64 K takes the plain factorization.
+    """
+    if K.dtype == torch.float64:
+        return cholesky(K)
+    return _CholMixed.apply(K)
 
 
 def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:

@@ -45,8 +45,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import shutil
 import time
 import warnings
+from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -1385,16 +1388,59 @@ def _warn_if_frozen(ng_codes: torch.Tensor, what: str) -> bool:
     return False
 
 
+def _step_checkpoints(ckpt_dir):
+    """Every ``step_<n>`` subdirectory of ckpt_dir as a sorted
+    [(n, path), ...]: the one parser that resume and rotation share, so
+    both accept the same names."""
+    d = Path(ckpt_dir)
+    if not d.is_dir():
+        return []
+    return sorted((int(p.name[5:]), p) for p in d.iterdir()
+                  if p.is_dir() and p.name.startswith("step_")
+                  and p.name[5:].isdigit())
+
+
+def _latest_step_checkpoint(ckpt_dir):
+    """The newest ``step_<n>`` subdirectory of ckpt_dir, (n, path), or
+    None."""
+    found = _step_checkpoints(ckpt_dir)
+    return found[-1] if found else None
+
+
+#: the npz inside each ``step_<n>`` directory
+STEP_CHECKPOINT = "checkpoint.npz"
+
+
+def _save_step(ckpt_dir, done: int, state: TrainState,
+               generator: torch.Generator) -> None:
+    """``{ckpt_dir}/step_{done}/checkpoint.npz``: params, optimizer state,
+    step and the generator's state, written into a sibling directory and
+    renamed into place, so a crash leaves no partial ``step_`` entry."""
+    from hetmogp_tpu_torch import checkpoint
+
+    final = Path(ckpt_dir) / f"step_{done}"
+    tmp = final.with_name(final.name + ".tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    checkpoint.save_checkpoint(tmp / STEP_CHECKPOINT, state.params,
+                               opt_state=state.opt_state, step=state.step,
+                               generator=generator)
+    shutil.rmtree(final, ignore_errors=True)
+    os.replace(tmp, final)
+
+
 def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
                       train_config: TrainConfig, X_list, Y_list,
                       batch_sizes, num_steps: int, *,
                       generator: Optional[torch.Generator] = None,
                       vem: bool = True, steps_per_call: int = 100,
                       mesh=None, dataset=None, checkpoint_dir=None,
+                      checkpoint_every: Optional[int] = None,
+                      keep_last: int = 2, resume: bool = False,
                       early_stop_tol: Optional[float] = None,
                       early_stop_patience: int = 3):
     """Train with ``make_scan_trainer`` on the params' device; returns
-    (params, history), history a numpy array of the ELBOs of the steps run.
+    (params, history), history a numpy array of the ELBOs of the steps
+    this call ran.
 
     generator: the CPU generator of the minibatch streams (seeded from
       ``train_config.seed`` when None).
@@ -1405,16 +1451,27 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
     early_stop_tol: stop at chunk granularity once the chunk-mean ELBO has
       failed to beat its best by more than this for
       ``early_stop_patience`` chunks in a row.
+    checkpoint_dir: periodic checkpoints at chunk boundaries, every
+      ``checkpoint_every`` steps (rounded up to ``steps_per_call``; one a
+      chunk by default), after the remainder chunk, and on an early stop,
+      each ``{checkpoint_dir}/step_{n}/checkpoint.npz``
+      (``checkpoint.save_checkpoint``: params, optimizer state, step and
+      the generator's state), keeping the newest ``keep_last``.  A fresh
+      run (``resume=False``) into a directory that already holds ``step_``
+      checkpoints raises: rotation would delete the new run's saves and
+      keep the stale higher-numbered ones.  ``resume=True`` restores the
+      newest and continues to ``num_steps`` steps in all: its params and
+      ELBOs are those of the uninterrupted run, bit for bit, because the
+      restored state is copied into the trainer's buffers and the
+      generator's state restores the minibatch stream, which is drawn step
+      by step whatever the chunking.  The JAX package writes Orbax
+      directories here; the sharded, Orbax-compatible checkpoints come with
+      the parallelism slice.
     Steps past the last whole chunk run as a shorter call of the same
     graphs.  The caller's params are not modified.  Under natgrad_adam it
     warns once when every natural-gradient step of a call skipped its
-    update.  Checkpoints (``checkpoint_dir``) and a device mesh (``mesh``)
-    are not ported.
+    update.  A device mesh (``mesh``) is the parallelism slice's.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir: checkpoints are not ported yet (ROADMAP.md "
-            "section 1, item 13)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh: parallelism is not ported yet (ROADMAP.md section 1, "
@@ -1430,11 +1487,34 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
         generator = torch.Generator().manual_seed(train_config.seed)
     task_sizes = tuple(int(np.shape(x)[0]) for x in X_list)
     device = params.Z.device
+    done, restored = 0, None
+    if checkpoint_dir is not None:
+        existing = _step_checkpoints(checkpoint_dir)
+        if existing and not resume:
+            raise ValueError(
+                f"{checkpoint_dir!s} already contains checkpoints "
+                f"(step_{existing[-1][0]} newest); pass resume=True to "
+                "continue that run, or use an empty directory: starting "
+                "fresh here would rotate away this run's checkpoints while "
+                "keeping the stale higher-numbered ones")
+        if resume and existing:
+            from hetmogp_tpu_torch import checkpoint
+
+            done, path = _latest_step_checkpoint(checkpoint_dir)
+            params, opt, step, extra = checkpoint.load_checkpoint(
+                path / STEP_CHECKPOINT, params,
+                init_optimizer_state(params, train_config))
+            restored = (opt, step)
+            if "generator_state" in extra:
+                generator.set_state(extra["generator_state"])
     if dataset is None:
         dataset = prepare_dataset_on_device(config, X_list, Y_list, device)
     run = make_scan_trainer(config, train_config, task_sizes, batch_sizes,
                             steps_per_call, vem=vem, device=device)
     state = init_train_state(params, config, train_config, cache_luu=vem)
+    if restored is not None:
+        state = dataclasses.replace(state, opt_state=restored[0],
+                                    step=restored[1])
     warned = False
 
     def call(state, **kw):
@@ -1446,12 +1526,28 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
             warned = _warn_if_frozen(ng, "svi_fit_on_device")
         return state, elbos.cpu().numpy()
 
-    chunks, done = [], 0
+    last_saved = -1
+
+    def maybe_save(prev_done):
+        nonlocal last_saved
+        if checkpoint_dir is None or last_saved == done:
+            return
+        every = checkpoint_every or steps_per_call
+        if done < num_steps and done // every == prev_done // every:
+            return
+        _save_step(checkpoint_dir, done, state, generator)
+        last_saved = done
+        if keep_last > 0:
+            for _, p in _step_checkpoints(checkpoint_dir)[:-keep_last]:
+                shutil.rmtree(p)
+
+    chunks = []
     best_mean, stale, stopped = -np.inf, 0, False
     while done + steps_per_call <= num_steps:
         state, elbos = call(state, generator=generator)
         chunks.append(elbos)
         done += steps_per_call
+        maybe_save(done - steps_per_call)
         if early_stop_tol is not None:
             m = float(chunks[-1].mean())
             if m > best_mean + early_stop_tol:
@@ -1460,11 +1556,14 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
                 stale += 1
             if stale >= early_stop_patience:
                 stopped = True
+                maybe_save(-1)  # a final checkpoint at this chunk
                 break
     if not stopped and done < num_steps:
         state, elbos = call(state, **{run.sampler.name: run.sampler.draw(
             generator, num_steps - done)})
         chunks.append(elbos)
+        prev, done = done, num_steps
+        maybe_save(prev)
     history = np.concatenate(chunks) if chunks else np.zeros((0,))
     return state.params, history
 

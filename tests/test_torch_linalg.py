@@ -275,3 +275,136 @@ def test_jitchol_fixed_jitter_and_gradient():
     gj = jax.grad(lambda k: jnp.sum(jlinalg.jitchol(k)))(jnp.asarray(K[:3]))
     assert bool(torch.isfinite(g[0]).all())
     assert _normwise(g[0], np.asarray(gj)[0]) <= 1e-9
+
+
+# ---- packing, the float64 island, the device-side jitchol -------------------
+
+@pytest.mark.parametrize("m", [1, 5, 16])
+def test_pack_tril_round_trip_in_the_jax_order(m):
+    """GPy's row-major order: (0,0), (1,0), (1,1), (2,0), ...: a vector
+    packed by either package unpacks to the same factor in the other."""
+    rng = np.random.RandomState(m)
+    L = np.tril(rng.randn(3, m, m))
+    rows, cols = linalg.tril_indices(m)
+    jrows, jcols = jlinalg.tril_indices(m)
+    np.testing.assert_array_equal(rows, jrows)
+    np.testing.assert_array_equal(cols, jcols)
+    flat = linalg.pack_tril(torch.from_numpy(L))
+    assert flat.shape == (3, m * (m + 1) // 2)
+    np.testing.assert_array_equal(flat.numpy(),
+                                  np.asarray(jlinalg.pack_tril(L)))
+    back = linalg.unpack_tril(flat, m)
+    np.testing.assert_array_equal(back.numpy(), L)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jlinalg.unpack_tril(flat.numpy(), m)))
+    dense = torch.from_numpy(rng.randn(m, m))
+    torch.testing.assert_close(linalg.tril_param(dense), torch.tril(dense),
+                               rtol=0, atol=0)
+
+
+def _spd(Q, M, seed=0, jitter=1e-4):
+    """Q RBF grams of M points on [0, 1] with lengthscale 0.2 plus jitter:
+    cond ~ 1e5, where a float32 factorization loses about half its
+    digits."""
+    rng = np.random.RandomState(seed)
+    Z = rng.rand(Q, M, 1)
+    K = np.exp(-0.5 * (Z - np.swapaxes(Z, 1, 2)) ** 2 / 0.04)
+    return K + jitter * np.eye(M)
+
+
+def test_chol_mixed_forward_and_gradient_match_jax():
+    """Float32 in, a float64 factorization cast down: the same factor as
+    JAX's ``chol_mixed`` with x64 on (both round the same float64 factor
+    once), far closer to float64 than a float32 factorization; the
+    working-dtype pullback agrees with JAX's to 1e-4 normwise (float32
+    triangular solves against a factor of cond ~1e5)."""
+    K64 = _spd(2, 24)
+    K32 = K64.astype(np.float32)
+    want = np.asarray(jlinalg.chol_mixed(jnp.asarray(K32)))
+    got = linalg.chol_mixed(torch.from_numpy(K32))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    exact = np.linalg.cholesky(K32.astype(np.float64))
+    f32 = torch.linalg.cholesky(torch.from_numpy(K32)).numpy()
+    assert _normwise(got, exact) <= _normwise(f32, exact)
+    g = np.random.RandomState(1).randn(*K32.shape).astype(np.float32)
+    Kt = torch.from_numpy(K32).requires_grad_()
+    (gt,) = torch.autograd.grad(linalg.chol_mixed(Kt), Kt, torch.from_numpy(g))
+    _, vjp = jax.vjp(jlinalg.chol_mixed, jnp.asarray(K32))
+    (gj,) = vjp(jnp.asarray(g))
+    assert gt.dtype == torch.float32
+    assert _normwise(gt, np.asarray(gj)) <= 1e-4
+    # in float64 the island is the plain factorization, gradient included
+    K = torch.from_numpy(K64).requires_grad_()
+    (g64,) = torch.autograd.grad(linalg.chol_mixed(K), K, torch.from_numpy(
+        g.astype(np.float64)))
+    _, vjp = jax.vjp(jlinalg.chol_mixed, jnp.asarray(K64))
+    assert _normwise(g64, np.asarray(vjp(jnp.asarray(g, jnp.float64))[0])) \
+        <= 1e-8
+
+
+def test_float64_island_elbo_in_float32_matches_jax():
+    """``chol_dtype="float64"`` on a float32 model: the ELBO and its hyper
+    gradients against the JAX package's float32 island (x64 on), and the
+    cache of ``prior_cholesky_inverse`` comes from the island's factor.
+    The value to 1e-4 relative: each package's float32 ELBO of these
+    inputs lies 2.6e-5 (port) and 4.1e-5 (JAX) from the float64 ELBO
+    (measured; the quadrature and the sums round in float32 around one
+    shared float64 factor); the gradients to 1e-3 normwise."""
+    import dataclasses
+
+    import hetmogp_tpu as jhet
+    from hetmogp_tpu.models import elbo as jelbo
+    from hetmogp_tpu.models.params import init_params as jinit
+
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch.models import elbo as telbo
+    from hetmogp_tpu_torch.models.params import FIELDS
+
+    cfg = jhet.ModelConfig(likelihoods=(jhet.HetGaussian(), jhet.Bernoulli()),
+                           num_latent=2, num_inducing=24, input_dim=1,
+                           dtype="float32", jitter=1e-4, adaptive_jitter=False,
+                           chol_dtype="float64")
+    rng = np.random.RandomState(4)
+    jp = jinit(jax.random.PRNGKey(2), cfg, rng.rand(24, 1), lengthscale=0.2)
+    X = [rng.rand(30, 1) for _ in range(2)]
+    Y = [rng.randn(30, 1), (rng.rand(30, 1) > 0.5) * 1.0]
+    scales = np.array([2.0, 3.0], np.float32)
+    jdata = tuple(jelbo.task_data(x.astype(np.float32), y.astype(np.float32))
+                  for x, y in zip(X, Y))
+
+    def jf(p):
+        return jelbo.elbo_fn(p, jdata, jnp.asarray(scales), cfg)[0]
+
+    want, jg = jax.value_and_grad(jf)(jp)
+    tcfg = tp.ModelConfig.from_dict(cfg.to_dict())
+    params = tp.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                device="cpu")
+    t = {f: getattr(params, f).clone().requires_grad_() for f in FIELDS}
+    got, _ = telbo.elbo_fn(tp.SVMOGPParams(**t),
+                           tp.make_dataset(X, Y, tcfg, device="cpu"),
+                           torch.from_numpy(scales), tcfg)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-4)
+    names = ("log_lengthscale", "log_variance", "Z", "q_mu")
+    grads = torch.autograd.grad(got, [t[f] for f in names])
+    for f, g in zip(names, grads):
+        assert _normwise(g, np.asarray(getattr(jg, f))) <= 1e-3, f
+    Luu, iLuu = telbo.prior_cholesky_inverse(params, tcfg)
+    island = linalg.chol_mixed(telbo._jittered_gram(params, tcfg))
+    torch.testing.assert_close(Luu, island, rtol=0, atol=0)
+    torch.testing.assert_close(iLuu, linalg.tri_inverse(island), rtol=0,
+                               atol=0)
+    same = dataclasses.replace(tcfg, chol_dtype="same")
+    assert not torch.equal(telbo.prior_cholesky(params, same), Luu)
+
+
+def test_device_side_jitchol_is_the_host_loop():
+    """Inside ``device_side_jitchol`` every level is factorized and the
+    first that succeeds is selected on the device: the same factor as the
+    host loop, bit for bit, the hopeless member NaN on both."""
+    K = torch.from_numpy(_jitchol_batch(np.float64))
+    host = linalg.jitchol(K, jitter=1e-9)
+    with linalg.device_side_jitchol():
+        device = linalg.jitchol(K, jitter=1e-9)
+    torch.testing.assert_close(device, host, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(device[3]).all())

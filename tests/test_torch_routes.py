@@ -80,18 +80,23 @@ def test_projection_router_reaches_the_launcher_of_the_route(
 @pytest.mark.parametrize("case,route", ROUTE_CASES,
                          ids=["aligned", "ragged-M", "unaligned-base"])
 def test_3pass_function_goes_through_the_router(monkeypatch, case, route):
-    """TrilProjection3Pass with the kernel asked for: its forward is the
-    routed launcher's, its gradient the full float32 product's (rtol 1e-6,
-    as test_torch_proj3.py), and the dispatch of a CPU tensor still takes
-    the plain version without reaching the router."""
+    """TrilProjection3Pass with the kernel asked for: the CUDA
+    implementation of its operator is the routed launcher (called
+    directly: the dispatcher sends a CPU tensor to the plain version), its
+    gradient the full float32 product's (rtol 1e-6, as
+    test_torch_proj3.py), and the dispatch of a CPU tensor takes the plain
+    version without reaching the router."""
     A, L = _inputs(*case)
     calls = _recorders(monkeypatch, ("tril_projection_3pass_tma",
                                      "tril_projection_3pass_staged"),
                        cuda_kernels.tril_projection_3pass_plain)
     # detach() keeps the storage, and so A's alignment
+    routed = cuda_kernels.tril_projection_3pass(A.detach(),
+                                                L.detach())
+    assert calls == [f"tril_projection_3pass_{route}"]
     a, l = A.detach().requires_grad_(), L.detach().requires_grad_()
     out = cuda_kernels.TrilProjection3Pass.apply(a, l, True)
-    assert calls == [f"tril_projection_3pass_{route}"]
+    assert torch.equal(out.detach(), routed)
     assert torch.equal(out.detach(),
                        cuda_kernels.tril_projection_3pass_plain(A, L))
     g = torch.from_numpy(np.random.RandomState(5).randn(*A.shape).astype(
@@ -110,9 +115,11 @@ def test_projection_function_goes_through_the_router(monkeypatch):
     calls = _recorders(monkeypatch, ("tril_projection_tma",
                                      "tril_projection_staged"),
                        cuda_kernels.tril_projection_plain)
+    cuda_kernels.tril_projection(A, L)  # the operator's CUDA implementation
+    assert calls == ["tril_projection_tma"]
     a = A.double().requires_grad_()
     out = cuda_kernels.TrilProjection.apply(a, L.double())
-    assert calls == ["tril_projection_tma"]
+    assert calls == ["tril_projection_tma"]  # a CPU tensor: the plain version
     g = torch.ones_like(out)
     (da,) = torch.autograd.grad(out, (a,), g)
     torch.testing.assert_close(da, g @ torch.tril(L.double()), rtol=1e-12,

@@ -284,15 +284,18 @@ def test_svi_fit_on_device_prebuilt_dataset_and_remainder():
     assert h1.shape == (12,) and not torch.equal(p1.q_mu, params.q_mu)
 
 
-def test_svi_fit_on_device_early_stop_and_refusals():
+def test_svi_fit_on_device_early_stop_and_refusals(tmp_path):
     *_, (_, hist) = _fit(50, steps_per_call=5, early_stop_tol=1e12,
                          early_stop_patience=2)
     assert hist.shape == (15,)  # 1 improving chunk + 2 stale
     *_, (_, hist2) = _fit(30, steps_per_call=5, early_stop_tol=-1e12,
                           early_stop_patience=3)
     assert hist2.shape == (30,)
-    for kw, err, match in ((dict(checkpoint_dir="ck"), NotImplementedError,
-                            "item 13"),
+    # checkpoints are ported: what is refused is a fresh run into a
+    # directory that holds a run's checkpoints already
+    (tmp_path / "step_5").mkdir()
+    for kw, err, match in ((dict(checkpoint_dir=tmp_path), ValueError,
+                            "already contains checkpoints"),
                            (dict(mesh=object()), NotImplementedError,
                             "item 14"),
                            (dict(early_stop_tol=1.0, early_stop_patience=0),
