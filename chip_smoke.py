@@ -88,9 +88,24 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    latent copies: ten graphed steps bitwise against eager and within the
    plain bounds, the kernels launched at batch 8, steps/s); and
    ``chol_dtype="float64"`` against ``"same"`` (steps/s in turns, the
-   ELBO difference).
+   ELBO difference);
+12. splits the flagship at ``"high"`` over ranks (``parallel_phase``):
+   a. four gloo ranks of a (2, 2) ``("data", "latent")`` mesh sharing
+      the card (``parallel.spawn_local``; the collectives go through the
+      host, so the steps run eagerly): ten sharded steps against ten
+      unsharded eager steps of the same state and offsets (within the
+      plain f32 bounds of 5b), each rank's launches and the shapes it
+      launched the kernels at (batch 2 on 1,536 rows, and 384 in the VM
+      step), steps/s of a 100-step call, a sharded checkpoint at step 50
+      and a run cut there and resumed to 100 (bitwise the uninterrupted
+      sharded run), and ``predictive_sharded`` of 6 x 65,536 rows
+      against ``make_serving_predictive``;
+   b. a world-1 NCCL ``("data",)`` mesh in this process: the graphed
+      trainer with its collectives captured, ten steps bitwise equal to
+      the unsharded ``make_scan_trainer``, and steps/s of both in turns
+      over calls of 1,000 steps.
 
-They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b, 9, 10, 11.  The serving pass is
+They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b, 9, 10, 11, 12.  The serving pass is
 the process's first profiled call: as its sixth, after the trainers', the
 profiler lost one of its twelve requests' records (and a prediction is
 then the first to ask for each quadrature grid, as in a process that
@@ -100,14 +115,18 @@ from 5a.
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
 JSON (every kernel launcher, each route included); the last line is
-``{"ok": true, "device": {...}}``.  About nine minutes on one H100.
+``{"ok": true, "device": {...}}``.  About seven to eight minutes on one H100.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2339,6 +2358,30 @@ def _lifecycle(smi: str, root: str) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def launch_shapes():
+    """Yield {launcher: {(Q, N, M), ...}}, the shapes of the kernel launches
+    made inside the block: the launchers look their launch helpers up in
+    the module at each call, and wrappers there record them."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    seen, originals = {}, {}
+    for helper, shape in (("_rbf_launch", lambda w, e, X, Z, *a, **k:
+                           (Z.shape[0], X.shape[0], Z.shape[1])),
+                          ("_launch", lambda w, e, A, *a: tuple(A.shape))):
+        originals[helper] = getattr(ck, helper)
+
+        def record(wrapper, *a, _f=originals[helper], _s=shape, **k):
+            seen.setdefault(wrapper.__name__, set()).add(_s(wrapper, *a, **k))
+            return _f(wrapper, *a, **k)
+        setattr(ck, helper, record)
+    try:
+        yield seen
+    finally:
+        for name, f in originals.items():
+            setattr(ck, name, f)
+
+
 def rank_phase(smi: str) -> None:
     """The flagship at coregionalization rank 2 (Q=4 groups, 8 latent
     copies): ten graphed steps bitwise against eager and within the
@@ -2349,26 +2392,12 @@ def rank_phase(smi: str) -> None:
     cfg, tc, params, dataset = training_model(precision="high", rank=2)
     sizes = (TRAIN_N_PER,) * cfg.num_tasks
     batches = (TRAIN_B,) * cfg.num_tasks
-    # the launchers look their launch helpers up in the module at each
-    # call: wrappers there record the batch (Q*R) of every launch
-    seen, originals = {}, {}
-    for helper, batch in (("_rbf_launch", lambda w, e, X, Z, *a, **k:
-                           Z.shape[0]),
-                          ("_launch", lambda w, e, A, *a: A.shape[0])):
-        originals[helper] = getattr(ck, helper)
-
-        def record(wrapper, *a, _f=originals[helper], _b=batch, **k):
-            seen.setdefault(wrapper.__name__, set()).add(_b(wrapper, *a, **k))
-            return _f(wrapper, *a, **k)
-        setattr(ck, helper, record)
-    try:
+    with launch_shapes() as shapes:
         run, state, _ = graphed_against_eager(
             cfg, tc, params, dataset, sizes, batches, True, SEED + 8,
             "rank 2 (8 latent copies), \"high\"", smi,
             plain_bounds=(GRAPH_PLAIN_F32_VE, GRAPH_PLAIN_F32, GRAPH_F64))
-    finally:
-        for name, f in originals.items():
-            setattr(ck, name, f)
+    seen = {k: {q for q, _, _ in v} for k, v in shapes.items()}
     print(f"rank 2: batches the kernels were launched at {seen} "
           f"[card: {smi}]")
     gen = torch.Generator().manual_seed(SEED + 10)
@@ -2428,6 +2457,342 @@ def island_phase(smi: str) -> None:
     if not (torch.isfinite(elbos["float64"]).all() and rel < GRAPH_F64):
         raise AssertionError("the float64 island's trajectory is off")
 
+# ---------------------------------------------------------------------------
+# parallelism: a (2, 2) mesh of gloo ranks sharing the card, and a world-1
+# NCCL mesh whose collectives the graphs capture
+# ---------------------------------------------------------------------------
+
+PAR_WORLD, PAR_LATENT = 4, 2  # a ("data", "latent") mesh of 2 x 2
+PAR_STEPS = 10  # sharded steps held against unsharded eager ones
+PAR_CUT, PAR_FIT = 50, 100  # the sharded checkpoint, and the run's length
+PAR_TIMED = 100  # steps of the timed call of the four ranks
+PAR_SERVE_ROWS = 65536  # rows a task of the sharded predictive
+# predictive_sharded against make_serving_predictive, normwise: the same
+# kernels on the same rows and latents (2 of the 4 a rank), whose mixing
+# sums the two ranks' partial sums instead of four terms at once
+PAR_SERVE_BOUND = 1e-5
+PAR_TIMEOUT = 120  # seconds a collective may wait before its rank fails
+NCCL_TURNS = 3  # timed calls of GRAPH_CALL_STEPS steps a trainer, in turns
+
+
+def _flagship_arrays(precision="high"):
+    """training_model's config, params, X_list and Y_list, without the
+    dataset on the card."""
+    import hetmogp_tpu_torch as tp
+
+    cfg, tc, X_list, Y_list, rng = training_arrays()
+    cfg = dataclasses.replace(cfg, ve_fwd_precision=precision)
+    Z = rng.rand(M, DX).astype(np.float32)
+    params = tp.init_params(rng, cfg, Z, lengthscale=0.2, variance=0.5,
+                            q_mu_scale=0.1, device="cuda")
+    return cfg, tc, params, X_list, Y_list
+
+
+def _serving_inputs():
+    rng = np.random.RandomState(SEED + 12)
+    return [rng.rand(PAR_SERVE_ROWS, DX).astype(np.float32) for _ in range(6)]
+
+
+def _parallel_rank(rank, world, root, offsets, timed):
+    """One rank of the (2, 2) mesh on the card (gloo): ten sharded steps
+    with the kernels' launches and shapes, a timed call, the sharded
+    checkpoint cut and resumed, and the sharded predictive."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch.models import predict
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+    from hetmogp_tpu_torch.parallel import collectives, sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ck.load()  # the parent built the library: no rank runs nvcc
+    cfg, tc, params, X_list, Y_list = _flagship_arrays()
+    mesh = sharding.model_mesh("cuda", latent=PAR_LATENT)
+    sizes = (TRAIN_N_PER,) * cfg.num_tasks
+    batches = (TRAIN_B,) * cfg.num_tasks
+    dataset = tp.prepare_dataset_on_device(cfg, X_list, Y_list, mesh=mesh)
+    run = tp.make_scan_trainer(cfg, tc, sizes, batches,
+                               steps_per_call=PAR_STEPS, mesh=mesh)
+    state = tp.init_train_state(sharding.shard_params(mesh, params), cfg, tc,
+                                mesh=mesh)
+    out = {"shard_rows": [td.X.shape[0] for td in dataset]}
+    torch.cuda.synchronize()
+    ck.zero_launch_counts()
+    collectives.zero_collective_counts()
+    with launch_shapes() as shapes:
+        state, elbos = run(state, dataset, offsets=offsets)
+    torch.cuda.synchronize()
+    out.update(elbos=elbos.double().cpu().numpy(), captured=run.captured,
+               counts=ck.launch_counts(), shapes=shapes,
+               collectives=collectives.collective_counts(),
+               q_sqrt=tuple(state.params.q_sqrt.shape))
+    # steps/s: four ranks sharing the card, collectives through the host
+    t0 = time.perf_counter()
+    state, e = run(state, dataset, offsets=timed)
+    torch.cuda.synchronize()
+    out["rate"] = timed.shape[0] / (time.perf_counter() - t0)
+    out["timed_finite"] = bool(torch.isfinite(e).all())
+    # the all-reduce of a VE step's gradient (this rank's q_mu and
+    # q_sqrt) over the data axis, through the host
+    comm = sharding.mesh_comm(mesh, cfg)
+    grad = torch.ones(state.params.q_mu.numel()
+                      + state.params.q_sqrt.numel(), device="cuda")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comm.data_sum_([grad])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["grad_allreduce"] = (grad.numel() * 4, statistics.median(times) * 1e3)
+    # the sharded checkpoint: a run cut at PAR_CUT and resumed, against
+    # the uninterrupted one
+    kw = dict(steps_per_call=PAR_CUT, mesh=mesh, dataset=dataset,
+              checkpoint_every=PAR_CUT)
+
+    def fit(n, d, resume=False):
+        return tp.svi_fit_on_device(
+            params, cfg, tc, X_list, Y_list, TRAIN_B, n,
+            generator=torch.Generator().manual_seed(SEED + 11),
+            checkpoint_dir=os.path.join(root, d), resume=resume, **kw)
+
+    t0 = time.perf_counter()
+    pa, ha = fit(PAR_FIT, "a")
+    out["fit_seconds"] = time.perf_counter() - t0
+    _, hb1 = fit(PAR_CUT, "b")
+    pb, hb2 = fit(PAR_FIT, "b", resume=True)
+    out["resume_bitwise"] = bool(
+        np.array_equal(ha, np.concatenate([hb1, hb2]))
+        and all(torch.equal(getattr(pa, f), getattr(pb, f))
+                for f in ("Z", "q_mu", "q_sqrt", "log_lengthscale",
+                          "log_variance", "W")))
+    step_dir = os.path.join(root, "a", f"step_{PAR_FIT}")
+    out["ckpt_files"] = sorted(os.listdir(step_dir))
+    out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(step_dir, f))
+                            for f in out["ckpt_files"])
+    out["fit_elbo"] = (float(ha[:10].mean()), float(ha[-10:].mean()))
+    # the sharded predictive against the one-process serving path
+    X = _serving_inputs()
+    ck.zero_launch_counts()
+    collectives.zero_collective_counts()
+    with collectives.record_collectives() as log, launch_shapes() as seen:
+        m, v = predict.predictive_sharded(params, cfg, X, mesh)
+    torch.cuda.synchronize()
+    out["serve_counts"] = ck.launch_counts()
+    out["serve_shapes"] = seen
+    out["serve_collectives"] = sorted({c[:2] for c in log})
+    errs = []
+    for t in range(cfg.num_tasks):
+        ref_m, ref_v = predict.make_serving_predictive(params, cfg, t)(X[t])
+        errs.append(max(normwise(m[t], ref_m), normwise(v[t], ref_v)))
+    out["serve_err"] = max(errs)
+    out["serve_finite"] = all(bool(torch.isfinite(a).all()) for a in m + v)
+    return out
+
+
+def parallel_phase(smi: str) -> None:
+    """The sharded trainer, checkpoints and predictive on the card: four
+    gloo ranks of a (2, 2) mesh sharing it, then a world-1 NCCL mesh in
+    this process whose collectives the graphs capture."""
+    parallel_gloo_phase(smi)
+    parallel_nccl_phase(smi)
+
+
+def parallel_gloo_phase(smi: str) -> None:
+    import tempfile
+
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+    from hetmogp_tpu_torch.parallel import spawn_local
+
+    cfg, tc, params, X_list, Y_list = _flagship_arrays()
+    sizes = (TRAIN_N_PER,) * cfg.num_tasks
+    batches = (TRAIN_B,) * cfg.num_tasks
+    gen = torch.Generator().manual_seed(SEED + 13)
+    offsets = ttrain.draw_offset_stream(gen, sizes, batches, PAR_STEPS)
+    timed = ttrain.draw_offset_stream(gen, sizes, batches, PAR_TIMED)
+    # the unsharded eager steps of the same state and offsets
+    dataset = tp.prepare_dataset_on_device(cfg, X_list, Y_list)
+    ext = ttrain.extend_for_wraparound(dataset, batches, sizes)
+    step = ttrain.make_step(cfg, tc)
+    state = tp.init_train_state(params, cfg, tc)
+    scales = ttrain.batch_scales(sizes, batches, cfg.torch_dtype, "cuda")
+    eager = []
+    for off in offsets.tolist():
+        state, metrics = step(state, ttrain.slice_batch(ext, off, sizes,
+                                                        batches), scales)
+        eager.append(metrics["elbo"])
+    eager = torch.stack(eager).double().cpu().numpy()
+    del dataset, ext, state
+    torch.cuda.synchronize()
+
+    root = tempfile.mkdtemp(prefix="hetmogp_parallel_")
+    t0 = time.perf_counter()
+    try:
+        outs = spawn_local(_parallel_rank, PAR_WORLD, "cuda", "gloo",
+                           args=(root, offsets, timed), timeout=PAR_TIMEOUT,
+                           deadline=900)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    what = (f"(2, 2) mesh of {PAR_WORLD} gloo ranks sharing the card "
+            "(collectives through the host)")
+    first_vm = tc.ve_steps_per_vm + 1
+    n_vm = sum(1 for i in range(PAR_STEPS) if i % first_vm == tc.ve_steps_per_vm)
+    want_counts = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
+                   "tril_projection_tma": n_vm,
+                   "tril_projection_3pass_tma": PAR_STEPS - n_vm,
+                   "rbf_K_batched_scalar": 0, "tril_projection_staged": 0,
+                   "tril_projection_3pass_staged": 0}
+    rows = 6 * TRAIN_B // 2  # a data rank's rows of the VE batch
+    want_shapes = {"rbf_K_batched_vec": {(2, rows, M), (2, rows // 4, M)},
+                   "tril_projection_3pass_tma": {(2, rows, M)},
+                   "tril_projection_tma": {(2, rows // 4, M)}}
+    bad = []
+    for r, out in enumerate(outs):
+        rel = np.abs(out["elbos"] - eager) / np.abs(eager)
+        r_ve, r_all = float(rel[:first_vm].max()), float(rel.max())
+        counts = {k: out["counts"][k] for k in want_counts}
+        shapes = {k: out["shapes"].get(k, set()) for k in want_shapes}
+        print(f"{what}, rank {r}: shard rows {out['shard_rows']}, local "
+              f"q_sqrt {out['q_sqrt']}, eager steps (captured "
+              f"{out['captured']}); ten sharded steps against ten "
+              f"unsharded eager steps: {r_ve:.3e} up to the first VM step "
+              f"(bound {GRAPH_PLAIN_F32_VE:g}), {r_all:.3e} over all ten "
+              f"(bound {GRAPH_PLAIN_F32:g}); launches in the ten steps "
+              f"{counts} (per {first_vm}-step cycle, halve them); shapes "
+              f"(Q, N, M) {shapes}; collectives {out['collectives']} "
+              f"[card: {smi}]")
+        print(f"{what}, rank {r}: {out['rate']:.2f} steps/s over a call of "
+              f"{PAR_TIMED} steps (four processes time-sharing one card, "
+              f"not a scaling number); the gloo all-reduce of a VE step's "
+              f"gradient ({out['grad_allreduce'][0]} bytes) over the data "
+              f"axis {out['grad_allreduce'][1]:.3f} ms, median of 5; "
+              f"sharded fit of {PAR_FIT} steps "
+              f"{out['fit_seconds']:.2f} s, ELBO mean of the first ten "
+              f"{out['fit_elbo'][0]:.3f}, of the last ten "
+              f"{out['fit_elbo'][1]:.3f}; checkpoint step_{PAR_FIT}/ "
+              f"{out['ckpt_files']} ({out['ckpt_bytes'] / 2**20:.1f} MiB); "
+              f"cut at {PAR_CUT} and resumed to {PAR_FIT} bitwise equal "
+              f"{out['resume_bitwise']} [card: {smi}]")
+        print(f"{what}, rank {r}: predictive_sharded of 6 x "
+              f"{PAR_SERVE_ROWS} rows against make_serving_predictive "
+              f"{out['serve_err']:.3e} normwise (bound {PAR_SERVE_BOUND:g}); "
+              f"launches {out['serve_counts']} at {out['serve_shapes']}; "
+              f"collectives "
+              f"{out['serve_collectives']} [card: {smi}]")
+        ok = (out["captured"] is False and r_ve <= GRAPH_PLAIN_F32_VE
+              and r_all <= GRAPH_PLAIN_F32 and counts == want_counts
+              and shapes == want_shapes and out["timed_finite"]
+              and out["resume_bitwise"] and out["fit_elbo"][1]
+              > out["fit_elbo"][0]
+              and out["ckpt_files"] == ["meta.json", "shard_0.npz",
+                                        "shard_1.npz"]
+              and out["serve_err"] <= PAR_SERVE_BOUND
+              and out["serve_finite"]
+              and out["serve_counts"]["rbf_K_batched_vec"] == 6
+              and out["serve_counts"]["tril_projection_3pass_tma"] == 6
+              and out["serve_shapes"] == {
+                  k: {(2, PAR_SERVE_ROWS // 2, M)}
+                  for k in ("rbf_K_batched_vec", "tril_projection_3pass_tma")}
+              and out["serve_collectives"] == [("data", "all_gather"),
+                                               ("latent", "all_reduce")])
+        if not ok:
+            bad.append(r)
+    print(f"{what}: the four ranks took {wall:.1f} s from spawn to exit "
+          f"[card: {smi}]")
+    if bad:
+        raise AssertionError(f"the sharded run failed its checks on ranks "
+                             f"{bad}")
+
+
+def parallel_nccl_phase(smi: str) -> None:
+    import tempfile
+
+    import torch.distributed as dist
+
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+    from hetmogp_tpu_torch.parallel import collectives, sharding
+
+    cfg, tc, params, X_list, Y_list = _flagship_arrays()
+    sizes = (TRAIN_N_PER,) * cfg.num_tasks
+    batches = (TRAIN_B,) * cfg.num_tasks
+    offsets = ttrain.draw_offset_stream(torch.Generator().manual_seed(
+        SEED + 14), sizes, batches, PAR_STEPS)
+    store_dir = tempfile.mkdtemp(prefix="hetmogp_nccl_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=PAR_TIMEOUT))
+    try:
+        mesh = sharding.data_mesh("cuda")
+        dataset = tp.prepare_dataset_on_device(cfg, X_list, Y_list)
+        shard = tp.prepare_dataset_on_device(cfg, X_list, Y_list, mesh=mesh)
+        plain = tp.make_scan_trainer(cfg, tc, sizes, batches,
+                                     steps_per_call=GRAPH_CALL_STEPS)
+        meshed = tp.make_scan_trainer(cfg, tc, sizes, batches,
+                                      steps_per_call=GRAPH_CALL_STEPS,
+                                      mesh=mesh)
+        s1, e1 = plain(tp.init_train_state(params, cfg, tc), dataset,
+                       offsets=offsets)
+        ck.zero_launch_counts()
+        collectives.zero_collective_counts()
+        s2, e2 = meshed(tp.init_train_state(sharding.shard_params(
+            mesh, params), cfg, tc, mesh=mesh), shard, offsets=offsets)
+        torch.cuda.synchronize()
+        replayed = {k: sum(meshed.capture_launches[kind][k]
+                           * meshed.replays[kind] for kind in meshed.graphs)
+                    for k in ck.launch_counts()}
+        captured_colls = collectives.collective_counts()
+        bitwise = bool(torch.equal(e1, e2) and all(
+            torch.equal(a, b) for a, b in zip(ttrain._state_tensors(s1),
+                                              ttrain._state_tensors(s2))))
+        what = "world-1 NCCL (\"data\",) mesh, graphed"
+        print(f"{what}: captured {meshed.captured}, capture "
+              f"{meshed.capture_seconds:.3f} s; ten steps bitwise equal to "
+              f"the unsharded make_scan_trainer {bitwise}; kernel launches "
+              f"by the replays {replayed}; collectives issued in the warm-up "
+              f"and the capture of both graphs {captured_colls} "
+              f"[card: {smi}]")
+        n_vm = meshed.replays["vm"]
+        want = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
+                "tril_projection_tma": n_vm,
+                "tril_projection_3pass_tma": PAR_STEPS - n_vm}
+        if not (meshed.captured and bitwise
+                and all(replayed[k] == v for k, v in want.items())
+                and captured_colls.get("data.all_reduce", 0) > 0):
+            raise AssertionError("the NCCL mesh trainer is not the captured "
+                                 "unsharded trainer")
+        # steps/s of both, in turns, over calls of GRAPH_CALL_STEPS steps
+        gen = torch.Generator().manual_seed(SEED + 15)
+        rates = {"unsharded": [], "NCCL mesh": []}
+        runs = {"unsharded": (plain, s1, dataset),
+                "NCCL mesh": (meshed, s2, shard)}
+        for i in range(NCCL_TURNS):
+            stream = ttrain.draw_offset_stream(gen, sizes, batches,
+                                               GRAPH_CALL_STEPS)
+            for name in (("unsharded", "NCCL mesh") if i % 2 == 0
+                         else ("NCCL mesh", "unsharded")):
+                run, state, ds = runs[name]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, e = run(state, ds, offsets=stream)
+                torch.cuda.synchronize()
+                rates[name].append(GRAPH_CALL_STEPS
+                                   / (time.perf_counter() - t0))
+                if not torch.isfinite(e).all():
+                    raise AssertionError(f"{name}: ELBO not finite")
+        print(f"{what}: graphed steps/s over calls of {GRAPH_CALL_STEPS} "
+              "steps in turns: " + "; ".join(
+                  _median_line(k, v, "steps/s") for k, v in rates.items())
+              + f" [card: {smi}]")
+        del plain, meshed, runs
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
 
 def main():
     smi = device_phase()
@@ -2456,6 +2821,7 @@ def main():
     families_phase(smi)
     optimizers_phase(smi)
     lifecycle_phase(smi)
+    parallel_phase(smi)
     # launches: the main path's for the vector RBF kernel and the TMA
     # routes; the staged and scalar routes never run at M = 1024, so theirs
     # are from the ragged serving path, their own

@@ -32,8 +32,10 @@ mesh-sharded trainer and predictive, and ``save_checkpoint_sharded`` /
 ``load_checkpoint_sharded``.
 """
 
-from hetmogp_tpu_torch.checkpoint import (load_checkpoint, peek_meta,
-                                          save_checkpoint)
+from hetmogp_tpu_torch.checkpoint import (load_checkpoint,
+                                          load_checkpoint_sharded, peek_meta,
+                                          save_checkpoint,
+                                          save_checkpoint_sharded)
 from hetmogp_tpu_torch.config import ModelConfig, TrainConfig
 from hetmogp_tpu_torch.data import MinibatchStream, batch_scales, full_batch
 from hetmogp_tpu_torch.likelihoods import (Bernoulli, Beta, Binomial,
@@ -106,6 +108,8 @@ __all__ = [
     "prepare_dataset_on_device",
     "save_checkpoint",
     "load_checkpoint",
+    "save_checkpoint_sharded",
+    "load_checkpoint_sharded",
     "peek_meta",
     "full_batch",
     "MinibatchStream",

@@ -180,35 +180,45 @@ def task_qf_moments(params: SVMOGPParams, config: ModelConfig,
                     Luu: torch.Tensor, X: torch.Tensor, task: int, *,
                     iLuu=None, clip_variance: bool = True,
                     var_floor: float = 0.0, cache_grad: bool = False,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, comm=None):
     """Marginal moments (m_F, v_F), each (N, F_t), of q(f_d) for every
-    parameter function d of one task; ``iLuu=None`` takes the solve path."""
-    mean_q, gamma_q, kdiag = latent_projections(
-        params, config, Luu, X, iLuu, cache_grad=cache_grad,
-        use_kernel=use_kernel)
-    return _mix_task(mean_q, gamma_q, kdiag, params, config, task,
-                     clip_variance=clip_variance, var_floor=var_floor)
+    parameter function d of one task; ``iLuu=None`` takes the solve path.
+    ``comm``: a ``parallel.collectives.MeshComm``, under which params,
+    Luu and iLuu are this rank's latents and the mixing sums over the
+    latent axis."""
+    part = latent_projections(params, config, Luu, X, iLuu,
+                              cache_grad=cache_grad, use_kernel=use_kernel)
+    return _mix_tasks([part], params, config, [task], comm=comm,
+                      clip_variance=clip_variance, var_floor=var_floor)[0]
 
 
-def _mix_task(mean_q, gamma_q, kdiag, params, config, task,
-              clip_variance: bool = True, var_floor: float = 0.0):
-    """Coregionalization mixing of per-latent projections into one task's
+def _mix_tasks(parts, params, config, tasks, *, comm=None,
+               clip_variance: bool = True, var_floor: float = 0.0):
+    """Coregionalization mixing of per-latent projections into each task's
     (m_F, v_F): m_fd = sum_q w_qd mean_q,
-    v_fd = sum_q (w_qd^2 gamma_q + kappa_qd kdiag_q)."""
-    start, stop = config.task_function_slices[task]
-    Wt = params.W[:, start:stop]  # (Q, F_t)
-    Kt = params.kappa[:, start:stop]
-    m_F = mean_q.mT @ Wt
-    v_F = gamma_q.mT @ torch.square(Wt) + kdiag.mT @ Kt
+    v_fd = sum_q (w_qd^2 gamma_q + kappa_qd kdiag_q), ``parts`` the tasks'
+    (mean_q, gamma_q, kdiag).  Under ``comm`` the sums over q are this
+    rank's latents', and one latent all-reduce (``reduce_from_latent``) of
+    all of them completes every task's before the variance is clipped."""
+    out = []
+    for (mean_q, gamma_q, kdiag), task in zip(parts, tasks):
+        start, stop = config.task_function_slices[task]
+        Wt = params.W[:, start:stop]  # (Q, F_t)
+        Kt = params.kappa[:, start:stop]
+        out.append((mean_q.mT @ Wt,
+                    gamma_q.mT @ torch.square(Wt) + kdiag.mT @ Kt))
+    if comm is not None:
+        flat = comm.latent_sum([t for pair in out for t in pair])
+        out = list(zip(flat[0::2], flat[1::2]))
     if clip_variance:
-        v_F = torch.clamp(v_F, min=var_floor)
-    return m_F, v_F
+        out = [(m_F, torch.clamp(v_F, min=var_floor)) for m_F, v_F in out]
+    return out
 
 
 def fused_task_moments(params: SVMOGPParams, config: ModelConfig, Luu,
                        data: Sequence[TaskData], iLuu, *,
                        cache_grad: bool = False, use_kernel: bool = True,
-                       var_floor: float = 0.0):
+                       var_floor: float = 0.0, comm=None):
     """(m_F, v_F) for every task from one concatenated-rows projection: one
     Kfu build, one triangular projection and one ``quad_diag`` for all
     tasks' rows, then the per-task mixing on column slices
@@ -217,13 +227,13 @@ def fused_task_moments(params: SVMOGPParams, config: ModelConfig, Luu,
     mean_q, gamma_q, kdiag = latent_projections(
         params, config, Luu, X_all, iLuu, cache_grad=cache_grad,
         use_kernel=use_kernel)
-    out, off = [], 0
-    for t, td in enumerate(data):
+    parts, off = [], 0
+    for td in data:
         sl = slice(off, off + td.X.shape[0])
         off = sl.stop
-        out.append(_mix_task(mean_q[:, sl], gamma_q[:, sl], kdiag[:, sl],
-                             params, config, t, var_floor=var_floor))
-    return out
+        parts.append((mean_q[:, sl], gamma_q[:, sl], kdiag[:, sl]))
+    return _mix_tasks(parts, params, config, range(len(data)), comm=comm,
+                      var_floor=var_floor)
 
 
 def latent_projections_full(params: SVMOGPParams, config: ModelConfig,
@@ -309,7 +319,7 @@ def kl_divergence(params: SVMOGPParams, config: ModelConfig,
 
 def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
             scales: torch.Tensor, config: ModelConfig, Luu=None, iLuu=None,
-            cache_grad: bool = False, use_kernel: bool = True):
+            cache_grad: bool = False, use_kernel: bool = True, comm=None):
     """ELBO and per-task diagnostics.
 
     Args:
@@ -325,11 +335,19 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
         cached-inverse adjoints.  Needs both and the whitened model.
       use_kernel: False takes the plain PyTorch versions of the CUDA
         kernels on any device.
+      comm: a ``parallel.collectives.MeshComm`` (``parallel.sharding.
+        make_sharded_elbo``): params, Luu and iLuu are this rank's latents
+        and data its rows.  The ELBO and aux are then the global values on
+        every rank, and the ELBO's gradient on a rank is its part, which
+        the data all-reduce of the gradients completes (the KL's counted on
+        data rank 0 only).
     A task whose likelihood has theta (``n_theta`` > 0) takes it from
     ``params.lik_theta`` where that is not None.
     Returns:
       (elbo, aux) with aux = {'ve': (T,), 'kl': scalar}.
     """
+    if comm is not None:
+        params = comm.view(params)
     if cache_grad:
         if Luu is None or iLuu is None:
             raise ValueError("cache_grad=True needs both Luu and iLuu")
@@ -341,12 +359,12 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
     if config.fuse_task_rows and iLuu is not None:
         moments = fused_task_moments(params, config, Luu, data, iLuu,
                                      cache_grad=cache_grad,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel, comm=comm)
     else:
-        moments = [task_qf_moments(params, config, Luu, td.X, t, iLuu=iLuu,
-                                   cache_grad=cache_grad,
-                                   use_kernel=use_kernel)
-                   for t, td in enumerate(data)]
+        moments = _mix_tasks(
+            [latent_projections(params, config, Luu, td.X, iLuu,
+                                cache_grad=cache_grad, use_kernel=use_kernel)
+             for td in data], params, config, range(len(data)), comm=comm)
     ve_sums = []
     for t, (lik, td) in enumerate(zip(config.likelihoods, data)):
         if params.lik_theta is not None and lik.n_theta:
@@ -357,6 +375,8 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
         ve_sums.append(scales[t] * torch.sum(ve * td.mask))
     ve_sums = torch.stack(ve_sums)
     kl = kl_divergence(params, config, Luu)
+    if comm is not None:
+        ve_sums, kl = comm.reduce_metrics(ve_sums, kl)
     return torch.sum(ve_sums) - kl, {"ve": ve_sums, "kl": kl}
 
 

@@ -1,8 +1,8 @@
 """Prediction paths: latent u, latent f, observation space, NLPD.
 
-Counterpart of ``hetmogp_tpu/models/predict.py`` without
-``predictive_sharded`` (it waits for the parallelism slice).  As there,
-``make_serving_predictive`` factorizes once and projects every request
+Counterpart of ``hetmogp_tpu/models/predict.py``.  As there,
+``make_serving_predictive`` and ``predictive_sharded`` (the same over a
+``parallel.sharding`` mesh) factorize once and project every request
 through the cached inverse (matmuls; its error grows with cond(Kuu)),
 while every other entry factorizes Kuu and uses triangular solves, and
 never forms an inverse.  Every entry starts with
@@ -306,6 +306,68 @@ def _predictive(params: SVMOGPParams, config: ModelConfig, X_list: Sequence,
 
 
 predictive = _inference(_predictive)
+
+
+def sharded_cache(params: SVMOGPParams, config: ModelConfig, comm):
+    """(view, Luu, Luu^{-1}) of this rank's latents under a mesh
+    (``comm``, a ``parallel.collectives.MeshComm``), params its shard."""
+    view = comm.view(params)
+    Luu, iLuu = elbo_mod.prior_cholesky_inverse(view, config)
+    return view, Luu, iLuu
+
+
+def sharded_task_predictive(params: SVMOGPParams, config: ModelConfig, comm,
+                            cache, X: torch.Tensor, task: int, *,
+                            use_kernel: bool = True):
+    """The predictive moments of one task at this rank's rows X, through
+    the cached inverse of ``sharded_cache``: the RBF kernel, the
+    triangular projection and ``quad_diag`` on this rank's latents, then
+    the mixing summed over the latent axis."""
+    view, Luu, iLuu = cache
+    m_F, v_F = elbo_mod.task_qf_moments(view, config, Luu, X, task,
+                                        iLuu=iLuu, use_kernel=use_kernel,
+                                        comm=comm)
+    return config.likelihoods[task].predictive(m_F, v_F)
+
+
+def _predictive_sharded(params: SVMOGPParams, config: ModelConfig,
+                        X_list: Sequence, mesh, *, use_kernel: bool = True):
+    """Observation-space predictive moments over a mesh
+    (``parallel.sharding``), every rank calling with the same full params
+    and inputs.
+
+    The serving path of ``make_serving_predictive``, split: each task's
+    rows are padded (repeating the last) to a multiple of the data size,
+    each data rank projects its block of them through the cached inverse of
+    its latents (``sharded_task_predictive``), and one all-gather over the
+    data axis a task returns every row to every rank, the pad dropped.  No
+    collective before that gather moves rows but, on a 2-D mesh, the
+    latent all-reduce of the mixing of this rank's own.  Returns (m_pred,
+    v_pred): lists of (N_t, dim_p) on every rank.
+    """
+    from hetmogp_tpu_torch.parallel import sharding
+
+    comm = sharding.mesh_comm(mesh, config)
+    local = comm.shard_params(params)
+    cache = sharded_cache(local, config, comm)
+    device = params.Z.device
+    m_pred, v_pred = [], []
+    for t in range(config.num_tasks):
+        X = _as_inputs(X_list[t], config, device)
+        n = X.shape[0]
+        pad = (-n) % comm.k_data
+        if pad:
+            X = torch.cat([X, X[-1:].expand(pad, X.shape[1])])
+        m, v = sharded_task_predictive(local, config, comm, cache,
+                                       X[comm.rows(X.shape[0])], t,
+                                       use_kernel=use_kernel)
+        mv = comm.gather_rows(torch.cat([m, v], dim=1))[:n]
+        m_pred.append(mv[:, :m.shape[1]])
+        v_pred.append(mv[:, m.shape[1]:])
+    return m_pred, v_pred
+
+
+predictive_sharded = _inference(_predictive_sharded)
 
 
 def negative_log_predictive(params: SVMOGPParams, config: ModelConfig,

@@ -214,7 +214,9 @@ class SVMOGP:
                           early_stop_patience: int = 3):
         """SVI with the data on the device and the graphed trainer
         (``train.svi_fit_on_device``), with periodic checkpoints and an
-        exact resume."""
+        exact resume.  ``mesh``: a ``parallel.sharding`` mesh that every
+        rank's model calls with (rows over the data axis, latents over the
+        latent axis); the model's params are the full params after it."""
         from hetmogp_tpu_torch import train as train_mod
 
         tc = train_config or TrainConfig()
@@ -279,12 +281,18 @@ class SVMOGP:
     def predictive(self, Xpred: Sequence, projected: bool = False,
                    mesh=None):
         """Observation-space prediction; ``projected=True`` takes the
-        reference's training-set re-projection path.  ``mesh`` is the
-        parallelism slice's."""
+        reference's training-set re-projection path.  ``mesh`` (every rank
+        calling with the same inputs) splits the rows of the direct path
+        over the data axis and the latents over the latent axis
+        (``predict.predictive_sharded``)."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the sharded predictive is not ported yet (ROADMAP.md "
-                "section 1, item 14)")
+            if projected:
+                raise ValueError(
+                    "projected=True is the O(N^3) training-set "
+                    "re-projection path and is not mesh-sharded; use the "
+                    "default direct path with mesh=")
+            return predict_mod.predictive_sharded(
+                self.params, self.pred_config, Xpred, mesh)
         return predict_mod.predictive(self.params, self.pred_config, Xpred,
                                       Xtrain_list=self.Xmulti_all,
                                       projected=projected)

@@ -170,7 +170,7 @@ def s_inverse(q_sqrt: torch.Tensor) -> torch.Tensor:
 
 def init_train_state(params: SVMOGPParams, config: ModelConfig,
                      train_config: Optional[TrainConfig] = None, *,
-                     cache_luu: bool = True) -> TrainState:
+                     cache_luu: bool = True, mesh=None) -> TrainState:
     """Step 0: the optimizer's initial state and the prior cache.
 
     cache_luu: keep the (Luu, Luu^{-1}) cache, or Luu alone under
@@ -179,17 +179,24 @@ def init_train_state(params: SVMOGPParams, config: ModelConfig,
     Without ``train_config`` the state is the flagship trainer's: adam and
     the cached inverse.  ``natgrad_adam`` with the exact retraction also
     carries S^{-1}.
+    mesh: a ``parallel.sharding`` mesh, whose rank's shard the params are
+      (``parallel.shard_params``): the caches are its latents'.
     """
     fast = train_config is None or train_config.fast_projection
     natgrad_exact = (train_config is not None
                      and train_config.optimizer == "natgrad_adam"
                      and train_config.natgrad_retraction == "exact")
+    view = params
+    if mesh is not None:
+        from hetmogp_tpu_torch.parallel import sharding
+
+        view = sharding.mesh_comm(mesh, config).view(params)
     with torch.no_grad():
         Luu = iLuu = None
         if cache_luu and fast:
-            Luu, iLuu = elbo_mod.prior_cholesky_inverse(params, config)
+            Luu, iLuu = elbo_mod.prior_cholesky_inverse(view, config)
         elif cache_luu:
-            Luu = elbo_mod.prior_cholesky(params, config)
+            Luu = elbo_mod.prior_cholesky(view, config)
         S_inv = s_inverse(params.q_sqrt) if natgrad_exact else None
         opt = init_optimizer_state(params, train_config)
     return TrainState(params, opt, 0, Luu, iLuu, S_inv)
@@ -289,15 +296,18 @@ def make_lr_schedule(train_config: TrainConfig):
 
 
 def clip_by_global_norm(grads: Sequence[Optional[torch.Tensor]],
-                        max_norm: float):
+                        max_norm: float, comm=None):
     """``optax.clip_by_global_norm`` over the gradients that are not None
     (a None stands for a masked leaf's zero): unchanged where their global
     norm is below ``max_norm``, else scaled to it.  Selected on the
-    device."""
+    device.  Under ``comm`` (a mesh) the norm is the global one: the split
+    leaves' squares summed over the latent axis, so every rank scales
+    alike."""
     present = [g for g in grads if g is not None]
     if not present:
         return list(grads)
-    g_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in present))
+    g_norm = torch.sqrt(comm.sq_norm(grads) if comm is not None else
+                        sum(torch.sum(torch.square(g)) for g in present))
     trigger = g_norm < max_norm
     return [None if g is None else
             torch.where(trigger, g, (g / g_norm) * max_norm) for g in grads]
@@ -414,11 +424,12 @@ def adadelta_lookahead_point(params, opt_state, momentum: float,
     return [p - momentum * s for p, s in zip(params, opt_state["step"])]
 
 
-def make_optimizer(train_config: TrainConfig) -> Callable:
+def make_optimizer(train_config: TrainConfig, comm=None) -> Callable:
     """update(params, opt_state, grads) -> (params, opt_state): one masked
     step of the configured first-order optimizer, ``grads`` a gradient per
     free leaf and None for the others (in the order of ``leaves``).
-    Adadelta refuses a schedule and clipping, as the JAX package does."""
+    Adadelta refuses a schedule and clipping, as the JAX package does.
+    ``comm``: the mesh's, for the global norm of the clipping."""
     if train_config.optimizer == "adadelta":
         if (train_config.lr_schedule is not None
                 or train_config.clip_grad_norm is not None):
@@ -445,7 +456,7 @@ def make_optimizer(train_config: TrainConfig) -> Callable:
                             "AdamState: build the state with "
                             "init_train_state(params, config, train_config)")
         if clip is not None:
-            grads = clip_by_global_norm(grads, clip)
+            grads = clip_by_global_norm(grads, clip, comm)
         rate = lr(opt.count).to(params.Z.dtype) if callable(lr) else lr
         return _adam(params, opt, grads, rate)
 
@@ -461,7 +472,9 @@ def vm_sub_batch(data: Sequence[elbo_mod.TaskData], scales: torch.Tensor,
     """The VM step's batch: the first ceil(fraction * B_t) rows of each
     task (a prefix of a uniform random block, or of iid rows, is a smaller
     one), with the scales re-derived from the mask sums so masked rows
-    stay excluded."""
+    stay excluded.  Under a mesh the step passes the whole batch here, so
+    the prefix and the mask sums are the global ones, as in the JAX
+    package; each rank then takes its part of the prefix."""
     if fraction >= 1.0:
         return tuple(data), scales
     sub = tuple(elbo_mod.TaskData(*(a[:max(1, math.ceil(td.X.shape[0]
@@ -473,11 +486,14 @@ def vm_sub_batch(data: Sequence[elbo_mod.TaskData], scales: torch.Tensor,
     return sub, scales * (full / part).to(scales.dtype)
 
 
-def _gradients(params: SVMOGPParams, free: Sequence[str], loss_fn):
+def _gradients(params: SVMOGPParams, free: Sequence[str], loss_fn,
+               comm=None):
     """(loss value, aux, grads): ``loss_fn(p)`` -> (elbo, aux) at params
     with the ``free`` leaves differentiable; grads holds the gradient of
     -elbo for each free leaf (zero for a theta leaf that is not in the
-    graph) and None for the others, in the order of ``leaves``."""
+    graph) and None for the others, in the order of ``leaves``.  Under
+    ``comm`` each rank's gradient is that of its rows, and one all-reduce
+    of all of them over the data axis makes it the batch's."""
     names = [name for name, _ in leaves(params)]
     tensors = [t.detach().requires_grad_(name in free)
                for name, t in leaves(params)]
@@ -489,11 +505,14 @@ def _gradients(params: SVMOGPParams, free: Sequence[str], loss_fn):
             for i, gi in zip(free_at, torch.autograd.grad(
                     -elbo, [tensors[i] for i in free_at], allow_unused=True)):
                 grads[i] = torch.zeros_like(tensors[i]) if gi is None else gi
+    if comm is not None:
+        comm.data_sum_([g for g in grads if g is not None])
     return elbo.detach(), aux, grads
 
 
 def make_step(config: ModelConfig, train_config: TrainConfig, *,
-              vem: bool = True, use_kernel: bool = True) -> Callable:
+              vem: bool = True, use_kernel: bool = True,
+              comm=None) -> Callable:
     """step(state, data, scales) -> (state, metrics): one step by
     ``state.step`` (counterpart of ``make_svi_step_body``).
 
@@ -502,11 +521,18 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
       ``init_train_state(..., cache_luu=False)``).
     use_kernel: False takes the plain PyTorch versions of the CUDA
       kernels.
+    comm: a ``parallel.collectives.MeshComm``
+      (``parallel.sharding.make_sharded_svi_step``): the state is this
+      rank's part and ``data`` the whole batch, of which each rank takes its
+      rows (and its rows of the VM step's global prefix); the gradients are
+      all-reduced over the data axis, and every decision taken on the
+      device (clipping, the non-finite keep, the natural-gradient backoff)
+      reads global values, so that every rank takes the same one.
     metrics: ``elbo`` (before the update), ``kl``, ``ve`` (T,);
     ``ng_backoff`` (0/1/2, 0 on VM steps) under natgrad_adam; ``skipped``
     (0/1) under ``skip_nonfinite_steps``; all on the device.
     """
-    update = make_optimizer(train_config)
+    update = make_optimizer(train_config, comm)
     use_natgrad = train_config.optimizer == "natgrad_adam"
     if use_natgrad and not config.whiten:
         raise ValueError("natural gradients require the whitened "
@@ -526,7 +552,14 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
         return natgrad_ve_step(p, data, scales, config, tc.natgrad_lr,
                                retraction=tc.natgrad_retraction,
                                trust=tc.natgrad_trust, use_kernel=use_kernel,
-                               **kw)
+                               comm=comm, **kw)
+
+    def rows(data):
+        return data if comm is None else comm.local_rows(data)
+
+    def elbo(p, data, scales, **kw):
+        return elbo_mod.elbo_fn(p, rows(data), scales, config,
+                                use_kernel=use_kernel, comm=comm, **kw)
 
     def step(state: TrainState, data, scales):
         params = state.params
@@ -547,33 +580,30 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
         q_new = None  # (q_mu, q_sqrt, S_inv, ng_backoff) of a natgrad step
         if use_cache and is_ve and use_natgrad:
             with torch.no_grad():
-                new_p, elbo, aux, s_inv = natgrad(
-                    point, data, scales, Luu=state.Luu, iLuu=iLuu,
+                new_p, value, aux, s_inv = natgrad(
+                    point, rows(data), scales, Luu=state.Luu, iLuu=iLuu,
                     S_inv=state.S_inv)
             q_new = (new_p.q_mu, new_p.q_sqrt, s_inv, aux["ng_backoff"])
             grads = [None] * len(leaves(params))
         elif use_cache and is_ve:
-            elbo, aux, grads = _gradients(point, free, lambda p: (
-                elbo_mod.elbo_fn(p, data, scales, config, Luu=state.Luu,
-                                 iLuu=iLuu, use_kernel=use_kernel)))
+            value, aux, grads = _gradients(point, free, lambda p: elbo(
+                p, data, scales, Luu=state.Luu, iLuu=iLuu), comm)
         elif use_cache:
             data_vm, scales_vm = vm_sub_batch(data, scales, frac)
             cache = (dict(Luu=state.Luu, iLuu=state.iLuu, cache_grad=True)
                      if vm_cached else {})
-            elbo, aux, grads = _gradients(point, free, lambda p: (
-                elbo_mod.elbo_fn(p, data_vm, scales_vm, config,
-                                 use_kernel=use_kernel, **cache)))
+            value, aux, grads = _gradients(point, free, lambda p: elbo(
+                p, data_vm, scales_vm, **cache), comm)
         else:
-            elbo, aux, grads = _gradients(point, free, lambda p: (
-                elbo_mod.elbo_fn(p, data, scales, config,
-                                 use_kernel=use_kernel)))
+            value, aux, grads = _gradients(point, free, lambda p: elbo(
+                p, data, scales), comm)
         with torch.no_grad():
             new_params, opt = update(params, state.opt_state, grads)
             S_inv = state.S_inv
             if use_natgrad and not use_cache and (is_ve or not vem):
                 # no cache: natural gradients at the updated hypers, on
                 # the solve path, from a cold S^{-1}
-                new_p, _, ng_aux, _ = natgrad(new_params, data, scales)
+                new_p, _, ng_aux, _ = natgrad(new_params, rows(data), scales)
                 q_new = (new_p.q_mu, new_p.q_sqrt, None,
                          ng_aux["ng_backoff"])
             if q_new is not None:
@@ -583,12 +613,14 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
                     S_inv = q_new[2]
             Luu, iLuu_next = state.Luu, state.iLuu
             if use_cache and not is_ve:  # hypers and Z moved: refresh
+                # (this rank's latents only, under a mesh)
+                view = new_params if comm is None else comm.view(new_params)
                 if state.iLuu is None:
-                    Luu = elbo_mod.prior_cholesky(new_params, config)
+                    Luu = elbo_mod.prior_cholesky(view, config)
                 else:
                     Luu, iLuu_next = elbo_mod.prior_cholesky_inverse(
-                        new_params, config)
-            metrics = {"elbo": elbo, "kl": aux["kl"].detach(),
+                        view, config)
+            metrics = {"elbo": value, "kl": aux["kl"].detach(),
                        "ve": aux["ve"].detach()}
             if use_natgrad:
                 metrics["ng_backoff"] = (
@@ -599,8 +631,8 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
                              S_inv)
             if tc.skip_nonfinite_steps:
                 new, metrics["skipped"] = _keep_if_nonfinite(
-                    state, new, elbo, grads,
-                    None if q_new is None else q_new[:2])
+                    state, new, value, grads,
+                    None if q_new is None else q_new[:2], comm)
         return new, metrics
 
     return step
@@ -637,19 +669,27 @@ def _state_tensors(state) -> list:
     return out
 
 
-def _keep_if_nonfinite(old: TrainState, new: TrainState, elbo, grads, q=None):
+def _keep_if_nonfinite(old: TrainState, new: TrainState, elbo, grads, q=None,
+                       comm=None):
     """``skip_nonfinite_steps``: where the step's ELBO, the global norm of
     its gradients or its natural-gradient q update is not finite, the new
     state keeps the old params, optimizer state and caches (the step count
     still advances, so the VE/VM schedule stays aligned).  Selected on the
-    device, without a synchronisation."""
+    device, without a synchronisation.  Under ``comm`` the ELBO is the
+    global one, the norm the global one (``MeshComm.sq_norm``) and the q
+    update's finiteness is counted over the latent axis, so that every
+    rank keeps or moves alike."""
     ok = torch.isfinite(elbo)
     present = [g for g in grads if g is not None]
     if present:
-        ok = ok & torch.isfinite(torch.sqrt(sum(torch.sum(torch.square(g))
-                                                for g in present)))
-    for t in q or ():
-        ok = ok & torch.isfinite(t).all()
+        sq = (comm.sq_norm(grads) if comm is not None else
+              sum(torch.sum(torch.square(g)) for g in present))
+        ok = ok & torch.isfinite(torch.sqrt(sq))
+    if q:
+        q_ok = torch.stack([torch.isfinite(t).all() for t in q]).all()
+        if comm is not None:
+            q_ok = comm.latent_values((~q_ok).to(elbo.dtype)) == 0
+        ok = ok & q_ok
     kept = _map_state(lambda a, b: torch.where(ok, a, b), new, old)
     return dataclasses.replace(kept, step=new.step), (~ok).to(torch.int32)
 
@@ -658,14 +698,18 @@ def _keep_if_nonfinite(old: TrainState, new: TrainState, elbo, grads, q=None):
 # natural gradients for the whitened q(u)
 # ---------------------------------------------------------------------------
 
-def _ve_terms(params, data, scales, config, means, gammas, kdiags):
+def _ve_terms(params, data, scales, config, means, gammas, kdiags,
+              comm=None):
     """(ve_total, ve_sums (T,)): the scaled variational expectations from
     per-task (Q, N_t) latent moments, with the natural-gradient step's
-    variance floor 1e-12."""
+    variance floor 1e-12; under ``comm``, of this rank's rows, the mixing
+    summed over the latent axis."""
     ve_sums = []
+    moments = elbo_mod._mix_tasks(list(zip(means, gammas, kdiags)), params,
+                                  config, range(len(data)), comm=comm,
+                                  var_floor=1e-12)
     for t, (lik, td) in enumerate(zip(config.likelihoods, data)):
-        m_F, v_F = elbo_mod._mix_task(means[t], gammas[t], kdiags[t], params,
-                                      config, t, var_floor=1e-12)
+        m_F, v_F = moments[t]
         if params.lik_theta is not None and lik.n_theta:
             ve = lik.var_exp(td.Y, m_F, v_F, theta=params.lik_theta[t])
         else:
@@ -684,7 +728,7 @@ def _select(ok, new, old):
 def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
                     lr: float, Luu=None, iLuu=None, S_inv=None,
                     retraction: str = "cholesky", trust: float = 0.3, *,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, comm=None):
     """Fused natural-gradient VE step on the whitened q(u).
 
     Returns (new_params, elbo, aux, S_inv_new): one forward and one
@@ -718,6 +762,10 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
     then skipped.  Both attempts are computed and the result selected on
     the device, so the step reads nothing on the host (except the exact
     retraction under ``config.adaptive_jitter``, whose ``jitchol`` does).
+    Under ``comm`` (a mesh: params, Luu, iLuu and S_inv this rank's
+    latents, data its rows) g_m and g_S, sums over rows, are all-reduced
+    over the data axis, the ELBO and aux are the global ones, and a step is
+    accepted where every latent rank accepts it.
     """
     if not config.whiten:
         raise ValueError("natural gradients require the whitened "
@@ -726,18 +774,19 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
         raise ValueError(f"unknown natgrad retraction {retraction!r}; "
                          "use 'exact' or 'cholesky'")
     params = from_leaves(params, [t.detach() for _, t in leaves(params)])
+    view = params if comm is None else comm.view(params)
     with torch.no_grad():
         Lq, m = torch.tril(params.q_sqrt), params.q_mu
         eye = torch.eye(config.num_inducing, dtype=Lq.dtype, device=Lq.device)
         if Luu is None:
-            Luu = elbo_mod.prior_cholesky(params, config)
+            Luu = elbo_mod.prior_cholesky(view, config)
         if S_inv is None and retraction == "exact":
             S_inv = s_inverse(Lq)
         fuse_rows = config.fuse_task_rows and iLuu is not None
         X_parts = ([torch.cat([td.X for td in data])] if fuse_rows
                    else [td.X for td in data])
         Ps, kds = zip(*(elbo_mod.latent_projection_P(
-            params, config, Luu, X_, iLuu=iLuu, use_kernel=use_kernel)
+            view, config, Luu, X_, iLuu=iLuu, use_kernel=use_kernel)
             for X_ in X_parts))
         mean_parts = [(P @ m[..., None])[..., 0] for P in Ps]
         gamma_parts = [kd + linalg.quad_diag(P, Lq)
@@ -758,7 +807,7 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
     with torch.enable_grad():
         ve_total, ve_sums = _ve_terms(params, data, scales, config,
                                       task_views(means), task_views(gammas),
-                                      task_views(kds))
+                                      task_views(kds), comm)
         grads = torch.autograd.grad(ve_total, means + gammas)
     with torch.no_grad():
         ve_total, ve_sums = ve_total.detach(), ve_sums.detach()
@@ -770,6 +819,13 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
                               + torch.sum(torch.square(m), dim=-1)
                               - config.num_inducing
                               - linalg.logdet_from_chol(Lq)))
+        if comm is not None:
+            # g_m and g_S sum over rows: the data axis completes them
+            comm.data_sum_([g_m_ve, g_S_ve])
+            ve_sums, kl = comm.reduce_metrics(ve_sums, kl)
+            ve_total = ve_sums[0]
+            for v in ve_sums[1:]:
+                ve_total = ve_total + v
         g_m = g_m_ve - m
         g_S_ve_sym = 0.5 * (g_S_ve + g_S_ve.mT)
 
@@ -836,6 +892,9 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
 
         out1, out2 = attempt(lr), attempt(lr * 0.25)
         ok1, ok2 = ok_(out1), ok_(out2)
+        if comm is not None:  # accepted where every latent rank accepts
+            bad = comm.latent_values((~torch.stack([ok1, ok2])).to(m.dtype))
+            ok1, ok2 = bad[0] == 0, bad[1] == 0
         outs = _select(ok1, out1, _select(ok2, out2, kept))
         zero = torch.zeros((), dtype=torch.int32, device=Lq.device)
         nb = torch.where(ok1, zero, torch.where(ok2, zero + 1, zero + 2))
@@ -971,16 +1030,65 @@ def make_gather_sampler(batch_sizes) -> Callable:
     return sample_batch
 
 
+def make_mesh_sampler(comm, task_sizes, batch_sizes,
+                      minibatch: str = "slice") -> Callable:
+    """sample_batch(row, shard) -> tuple[TaskData]: the step's whole batch,
+    on every rank of a mesh whose data ranks each hold a block of every
+    task's rows (``prepare_dataset_on_device(mesh=)``: data rank d rows
+    [d n, (d + 1) n) of the padded task, n the shard's rows).
+
+    ``row``: a device row of the offset stream (each task's block is rows
+    offset + arange(min(B_t, N_t)) mod N_t, ``slice_batch``'s) or of the
+    index stream (``draw_indices``' layout).  Each rank fills the rows it
+    holds into a zero batch and one all-reduce over the data axis sums
+    them: every row is held by one rank and the others add zeros, so the
+    batch is the unsharded one, row for row.  Reads no host value, so it
+    runs inside a captured CUDA graph."""
+    gather = minibatch == "gather"
+    eff = (list(batch_sizes) if gather else
+           [min(b, n) for n, b in zip(task_sizes, batch_sizes)])
+    starts = np.concatenate([[0], np.cumsum(batch_sizes)[:-1]]).tolist()
+    steps = {}
+
+    def rows_of(row, t, device):
+        if gather:
+            return row[starts[t]:starts[t] + batch_sizes[t]]
+        if (t, device) not in steps:
+            steps[t, device] = torch.arange(eff[t], device=device)
+        return torch.remainder(row[t] + steps[t, device], task_sizes[t])
+
+    def sample_batch(row, shard):
+        parts = []
+        for t, td in enumerate(shard):
+            n = td.X.shape[0]
+            local = rows_of(row, t, td.X.device) - comm.data_rank * n
+            held = (local >= 0) & (local < n)
+            idx = torch.clamp(local, 0, n - 1)
+            parts.append([torch.where(held.view(-1, *[1] * (a.ndim - 1)),
+                                      a.index_select(0, idx), 0.0)
+                          for a in td])
+        comm.data_sum_([a for td in parts for a in td])
+        return tuple(elbo_mod.TaskData(*td) for td in parts)
+
+    return sample_batch
+
+
 class _Sampler:
     """One minibatch sampler: what a step reads (a row of a stream on the
     host or the device), how a call's stream is drawn and checked, and how
-    the batch is formed from the prepared dataset."""
+    the batch is formed from the prepared dataset.  Under a mesh
+    (``comm``) the dataset is this rank's shard and a step's batch is
+    assembled over the data axis (``make_mesh_sampler``)."""
 
-    def __init__(self, minibatch: str, task_sizes, batch_sizes):
+    def __init__(self, minibatch: str, task_sizes, batch_sizes, comm=None):
         self.gather = minibatch == "gather"
+        self.minibatch, self.comm = minibatch, comm
         self.task_sizes, self.batch_sizes = task_sizes, batch_sizes
         self.width = sum(batch_sizes) if self.gather else len(task_sizes)
         self.name = "indices" if self.gather else "offsets"
+        # the prepared dataset is the caller's own tensors: the graphs
+        # read a copy, which a later call's dataset is copied into
+        self.copies = self.gather or comm is not None
 
     def draw(self, generator, steps: int) -> torch.Tensor:
         draw = draw_index_stream if self.gather else draw_offset_stream
@@ -1006,7 +1114,16 @@ class _Sampler:
 
     def prepare(self, dataset):
         """The dataset a call samples from: the wraparound-extended one for
-        slices, the dataset itself for the gather."""
+        slices, the dataset itself for the gather and under a mesh."""
+        if self.comm is not None:
+            k = self.comm.k_data
+            if any(td.X.shape[0] * k < n
+                   for td, n in zip(dataset, self.task_sizes)):
+                raise ValueError(
+                    "under a mesh the dataset is this rank's shard "
+                    "(prepare_dataset_on_device(..., mesh=mesh)): k_data "
+                    "times its rows must cover each task")
+            return tuple(dataset)
         if self.gather:
             return tuple(dataset)
         return extend_for_wraparound(dataset, self.batch_sizes,
@@ -1021,6 +1138,9 @@ class _Sampler:
 
     def on_device(self, device) -> Callable:
         """sample(row, prepared) from a device row (the graphed loop)."""
+        if self.comm is not None:
+            return make_mesh_sampler(self.comm, self.task_sizes,
+                                     self.batch_sizes, self.minibatch)
         if self.gather:
             return make_gather_sampler(self.batch_sizes)
         return make_batch_sampler(self.task_sizes, self.batch_sizes, device)
@@ -1093,25 +1213,37 @@ class ScanTrainer:
     into each graph (``cuda_kernels.launch_counts`` keys), and
     ``replays[kind]`` the number of replays so far.  After each call,
     ``ng_backoff`` holds its steps' natural-gradient backoff codes on the
-    device (None unless natgrad_adam) and ``step_kinds`` their kinds.
+    device (None unless natgrad_adam) and ``step_kinds`` their kinds;
+    ``captured`` says whether the call replayed captured graphs (True) or
+    ran the step body eagerly (False: the CPU, or a mesh whose collectives
+    go through the host).
     """
 
     def __init__(self, config: ModelConfig, train_config: TrainConfig,
                  task_sizes, batch_sizes, steps_per_call: int,
-                 vem: bool = True, device=None):
+                 vem: bool = True, device=None, mesh=None):
         if steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, got "
                              f"{steps_per_call}")
+        self.comm = None
+        if mesh is not None:
+            from hetmogp_tpu_torch.parallel import sharding
+
+            self.comm = sharding.mesh_comm(mesh, config)
+            _check_mesh_batches(self.comm, task_sizes, batch_sizes,
+                                train_config)
         if (config.adaptive_jitter and device is not None
-                and torch.device(device).type == "cuda"):
+                and self._graphs_on(torch.device(device))):
             raise ValueError(_ADAPTIVE_IN_GRAPH)
         self.config, self.train_config, self.vem = config, train_config, vem
         self.task_sizes, self.batch_sizes = tuple(task_sizes), tuple(
             batch_sizes)
         self.steps_per_call = steps_per_call
-        self.step_fn = make_step(config, train_config, vem=vem)
+        self.step_fn = make_step(config, train_config, vem=vem,
+                                 comm=self.comm)
         self.sampler = _Sampler(train_config.minibatch, self.task_sizes,
-                                self.batch_sizes)
+                                self.batch_sizes, self.comm)
+        self.captured: Optional[bool] = None
         self.natgrad = train_config.optimizer == "natgrad_adam"
         nve = train_config.ve_steps_per_vm
         self.cycle = nve + 1
@@ -1128,6 +1260,13 @@ class ScanTrainer:
         self.capture_seconds = None
         self.ng_backoff: Optional[torch.Tensor] = None
         self.step_kinds: list = []
+
+    def _graphs_on(self, device: torch.device) -> bool:
+        """Whether steps on ``device`` replay captured graphs: on the card,
+        unless the mesh's collectives go through the host (gloo), which a
+        graph cannot capture."""
+        return device.type == "cuda" and (
+            self.comm is None or "nccl" in str(self.comm.backend))
 
     def kind(self, step: int) -> str:
         if not self.vem:
@@ -1160,7 +1299,7 @@ class ScanTrainer:
     def _bind(self, state: TrainState, dataset) -> None:
         device = state.params.Z.device
         dtype = self.config.torch_dtype
-        if device.type == "cuda" and self.config.adaptive_jitter:
+        if self._graphs_on(device) and self.config.adaptive_jitter:
             raise ValueError(_ADAPTIVE_IN_GRAPH)
         if self.state is None:
             self.state = _clone_state(state)
@@ -1196,7 +1335,7 @@ class ScanTrainer:
         if self.ext is None:
             # the graphs read these buffers: the gather's are a copy, not
             # the caller's dataset, which a later call would overwrite
-            self.ext = (_map_state(torch.clone, ext) if self.sampler.gather
+            self.ext = (_map_state(torch.clone, ext) if self.sampler.copies
                         else ext)
             return
         new, old = ([a for td in e for a in td] for e in (ext, self.ext))
@@ -1221,11 +1360,18 @@ class ScanTrainer:
                 self._body(kind)
         torch.cuda.current_stream(self.device).wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
+        # NCCL's collectives are captured on the side stream; its watchdog
+        # thread keeps querying events meanwhile, which only a thread-local
+        # capture allows
+        mode = {}
+        if self.comm is not None:
+            torch.cuda.synchronize(self.device)
+            mode = dict(capture_error_mode="thread_local")
         for kind in self.kinds:
             before = cuda_kernels.launch_counts()
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, pool=pool, stream=side):
+                with torch.cuda.graph(graph, pool=pool, stream=side, **mode):
                     self._body(kind)
             except Exception as e:
                 raise RuntimeError(f"capturing the {kind.upper()} step into "
@@ -1257,9 +1403,10 @@ class ScanTrainer:
             given = self.sampler.draw(generator, self.steps_per_call)
         stream = self.sampler.check(given)
         self._bind(state, dataset)
-        graphed = self.device.type == "cuda"
+        graphed = self._graphs_on(self.device)
         if graphed and not self.graphs:
             self._capture()
+        self.captured = graphed
         elbos, ngs, kinds = [], [], []
         cap = self.steps_per_call
         for start in range(0, stream.shape[0], cap):
@@ -1285,11 +1432,25 @@ class ScanTrainer:
         return dataclasses.replace(self.state), torch.cat(elbos)
 
 
+def _check_mesh_batches(comm, task_sizes, batch_sizes,
+                        train_config: TrainConfig) -> None:
+    """Under a mesh every data rank takes rows of every task's batch and of
+    the VM step's prefix of it: each must have k_data rows at least."""
+    frac = train_config.vm_batch_fraction
+    for n, b in zip(task_sizes, batch_sizes):
+        rows = b if train_config.minibatch == "gather" else min(b, n)
+        vm = max(1, math.ceil(rows * frac)) if frac < 1.0 else rows
+        if min(rows, vm) < comm.k_data:
+            raise ValueError(
+                f"a batch of {rows} rows (the VM step's {vm}) cannot give "
+                f"each of the {comm.k_data} data ranks a row")
+
+
 def make_scan_trainer(config: ModelConfig, train_config: TrainConfig,
                       task_sizes: Tuple[int, ...],
                       batch_sizes: Tuple[int, ...],
                       steps_per_call: int = 100, vem: bool = True,
-                      device=None) -> ScanTrainer:
+                      device=None, mesh=None) -> ScanTrainer:
     """The JAX package's production loop: run(state, dataset, generator, *,
     offsets=None, indices=None) -> (state, elbos) runs ``steps_per_call``
     steps on minibatches of the device-resident ``dataset`` (one TaskData
@@ -1319,6 +1480,19 @@ def make_scan_trainer(config: ModelConfig, train_config: TrainConfig,
     ``config.adaptive_jitter`` cannot run in a graph: the trainer refuses
     it when made for a CUDA ``device`` (or at its first call on one).
 
+    mesh: a ``parallel.sharding`` mesh (``data_mesh``, ``model_mesh``),
+    which every rank calls the trainer with: the state is this rank's part
+    (``init_train_state(shard_params(...), ..., mesh=mesh)``) and the
+    dataset its shard (``prepare_dataset_on_device(..., mesh=mesh)``).
+    Every rank draws the same stream (the same generator, or the same
+    ``offsets=``/``indices=``), and each step assembles the whole batch
+    with one all-reduce over the data axis (``make_mesh_sampler``) before
+    each rank takes its rows (``parallel.sharding.make_sharded_svi_step``).
+    On the card with an NCCL mesh the collectives are captured in the
+    graphs; with a gloo mesh, whose collectives go through the host, the
+    same step bodies run eagerly (``captured`` is then False); a capture
+    that fails raises.  The ELBOs are the global ones on every rank.
+
     The update is in place: the trainer keeps the state in its own static
     buffers (the graphs read and write them), copies a state passed in into
     them unless it is already the one it returned, and returns a state
@@ -1326,7 +1500,7 @@ def make_scan_trainer(config: ModelConfig, train_config: TrainConfig,
     caller's first state is left as it was.
     """
     return ScanTrainer(config, train_config, task_sizes, batch_sizes,
-                       steps_per_call, vem=vem, device=device)
+                       steps_per_call, vem=vem, device=device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1339,36 +1513,53 @@ def make_scan_trainer(config: ModelConfig, train_config: TrainConfig,
 DATASET_MEMORY_FRACTION = 0.6
 
 
-def check_dataset_fits_hbm(dataset, device="cuda") -> None:
+def check_dataset_fits_hbm(dataset, device="cuda", mesh=None) -> None:
     """Raise a ValueError if the dataset would take more than
     ``DATASET_MEMORY_FRACTION`` of ``device``'s memory (from
     ``torch.cuda.mem_get_info``).  Returns at once for a CPU device: host
-    memory is not the envelope guarded here."""
+    memory is not the envelope guarded here.  With a mesh the dataset is
+    the whole one and each rank holds 1/k_data of it."""
     device = torch.device(device)
     if device.type != "cuda":
         return
     _, total = torch.cuda.mem_get_info(device)
     nbytes = sum(a.numel() * a.element_size() for td in dataset for a in td)
+    if mesh is not None:
+        names = tuple(mesh.mesh_dim_names)
+        nbytes /= mesh.shape[names.index("data")]
     budget = DATASET_MEMORY_FRACTION * total
     if nbytes > budget:
         raise ValueError(
-            f"the on-device dataset is {nbytes / 2**30:.2f} GiB, more than "
+            f"the on-device dataset is {nbytes / 2**30:.2f} GiB a rank, "
+            "more than "
             f"{DATASET_MEMORY_FRACTION:.0%} of the {total / 2**30:.0f} GiB "
             f"of {device}: stream minibatches from the host with "
-            "svi_fit and a MinibatchStream, or raise "
+            "svi_fit and a MinibatchStream, shard the rows over more ranks "
+            "(a mesh with a larger 'data' axis), or raise "
             "train.DATASET_MEMORY_FRACTION if the envelope is wrong")
 
 
 def prepare_dataset_on_device(config: ModelConfig, X_list, Y_list,
-                              device="cuda") -> Tuple[elbo_mod.TaskData, ...]:
+                              device="cuda",
+                              mesh=None) -> Tuple[elbo_mod.TaskData, ...]:
     """The full dataset (``data.full_batch``), checked against the card's
     memory and placed on ``device`` once, for reuse across
-    ``svi_fit_on_device`` calls."""
+    ``svi_fit_on_device`` calls.  With a mesh each task is padded (mask 0)
+    to a multiple of the data size and this rank keeps its block of the
+    rows (``parallel.sharding.shard_batch``); the task sizes stay the real
+    counts, so the samplers never draw a padding row."""
+    k = 1
+    if mesh is not None:
+        k = mesh.shape[tuple(mesh.mesh_dim_names).index("data")]
     dataset, _ = full_batch(X_list, Y_list, dtype=config.torch_dtype,
-                            device="cpu")
-    check_dataset_fits_hbm(dataset, device)
-    return tuple(elbo_mod.TaskData(*(a.to(device) for a in td))
-                 for td in dataset)
+                            pad_multiple=k, device="cpu")
+    check_dataset_fits_hbm(dataset, device, mesh=mesh)
+    if mesh is not None:
+        from hetmogp_tpu_torch.parallel import sharding
+
+        dataset = sharding.shard_batch(mesh, dataset)
+    return tuple(elbo_mod.TaskData(*(a.to(device, copy=mesh is not None)
+                                     for a in td)) for td in dataset)
 
 
 def _warn_if_frozen(ng_codes: torch.Tensor, what: str) -> bool:
@@ -1412,13 +1603,20 @@ STEP_CHECKPOINT = "checkpoint.npz"
 
 
 def _save_step(ckpt_dir, done: int, state: TrainState,
-               generator: torch.Generator) -> None:
+               generator: torch.Generator, mesh=None, config=None) -> None:
     """``{ckpt_dir}/step_{done}/checkpoint.npz``: params, optimizer state,
     step and the generator's state, written into a sibling directory and
-    renamed into place, so a crash leaves no partial ``step_`` entry."""
+    renamed into place, so a crash leaves no partial ``step_`` entry.
+    With a mesh, ``step_{done}`` is a sharded checkpoint
+    (``checkpoint.save_checkpoint_sharded``), which swaps itself in."""
     from hetmogp_tpu_torch import checkpoint
 
     final = Path(ckpt_dir) / f"step_{done}"
+    if mesh is not None:
+        checkpoint.save_checkpoint_sharded(
+            final, state.params, opt_state=state.opt_state, step=state.step,
+            generator=generator, mesh=mesh, config=config)
+        return
     tmp = final.with_name(final.name + ".tmp")
     shutil.rmtree(tmp, ignore_errors=True)
     checkpoint.save_checkpoint(tmp / STEP_CHECKPOINT, state.params,
@@ -1451,6 +1649,15 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
     early_stop_tol: stop at chunk granularity once the chunk-mean ELBO has
       failed to beat its best by more than this for
       ``early_stop_patience`` chunks in a row.
+    mesh: a ``parallel.sharding`` mesh (``data_mesh``, ``model_mesh``);
+      every rank calls with the same arguments (the full params, the whole
+      X_list and Y_list, the same generator).  Each rank keeps its shard of
+      the dataset and of the state (``make_scan_trainer(mesh=)``), the
+      chunk means the early stop compares are rank 0's on every rank, the
+      checkpoints are sharded (``checkpoint.save_checkpoint_sharded``:
+      ``step_{n}/`` holds one npz a latent rank and a meta file; a resume
+      restores each rank's shard), and the returned params are the full
+      params on every rank.
     checkpoint_dir: periodic checkpoints at chunk boundaries, every
       ``checkpoint_every`` steps (rounded up to ``steps_per_call``; one a
       chunk by default), after the remainder chunk, and on an early stop,
@@ -1465,17 +1672,17 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
       restored state is copied into the trainer's buffers and the
       generator's state restores the minibatch stream, which is drawn step
       by step whatever the chunking.  The JAX package writes Orbax
-      directories here; the sharded, Orbax-compatible checkpoints come with
-      the parallelism slice.
+      directories here; the port writes npz files (Orbax imports JAX).
     Steps past the last whole chunk run as a shorter call of the same
     graphs.  The caller's params are not modified.  Under natgrad_adam it
     warns once when every natural-gradient step of a call skipped its
-    update.  A device mesh (``mesh``) is the parallelism slice's.
+    update.
     """
+    comm = None
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: parallelism is not ported yet (ROADMAP.md section 1, "
-            "item 14)")
+        from hetmogp_tpu_torch.parallel import sharding
+
+        comm = sharding.mesh_comm(mesh, config)
     if isinstance(batch_sizes, int):
         batch_sizes = (batch_sizes,) * len(X_list)
     batch_sizes = tuple(batch_sizes)
@@ -1501,17 +1708,27 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
             from hetmogp_tpu_torch import checkpoint
 
             done, path = _latest_step_checkpoint(checkpoint_dir)
-            params, opt, step, extra = checkpoint.load_checkpoint(
-                path / STEP_CHECKPOINT, params,
-                init_optimizer_state(params, train_config))
+            opt0 = init_optimizer_state(params, train_config)
+            if mesh is not None:  # each rank reads its shard
+                params, opt, step, extra = checkpoint.load_checkpoint_sharded(
+                    path, params, opt0, mesh=mesh)
+            else:
+                params, opt, step, extra = checkpoint.load_checkpoint(
+                    path / STEP_CHECKPOINT, params, opt0)
             restored = (opt, step)
             if "generator_state" in extra:
                 generator.set_state(extra["generator_state"])
+        elif mesh is not None:
+            params = sharding.shard_params(mesh, params)
+    elif mesh is not None:
+        params = sharding.shard_params(mesh, params)
     if dataset is None:
-        dataset = prepare_dataset_on_device(config, X_list, Y_list, device)
+        dataset = prepare_dataset_on_device(config, X_list, Y_list, device,
+                                            mesh=mesh)
     run = make_scan_trainer(config, train_config, task_sizes, batch_sizes,
-                            steps_per_call, vem=vem, device=device)
-    state = init_train_state(params, config, train_config, cache_luu=vem)
+                            steps_per_call, vem=vem, device=device, mesh=mesh)
+    state = init_train_state(params, config, train_config, cache_luu=vem,
+                             mesh=mesh)
     if restored is not None:
         state = dataclasses.replace(state, opt_state=restored[0],
                                     step=restored[1])
@@ -1535,11 +1752,13 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
         every = checkpoint_every or steps_per_call
         if done < num_steps and done // every == prev_done // every:
             return
-        _save_step(checkpoint_dir, done, state, generator)
+        _save_step(checkpoint_dir, done, state, generator, mesh, config)
         last_saved = done
-        if keep_last > 0:
+        if keep_last > 0 and (comm is None or comm.rank == 0):
             for _, p in _step_checkpoints(checkpoint_dir)[:-keep_last]:
                 shutil.rmtree(p)
+        if comm is not None:
+            comm.barrier()
 
     chunks = []
     best_mean, stale, stopped = -np.inf, 0, False
@@ -1550,6 +1769,9 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
         maybe_save(done - steps_per_call)
         if early_stop_tol is not None:
             m = float(chunks[-1].mean())
+            if comm is not None:  # every rank decides on rank 0's mean
+                m = float(comm.broadcast(torch.tensor(
+                    [m], dtype=torch.float64, device=device))[0])
             if m > best_mean + early_stop_tol:
                 best_mean, stale = m, 0
             else:
@@ -1565,6 +1787,8 @@ def svi_fit_on_device(params: SVMOGPParams, config: ModelConfig,
         prev, done = done, num_steps
         maybe_save(prev)
     history = np.concatenate(chunks) if chunks else np.zeros((0,))
+    if comm is not None:
+        return comm.gather_params(state.params), history
     return state.params, history
 
 

@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from hetmogp_tpu_torch.examples import (counts, demo, large_scale,
-                                        optimizers, production_training,
-                                        spatial, survival)
+                                        model_parallel, optimizers,
+                                        production_training, spatial,
+                                        survival)
 
 torch.set_num_threads(1)
 
@@ -75,3 +76,11 @@ def test_spatial_synthetic_and_tables(tmp_path):
              X1=rng.rand(20, 2), Y1=rng.randint(1, 4, 20) * 1.0)
     assert np.isfinite(spatial.main(["--device", "cpu", "--steps", "10",
                                      "--data", str(tmp_path / "t.npz")]))
+
+
+def test_model_parallel_four_gloo_ranks():
+    hist = model_parallel.main(["--spawn", "4", "--device", "cpu", "--steps",
+                                "30", "--n", "1200", "--m", "16", "--batch",
+                                "32"])
+    assert hist.shape == (60,) and np.isfinite(hist).all()
+    assert hist[-10:].mean() > hist[:10].mean()

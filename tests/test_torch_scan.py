@@ -291,13 +291,13 @@ def test_svi_fit_on_device_early_stop_and_refusals(tmp_path):
     *_, (_, hist2) = _fit(30, steps_per_call=5, early_stop_tol=-1e12,
                           early_stop_patience=3)
     assert hist2.shape == (30,)
-    # checkpoints are ported: what is refused is a fresh run into a
-    # directory that holds a run's checkpoints already
+    # checkpoints and meshes are ported: what is refused is a fresh run
+    # into a directory that holds a run's checkpoints already, and a mesh
+    # that is not a DeviceMesh
     (tmp_path / "step_5").mkdir()
     for kw, err, match in ((dict(checkpoint_dir=tmp_path), ValueError,
                             "already contains checkpoints"),
-                           (dict(mesh=object()), NotImplementedError,
-                            "item 14"),
+                           (dict(mesh=object()), TypeError, "DeviceMesh"),
                            (dict(early_stop_tol=1.0, early_stop_patience=0),
                             ValueError, "patience")):
         with pytest.raises(err, match=match):

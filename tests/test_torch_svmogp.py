@@ -243,5 +243,4 @@ def test_plots_smoke():
 def test_all_resolves_and_covers_the_jax_package():
     for name in tp.__all__:
         assert getattr(tp, name) is not None, name
-    sharded = {"save_checkpoint_sharded", "load_checkpoint_sharded"}
-    assert set(jhet.__all__) - set(tp.__all__) == sharded
+    assert set(jhet.__all__) <= set(tp.__all__)
