@@ -24,6 +24,16 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    float64 (of the split and of the unsplit operands, next to a 1-pass bf16
    product) on the same cases, and times both in turns with kernel A,
    cuBLAS and the plain version at the same three shapes;
+3b. checks kernel 4 (A tril(L) in float32, the mirror of kernel A, with
+   quad_diag's square and row sum fused: three epilogues) and kernel 5
+   (A tril(L) in three bf16 passes, the mirror of kernel 3), the TMA-fed
+   designs and the generic ones, against float64 next to cuBLAS and their
+   plain versions, two launches of each epilogue bitwise equal, at the
+   VE, VM, serving and adjoint (4, 1024, 1024) shapes, a ragged one and
+   the model's (Kfu, iLuu); times them in turns with cuBLAS (and its
+   square and row sum for quad_diag), kernel 3 and the plain versions,
+   with bounds; and prints the "high" cached adjoints' errors (Lbar,
+   Kbar) against float64 beside the JAX package's own;
 4. checks the RBF backward (its autograd.Function) against autograd
    through the plain RBF;
 5. trains the flagship model of ``bench.py`` at full width (six
@@ -53,9 +63,10 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    ``negative_log_predictive`` with 1,000 samples on 6 x 4,096 rows, each
    against float64 and the plain route, with the launches counted from
    zero around it;
-8. serves the same model at 777 inducing points, which only the staged
-   and scalar kernels take, at both precisions, against the plain
-   versions;
+8. serves the same model at 777 inducing points, which only the staged,
+   scalar and generic kernels take, at both precisions, against the
+   plain versions, and differentiates its VM-step loss at "high" (kernel
+   5's generic route);
 9. trains the other ten likelihood families at the flagship's width
    (``families_phase``: Gaussian, Beta, Binomial, Dirichlet, LogNormal,
    Ordinal, NegativeBinomial, StudentT, Weibull, ZeroInflatedPoisson, one
@@ -105,12 +116,12 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
       the unsharded ``make_scan_trainer``, and steps/s of both in turns
       over calls of 1,000 steps.
 
-They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 5b, 9, 10, 11, 12.  The serving pass is
-the process's first profiled call: as its sixth, after the trainers', the
-profiler lost one of its twelve requests' records (and a prediction is
-then the first to ask for each quadrature grid, as in a process that
-serves before it trains).  Phases 2 and 3 take the model's (Kfu, iLuu)
-from 5a.
+They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 3b, 5b, 9, 10, 11, 12.
+The serving pass is the process's first profiled call: as its sixth,
+after the trainers', the profiler lost one of its twelve requests'
+records (and a prediction is then the first to ask for each quadrature
+grid, as in a process that serves before it trains).  Phases 2, 3 and 3b take the model's (Kfu,
+Luu, iLuu) from 5a.
 
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
@@ -651,6 +662,300 @@ def projection3_phase(smi: str, Kfu: torch.Tensor,
                  library_ms=None)]
 
 
+# Kernel 4's row sums of squares against the float64 row sums: r = sum_k
+# out_k^2 moves by about twice out's relative error, which holds
+# PROJ_VS_CUBLAS times cuBLAS's (above); a lost tile or a wrong mask is
+# off by a share of order one.
+QUAD_VS_CUBLAS = 2.0 * PROJ_VS_CUBLAS
+# The "high" cached adjoints against float64 on the card, normwise: twice
+# what the JAX package measured on its chip at Precision.HIGH
+# (hetmogp_tpu/ops/linalg.py:182-186): Lbar ~5e-3, Kbar ~3e-5.
+JAX_HIGH_LBAR, JAX_HIGH_KBAR = 5e-3, 3e-5
+# the products' shapes: the VE step's quad_diag(P, Lq), the VM step's, a
+# serving chunk's, and the adjoints' (M, M) products
+RIGHT_SHAPES = {**PROJ_SHAPES, "adjoint (4, 1024, 1024)": (Q, M, M)}
+RAGGED_RIGHT = (3, 1000, RAGGED_M)
+
+
+def right_bound(A, L, passes: int, peak: float, epilogue="product"):
+    """Bound of A tril(L): A and L read once, out (or the row sums)
+    written once; ``passes`` products of the Q N M (M + 1) triangular
+    FLOPs."""
+    q, n, m = A.shape
+    out = A.numel() if epilogue == "product" else q * n
+    return bound_ms(4 * (A.numel() + L.numel() + out),
+                    passes * q * n * m * (m + 1), peak)
+
+
+def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
+                         iLuu: torch.Tensor) -> list:
+    """Kernel 4 (A tril(L) in float32, with quad_diag's row sum fused) and
+    kernel 5 (the same product in three bf16 passes), both routes each:
+    every epilogue against its plain version and float64, two launches
+    bitwise equal, times in turns with cuBLAS and the plain versions at
+    the VE, VM, serving and adjoint shapes; then the "high" cached
+    adjoints' errors against float64, beside the JAX package's."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+    from hetmogp_tpu_torch.ops import linalg
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = {name: random_projection_case(gen, *shape)
+             for name, shape in RIGHT_SHAPES.items()}
+    cases["ragged (3, 1000, 777)"] = random_projection_case(gen,
+                                                            *RAGGED_RIGHT)
+    cases["training Kfu, iLuu of the model"] = (Kfu, iLuu)
+    errs = {}
+    for name, (A, L) in cases.items():
+        Lt = torch.tril(L)
+        cub = A @ Lt
+        ref = A.double() @ Lt.double()
+        ref_r = torch.sum(torch.square(ref), dim=-1)
+        ec = normwise(cub, ref)
+        ahi, alo = (t.double() for t in ck.split_bf16(A))
+        lhi, llo = (t.double() for t in ck.split_bf16(Lt))
+        ref_split = (alo @ lhi + ahi @ llo) + ahi @ lhi
+        del ahi, alo, lhi, llo
+        plain3 = ck.matmul_tril_3pass_plain(A, L)
+        one = A.to(torch.bfloat16).float() @ Lt.to(torch.bfloat16).float()
+        e_p, f_1 = normwise(plain3, ref_split), normwise(one, ref)
+        del one
+        routes = (("tma", "generic") if ck.tril_route(A.shape[-1], True)
+                  == "tma" else ("generic",))
+        for route in routes:
+            k4 = getattr(ck, f"tril_right_{route}")
+            k5 = getattr(ck, f"tril_right3_{route}")
+            out, again = k4(A, L), k4(A, L)
+            both, r = k4(A, L, "both")
+            rs, rs_again = k4(A, L, "rowsum"), k4(A, L, "rowsum")
+            ek, er = normwise(out, ref), normwise(rs, ref_r)
+            same = (torch.equal(out, again) and torch.equal(rs, rs_again)
+                    and torch.equal(both, out) and torch.equal(r, rs))
+            errs["k4", name, route] = float((out - cub).abs().max())
+            print(f"kernel 4 ({route}), {name}: normwise error vs f64 "
+                  f"{ek:.3e}, cuBLAS {ec:.3e} (bound {PROJ_VS_CUBLAS:g}x "
+                  f"cuBLAS); row sums of squares vs f64 {er:.3e} (bound "
+                  f"{QUAD_VS_CUBLAS:g}x cuBLAS); max abs difference from "
+                  f"cuBLAS {errs['k4', name, route]:.3e}, bitwise equal to "
+                  f"cuBLAS {torch.equal(out, cub)}; two launches of each "
+                  f"epilogue bitwise equal, and \"both\" bitwise the other "
+                  f"two: {same} [card: {smi}]")
+            if not (ek <= PROJ_VS_CUBLAS * ec and er <= QUAD_VS_CUBLAS * ec
+                    and same):
+                raise AssertionError(f"kernel 4 ({route}) out of bounds or "
+                                     f"not deterministic: {name}")
+            del out, again, both, r, rs, rs_again
+            got, again = k5(A, L), k5(A, L)
+            e_k, f_k = normwise(got, ref_split), normwise(got, ref)
+            errs["k5", name, route] = float((got - plain3).abs().max())
+            print(f"kernel 5 ({route}), {name}: normwise error vs f64 of "
+                  f"the split operands {e_k:.3e}, plain version {e_p:.3e} "
+                  f"(bound {PROJ3_VS_PLAIN:g}x plain); vs f64 of the "
+                  f"unsplit operands {f_k:.3e}, 1-pass bf16 {f_1:.3e} "
+                  f"(bound {PROJ3_VS_ONE_PASS:g}x 1-pass); max abs "
+                  f"difference from plain {errs['k5', name, route]:.3e}; "
+                  f"two launches bitwise equal {torch.equal(got, again)} "
+                  f"[card: {smi}]")
+            if not (e_k <= PROJ3_VS_PLAIN * e_p
+                    and f_k <= PROJ3_VS_ONE_PASS * f_1
+                    and torch.equal(got, again)):
+                raise AssertionError(f"kernel 5 ({route}) out of bounds or "
+                                     f"not deterministic: {name}")
+            del got, again
+        del cub, ref, ref_r, ref_split, plain3
+    del cases
+    torch.cuda.empty_cache()
+
+    times = {}
+    for name, shape in RIGHT_SHAPES.items():
+        A, L = random_projection_case(gen, *shape)
+        Lt = torch.tril(L)
+        t, n = time_in_turns({
+            "plain": ck.matmul_tril_plain,
+            "kernel 4 (tma)": ck.tril_right_tma,
+            "kernel 4 (generic)": ck.tril_right_generic,
+            "cuBLAS": lambda a, _: a @ Lt}, A, L)
+        tq, _ = time_in_turns({
+            "plain": ck.quad_diag_plain,
+            "kernel 4 (tma, rowsum)": lambda a, l: ck.tril_right_tma(
+                a, l, "rowsum"),
+            "kernel 4 (tma, both)": lambda a, l: ck.tril_right_tma(a, l,
+                                                                   "both"),
+            "kernel 4 (generic, rowsum)": lambda a, l: ck.tril_right_generic(
+                a, l, "rowsum"),
+            "cuBLAS, square, sum": lambda a, _: torch.sum(
+                torch.square(a @ Lt), dim=-1)}, A, L)
+        t3, _ = time_in_turns({
+            "plain": ck.matmul_tril_3pass_plain,
+            "kernel 5 (tma)": ck.tril_right3_tma,
+            "kernel 5 (generic)": ck.tril_right3_generic,
+            "kernel 3 (tma)": ck.tril_projection_3pass_tma}, A, L)
+        bounds = {"product": right_bound(A, L, 1, F32_PEAK),
+                  "rowsum": right_bound(A, L, 1, F32_PEAK, "rowsum"),
+                  "3pass": right_bound(A, L, 3, BF16_PEAK)}
+        times[name] = t, tq, t3, bounds
+        q, n_, m = A.shape
+        flop = q * n_ * m * (m + 1)
+        b, k = bounds["product"], t["kernel 4 (tma)"]
+        rate = flop / k / 1e9
+        print(f"kernel 4 time, {name}: A tril(L) {k:.4f} ms ({rate:.2f} "
+              f"TFLOP/s, {b[0] / k * 100:.1f}% of the bound), generic "
+              f"route {t['kernel 4 (generic)']:.4f} ms, cuBLAS "
+              f"{t['cuBLAS']:.4f} ms, plain version {t['plain']:.4f} ms; "
+              f"bound {b[0]:.4f} ms ({b[1]}, float32 at {F32_PEAK / 1e12:g} "
+              f"TFLOP/s); median of {n} calls each [card: {smi}]")
+        b, k = bounds["rowsum"], tq["kernel 4 (tma, rowsum)"]
+        print(f"quad_diag time, {name}: kernel 4 row sums alone {k:.4f} ms "
+              f"({b[0] / k * 100:.1f}% of the bound), with the product "
+              f"stored {tq['kernel 4 (tma, both)']:.4f} ms, generic route "
+              f"{tq['kernel 4 (generic, rowsum)']:.4f} ms, cuBLAS then "
+              f"square and sum {tq['cuBLAS, square, sum']:.4f} ms, plain "
+              f"version {tq['plain']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) "
+              f"[card: {smi}]")
+        b, k = bounds["3pass"], t3["kernel 5 (tma)"]
+        print(f"kernel 5 time, {name}: {k:.4f} ms ({b[0] / k * 100:.1f}% of "
+              f"the bound), generic route {t3['kernel 5 (generic)']:.4f} "
+              f"ms, kernel 3 (the mirror) {t3['kernel 3 (tma)']:.4f} ms, "
+              f"plain version {t3['plain']:.4f} ms; bound {b[0]:.4f} ms "
+              f"({b[1]}, bf16); no PyTorch call computes the 3-pass product"
+              f" [card: {smi}]")
+        del A, L, Lt
+
+    # the "high" adjoints against float64 on the card: the flagship's own
+    # (Luu, iLuu) and the VM step's Kfu rows, standard normal cotangents
+    rows = 6 * TRAIN_B // 4
+    gL = torch.tril(torch.randn(Luu.shape, generator=gen, device="cuda"))
+    gP = torch.randn((Q, rows, M), generator=gen, device="cuda")
+
+    def adjoints(dtype, precision, use_kernel):
+        c = lambda t: t.detach().to(dtype)  # noqa: E731
+        k = c(Luu @ Luu.mT).requires_grad_()
+        (kbar,) = torch.autograd.grad(linalg.chol_cached(
+            k, c(Luu), c(iLuu), precision=precision, use_kernel=use_kernel),
+            k, c(gL))
+        lv, kv = c(Luu).requires_grad_(), c(Kfu[:, :rows]).requires_grad_()
+        lbar, kfubar = torch.autograd.grad(linalg.solve_tri_cached(
+            lv, kv, c(iLuu), precision=precision, use_kernel=use_kernel),
+            (lv, kv), c(gP))
+        return {"Lbar": lbar, "Kbar": kbar, "Kfubar": kfubar}
+
+    ref = adjoints(torch.float64, "highest", False)
+    adj = {}
+    for prec in ("highest", "high"):
+        ck.zero_launch_counts()
+        got = adjoints(torch.float32, prec, True)
+        launched = {k: v for k, v in ck.launch_counts().items() if v}
+        adj[prec] = {k: normwise(v, ref[k]) for k, v in got.items()}
+        print(f"cached adjoints at \"{prec}\" (chol_cached at (4, 1024, "
+              f"1024), solve_tri_cached on the VM step's {rows} rows) vs "
+              f"float64 on the card, normwise: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in adj[prec].items())
+              + f"; launches {launched} [card: {smi}]")
+        want = "tril_right3_tma" if prec == "high" else "tril_right_tma"
+        if launched.get(want, 0) != 4:
+            raise AssertionError(f"the \"{prec}\" adjoints did not run their "
+                                 f"four products on {want}: {launched}")
+    print(f"the \"high\" adjoints beside the JAX package's own measurement "
+          f"at Precision.HIGH: Lbar {adj['high']['Lbar']:.3e} (JAX "
+          f"~{JAX_HIGH_LBAR:g}, bound {2 * JAX_HIGH_LBAR:g}), Kbar "
+          f"{adj['high']['Kbar']:.3e} (JAX ~{JAX_HIGH_KBAR:g}, bound "
+          f"{2 * JAX_HIGH_KBAR:g}) [card: {smi}]")
+    if not (adj["high"]["Lbar"] <= 2 * JAX_HIGH_LBAR
+            and adj["high"]["Kbar"] <= 2 * JAX_HIGH_KBAR):
+        raise AssertionError("the \"high\" adjoints exceed twice the JAX "
+                             "package's error")
+    del ref, gL, gP
+
+    t, tq, t3, bounds = times["training (4, 3072, 1024)"]
+    model = "training Kfu, iLuu of the model"
+    ragged = "ragged (3, 1000, 777)"
+    return [
+        dict(proj_entry("tril_right_tma", "tril_right_kernel.cu",
+                        "hetmogp_tpu/ops/linalg.py:561",
+                        errs["k4", model, "tma"], t, "kernel 4 (tma)",
+                        "plain", bounds["product"]), library_ms=t["cuBLAS"]),
+        dict(proj_entry("tril_right_generic", "tril_right_kernel.cu",
+                        "hetmogp_tpu/ops/linalg.py:561",
+                        errs["k4", ragged, "generic"], t,
+                        "kernel 4 (generic)", "plain", bounds["product"]),
+             library_ms=t["cuBLAS"]),
+        dict(proj_entry("tril_right3_tma", "tril_proj3_kernel.cu",
+                        "hetmogp_tpu/ops/linalg.py:189",
+                        errs["k5", model, "tma"], t3, "kernel 5 (tma)",
+                        "plain", bounds["3pass"]), library_ms=None),
+        dict(proj_entry("tril_right3_generic", "tril_proj3_kernel.cu",
+                        "hetmogp_tpu/ops/linalg.py:189",
+                        errs["k5", ragged, "generic"], t3,
+                        "kernel 5 (generic)", "plain", bounds["3pass"]),
+             library_ms=None)]
+
+
+# The ragged VM step's hyper gradients (ragged_adjoint_phase) against
+# float64, normwise: at most this multiple of the plain route's error.
+# Both multiply the same 3-pass split of the same operands; the VM step's
+# hyper gradients cancel large terms (the adjoints through iLuu against
+# Kfu's), so both sit near 2e-2 of float64 (3-pass) where "highest" sits
+# near 1e-3; a lost or doubled term would move them by orders more.
+RAGGED_GRAD_VS_PLAIN = 4.0
+
+
+def ragged_adjoint_phase(smi: str) -> dict:
+    """Kernel 5's generic route on its own path: the VM step's loss of the
+    serving model at RAGGED_M inducing points and "high" (``elbo_fn`` with
+    the cached inverse and ``cache_grad``), differentiated in its hypers,
+    with the counts from 0, against the plain versions and float64.
+    Returns the launch counts."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch.models import elbo as telbo
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+
+    cfg, params, X = serving_model(m=RAGGED_M)
+    rng = np.random.RandomState(SEED + 16)
+    n = 6 * TRAIN_B // 4 // cfg.num_tasks  # the VM step's rows a task
+    Y = [rng.randn(n, 1), (rng.rand(n, 1) > 0.5).astype(float),
+         rng.randint(1, 4, (n, 1)).astype(float),
+         rng.poisson(3.0, (n, 1)).astype(float),
+         rng.gamma(2.0, 1.0, (n, 1)) + 1e-3,
+         rng.exponential(1.0, (n, 1)) + 1e-3]
+    X_list = [X[t * n:(t + 1) * n].cpu().numpy()
+              for t in range(cfg.num_tasks)]
+
+    def grads(dtype, use_kernel):
+        c = dataclasses.replace(cfg, ve_fwd_precision="high", dtype=dtype)
+        p = params.to(dtype=c.torch_dtype)
+        data = tp.make_dataset(X_list, Y, c)
+        scales = torch.full((c.num_tasks,), 100.0, dtype=c.torch_dtype,
+                            device="cuda")
+        with torch.no_grad():
+            Luu, iLuu = telbo.prior_cholesky_inverse(p, c)
+        hypers = dataclasses.replace(
+            p, Z=p.Z.clone().requires_grad_(),
+            log_lengthscale=p.log_lengthscale.clone().requires_grad_())
+        ck.zero_launch_counts()
+        elbo, _ = telbo.elbo_fn(hypers, data, scales, c, Luu=Luu,
+                                iLuu=iLuu, cache_grad=True,
+                                use_kernel=use_kernel)
+        out = torch.autograd.grad(elbo, (hypers.Z, hypers.log_lengthscale))
+        torch.cuda.synchronize()
+        return out, ck.launch_counts()
+
+    got, counts = grads("float32", True)
+    plain, _ = grads("float32", False)
+    ref, _ = grads("float64", False)
+    e_k = max(normwise(a, b) for a, b in zip(got, ref))
+    e_p = max(normwise(a, b) for a, b in zip(plain, ref))
+    print(f"ragged VM step (M={RAGGED_M}, \"high\", {cfg.num_tasks} x {n} "
+          f"rows): launches { {k: v for k, v in counts.items() if v} }; "
+          f"hyper gradients (Z, log lengthscale) vs float64 {e_k:.3e} "
+          f"normwise, the plain route {e_p:.3e} (bound "
+          f"{RAGGED_GRAD_VS_PLAIN:g}x plain) [card: {smi}]")
+    if not (counts["tril_right3_generic"] == 4 and counts["tril_right3_tma"]
+            == 0 and counts["tril_right_generic"] == 1
+            and e_k <= RAGGED_GRAD_VS_PLAIN * e_p):
+        raise AssertionError("the ragged VM step did not run kernel 5's "
+                             "generic route, or disagrees")
+    return counts
+
+
 def rbf_backward_phase(smi: str):
     """RBFCrossCovariance's gradient against autograd through the plain
     RBF at the training shape, in float32 and float64."""
@@ -728,13 +1033,16 @@ def training_model(device="cuda", precision="highest", **config):
 
 
 def _counts():
-    """(kernel A launches, RBF launches, RBF backward passes)."""
+    """(kernel A launches, RBF launches, RBF backward passes, kernel 4 and
+    5 launches)."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
     c = ck.launch_counts()
     return (c["tril_projection_tma"] + c["tril_projection_staged"],
             c["rbf_K_batched_vec"] + c["rbf_K_batched_scalar"],
-            c["rbf_backward"])
+            c["rbf_backward"],
+            sum(c[k] for k in ("tril_right_tma", "tril_right_generic",
+                               "tril_right3_tma", "tril_right3_generic")))
 
 
 def _zero_counts():
@@ -745,7 +1053,7 @@ def _zero_counts():
 
 def training_phase(smi: str):
     """The host-loop trainer at "highest": parity, launches, steps/s, ELBO,
-    profile.  Returns (Kfu, iLuu) of the model after ten steps."""
+    profile.  Returns (Kfu, Luu, iLuu) of the model after ten steps."""
     import hetmogp_tpu_torch as tp
     from hetmogp_tpu_torch import train as ttrain
 
@@ -776,12 +1084,16 @@ def training_phase(smi: str):
                 state, ttrain.slice_batch(data, off, sizes, batches), scales)
             out.append(metrics["elbo"])
             if use_kernel:
-                tril, rbf, bwd = (a - b for a, b in zip(_counts(), before))
+                tril, rbf, bwd, right = (a - b for a, b in zip(_counts(),
+                                                               before))
                 vm = i % cycle == tc.ve_steps_per_vm
                 print(f"  step {i} ({'VM' if vm else 'VE'}): projection "
                       f"kernel launches {tril}, rbf kernel launches {rbf}, "
-                      f"rbf backward passes {bwd} [card: {smi}]")
-                if tril < 1 or rbf < 1 or (vm and bwd < 1):
+                      f"rbf backward passes {bwd}, kernel 4 launches {right}"
+                      f" [card: {smi}]")
+                # quad_diag a step; the VM step's four adjoint products
+                if (tril < 1 or rbf < 1 or (vm and bwd < 1)
+                        or right != (5 if vm else 1)):
                     raise AssertionError(f"step {i} did not run the kernels")
         elbos[name] = torch.stack(out).double().cpu()
         if name == "kernels":
@@ -813,7 +1125,7 @@ def training_phase(smi: str):
         Kfu = kernels.K_batched("rbf", torch.cat([td.X for td in batch]),
                                 p.Z, p.lengthscale, p.variance,
                                 use_kernel=False)
-        iLuu = trained.iLuu
+        Luu, iLuu = trained.Luu, trained.iLuu
 
     # the host loop: one call with the counts from 0, then timed calls
     run = tp.make_trainer(cfg, tc, sizes, batches,
@@ -829,10 +1141,10 @@ def training_phase(smi: str):
     n_vm = HOST_CALL_STEPS // cycle
     print(f"host-loop call of {HOST_CALL_STEPS} steps (warm-up, {warm:.3f} "
           f"s): projection kernel launches {counts[0]}, rbf kernel launches "
-          f"{counts[1]}, rbf backward passes {counts[2]} ({n_vm} VM steps)"
-          f" [card: {smi}]")
+          f"{counts[1]}, rbf backward passes {counts[2]}, kernel 4 launches "
+          f"{counts[3]} ({n_vm} VM steps) [card: {smi}]")
     if (counts[0] < HOST_CALL_STEPS or counts[1] < HOST_CALL_STEPS
-            or counts[2] < n_vm):
+            or counts[2] < n_vm or counts[3] != HOST_CALL_STEPS + 4 * n_vm):
         raise AssertionError("the trainer did not go through the kernels")
 
     calls = [first]
@@ -855,7 +1167,7 @@ def training_phase(smi: str):
 
     profile(lambda: run(state, dataset, gen), "host-loop trainer, "
             f"{HOST_CALL_STEPS} steps", smi)
-    return Kfu, iLuu
+    return Kfu, Luu, iLuu
 
 
 def report_rates(what: str, rates, steps: int, smi: str) -> float:
@@ -875,9 +1187,15 @@ def profile(call, what: str, smi: str) -> dict:
     the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from hetmogp_tpu_torch.ops import cuda_kernels
+
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
+        # the trace starts with an empty kernel: without one, the first
+        # graph replay of a call can go unrecorded
+        cuda_kernels.empty_launch()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -1026,14 +1344,23 @@ def trajectory_ab_phase(smi: str):
         raise AssertionError("high and highest trajectories disagree")
 
 
-# kernel symbol -> launcher name: what a graphed call's profile must show
-_SYMBOLS = {"rbf_cross_vec_kernel": "rbf_K_batched_vec",
-            "rbf_cross_kernel": "rbf_K_batched_scalar",
-            "tril_proj_tma_kernel": "tril_projection_tma",
-            "tril_proj_kernel": "tril_projection_staged",
-            "tril_proj3_tma_kernel": "tril_projection_3pass_tma",
-            "tril_split_bf16_kernel": "tril_projection_3pass_tma",
-            "tril_proj3_kernel": "tril_projection_3pass_staged"}
+# kernel symbol -> the launchers whose launches run it: what a graphed
+# call's profile must show.  Kernels 3 and 5 are the two instantiations of
+# one template, and both launch the split pre-pass.  (Kernel 4's row-sum
+# launch follows its "both" and "rowsum" epilogues only: no launcher count
+# holds it.)
+_SYMBOLS = {"rbf_cross_vec_kernel": ("rbf_K_batched_vec",),
+            "rbf_cross_kernel": ("rbf_K_batched_scalar",),
+            "tril_proj_tma_kernel": ("tril_projection_tma",),
+            "tril_proj_kernel": ("tril_projection_staged",),
+            "tril_proj3_tma_kernel": ("tril_projection_3pass_tma",
+                                      "tril_right3_tma"),
+            "tril_split_bf16_kernel": ("tril_projection_3pass_tma",
+                                       "tril_right3_tma"),
+            "tril_proj3_kernel": ("tril_projection_3pass_staged",),
+            "tril_right_tma_kernel": ("tril_right_tma",),
+            "tril_right_generic_kernel": ("tril_right_generic",),
+            "tril_right3_generic_kernel": ("tril_right3_generic",)}
 
 
 def own_kernel_rows(rows: dict) -> dict:
@@ -1082,15 +1409,24 @@ def graphed_trainer_phase(smi: str, precision: str,
           f"{run.replays}; kernel launches by the replays {replayed} "
           f"[card: {smi}]")
     n_vm = run.replays["vm"]
+    high = precision == "high"
+    # a step: the RBF kernel, the projection (kernel 3 at "high" in the VE
+    # step, kernel A in the VM step's solve_tri_cached and at "highest"),
+    # quad_diag (kernel 4, "both"); the VM step adds kernel A for
+    # quad_diag's gA and its four adjoint products (kernel 5 at "high",
+    # kernel 4 at "highest")
     want = {"rbf_K_batched_vec": GRAPH_CALL_STEPS, "rbf_backward": n_vm,
             "rbf_K_batched_scalar": 0,
-            "tril_projection_tma": (n_vm if precision == "high"
-                                    else GRAPH_CALL_STEPS),
+            "tril_projection_tma": (2 * n_vm if high
+                                    else GRAPH_CALL_STEPS + n_vm),
             "tril_projection_3pass_tma": (GRAPH_CALL_STEPS - n_vm
-                                          if precision == "high" else 0),
-            # M = 1024 is aligned: the staged and scalar kernels never run
-            # here
-            "tril_projection_staged": 0, "tril_projection_3pass_staged": 0}
+                                          if high else 0),
+            "tril_right_tma": GRAPH_CALL_STEPS + (0 if high else 4 * n_vm),
+            "tril_right3_tma": 4 * n_vm if high else 0,
+            # M = 1024 is aligned: the staged, scalar and generic kernels
+            # never run here
+            "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
+            "tril_right_generic": 0, "tril_right3_generic": 0}
     if replayed != want or any(counts[k] < 1 for k in want if want[k]):
         raise AssertionError(f"the graphs did not run the kernels: {replayed}"
                              f" replayed, {want} expected")
@@ -1136,9 +1472,8 @@ def profile_replays(run, call, what: str, smi: str) -> None:
         return
     steps = {k: run.replays[k] - before[k] for k in run.replays}
     for sym, (ms, seen) in own_kernel_rows(rows).items():
-        launcher = _SYMBOLS[sym]
         per_graph = sum(run.capture_launches[kind][launcher] * steps[kind]
-                        for kind in steps)
+                        for kind in steps for launcher in _SYMBOLS[sym])
         print(f"  {sym}: {seen} calls in the profile, {per_graph} "
               f"expected from the replays; device time {ms:.3f} ms"
               f"{f', {ms / seen:.4f} ms a call' if seen else ''} "
@@ -1176,7 +1511,10 @@ def normwise(a, b) -> float:
                  / b.double().abs().max().clamp_min(1e-30))
 
 
-def serving_phase(smi: str, device="cuda", m=M, q=Q):
+def serving_phase(smi: str, device="cuda", m=M, q=Q) -> dict:
+    """The bench serving model at full width: launches, moments against
+    plain f32 and f64, rows/s and a profile.  Returns the launches of one
+    serving pass."""
     import hetmogp_tpu_torch as tp
     from hetmogp_tpu_torch.ops import cuda_kernels
 
@@ -1191,13 +1529,16 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q):
     _zero_counts()
     out = serve_all()
     torch.cuda.synchronize()
-    tril, launches, _ = _counts()
+    tril, launches, _, _ = _counts()
+    per_pass = cuda_kernels.launch_counts()
     rows = cfg.num_tasks * X.shape[0]
     print(f"serving pass: {rows} rows, {len(out)} chunk requests, "
           f"rbf kernel launches {launches}, projection kernel launches "
-          f"{tril}; launches per serving pass by launcher "
-          f"{cuda_kernels.launch_counts()} [card: {smi}]")
-    if launches < len(out) or tril < len(out):
+          f"{tril}; launches per serving pass by launcher {per_pass} "
+          f"[card: {smi}]")
+    # quad_diag under inference_mode: kernel 4's row sums alone, a request
+    if (launches < len(out) or tril < len(out)
+            or per_pass["tril_right_tma"] != len(out)):
         raise AssertionError("the serving pass did not go through the "
                              "kernels")
     for i, (mean, var) in enumerate(out):
@@ -1248,6 +1589,7 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q):
         if calls:
             print(f"  {sym}: {calls} calls in the serving pass, device time "
                   f"{ms:.3f} ms, {ms / calls:.4f} ms a call [card: {smi}]")
+    return per_pass
 
 
 # The prediction entries at full width, each against the same call in
@@ -1424,7 +1766,8 @@ def prediction_phase(smi: str):
 def ragged_serving_phase(smi: str) -> dict:
     """The staged kernels' own path: the serving model at RAGGED_M inducing
     points, which TMA cannot address (tril_route sends them to the staged
-    kernels), at "highest" (kernel A) and "high" (kernel 3): an
+    kernels, and quad_diag to kernel 4's generic one), at "highest"
+    (kernel A) and "high" (kernel 3): an
     ACC_ROWS-row chunk of each task with the counts from 0, checked
     against the same path with the plain versions.  Returns the launch
     counts of both passes together."""
@@ -1456,8 +1799,11 @@ def ragged_serving_phase(smi: str) -> dict:
               f"error of the moments vs plain f32 {worst:.3e} (bound "
               f"{bound:g}) [card: {smi}]")
         tma = (counts["tril_projection_tma"]
-               + counts["tril_projection_3pass_tma"])
+               + counts["tril_projection_3pass_tma"]
+               + counts["tril_right_tma"])
+        # quad_diag: kernel 4's generic route, a request
         if (counts[staged] < c.num_tasks or tma or not worst <= bound
+                or counts["tril_right_generic"] != c.num_tasks
                 or counts["rbf_K_batched_scalar"] < c.num_tasks
                 or counts["rbf_K_batched_vec"]):
             raise AssertionError(f"ragged serving at {prec!r} did not go "
@@ -1603,10 +1949,14 @@ def families_phase(smi: str, device="cuda") -> dict:
           f"{run.capture_launches}; per 5-step cycle: rbf "
           f"{cycle['rbf_K_batched_vec']}, kernel 3 "
           f"{cycle['tril_projection_3pass_tma']}, kernel A "
-          f"{cycle['tril_projection_tma']} [card: {smi}]")
+          f"{cycle['tril_projection_tma']}, kernel 4 "
+          f"{cycle['tril_right_tma']}, kernel 5 {cycle['tril_right3_tma']}"
+          f" [card: {smi}]")
     want = {"rbf_K_batched_vec": 5, "tril_projection_3pass_tma": 4,
-            "tril_projection_tma": 1, "rbf_K_batched_scalar": 0,
-            "tril_projection_staged": 0, "tril_projection_3pass_staged": 0}
+            "tril_projection_tma": 2, "tril_right_tma": 5,
+            "tril_right3_tma": 4, "rbf_K_batched_scalar": 0,
+            "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
+            "tril_right_generic": 0, "tril_right3_generic": 0}
     if ({k: cycle[k] for k in want} != want
             or any(counts[k] < 1 for k in want if want[k])):
         raise AssertionError(f"the ten-family graphs did not run the "
@@ -1719,7 +2069,8 @@ def families_phase(smi: str, device="cuda") -> dict:
     print(f"ten-family serving pass: {T} x {CHUNK} rows; launches {served}"
           f" [card: {smi}]")
     if (served.get("rbf_K_batched_vec", 0) < T
-            or served.get("tril_projection_tma", 0) < T):
+            or served.get("tril_projection_tma", 0) < T
+            or served.get("tril_right_tma", 0) != T):
         raise AssertionError("ten-family serving did not run the kernels")
     for t, (lik, (mean, var)) in enumerate(zip(serve_cfg.likelihoods, out)):
         name = type(lik).__name__
@@ -2043,7 +2394,7 @@ def optimizers_phase(smi: str, device="cuda") -> dict:
     print(f"natgrad trainer launches counted from 0 around the \"cholesky\" "
           f"trainer's calls: {counts} [card: {smi}]")
     want = ("rbf_K_batched_vec", "rbf_backward", "tril_projection_3pass_tma",
-            "tril_projection_tma")
+            "tril_projection_tma", "tril_right_tma", "tril_right3_tma")
     if profiled and any(counts[k] < 1 for k in want):
         raise AssertionError(f"the natgrad trainer did not run the kernels: "
                              f"{counts}")
@@ -2312,7 +2663,8 @@ def _lifecycle(smi: str, root: str) -> dict:
     if not (bitwise and own.get("hetmogp::rbf_K_batched", 0) >= 1
             and own.get("hetmogp::tril_projection_3pass", 0)
             + own.get("hetmogp::tril_projection", 0) >= 1
-            and n_export == n_eager and any(n_export.values())):
+            and own.get("hetmogp::quad_diag", 0) >= 1
+            and n_export == n_eager and n_export["tril_right_tma"] >= 1):
         raise AssertionError("the exported serving path is not the eager one")
     rates = _serving_rates({"eager": eager,
                             "exported": lambda X: served(*args, X)},
@@ -2352,7 +2704,8 @@ def _lifecycle(smi: str, root: str) -> dict:
     print(f"lifecycle phase: {time.perf_counter() - t_phase:.3f} s; "
           f"launches counted from 0 at its start {counts} [card: {smi}]")
     for k in ("rbf_K_batched_vec", "tril_projection_tma",
-              "tril_projection_3pass_tma", "rbf_backward"):
+              "tril_projection_3pass_tma", "rbf_backward", "tril_right_tma",
+              "tril_right3_tma"):
         if counts[k] < 1:
             raise AssertionError(f"the lifecycle path did not run {k}")
     return counts
@@ -2368,7 +2721,9 @@ def launch_shapes():
     seen, originals = {}, {}
     for helper, shape in (("_rbf_launch", lambda w, e, X, Z, *a, **k:
                            (Z.shape[0], X.shape[0], Z.shape[1])),
-                          ("_launch", lambda w, e, A, *a: tuple(A.shape))):
+                          ("_launch", lambda w, e, A, *a: tuple(A.shape)),
+                          ("_right_launch", lambda w, e, A, *a, **k:
+                           tuple(A.shape))):
         originals[helper] = getattr(ck, helper)
 
         def record(wrapper, *a, _f=originals[helper], _s=shape, **k):
@@ -2411,7 +2766,8 @@ def rank_phase(smi: str) -> None:
         rates.append(RANK_STEPS / (time.perf_counter() - t0))
     report_rates("rank 2 graphed trainer (\"high\")", rates, RANK_STEPS,
                  smi)
-    if not ({"rbf_K_batched_vec", "tril_projection_3pass_tma"} <= set(seen)
+    if not ({"rbf_K_batched_vec", "tril_projection_3pass_tma",
+             "tril_right_tma", "tril_right3_tma"} <= set(seen)
             and all(b == {Q * 2} for b in seen.values())):
         raise AssertionError(f"rank 2 did not run the kernels at batch 8: "
                              f"{seen}")
@@ -2638,14 +2994,20 @@ def parallel_gloo_phase(smi: str) -> None:
     first_vm = tc.ve_steps_per_vm + 1
     n_vm = sum(1 for i in range(PAR_STEPS) if i % first_vm == tc.ve_steps_per_vm)
     want_counts = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
-                   "tril_projection_tma": n_vm,
+                   "tril_projection_tma": 2 * n_vm,
                    "tril_projection_3pass_tma": PAR_STEPS - n_vm,
+                   "tril_right_tma": PAR_STEPS, "tril_right3_tma": 4 * n_vm,
                    "rbf_K_batched_scalar": 0, "tril_projection_staged": 0,
-                   "tril_projection_3pass_staged": 0}
+                   "tril_projection_3pass_staged": 0,
+                   "tril_right_generic": 0, "tril_right3_generic": 0}
     rows = 6 * TRAIN_B // 2  # a data rank's rows of the VE batch
     want_shapes = {"rbf_K_batched_vec": {(2, rows, M), (2, rows // 4, M)},
                    "tril_projection_3pass_tma": {(2, rows, M)},
-                   "tril_projection_tma": {(2, rows // 4, M)}}
+                   "tril_projection_tma": {(2, rows // 4, M)},
+                   # quad_diag in both steps; the adjoints' (M, M) products
+                   # and the VM step's Kfubar
+                   "tril_right_tma": {(2, rows, M), (2, rows // 4, M)},
+                   "tril_right3_tma": {(2, M, M), (2, rows // 4, M)}}
     bad = []
     for r, out in enumerate(outs):
         rel = np.abs(out["elbos"] - eager) / np.abs(eager)
@@ -2690,9 +3052,11 @@ def parallel_gloo_phase(smi: str) -> None:
               and out["serve_finite"]
               and out["serve_counts"]["rbf_K_batched_vec"] == 6
               and out["serve_counts"]["tril_projection_3pass_tma"] == 6
+              and out["serve_counts"]["tril_right_tma"] == 6
               and out["serve_shapes"] == {
                   k: {(2, PAR_SERVE_ROWS // 2, M)}
-                  for k in ("rbf_K_batched_vec", "tril_projection_3pass_tma")}
+                  for k in ("rbf_K_batched_vec", "tril_projection_3pass_tma",
+                            "tril_right_tma")}
               and out["serve_collectives"] == [("data", "all_gather"),
                                                ("latent", "all_reduce")])
         if not ok:
@@ -2756,8 +3120,9 @@ def parallel_nccl_phase(smi: str) -> None:
               f"[card: {smi}]")
         n_vm = meshed.replays["vm"]
         want = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
-                "tril_projection_tma": n_vm,
-                "tril_projection_3pass_tma": PAR_STEPS - n_vm}
+                "tril_projection_tma": 2 * n_vm,
+                "tril_projection_3pass_tma": PAR_STEPS - n_vm,
+                "tril_right_tma": PAR_STEPS, "tril_right3_tma": 4 * n_vm}
         if not (meshed.captured and bitwise
                 and all(replayed[k] == v for k, v in want.items())
                 and captured_colls.get("data.all_reduce", 0) > 0):
@@ -2801,13 +3166,16 @@ def main():
     rbf_backward_phase(smi)
     # the serving and prediction paths before the trainers (see the module
     # docstring)
-    serving_phase(smi)
+    served = serving_phase(smi)
     prediction_phase(smi)
     ragged = ragged_serving_phase(smi)
-    Kfu, iLuu = training_phase(smi)
+    for k, v in ragged_adjoint_phase(smi).items():
+        ragged[k] += v
+    Kfu, Luu, iLuu = training_phase(smi)
     proj = projection_phase(smi, Kfu, iLuu)
     proj3 = projection3_phase(smi, Kfu, iLuu)
-    del Kfu, iLuu
+    right = right_products_phase(smi, Kfu, Luu, iLuu)
+    del Kfu, Luu, iLuu
     graphed_parity_phase(smi)
     trajectory_ab_phase(smi)
     # in turns, "highest", "high", "high", "highest", each a fresh trainer:
@@ -2816,17 +3184,24 @@ def main():
     # the last "high" is the main path, the flagship as bench.py runs it
     graphed_trainer_phase(smi, "highest", timed_calls=3)
     graphed_trainer_phase(smi, "high", timed_calls=3)
-    counts, _, _ = graphed_trainer_phase(smi, "high")
+    counts, replayed, _ = graphed_trainer_phase(smi, "high")
     graphed_trainer_phase(smi, "highest", timed_calls=3)
+    mine = ("tril_right_tma", "tril_right3_tma")
+    print(f"kernels 4 and 5 on the main path: launches per 5-step cycle "
+          f"{ {k: replayed[k] * 5 // GRAPH_CALL_STEPS for k in mine} } (the "
+          f"graphed flagship at \"high\"), per serving pass "
+          f"{ {k: served[k] for k in mine} } ({6 * N_CHUNKS} requests)"
+          f" [card: {smi}]")
     families_phase(smi)
     optimizers_phase(smi)
     lifecycle_phase(smi)
     parallel_phase(smi)
     # launches: the main path's for the vector RBF kernel and the TMA
-    # routes; the staged and scalar routes never run at M = 1024, so theirs
-    # are from the ragged serving path, their own
-    kernels = [*rbf, *proj, *proj3]
-    own_path = ("_staged", "_scalar")
+    # routes; the staged, scalar and generic routes never run at M = 1024,
+    # so theirs are from the ragged serving path and the ragged VM step,
+    # their own
+    kernels = [*rbf, *proj, *proj3, *right]
+    own_path = ("_staged", "_scalar", "_generic")
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (ragged if name.endswith(own_path)

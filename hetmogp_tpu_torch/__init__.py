@@ -16,20 +16,22 @@ observation-space predictive, NLPD, the cached-inverse serving entry);
 and export the predictive paths with ``torch.export`` (``export.py``).
 The sixteen likelihood families of the JAX package with their trainable
 likelihood parameters (theta), coregionalization rank R >= 1 and the
-float64 factorization island (``chol_dtype``) are all here.  Three
-kernels are written by hand for the H100 and registered as custom
-operators (``hetmogp::``), so that exported programs keep them: the RBF
-cross-covariance (``csrc/rbf_kernel.cu``) and the triangular projection
-P = Kfu iLuu^T, in float32 (``csrc/tril_proj_kernel.cu``) and in three
-bf16 tensor-core passes for ``ve_fwd_precision="high"``
-(``csrc/tril_proj3_kernel.cu``).  Trained parameters cross from the JAX
+float64 factorization island (``chol_dtype``) are all here, and so are
+the meshes of data and latent ranks (``parallel/``).  Five kernels are
+written by hand for the H100 and registered as custom operators
+(``hetmogp::``), so that exported programs keep them: the RBF
+cross-covariance (``csrc/rbf_kernel.cu``), the triangular projection
+P = Kfu iLuu^T in float32 (``csrc/tril_proj_kernel.cu``) and in three bf16
+tensor-core passes for ``ve_fwd_precision="high"``
+(``csrc/tril_proj3_kernel.cu``), and the right product A tril(L) with
+``quad_diag``'s row sums fused (``csrc/tril_right_kernel.cu``) and in
+three bf16 passes for the VM step's adjoints at ``"high"`` (in
+``csrc/tril_proj3_kernel.cu``).  Trained parameters cross from the JAX
 package with ``params_from_jax`` or a checkpoint, and configs with
 ``ModelConfig.from_dict``.  Entry points put their tensors on the card
 unless the caller passes ``device="cpu"``.  Importing the package needs
 neither CUDA nor the JAX package; the kernels are built when a CUDA tensor
-first reaches one.  Still to come with the parallelism slice: the
-mesh-sharded trainer and predictive, and ``save_checkpoint_sharded`` /
-``load_checkpoint_sharded``.
+first reaches one.
 """
 
 from hetmogp_tpu_torch.checkpoint import (load_checkpoint,

@@ -1,9 +1,14 @@
-// Shared machinery of the two TMA-fed triangular projections, Hopper
-// (sm_90a): tril_proj_kernel.cu (kernel A, float32 FFMA) and
-// tril_proj3_kernel.cu (kernel 3, three bf16 wgmma passes).
+// Shared machinery of the TMA-fed triangular products, Hopper (sm_90a):
+// tril_proj_kernel.cu (kernel A, float32 FFMA), tril_proj3_kernel.cu
+// (kernel 3, three bf16 wgmma passes, and kernel 5, its mirror) and
+// tril_right_kernel.cu (kernel 4, kernel A's mirror).
 //
-// Both compute out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] over a
-// (Q, N, M) x (Q, M, M) batch, and both take the same shape of pipeline:
+// Kernels A and 3 compute out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m]
+// over a (Q, N, M) x (Q, M, M) batch, kernels 4 and 5 the mirror
+// out[q, n, k] = sum_{m >= k} A[q, n, m] L[q, m, k], whose column tile
+// [k0, k0 + BN) reduces from m = k0 to M (they walk the tiles below with
+// ct -> C - 1 - ct, so the heaviest still come first and a pair is still
+// C + 1 blocks long).  All take the same shape of pipeline:
 //
 //   * one producer thread (lane 0 of the last warp of the block) issues TMA
 //     loads (cp.async.bulk.tensor) of A's and L's tiles into a ring of
@@ -25,7 +30,8 @@
 //
 // Tiles land 128-byte swizzled: a row of 128 bytes holds eight 16-byte
 // chunks, and chunk c of row r sits at chunk c ^ (r % 8).  Consumers read
-// with the same XOR; wgmma's descriptors name the layout.
+// with the same XOR; wgmma's descriptors name the layout.  (Kernel 4's L
+// tile is the exception: its 512-byte rows land as they are stored.)
 //
 // The tensor maps are encoded on the host for every launch (they are
 // kernel parameters, __grid_constant__, so a captured graph keeps them by
@@ -193,13 +199,15 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D tiled, 128-byte-swizzled map of a (d2, d1, d0) array (d0
-// innermost, rows `row_bytes` apart, planes `plane_bytes` apart) with boxes
-// of (1, box1, box0).  Returns 0, or a negative CUresult.
+// A 3-D tiled map of a (d2, d1, d0) array (d0 innermost, rows `row_bytes`
+// apart, planes `plane_bytes` apart) with boxes of (1, box1, box0),
+// 128-byte swizzled unless told otherwise (an unswizzled box may have rows
+// longer than 128 bytes).  Returns 0, or a negative CUresult.
 inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type,
                      const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
                      uint64_t row_bytes, uint64_t plane_bytes, uint32_t box0,
-                     uint32_t box1) {
+                     uint32_t box1,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {d0, d1, d2};
@@ -207,8 +215,7 @@ inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides,
-                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r;

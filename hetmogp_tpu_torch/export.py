@@ -14,7 +14,8 @@ signature, so a serving process runs it without the model code:
     m1, v1, m2, v2, ... = fn(*params_args(params), *X_list)
 
 The hand kernels are custom operators (``hetmogp::rbf_K_batched``,
-``hetmogp::tril_projection``, ``hetmogp::tril_projection_3pass``), and an
+``hetmogp::tril_projection``, ``hetmogp::tril_projection_3pass``,
+``hetmogp::quad_diag`` and the others of ``ops/cuda_kernels.py``), and an
 exported graph holds them as nodes: on CUDA tensors the loaded program
 launches the same kernels as the eager path.  Loading therefore needs
 ``import hetmogp_tpu_torch`` first, which registers them, but no training

@@ -61,19 +61,23 @@ def _jittered_gram(params: SVMOGPParams, config: ModelConfig) -> torch.Tensor:
 
 
 def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
-                   cached=None) -> torch.Tensor:
+                   cached=None, *, use_kernel: bool = True) -> torch.Tensor:
     """Luu: (Q, M, M) lower Cholesky factors of Kuu_q + jitter I.
 
     cached: optional (Luu, iLuu) valid for the current hypers (the VM
     step): the forward reuses the factor, and the backward runs the
-    Cholesky pullback as matmuls against the cached inverse.
+    Cholesky pullback as triangular products against the cached inverse,
+    at the config's ``ve_fwd_precision`` (``linalg.chol_cached``;
+    ``use_kernel=False`` takes their plain versions).
     ``config.chol_dtype="float64"`` on a float32 model factorizes in
     float64 (``linalg.chol_mixed``) at the fixed jitter.  Otherwise
     ``config.adaptive_jitter`` escalates the jitter where the factorization
     fails (``linalg.jitchol``, which reads ``info`` on the host).
     """
     if cached is not None:
-        return linalg.chol_cached(_jittered_gram(params, config), *cached)
+        return linalg.chol_cached(_jittered_gram(params, config), *cached,
+                                  precision=config.ve_fwd_precision,
+                                  use_kernel=use_kernel)
     if _float64_island(params, config):
         return linalg.chol_mixed(_jittered_gram(params, config))
     if config.adaptive_jitter:
@@ -133,7 +137,8 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
     Whitened: P = (Luu^{-1} Kuf)^T.  Un-whitened: A = Kfu Kuu^{-1}.
     ``iLuu=None`` is the solve path: P by a triangular solve against Luu
     and A by a second, transposed one.  With ``iLuu`` (the cached inverse)
-    P = Kfu @ iLuu^T and A = P @ iLuu are matmuls and Luu is not read,
+    P = Kfu @ iLuu^T and A = P @ iLuu are triangular products (A on kernel
+    4, at "highest" as the JAX package forms it) and Luu is not read,
     unless ``cache_grad`` takes P through ``linalg.solve_tri_cached``, so
     that gradients reach Luu (and, by ``chol_cached``, the hypers) as well
     as Kfu.
@@ -156,22 +161,24 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
             raise ValueError("cache_grad=True needs the cached inverse iLuu")
         P = linalg.solve_tri(Luu, Kfu.mT).mT
     elif cache_grad:
-        P = linalg.solve_tri_cached(Luu, Kfu, iLuu, use_kernel=use_kernel)
+        P = linalg.solve_tri_cached(Luu, Kfu, iLuu,
+                                    precision=config.ve_fwd_precision,
+                                    use_kernel=use_kernel)
     else:
         P = linalg.matmul_tril_t(Kfu, iLuu,
                                  precision=config.ve_fwd_precision,
                                  use_kernel=use_kernel)
     if config.whiten:
         mean_q = (P @ m_u[..., None])[..., 0]
-        gamma_q = (kdiag + linalg.quad_diag(P, Lq)
+        gamma_q = (kdiag + linalg.quad_diag(P, Lq, use_kernel=use_kernel)
                    - torch.sum(torch.square(P), dim=-1))
     else:
         if iLuu is None:
             A = linalg.solve_tri(Luu, P.mT, trans=True).mT
         else:
-            A = linalg.matmul_tril(P, iLuu)
+            A = linalg.matmul_tril(P, iLuu, use_kernel=use_kernel)
         mean_q = (A @ m_u[..., None])[..., 0]
-        gamma_q = (kdiag + linalg.quad_diag(A, Lq)
+        gamma_q = (kdiag + linalg.quad_diag(A, Lq, use_kernel=use_kernel)
                    - torch.sum(A * Kfu, dim=-1))
     return mean_q, gamma_q, kdiag
 
@@ -353,7 +360,8 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
             raise ValueError("cache_grad=True needs both Luu and iLuu")
         if not config.whiten:
             raise ValueError("cache_grad fast path requires config.whiten")
-        Luu = prior_cholesky(params, config, cached=(Luu, iLuu))
+        Luu = prior_cholesky(params, config, cached=(Luu, iLuu),
+                             use_kernel=use_kernel)
     elif Luu is None:
         Luu = prior_cholesky(params, config)
     if config.fuse_task_rows and iLuu is not None:

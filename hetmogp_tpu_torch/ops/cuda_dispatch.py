@@ -13,11 +13,19 @@ same for every kernel:
 * ``use_kernel=False`` takes the plain PyTorch version on any device,
   outside the operators (what the kernels are checked against).
 
-The triangular projection has two kernels, chosen by ``precision`` (the
-config's ``ve_fwd_precision``): ``"highest"`` is the float32 kernel,
-``"high"`` the 3-pass bf16 tensor-core kernel.  ``"high"`` on float64
-takes the full-precision route: the 3-pass split is a float32 scheme, and
-the JAX package's ``Precision.HIGH`` is a no-op in float64 as well.
+The triangular products have two kernels each, chosen by ``precision``:
+the projection A tril(L)^T (``matmul_tril_t``, at the config's
+``ve_fwd_precision``) is kernel A in float32 at ``"highest"`` and kernel 3
+in three bf16 tensor-core passes at ``"high"``; the right product
+A tril(L) (``matmul_tril``, and ``tril_t_matmul`` through it) is kernel 4
+in float32 and kernel 5 in three bf16 passes (the VM step's cached
+adjoints at ``"high"``).  ``quad_diag`` is kernel 4 with its row sum of
+squares fused: the row sums alone when no input needs a gradient (the
+product never reaches memory), the product and the row sums otherwise,
+in an ``autograd.Function`` whose backward is kernel A and a dense
+matmul.  ``"high"`` on float64 takes the full-precision route: the 3-pass
+split is a float32 scheme, and the JAX package's ``Precision.HIGH`` is a
+no-op in float64 as well.
 """
 
 from __future__ import annotations
@@ -58,16 +66,43 @@ def rbf_K_batched(X, Z, lengthscale, variance, *, use_kernel: bool = True):
 PRECISIONS = ("highest", "high")
 
 
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+
+
 def matmul_tril_t(A, L, *, precision: str = "highest",
                   use_kernel: bool = True):
     from hetmogp_tpu_torch.ops import cuda_kernels
 
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                         f"{precision!r}")
+    _check_precision(precision)
     use_tril_kernel(A, use_kernel)  # a CUDA tensor of another dtype raises
     if precision == "high" and A.dtype == torch.float32:
         return cuda_kernels.TrilProjection3Pass.apply(A, L, use_kernel)
     if use_kernel:
         return cuda_kernels.TrilProjection.apply(A, L)
     return cuda_kernels.tril_projection_plain(A, L)
+
+
+def matmul_tril(A, L, *, precision: str = "highest", use_kernel: bool = True):
+    from hetmogp_tpu_torch.ops import cuda_kernels
+
+    _check_precision(precision)
+    use_tril_kernel(A, use_kernel)  # a CUDA tensor of another dtype raises
+    if precision == "high" and A.dtype == torch.float32:
+        return cuda_kernels.MatmulTril3Pass.apply(A, L, use_kernel)
+    if use_kernel:
+        return cuda_kernels.MatmulTril.apply(A, L)
+    return cuda_kernels.matmul_tril_plain(A, L)
+
+
+def quad_diag(A, L, *, use_kernel: bool = True):
+    from hetmogp_tpu_torch.ops import cuda_kernels
+
+    use_tril_kernel(A, use_kernel)  # a CUDA tensor of another dtype raises
+    if not use_kernel:
+        return cuda_kernels.quad_diag_plain(A, L)
+    if torch.is_grad_enabled() and (A.requires_grad or L.requires_grad):
+        return cuda_kernels.QuadDiag.apply(A, L)
+    return torch.ops.hetmogp.quad_diag(A, L)

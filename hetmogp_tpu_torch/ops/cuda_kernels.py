@@ -1,15 +1,20 @@
 """Hand-written CUDA kernels, their plain PyTorch versions and gradients.
 
-Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py`` and of the two Pallas
-projections of ``tools/probe_pallas_proj.py``.  The kernels are
-``csrc/rbf_kernel.cu`` (the RBF cross-covariance, in two designs chosen by
-shape, ``rbf_route``: float4 stores from blocks that walk rows, and the
-scalar one of the first port), ``csrc/tril_proj_kernel.cu`` (kernel A: the
-triangular projection A tril(L)^T in float32) and
-``csrc/tril_proj3_kernel.cu`` (kernel 3: the same projection as three bf16
-tensor-core passes), each projection in two designs, a TMA-fed one
-(sharing ``csrc/tril_tma.cuh``) and the register-staged one of the first
-port, chosen by shape (``tril_route``).
+Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py``, of the two Pallas
+projections of ``tools/probe_pallas_proj.py`` and of the JAX package's
+hand-blocked triangular products (``hetmogp_tpu/ops/linalg.py``:
+``matmul_tril``, ``quad_diag`` and the cached adjoints at
+``Precision.HIGH``).  The kernels are ``csrc/rbf_kernel.cu`` (the RBF
+cross-covariance, in two designs chosen by shape, ``rbf_route``: float4
+stores from blocks that walk rows, and the scalar one of the first port),
+``csrc/tril_proj_kernel.cu`` (kernel A: the triangular projection
+A tril(L)^T in float32), ``csrc/tril_proj3_kernel.cu`` (kernel 3: the same
+projection as three bf16 tensor-core passes; and kernel 5: the mirror
+A tril(L) in three passes), ``csrc/tril_right_kernel.cu`` (kernel 4:
+A tril(L) in float32, with quad_diag's square and row sum fused), each
+triangular product in two designs, a TMA-fed one (sharing
+``csrc/tril_tma.cuh``) and a register-staged one (the first port's for A
+and 3, a generic one for 4 and 5), chosen by shape (``tril_route``).
 ``ops/_build.py`` builds them when a CUDA tensor first reaches one, and
 they are bound with ``ctypes``.  Importing this module builds and loads
 nothing.
@@ -18,21 +23,27 @@ For each kernel:
 
 * the raw launcher (``rbf_K_batched_vec``, ``rbf_K_batched_scalar``,
   ``tril_projection_tma``, ``tril_projection_staged``,
-  ``tril_projection_3pass_tma``, ``tril_projection_3pass_staged``) runs it
-  on float32 CUDA tensors, counts its launches in ``<launcher>.launches``,
-  and refuses inputs that require grad: it records no graph;
-  ``rbf_K_batched``, ``tril_projection`` and ``tril_projection_3pass``
-  route to the launcher of the shape;
+  ``tril_projection_3pass_tma``, ``tril_projection_3pass_staged``,
+  ``tril_right_tma``, ``tril_right_generic``, ``tril_right3_tma``,
+  ``tril_right3_generic``) runs it on float32 CUDA tensors, counts its
+  launches in ``<launcher>.launches``, and refuses inputs that require
+  grad: it records no graph; ``rbf_K_batched``, ``tril_projection``,
+  ``tril_projection_3pass``, ``tril_right`` and ``tril_right3`` route to
+  the launcher of the shape;
 * the plain version (``*_plain``) is what CPU tensors take and what the
   kernel is checked against on the card;
 * a custom operator (``hetmogp::rbf_K_batched``,
-  ``hetmogp::tril_projection``, ``hetmogp::tril_projection_3pass``) whose
-  CUDA implementation is the router and whose CPU implementation is the
-  plain version, so that ``torch.export`` keeps the kernels in an exported
+  ``hetmogp::tril_projection``, ``hetmogp::tril_projection_3pass``,
+  ``hetmogp::matmul_tril``, ``hetmogp::matmul_tril_3pass``,
+  ``hetmogp::quad_diag``, ``hetmogp::quad_diag_product``) whose CUDA
+  implementation is the router and whose CPU implementation is the plain
+  version, so that ``torch.export`` keeps the kernels in an exported
   graph;
 * an ``autograd.Function`` (``RBFCrossCovariance``, ``TrilProjection``,
-  ``TrilProjection3Pass``) runs the operator forward and a plain PyTorch
-  backward.  The JAX package
+  ``TrilProjection3Pass``, ``MatmulTril``, ``MatmulTril3Pass``,
+  ``QuadDiag``) runs the operator forward and a backward of plain PyTorch
+  and the other triangular kernels (the projection's dA is kernel 4, the
+  right product's and quad_diag's dA kernel A).  The JAX package
   differentiates its Pallas RBF with XLA einsums (``_rbf_bwd``), so
   ``rbf_K_batched_bwd`` is that algebra on tensors.
 """
@@ -69,6 +80,13 @@ def _library() -> ctypes.CDLL:
         "hetmogp_tril_proj_staged_f32": proj + [ctypes.c_int] + shape,
         "hetmogp_tril_proj3_f32": proj + [ctypes.c_void_p] * 2 + shape,
         "hetmogp_tril_proj3_staged_f32": proj + [ctypes.c_int] + shape,
+        # A, L, out, partials, r; epilogue; Q, N, M
+        "hetmogp_tril_right_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        + shape,
+        "hetmogp_tril_right_generic_f32": [ctypes.c_void_p] * 5
+        + [ctypes.c_int] + shape,
+        "hetmogp_tril_right3_f32": proj + [ctypes.c_void_p] * 2 + shape,
+        "hetmogp_tril_right3_generic_f32": proj + shape,
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -287,11 +305,11 @@ def tril_route(M: int, aligned: bool) -> str:
     return "tma" if aligned and M % 4 == 0 else "staged"
 
 
-def _routed(A: torch.Tensor, L: torch.Tensor, tma, staged) -> torch.Tensor:
+def _routed(A: torch.Tensor, L: torch.Tensor, tma, staged, *extra):
     A, L = A.contiguous(), L.contiguous()
     aligned = A.data_ptr() % 16 == 0 and L.data_ptr() % 16 == 0
     launcher = tma if tril_route(A.shape[-1], aligned) == "tma" else staged
-    return launcher(A, L)
+    return launcher(A, L, *extra)
 
 
 def tril_projection_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
@@ -303,7 +321,16 @@ def _tril_launch_args(wrapper, A: torch.Tensor, L: torch.Tensor):
     """Check (A, L) for the projection launcher ``wrapper``; return the
     contiguous operands, the output, and whether the three are 16-byte
     aligned with M % 4 == 0."""
-    name = wrapper.__name__
+    _check_tril_shapes(wrapper.__name__, A, L)
+    Q, N, M = A.shape
+    out = torch.empty((Q, N, M), dtype=torch.float32, device=A.device)
+    A = A.contiguous()
+    L = L.contiguous()
+    aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (A, L, out))
+    return A, L, out, aligned
+
+
+def _check_tril_shapes(name: str, A: torch.Tensor, L: torch.Tensor) -> None:
     _check_launch_inputs(name, (A, L))
     if A.ndim != 3 or L.ndim != 3 or L.shape != (A.shape[0], A.shape[2],
                                                   A.shape[2]):
@@ -313,11 +340,6 @@ def _tril_launch_args(wrapper, A: torch.Tensor, L: torch.Tensor):
     if Q > 65535 or N >= 2 ** 31 or M >= 2 ** 31:
         raise ValueError(f"shape out of the kernel's range: Q={Q}, N={N}, "
                          f"M={M} (Q <= 65535)")
-    out = torch.empty((Q, N, M), dtype=torch.float32, device=A.device)
-    A = A.contiguous()
-    L = L.contiguous()
-    aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (A, L, out))
-    return A, L, out, aligned
 
 
 def _launch(wrapper, entry: str, A, L, out, *extra) -> torch.Tensor:
@@ -383,9 +405,12 @@ def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
 
 
 def _backward_tril(ctx, g):
-    """dA = g tril(L), dL = tril(g^T A): the projection's plain backward."""
+    """dA = g tril(L) (kernel 4's operator, ``hetmogp::matmul_tril``),
+    dL = tril(g^T A) (a dense matmul and a mask): the projection's
+    float32 backward."""
     A, L = ctx.saved_tensors
-    dA = g @ torch.tril(L) if ctx.needs_input_grad[0] else None
+    dA = torch.ops.hetmogp.matmul_tril(g, L) if ctx.needs_input_grad[0] \
+        else None
     dL = torch.tril(g.mT @ A) if ctx.needs_input_grad[1] else None
     return dA, dL
 
@@ -393,8 +418,8 @@ def _backward_tril(ctx, g):
 class TrilProjection(torch.autograd.Function):
     """A tril(L)^T with a gradient: the operator ``hetmogp::tril_projection``
     forward (the routed kernel for a CUDA tensor, the plain version for a
-    CPU one); the backward dA = g tril(L), dL = tril(g^T A) as plain
-    matmuls."""
+    CPU one); the backward dA = g tril(L) by kernel 4's operator,
+    dL = tril(g^T A) as a matmul."""
 
     @staticmethod
     def forward(ctx, A, L):
@@ -443,6 +468,14 @@ def tril_projection_3pass_plain(A: torch.Tensor,
     return (alo @ lhi.mT + ahi @ llo.mT) + ahi @ lhi.mT
 
 
+def _bf16_scratch(A: torch.Tensor):
+    """Two (Q, M, bf16_row(M)) bf16 arrays for the split of an L that
+    goes with ``A`` (from the graph's pool under capture)."""
+    Q, _, M = A.shape
+    return tuple(torch.empty((Q, M, bf16_row(M)), dtype=torch.bfloat16,
+                             device=A.device) for _ in range(2))
+
+
 def tril_projection_3pass_tma(A: torch.Tensor,
                               L: torch.Tensor) -> torch.Tensor:
     """Kernel 3's wgmma and TMA design (``hetmogp_tril_proj3_f32``) for
@@ -453,10 +486,8 @@ def tril_projection_3pass_tma(A: torch.Tensor,
     A, L, out, aligned = _tril_launch_args(tril_projection_3pass_tma, A, L)
     if out.numel() == 0:
         return out
-    Q, _, M = A.shape
-    _require_tma(tril_projection_3pass_tma, aligned, M)
-    lhi, llo = (torch.empty((Q, M, bf16_row(M)), dtype=torch.bfloat16,
-                            device=A.device) for _ in range(2))
+    _require_tma(tril_projection_3pass_tma, aligned, A.shape[-1])
+    lhi, llo = _bf16_scratch(A)
     return _launch(tril_projection_3pass_tma, "hetmogp_tril_proj3_f32", A, L,
                    out, lhi.data_ptr(), llo.data_ptr())
 
@@ -498,7 +529,7 @@ class TrilProjection3Pass(torch.autograd.Function):
     ``hetmogp::tril_projection_3pass`` forward (the routed 3-pass kernel
     for a CUDA tensor, the plain version for a CPU one; the plain version
     without the operator where ``use_kernel`` is False), and
-    ``TrilProjection``'s plain float32 backward."""
+    ``TrilProjection``'s float32 backward."""
 
     @staticmethod
     def forward(ctx, A, L, use_kernel=True):
@@ -510,6 +541,233 @@ class TrilProjection3Pass(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (*_backward_tril(ctx, g), None)
+
+
+# ---- A tril(L): the right product, and quad_diag ---------------------------
+#
+# Kernel 4 (csrc/tril_right_kernel.cu) in float32, with three epilogues
+# (the product; the product and quad_diag's row sum of squares; the row
+# sum alone), and kernel 5 (csrc/tril_proj3_kernel.cu's
+# hetmogp_tril_right3_*) in three bf16 passes.  Each has a TMA-fed route
+# and a generic one, chosen by ``tril_route`` ("tma", else the generic
+# kernel); each launcher counts its own launches, and nothing falls back.
+
+EPILOGUES = {"product": 0, "both": 1, "rowsum": 2}
+RIGHT_TILE = 128  # kernel 4's column tile: one row-sum partial each
+
+
+def matmul_tril_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 4's product: A tril(L), (..., N, M),
+    (..., M, M)."""
+    return A @ torch.tril(L)
+
+
+def quad_diag_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 4's row sum: diag(A tril(L) tril(L)^T A^T),
+    (..., N)."""
+    return torch.sum(torch.square(A @ torch.tril(L)), dim=-1)
+
+
+def quad_diag_product_plain(A: torch.Tensor, L: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel 4's "both" epilogue: (A tril(L), its row
+    sums of squares)."""
+    AL = A @ torch.tril(L)
+    return AL, torch.sum(torch.square(AL), dim=-1)
+
+
+def matmul_tril_3pass_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 5: A tril(L) as three float32 matmuls of
+    bf16-exact operands, (alo lhi + ahi llo) + ahi lhi, with the bit-mask
+    split (``tril_projection_3pass_plain`` on the other side).  Float32
+    only."""
+    if A.dtype != torch.float32 or L.dtype != torch.float32:
+        raise TypeError(f"the 3-pass product splits float32 only, got "
+                        f"{A.dtype} and {L.dtype}")
+    ahi, alo = split_bf16(A.detach())
+    lhi, llo = split_bf16(torch.tril(L.detach()))
+    return (alo @ lhi + ahi @ llo) + ahi @ lhi
+
+
+def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
+    """Check (A, L), launch kernel 4's ``entry`` with ``epilogue`` on the
+    current stream and count the launch on ``wrapper``.  Returns the
+    product, (product, row sums) or the row sums."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {tuple(EPILOGUES)}, got "
+                         f"{epilogue!r}")
+    _check_tril_shapes(wrapper.__name__, A, L)
+    Q, N, M = A.shape
+    A, L = A.contiguous(), L.contiguous()
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=A.device)
+    out = new((Q, N, M)) if epilogue != "rowsum" else None
+    part = r = None
+    if epilogue != "product":
+        part, r = new((Q, N, -(-M // RIGHT_TILE))), new((Q, N))
+    result = {"product": out, "both": (out, r), "rowsum": r}[epilogue]
+    if Q * N == 0 or M == 0:
+        if r is not None:
+            r.zero_()
+        return result
+    aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (A, L, out) if t is not None)
+    if tma:
+        _require_tma(wrapper, aligned, M)
+    lib = _library()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = getattr(lib, entry)(
+            A.data_ptr(), L.data_ptr(), *(None if t is None else t.data_ptr()
+                                          for t in (out, part, r)),
+            EPILOGUES[epilogue], Q, N, M, stream)
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
+    return result
+
+
+def tril_right_tma(A: torch.Tensor, L: torch.Tensor,
+                   epilogue: str = "product"):
+    """Kernel 4's TMA-fed design (``hetmogp_tril_right_f32``) for M % 4 == 0
+    and 16-byte-aligned operands: A tril(L) in full float32, and with
+    ``epilogue="both"`` or ``"rowsum"`` its row sums of squares (the second
+    launch of the entry adds the per-tile partials).  Counts its launches
+    in ``tril_right_tma.launches``."""
+    return _right_launch(tril_right_tma, "hetmogp_tril_right_f32", A, L,
+                         epilogue, tma=True)
+
+
+tril_right_tma.launches = 0
+
+
+def tril_right_generic(A: torch.Tensor, L: torch.Tensor,
+                       epilogue: str = "product"):
+    """Kernel 4's generic design (``hetmogp_tril_right_generic_f32``), for
+    any shape, with the same epilogues.  Counts its launches in
+    ``tril_right_generic.launches``."""
+    return _right_launch(tril_right_generic, "hetmogp_tril_right_generic_f32",
+                         A, L, epilogue, tma=False)
+
+
+tril_right_generic.launches = 0
+
+
+def tril_right(A: torch.Tensor, L: torch.Tensor, epilogue: str = "product"):
+    """out[q, n, k] = sum_{m >= k} A[q, n, m] L[q, m, k] on the card, and
+    with ``epilogue`` "both" (out, r) or "rowsum" r alone, r[q, n] =
+    sum_k out[q, n, k]^2 (deterministic: no atomics).
+
+    A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
+    upper entries are not read.  Full float32 (no TF32): one FMA chain per
+    output in increasing m.  Routed by ``tril_route`` to
+    ``tril_right_tma`` or ``tril_right_generic``; launches on the current
+    stream and does not synchronise.
+    """
+    return _routed(A, L, tril_right_tma, tril_right_generic, epilogue)
+
+
+def tril_right3_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """Kernel 5's wgmma and TMA design (``hetmogp_tril_right3_f32``): A
+    tril(L) in three bf16 passes for M % 4 == 0 and 16-byte-aligned
+    operands, with kernel 3's split pre-pass and scratch.  Counts its
+    launches in ``tril_right3_tma.launches``."""
+    A, L, out, aligned = _tril_launch_args(tril_right3_tma, A, L)
+    if out.numel() == 0:
+        return out
+    _require_tma(tril_right3_tma, aligned, A.shape[-1])
+    lhi, llo = _bf16_scratch(A)
+    return _launch(tril_right3_tma, "hetmogp_tril_right3_f32", A, L, out,
+                   lhi.data_ptr(), llo.data_ptr())
+
+
+tril_right3_tma.launches = 0
+
+
+def tril_right3_generic(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """Kernel 5's generic design (``hetmogp_tril_right3_generic_f32``), for
+    any shape.  Counts its launches in ``tril_right3_generic.launches``."""
+    A, L, out, _ = _tril_launch_args(tril_right3_generic, A, L)
+    if out.numel() == 0:
+        return out
+    return _launch(tril_right3_generic, "hetmogp_tril_right3_generic_f32", A,
+                   L, out)
+
+
+tril_right3_generic.launches = 0
+
+
+def tril_right3(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """A tril(L) on the card's tensor cores in three bf16 passes of the
+    bit-mask split (lo*hi + hi*lo + hi*hi, float32 accumulation): the
+    VM step's adjoint products at ``ve_fwd_precision="high"``.  Routed by
+    ``tril_route`` to ``tril_right3_tma`` or ``tril_right3_generic``."""
+    return _routed(A, L, tril_right3_tma, tril_right3_generic)
+
+
+def _backward_right(ctx, g):
+    """dA = g tril(L)^T (kernel A's operator, ``hetmogp::tril_projection``),
+    dL = tril(A^T g) (a dense matmul and a mask): the right product's
+    float32 backward."""
+    A, L = ctx.saved_tensors[:2]
+    dA = torch.ops.hetmogp.tril_projection(g.contiguous(), L) \
+        if ctx.needs_input_grad[0] else None
+    dL = torch.tril(A.mT @ g) if ctx.needs_input_grad[1] else None
+    return dA, dL
+
+
+class MatmulTril(torch.autograd.Function):
+    """A tril(L) with a gradient: the operator ``hetmogp::matmul_tril``
+    forward (kernel 4 for a CUDA tensor, the plain version for a CPU one);
+    backward dA = g tril(L)^T by kernel A's operator, dL = tril(A^T g)."""
+
+    @staticmethod
+    def forward(ctx, A, L):
+        ctx.save_for_backward(A, L)
+        return torch.ops.hetmogp.matmul_tril(A.detach(), L.detach())
+
+    backward = staticmethod(_backward_right)
+
+
+class MatmulTril3Pass(torch.autograd.Function):
+    """A tril(L) in three bf16 passes with a gradient: the operator
+    ``hetmogp::matmul_tril_3pass`` forward (kernel 5 for a CUDA tensor, the
+    plain version for a CPU one; the plain version without the operator
+    where ``use_kernel`` is False), and ``MatmulTril``'s float32
+    backward."""
+
+    @staticmethod
+    def forward(ctx, A, L, use_kernel=True):
+        ctx.save_for_backward(A, L)
+        fwd = torch.ops.hetmogp.matmul_tril_3pass if use_kernel else \
+            matmul_tril_3pass_plain
+        return fwd(A.detach(), L.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_backward_right(ctx, g), None)
+
+
+class QuadDiag(torch.autograd.Function):
+    """quad_diag(A, L) = sum_k (A tril(L))[..., k]^2 with a gradient: the
+    operator ``hetmogp::quad_diag_product`` forward (kernel 4's "both"
+    epilogue, which keeps A tril(L) for the backward), and the backward of
+    the JAX package's ``_quad_diag_train_bwd``'s A half and its
+    ``_quad_diag_jvp``'s L half: with dAL = 2 g AL, gA = dAL tril(L)^T by
+    kernel A's operator, gL = tril(A^T dAL) as a dense matmul and a mask.
+    Only the cotangents asked for are formed (a VE step asks for gL
+    alone).  Without a gradient, ``hetmogp::quad_diag`` (the "rowsum"
+    epilogue, no product stored) takes its place."""
+
+    @staticmethod
+    def forward(ctx, A, L):
+        AL, r = torch.ops.hetmogp.quad_diag_product(A.detach(), L.detach())
+        ctx.save_for_backward(A, L, AL)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        AL = ctx.saved_tensors[2]
+        return _backward_right(ctx, 2.0 * g[..., None] * AL)
 
 
 # ---- the kernels as operators -----------------------------------------------
@@ -524,10 +782,19 @@ class TrilProjection3Pass(torch.autograd.Function):
 # Registering builds and loads nothing.
 
 def _register(name: str, cpu, cuda, out_shape) -> None:
+    """``out_shape(*args)``: the output's shape, or a list of the
+    outputs' shapes."""
     op = torch.library.custom_op(f"hetmogp::{name}", mutates_args=(),
                                  device_types="cpu")(cpu)
     op.register_kernel("cuda")(cuda)
-    op.register_fake(lambda *args: args[0].new_empty(out_shape(*args)))
+
+    def fake(*args):
+        shape = out_shape(*args)
+        if isinstance(shape, list):
+            return tuple(args[0].new_empty(s) for s in shape)
+        return args[0].new_empty(shape)
+
+    op.register_fake(fake)
 
 
 _register("rbf_K_batched", rbf_K_batched_plain, rbf_K_batched,
@@ -536,11 +803,20 @@ _register("tril_projection", tril_projection_plain, tril_projection,
           lambda A, L: A.shape)
 _register("tril_projection_3pass", tril_projection_3pass_plain,
           tril_projection_3pass, lambda A, L: A.shape)
+_register("matmul_tril", matmul_tril_plain, tril_right, lambda A, L: A.shape)
+_register("matmul_tril_3pass", matmul_tril_3pass_plain, tril_right3,
+          lambda A, L: A.shape)
+_register("quad_diag", quad_diag_plain,
+          lambda A, L: tril_right(A, L, "rowsum"), lambda A, L: A.shape[:-1])
+_register("quad_diag_product", quad_diag_product_plain,
+          lambda A, L: tril_right(A, L, "both"),
+          lambda A, L: [A.shape, A.shape[:-1]])
 
 
 _LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,
               tril_projection_staged, tril_projection_3pass_tma,
-              tril_projection_3pass_staged)
+              tril_projection_3pass_staged, tril_right_tma,
+              tril_right_generic, tril_right3_tma, tril_right3_generic)
 
 
 def launch_counts() -> dict:

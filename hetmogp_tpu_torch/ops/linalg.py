@@ -3,25 +3,37 @@
 Counterpart of ``hetmogp_tpu/ops/linalg.py``, with its packing helpers
 (``pack_tril``, in GPy's order) and its float64 island (``chol_mixed``).
 The JAX package blocks these by hand for the
-TPU's matrix unit; here they are plain PyTorch calls (cuSOLVER and cuBLAS
-on the card: ``solve_tri`` is ``trsm``, which the JAX package too computes
-outside any Pallas kernel), except the
-triangular projection A tril(L)^T, which CUDA float32 tensors run as a
-hand-written kernel: ``csrc/tril_proj_kernel.cu`` in float32, or
-``csrc/tril_proj3_kernel.cu`` in three bf16 passes at ``precision="high"``
-(``ops/cuda_dispatch.py`` decides).  The ``*_tril*`` helpers mask their
-triangular operand with ``torch.tril`` where the JAX package skips its
-zero blocks; on an exactly triangular operand the two agree.  Float32
+TPU's matrix unit; here the factorizations and solves are plain PyTorch
+calls (cuSOLVER and cuBLAS on the card: ``solve_tri`` is ``trsm``, which
+the JAX package too computes outside any Pallas kernel), and the products
+against a triangular factor, which the JAX package blocks to skip the
+factor's zero blocks, are hand-written kernels for CUDA float32 tensors
+that skip them too (``ops/cuda_dispatch.py`` decides):
+
+* ``matmul_tril_t``, the projection A tril(L)^T: kernel A
+  (``csrc/tril_proj_kernel.cu``) in float32, kernel 3
+  (``csrc/tril_proj3_kernel.cu``) in three bf16 passes at
+  ``precision="high"``;
+* ``matmul_tril`` and ``tril_t_matmul``, A tril(L) and tril(L)^T B:
+  kernel 4 (``csrc/tril_right_kernel.cu``) in float32, kernel 5
+  (``csrc/tril_proj3_kernel.cu``) in three bf16 passes at ``"high"``;
+* ``quad_diag``: kernel 4 with the square and the row sum fused.
+
+``tril_matmul`` stays a masked cuBLAS product, as does every product
+without a triangular operand (the Lbar of ``solve_tri_cached``).  Float32
 matmuls must run in full float32: TF32 ruins the projection P = Kfu @
 iLuu^T (see ``models/elbo.py``), so nothing here may run under
 ``torch.set_float32_matmul_precision("high")`` (TF32, not the 3-pass
-``precision="high"`` of ``matmul_tril_t``).
+``precision="high"`` of the triangular products).
 
 ``chol_cached`` and ``solve_tri_cached`` are the trainer's cached-inverse
 adjoints (``autograd.Function``s with the JAX custom VJPs' algebra): the
 VM step differentiates through the Cholesky and the projection with
 matmuls against the cached (Luu, Luu^{-1}) instead of a new factorization
-and triangular solves.
+and triangular solves.  Their triangular products run at the
+``precision`` they are given (the config's ``ve_fwd_precision``): at
+``"high"`` in three bf16 passes, as the JAX package's run at
+``Precision.HIGH``.
 """
 
 from __future__ import annotations
@@ -200,9 +212,19 @@ def matmul_tril_t(A: torch.Tensor, L: torch.Tensor, *,
                                        use_kernel=use_kernel)
 
 
-def matmul_tril(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """A @ tril(L)."""
-    return A @ torch.tril(L)
+def matmul_tril(A: torch.Tensor, L: torch.Tensor, *,
+                precision: str = "highest",
+                use_kernel: bool = True) -> torch.Tensor:
+    """A @ tril(L): (Q, N, M), (Q, M, M) -> (Q, N, M),
+    out[..., n, k] = sum_{m >= k} A[..., n, m] L[..., m, k].
+
+    precision: as ``matmul_tril_t``'s ("high": three bf16 passes, float32
+      only).  CUDA float32 runs kernel 4 ("highest") or kernel 5 ("high"),
+      which skip L's zero blocks; CPU tensors (or ``use_kernel=False``)
+      their plain versions.
+    """
+    return cuda_dispatch.matmul_tril(A, L, precision=precision,
+                                     use_kernel=use_kernel)
 
 
 def tril_matmul(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -210,9 +232,14 @@ def tril_matmul(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.tril(L) @ B
 
 
-def tril_t_matmul(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """tril(L)^T @ B."""
-    return torch.tril(L).mT @ B
+def tril_t_matmul(L: torch.Tensor, B: torch.Tensor, *,
+                  precision: str = "highest",
+                  use_kernel: bool = True) -> torch.Tensor:
+    """tril(L)^T @ B = (B^T tril(L))^T: ``matmul_tril``'s kernels, on B^T
+    (one transposed copy of each operand at the (Q, M, M) shapes where it
+    runs)."""
+    return matmul_tril(B.mT, L, precision=precision,
+                       use_kernel=use_kernel).mT
 
 
 def _phi(A: torch.Tensor) -> torch.Tensor:
@@ -264,62 +291,76 @@ def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
 class _CholCached(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, K, L, iL):
+    def forward(ctx, K, L, iL, precision, use_kernel):
         ctx.save_for_backward(L, iL)
+        ctx.kw = dict(precision=precision, use_kernel=use_kernel)
         return L
 
     @staticmethod
     def backward(ctx, gL):
         L, iL = ctx.saved_tensors
-        P = _phi(tril_t_matmul(L, gL))
-        S = matmul_tril(tril_t_matmul(iL, P), iL)  # L^{-T} P L^{-1}
-        return 0.5 * (S + S.mT), None, None
+        P = _phi(tril_t_matmul(L, gL, **ctx.kw))
+        # L^{-T} P L^{-1}
+        S = matmul_tril(tril_t_matmul(iL, P, **ctx.kw), iL, **ctx.kw)
+        return 0.5 * (S + S.mT), None, None, None, None
 
 
-def chol_cached(K: torch.Tensor, L: torch.Tensor,
-                iL: torch.Tensor) -> torch.Tensor:
+def chol_cached(K: torch.Tensor, L: torch.Tensor, iL: torch.Tensor, *,
+                precision: str = "highest",
+                use_kernel: bool = True) -> torch.Tensor:
     """Cholesky of K with a precomputed factor ``L`` and inverse ``iL``.
 
     Forward: returns ``L`` (the caller guarantees it is chol(K) up to
     roundoff).  Backward: the Cholesky pullback Kbar = 0.5 (S + S^T),
-    S = L^{-T} Phi(L^T Lbar) L^{-1}, as matmuls against ``iL``.  L and iL
-    are caches and get no gradient.
+    S = L^{-T} Phi(L^T Lbar) L^{-1}, as three triangular products against
+    L and ``iL`` at ``precision`` (kernels 4 or 5 for CUDA float32; the
+    JAX package runs them at ``Precision.HIGH``).  L and iL are caches and
+    get no gradient.
     """
-    return _CholCached.apply(K, L, iL)
+    return _CholCached.apply(K, L, iL, precision, use_kernel)
 
 
 class _SolveTriCached(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, L, Kfu, iL, use_kernel):
+    def forward(ctx, L, Kfu, iL, use_kernel, precision):
         P = matmul_tril_t(Kfu, iL, use_kernel=use_kernel)
         ctx.save_for_backward(P, iL)
+        ctx.kw = dict(precision=precision, use_kernel=use_kernel)
         return P
 
     @staticmethod
     def backward(ctx, gP):
         P, iL = ctx.saved_tensors
-        gKfu = matmul_tril(gP, iL)  # (L^{-T} ybar)^T
+        gKfu = matmul_tril(gP, iL, **ctx.kw)  # (L^{-T} ybar)^T
         gL = -torch.tril(gKfu.mT @ P)
-        return gL, gKfu, None, None
+        return gL, gKfu, None, None, None
 
 
 def solve_tri_cached(L: torch.Tensor, Kfu: torch.Tensor, iL: torch.Tensor, *,
+                     precision: str = "highest",
                      use_kernel: bool = True) -> torch.Tensor:
     """P = (L^{-1} Kfu^T)^T = Kfu iL^T through the cached inverse ``iL``.
 
     The JAX ``solve_tri_cached(L, Kfu^T, iL)`` in the (Q, N, M) layout of
     Kfu, returning P rather than its transpose.  Forward: the triangular
-    projection (the kernel for CUDA float32).  Backward, the exact solve
-    adjoints with y = P^T: Kfubar = Pbar iL, Lbar = -tril(Kfubar^T P); iL
-    is a cache and gets no gradient.
+    projection in full float32 (the kernel for CUDA float32).  Backward,
+    the exact solve adjoints with y = P^T: Kfubar = Pbar iL, a triangular
+    product at ``precision``, and Lbar = -tril(Kfubar^T P), a dense
+    product in full float32 (it has no triangular operand); iL is a cache
+    and gets no gradient.
     """
-    return _SolveTriCached.apply(L, Kfu, iL, use_kernel)
+    return _SolveTriCached.apply(L, Kfu, iL, use_kernel, precision)
 
 
-def quad_diag(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """diag(A L L^T A^T), batched: (..., N, M), (..., M, M) -> (..., N).
+def quad_diag(A: torch.Tensor, L: torch.Tensor, *,
+              use_kernel: bool = True) -> torch.Tensor:
+    """diag(A L L^T A^T), batched: (Q, N, M), (Q, M, M) -> (Q, N).
 
-    Only the lower triangle of L is read.
+    Only the lower triangle of L is read.  CUDA float32 runs kernel 4 with
+    the square and the row sum fused, in full float32 (the JAX package
+    runs this product at its default precision); CPU tensors (or
+    ``use_kernel=False``) the plain version.  Without a gradient to form,
+    A tril(L) never reaches memory.
     """
-    return torch.sum(torch.square(matmul_tril(A, L)), dim=-1)
+    return cuda_dispatch.quad_diag(A, L, use_kernel=use_kernel)

@@ -789,7 +789,7 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
             view, config, Luu, X_, iLuu=iLuu, use_kernel=use_kernel)
             for X_ in X_parts))
         mean_parts = [(P @ m[..., None])[..., 0] for P in Ps]
-        gamma_parts = [kd + linalg.quad_diag(P, Lq)
+        gamma_parts = [kd + linalg.quad_diag(P, Lq, use_kernel=use_kernel)
                        - torch.sum(torch.square(P), dim=-1)
                        for P, kd in zip(Ps, kds)]
 
@@ -832,8 +832,10 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
         if retraction == "cholesky":
             # H = L^T dS L with dS = g_S_ve + 0.5 (S^{-1} - I): the S^{-1}
             # term is 0.5 I under the congruence
-            H = linalg.matmul_tril(linalg.tril_t_matmul(Lq, g_S_ve_sym
-                                                        - 0.5 * eye), Lq)
+            H = linalg.matmul_tril(
+                linalg.tril_t_matmul(Lq, g_S_ve_sym - 0.5 * eye,
+                                     use_kernel=use_kernel),
+                Lq, use_kernel=use_kernel)
             H = 0.5 * (H + H.mT) + 0.5 * eye
             Lt_gm = (Lq.mT @ g_m[..., None])[..., 0]
 
@@ -842,7 +844,8 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
                 mx = torch.amax(torch.abs(X), dim=(-2, -1), keepdim=True)
                 X = X * torch.clamp(trust / torch.clamp(mx, min=1e-30),
                                     max=1.0)
-                L_new = Lq + linalg.matmul_tril(Lq, X)
+                L_new = Lq + linalg.matmul_tril(Lq, X,
+                                                use_kernel=use_kernel)
                 d = lr_ * Lt_gm
                 rms = torch.sqrt(torch.mean(torch.square(d), dim=-1,
                                             keepdim=True))

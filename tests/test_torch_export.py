@@ -100,7 +100,8 @@ def test_export_predictive_round_trip(model):
     jcfg, jp, tcfg, params, X = model
     blob = export.export_predictive(params, tcfg, X)
     assert isinstance(blob, bytes)
-    assert _own(blob) == {"hetmogp::rbf_K_batched": 3}
+    assert _own(blob) == {"hetmogp::rbf_K_batched": 3,
+                          "hetmogp::quad_diag": 3}
     m, v = tpredict.predictive(params, tcfg, X)
     eager = [a for mv in zip(m, v) for a in mv]
     _check(_run_port(blob, params, *X),
@@ -111,7 +112,10 @@ def test_export_predictive_round_trip(model):
 def test_export_predict_f_round_trip(model, full_cov):
     jcfg, jp, tcfg, params, X = model
     blob = export.export_predict_f(params, tcfg, X[0], 3, full_cov=full_cov)
-    assert _own(blob) == {"hetmogp::rbf_K_batched": 2 if full_cov else 1}
+    # the marginal variance is quad_diag's; the full covariance is not
+    assert _own(blob) == ({"hetmogp::rbf_K_batched": 2} if full_cov else
+                          {"hetmogp::rbf_K_batched": 1,
+                           "hetmogp::quad_diag": 1})
     eager = tpredict.predict_f(params, tcfg, X[0], 3, full_cov=full_cov)
     jblob = jexport.export_predict_f(jp, jcfg, X[0], 3, full_cov=full_cov)
     _check(_run_port(blob, params, X[0]), _run_jax(jblob, jp, X[0]), eager)
@@ -133,7 +137,8 @@ def test_export_serving_predictive_round_trip(model, task):
     jcfg, jp, tcfg, params, X = model
     blob = export.export_serving_predictive(params, tcfg, X[task], task)
     assert _own(blob) == {"hetmogp::rbf_K_batched": 1,
-                          "hetmogp::tril_projection": 1}
+                          "hetmogp::tril_projection": 1,
+                          "hetmogp::quad_diag": 1}
     Luu, iLuu = export.serving_state(params, tcfg)
     got = export.load_predictive(blob)(*export.params_args(params), Luu,
                                        iLuu, torch.from_numpy(X[task]))
@@ -153,7 +158,8 @@ def test_export_serving_at_high_holds_the_3pass_operator():
     p32 = params.to(dtype=torch.float32)
     blob = export.export_serving_predictive(p32, c32, X[1], 1)
     assert _own(blob) == {"hetmogp::rbf_K_batched": 1,
-                          "hetmogp::tril_projection_3pass": 1}
+                          "hetmogp::tril_projection_3pass": 1,
+                          "hetmogp::quad_diag": 1}
     Luu, iLuu = export.serving_state(p32, c32)
     got = export.load_predictive(blob)(*export.params_args(p32), Luu, iLuu,
                                        torch.tensor(X[1], dtype=torch.float32))

@@ -128,7 +128,9 @@ def test_projection_function_goes_through_the_router(monkeypatch):
 
 LAUNCHERS = ("rbf_K_batched_vec", "rbf_K_batched_scalar",
              "tril_projection_tma", "tril_projection_staged",
-             "tril_projection_3pass_tma", "tril_projection_3pass_staged")
+             "tril_projection_3pass_tma", "tril_projection_3pass_staged",
+             "tril_right_tma", "tril_right_generic", "tril_right3_tma",
+             "tril_right3_generic")
 
 
 # the vector kernel is what ``rbf_K_batched`` reaches on the main path, and
