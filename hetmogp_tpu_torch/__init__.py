@@ -26,7 +26,11 @@ tensor-core passes for ``ve_fwd_precision="high"``
 (``csrc/tril_proj3_kernel.cu``), and the right product A tril(L) with
 ``quad_diag``'s row sums fused (``csrc/tril_right_kernel.cu``) and in
 three bf16 passes for the VM step's adjoints at ``"high"`` (in
-``csrc/tril_proj3_kernel.cu``).  Trained parameters cross from the JAX
+``csrc/tril_proj3_kernel.cu``).  Two more serve the trainer outside the
+operators: the one-pass Gauss-Hermite sweep of Bernoulli, Categorical
+and the lngamma engine of Gamma, Beta and Dirichlet (value, E[d1] and
+E[d2] in one launch, ``csrc/gh_sweep_kernel.cu``), and the masked adam
+update of every leaf in one launch (``csrc/adam_kernel.cu``).  Trained parameters cross from the JAX
 package with ``params_from_jax`` or a checkpoint, and configs with
 ``ModelConfig.from_dict``.  Entry points put their tensors on the card
 unless the caller passes ``device="cpu"``.  Importing the package needs

@@ -55,9 +55,12 @@ class ModelConfig:
         ``jitter`` only: ``adaptive_jitter`` does not apply to it, as in
         the JAX package.  A float64 model ignores it.
       ve_fwd_precision: the VE projection P = Kfu iLuu^T's precision:
-        "highest" (full float32) or "high" (three bf16 passes of the
-        bit-mask split, the 3-pass tensor-core kernel on the card).  The
-        VM step's cached solve stays at "highest" either way.
+        "high" is three bf16 passes of the bit-mask split (the 3-pass
+        tensor-core kernel on the card); every other value runs at
+        "highest", full float32, as the JAX package runs every value but
+        "high" at HIGHEST (``projection_precision``; the value itself is
+        kept, so a JAX config round-trips).  The VM step's cached solve
+        stays at "highest" either way.
       fuse_task_rows: the ELBO projects all tasks' rows at once.
     """
 
@@ -87,14 +90,12 @@ class ModelConfig:
         if self.chol_dtype not in CHOL_DTYPES:
             raise ValueError(f"chol_dtype={self.chol_dtype!r}; use one of "
                              f"{CHOL_DTYPES}")
-        if self.ve_fwd_precision not in ("highest", "high"):
-            raise NotImplementedError(
-                f"ve_fwd_precision={self.ve_fwd_precision!r}: the port runs "
-                "the projection in full float32 ('highest') or in three "
-                "bf16 passes ('high') only; one bf16 or TF32 pass ruins it")
         if self.dtype not in _DTYPES:
             raise NotImplementedError(
-                f"dtype={self.dtype!r}; the port has {sorted(_DTYPES)}")
+                f"dtype={self.dtype!r}; the port has {sorted(_DTYPES)}: a "
+                "bfloat16 model would form the projection P = Kfu iLuu^T in "
+                "bf16, which ruins it as one TF32 pass does (the float32 "
+                "model runs it in full float32 or three bf16 passes)")
 
     # ---- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
@@ -166,6 +167,12 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def projection_precision(self) -> str:
+        """The precision the triangular products run at: "high" for
+        ``ve_fwd_precision="high"``, "highest" for every other value."""
+        return "high" if self.ve_fwd_precision == "high" else "highest"
 
     def metadata(self) -> dict:
         """The reference's Y_metadata dict: task, y, function, d and pred

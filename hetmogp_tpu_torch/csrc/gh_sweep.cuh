@@ -1,0 +1,490 @@
+// The one-pass Gauss-Hermite sweep of kernel 6: per row, the value and the
+// reduced first and diagonal second derivatives of a likelihood's
+// log-density over the row's quadrature nodes,
+//
+//   value   = sum_s w_s lp(F_s, y),
+//   Ed1[j]  = sum_s w_s d lp / dF_j (F_s, y),
+//   Ed2[j]  = sum_s w_s d2 lp / dF_j^2 (F_s, y),     F_s = m + sqrt(2 v) t_s,
+//
+// written once for the device and for the host: every function here is
+// plain C++ behind GH_HD, which is __host__ __device__ under nvcc and empty
+// under a host compiler, so tests/test_torch_sweep.py compiles this very
+// header with g++ and holds it to the plain engine on the CPU.
+//
+// No derivative is written by hand.  Each family's log-density is one
+// template on a scalar type S: S = T gives the value alone, S = Jet<T, J>
+// (a second-order forward-mode jet carrying the value, the J first
+// derivatives and the J diagonal second derivatives) gives all three in the
+// same evaluation.  The diagonal second derivatives propagate exactly from
+// first derivatives and diagonal entries alone:
+//   (a b)''_jj = a'' b + 2 a'_j b'_j + a b'',
+//   g(a)''_jj  = g''(a) a'_j^2 + g'(a) a''_jj.
+//
+// The rules at the edges are those of torch's autograd, over which the plain
+// engine (ops/quadrature.py::make_var_exp) differentiates: a clamp passes
+// the derivative inside its bounds, the bounds included, and gives exactly
+// zero outside (a select, not a product); maximum splits it evenly at a tie;
+// abs has derivative sign(x), 0 at 0.  Quotients and logarithms are
+// differentiated in the forms that never square a large value
+// ((a' - q b') / b, a'/a), as autograd's backward formulas do, so that no
+// derivative overflows where the plain engine's does not.
+//
+// The families (the plain versions are in likelihoods/*.py):
+//   Bernoulli          likelihoods/bernoulli.py  (J = 1)
+//   Categorical<K>     likelihoods/categorical.py (J = K - 1)
+//   LnGamma            likelihoods/gamma.py::_lngamma (J = 1): the sweep of
+//                      Gamma's closed form, shared by Beta and Dirichlet.
+// lgamma's derivatives need digamma and trigamma, which CUDA's math library
+// lacks: both are here, by the recurrence up to x >= 10 and the asymptotic
+// series (good to a few ulps of float64 over the clip range [1e-9, 1e9]).
+#pragma once
+
+#include <math.h>
+
+#if defined(__CUDACC__)
+#define GH_HD __host__ __device__
+#else
+#define GH_HD
+#endif
+
+namespace gh {
+
+// ---- scalar functions in float and double -----------------------------------
+
+GH_HD inline float exp_(float x) { return expf(x); }
+GH_HD inline double exp_(double x) { return exp(x); }
+GH_HD inline float log_(float x) { return logf(x); }
+GH_HD inline double log_(double x) { return log(x); }
+GH_HD inline float log1p_(float x) { return log1pf(x); }
+GH_HD inline double log1p_(double x) { return log1p(x); }
+GH_HD inline float lgamma_(float x) { return lgammaf(x); }
+GH_HD inline double lgamma_(double x) { return lgamma(x); }
+GH_HD inline float sqrt_(float x) { return sqrtf(x); }
+GH_HD inline double sqrt_(double x) { return sqrt(x); }
+GH_HD inline float abs_(float x) { return fabsf(x); }
+GH_HD inline double abs_(double x) { return fabs(x); }
+
+// A product and a sum rounded on their own, never contracted into one fused
+// multiply-add: the nodes F = m + sqrt(2 v) t are then the plain engine's to
+// the bit.
+GH_HD inline float mul_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+GH_HD inline double mul_rn(double a, double b) {
+#if defined(__CUDA_ARCH__)
+  return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+GH_HD inline float add_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+GH_HD inline double add_rn(double a, double b) {
+#if defined(__CUDA_ARCH__)
+  return __dadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+
+template <typename T>
+GH_HD inline bool isnan_(T x) {
+  return x != x;
+}
+
+// torch.clamp: NaN stays NaN, else min(max(x, lo), hi)
+template <typename T>
+GH_HD inline T clamp_(T x, T lo, T hi) {
+  return isnan_(x) ? x : (x < lo ? lo : (x > hi ? hi : x));
+}
+template <typename T>
+GH_HD inline T clamp_max_(T x, T hi) {
+  return isnan_(x) ? x : (x > hi ? hi : x);
+}
+// torch.maximum: NaN if either is NaN
+template <typename T>
+GH_HD inline T maximum_(T a, T b) {
+  return isnan_(a) ? a : (isnan_(b) ? b : (a < b ? b : a));
+}
+
+// digamma(x) for x > 0: psi(x) = psi(x + n) - sum_k 1 / (x + k) up to
+// x + n >= 10, then ln x - 1/(2x) - sum_k B_2k / (2k x^2k) to x^-14 (the
+// first term left out is below 5e-17 of the result at x = 10)
+template <typename T>
+GH_HD inline T digamma(T x) {
+  T acc = T(0);
+  while (x < T(10)) {
+    acc -= T(1) / x;
+    x += T(1);
+  }
+  const T r = T(1) / x, z = r * r;
+  const T series =
+      z * (T(1.0 / 12) -
+           z * (T(1.0 / 120) -
+                z * (T(1.0 / 252) -
+                     z * (T(1.0 / 240) -
+                          z * (T(1.0 / 132) -
+                               z * (T(691.0 / 32760) - z * T(1.0 / 12)))))));
+  return acc + (log_(x) - T(0.5) * r - series);
+}
+
+// trigamma(x) for x > 0: psi'(x) = psi'(x + n) + sum_k 1 / (x + k)^2 up to
+// x + n >= 10, then 1/x + 1/(2x^2) + sum_k B_2k / x^(2k+1) to x^-15
+template <typename T>
+GH_HD inline T trigamma(T x) {
+  T acc = T(0);
+  while (x < T(10)) {
+    acc += T(1) / (x * x);
+    x += T(1);
+  }
+  const T r = T(1) / x, z = r * r;
+  const T series =
+      r * (T(1) + T(0.5) * r +
+           z * (T(1.0 / 6) -
+                z * (T(1.0 / 30) -
+                     z * (T(1.0 / 42) -
+                          z * (T(1.0 / 30) -
+                               z * (T(5.0 / 66) -
+                                    z * (T(691.0 / 2730) -
+                                         z * T(7.0 / 6))))))));
+  return acc + series;
+}
+
+// ---- the jet ------------------------------------------------------------------
+
+template <typename T, int J>
+struct Jet {
+  T v;
+  T d[J];
+  T h[J];
+
+  GH_HD Jet() {}
+  // a constant: no derivatives
+  GH_HD explicit Jet(T c) : v(c) {
+    for (int j = 0; j < J; ++j) d[j] = h[j] = T(0);
+  }
+  // the j-th variable, at x
+  GH_HD static Jet variable(T x, int j) {
+    Jet r(x);
+    r.d[j] = T(1);
+    return r;
+  }
+};
+
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator+(const Jet<T, J>& a, const Jet<T, J>& b) {
+  Jet<T, J> r;
+  r.v = a.v + b.v;
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = a.d[j] + b.d[j];
+    r.h[j] = a.h[j] + b.h[j];
+  }
+  return r;
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator+(const Jet<T, J>& a, T c) {
+  Jet<T, J> r = a;
+  r.v = a.v + c;
+  return r;
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator+(T c, const Jet<T, J>& a) {
+  Jet<T, J> r = a;
+  r.v = c + a.v;
+  return r;
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator-(const Jet<T, J>& a) {
+  Jet<T, J> r;
+  r.v = -a.v;
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = -a.d[j];
+    r.h[j] = -a.h[j];
+  }
+  return r;
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator-(const Jet<T, J>& a, const Jet<T, J>& b) {
+  Jet<T, J> r;
+  r.v = a.v - b.v;
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = a.d[j] - b.d[j];
+    r.h[j] = a.h[j] - b.h[j];
+  }
+  return r;
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator*(const Jet<T, J>& a, const Jet<T, J>& b) {
+  Jet<T, J> r;
+  r.v = a.v * b.v;
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = a.d[j] * b.v + a.v * b.d[j];
+    r.h[j] = a.h[j] * b.v + T(2) * (a.d[j] * b.d[j]) + a.v * b.h[j];
+  }
+  return r;
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator*(T c, const Jet<T, J>& a) {
+  Jet<T, J> r;
+  r.v = c * a.v;
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = c * a.d[j];
+    r.h[j] = c * a.h[j];
+  }
+  return r;
+}
+// q = a / b: q' = (a' - q b') / b, q'' = (a'' - 2 q' b' - q b'') / b
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator/(const Jet<T, J>& a, const Jet<T, J>& b) {
+  Jet<T, J> r;
+  r.v = a.v / b.v;
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = (a.d[j] - r.v * b.d[j]) / b.v;
+    r.h[j] = (a.h[j] - T(2) * (r.d[j] * b.d[j]) - r.v * b.h[j]) / b.v;
+  }
+  return r;
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> operator/(T c, const Jet<T, J>& b) {
+  Jet<T, J> r;
+  r.v = c / b.v;
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = -(r.v * b.d[j]) / b.v;
+    r.h[j] = (-T(2) * (r.d[j] * b.d[j]) - r.v * b.h[j]) / b.v;
+  }
+  return r;
+}
+
+// g(a) with g'(a) = g1 and g''(a) = g2 at a.v
+template <typename T, int J>
+GH_HD inline Jet<T, J> chain(const Jet<T, J>& a, T g0, T g1, T g2) {
+  Jet<T, J> r;
+  r.v = g0;
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = g1 * a.d[j];
+    r.h[j] = g2 * a.d[j] * a.d[j] + g1 * a.h[j];
+  }
+  return r;
+}
+// the derivatives of a kept (mask true) or exactly zero (mask false), with
+// the value v
+template <typename T, int J>
+GH_HD inline Jet<T, J> select(const Jet<T, J>& a, T v, bool keep) {
+  Jet<T, J> r = keep ? a : Jet<T, J>(T(0));
+  r.v = v;
+  return r;
+}
+
+template <typename T, int J>
+GH_HD inline Jet<T, J> exp_(const Jet<T, J>& a) {
+  const T e = exp_(a.v);
+  return chain(a, e, e, e);
+}
+// (log a)' = a'/a, (log a)'' = a''/a - (a'/a)^2
+template <typename T, int J>
+GH_HD inline Jet<T, J> log_(const Jet<T, J>& a) {
+  Jet<T, J> r;
+  r.v = log_(a.v);
+  for (int j = 0; j < J; ++j) {
+    r.d[j] = a.d[j] / a.v;
+    r.h[j] = a.h[j] / a.v - r.d[j] * r.d[j];
+  }
+  return r;
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> log1p_(const Jet<T, J>& a) {
+  const T g1 = T(1) / (T(1) + a.v);
+  return chain(a, log1p_(a.v), g1, -(g1 * g1));
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> lgamma_(const Jet<T, J>& a) {
+  return chain(a, lgamma_(a.v), digamma(a.v), trigamma(a.v));
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> abs_(const Jet<T, J>& a) {
+  const T s = a.v > T(0) ? T(1) : (a.v < T(0) ? T(-1) : T(0));
+  return chain(a, abs_(a.v), s, T(0));
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> clamp_(const Jet<T, J>& a, T lo, T hi) {
+  return select(a, clamp_(a.v, lo, hi), a.v >= lo && a.v <= hi);
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> clamp_max_(const Jet<T, J>& a, T hi) {
+  return select(a, clamp_max_(a.v, hi), a.v <= hi);
+}
+template <typename T, int J>
+GH_HD inline Jet<T, J> maximum_(const Jet<T, J>& a, const Jet<T, J>& b) {
+  if (a.v > b.v) return a;
+  if (a.v < b.v) return b;
+  if (isnan_(a.v) || isnan_(b.v)) {  // autograd passes both derivatives
+    Jet<T, J> r = a + b;
+    r.v = maximum_(a.v, b.v);
+    return r;
+  }
+  Jet<T, J> r = T(0.5) * (a + b);  // a tie splits the derivative
+  r.v = a.v;
+  return r;
+}
+
+// ---- the pieces of likelihoods/base.py ----------------------------------------
+
+template <typename T>
+struct Limits;
+// safe_exp's clip, log(finfo.max) - 1, as likelihoods/base.py computes it
+template <>
+struct Limits<float> {
+  GH_HD static float safe_exp() { return float(87.72283905206835); }
+};
+template <>
+struct Limits<double> {
+  GH_HD static double safe_exp() { return 708.782712893384; }
+};
+
+template <typename T, typename S>
+GH_HD inline S safe_exp_(const S& x) {
+  return exp_(clamp_max_(x, Limits<T>::safe_exp()));
+}
+
+// base.logaddexp: max(a, b) + log1p(e^{-|a - b|})
+template <typename S>
+GH_HD inline S logaddexp_(const S& a, const S& b) {
+  return maximum_(a, b) + log1p_(exp_(-abs_(a - b)));
+}
+
+// ---- the families -------------------------------------------------------------
+
+// likelihoods/bernoulli.py: log p = clip(-softplus(-f)), log(1 - p) =
+// clip(-softplus(f)) with the clip [log 1e-9, log1p(-1e-9)], and
+// lp = y log p + (1 - y) log(1 - p)
+template <typename T>
+struct Bernoulli {
+  static constexpr int J = 1;
+  template <typename S>
+  GH_HD static S lp(const S* f, const T* y) {
+    const T lo = T(-20.72326583694641), hi = T(-1.0000000005000001e-09);
+    const S zero(T(0));
+    const S log_p = clamp_(-logaddexp_(-f[0], zero), lo, hi);
+    const S log_1mp = clamp_(-logaddexp_(f[0], zero), lo, hi);
+    return y[0] * log_p + (T(1) - y[0]) * log_1mp;
+  }
+};
+
+// likelihoods/categorical.py: p_k = e^{f_k} / (1 + sum_j e^{f_j}) for
+// k < K - 1 and 1 / (1 + sum_j e^{f_j}) for the last class, clipped to
+// [1e-9, 1 - 1e-9] and renormalized; lp = log p_y for the 1-indexed label y
+// (0 for a label outside 1..K, as the one-hot sum gives)
+template <typename T, int K>
+struct Categorical {
+  static constexpr int J = K - 1;
+  template <typename S>
+  GH_HD static S lp(const S* f, const T* y) {
+    S ef[J];
+    for (int j = 0; j < J; ++j) ef[j] = safe_exp_<T>(f[j]);
+    S sum = ef[0];
+    for (int j = 1; j < J; ++j) sum = sum + ef[j];
+    const S den = T(1) + sum;
+    S p[K];
+    for (int j = 0; j < J; ++j) p[j] = ef[j] / den;
+    p[J] = T(1) / den;
+    for (int k = 0; k < K; ++k) p[k] = clamp_(p[k], T(1e-9), T(1.0 - 1e-9));
+    S total = p[0];
+    for (int k = 1; k < K; ++k) total = total + p[k];
+    S out(T(0));
+    for (int k = 0; k < K; ++k) {
+      if (y[0] == T(k + 1)) out = log_(p[k] / total);
+    }
+    return out;
+  }
+};
+
+// likelihoods/gamma.py::_lngamma: lgamma(clip(e^f, 1e-9, 1e9)); y unused
+template <typename T>
+struct LnGamma {
+  static constexpr int J = 1;
+  template <typename S>
+  GH_HD static S lp(const S* f, const T*) {
+    return lgamma_(clamp_(safe_exp_<T>(f[0]), T(1e-9), T(1e9)));
+  }
+};
+
+// ---- the sweep ----------------------------------------------------------------
+
+// Accumulators a row needs: the value, and with the derivatives J + J more.
+template <typename Fam, bool DERIV>
+GH_HD constexpr int acc_size() {
+  return DERIV ? 1 + 2 * Fam::J : 1;
+}
+
+// Adds the nodes s = first, first + step, ... < S of one row into acc (the
+// value, then Ed1, then Ed2): m, v the row's (J,) moments, y its (dim_y,)
+// observation, nodes (S, J) and w (S,) the table.  The kernel calls it with
+// (lane, 32) and adds the 32 lanes' sums by a fixed shuffle tree; sweep_row
+// below does the same on the host.
+template <typename Fam, typename T, bool DERIV>
+GH_HD inline void sweep_nodes(const T* m, const T* v, const T* y,
+                              const T* nodes, const T* w, int S, int first,
+                              int step, T* acc) {
+  constexpr int J = Fam::J;
+  T sigma[J];
+  for (int j = 0; j < J; ++j) sigma[j] = sqrt_(mul_rn(T(2), v[j]));
+  for (int s = first; s < S; s += step) {
+    const T ws = w[s];
+    if constexpr (DERIV) {
+      Jet<T, J> f[J];
+      for (int j = 0; j < J; ++j) {
+        f[j] = Jet<T, J>::variable(
+            add_rn(m[j], mul_rn(sigma[j], nodes[(long long)s * J + j])), j);
+      }
+      const Jet<T, J> lp = Fam::template lp<Jet<T, J>>(f, y);
+      acc[0] += ws * lp.v;
+      for (int j = 0; j < J; ++j) {
+        acc[1 + j] += ws * lp.d[j];
+        acc[1 + J + j] += ws * lp.h[j];
+      }
+    } else {
+      T f[J];
+      for (int j = 0; j < J; ++j) {
+        f[j] = add_rn(m[j], mul_rn(sigma[j], nodes[(long long)s * J + j]));
+      }
+      acc[0] += ws * Fam::template lp<T>(f, y);
+    }
+  }
+}
+
+constexpr int LANES = 32;
+
+// One row on the host, in the kernel's order: 32 lane sums, then the
+// butterfly (lane l adds lane l ^ off for off = 16, 8, 4, 2, 1) as lane 0
+// sees it.  out: acc_size<Fam, DERIV>() values.
+template <typename Fam, typename T, bool DERIV>
+inline void sweep_row(const T* m, const T* v, const T* y, const T* nodes,
+                      const T* w, int S, T* out) {
+  constexpr int A = acc_size<Fam, DERIV>();
+  T part[LANES][A];
+  for (int l = 0; l < LANES; ++l) {
+    for (int a = 0; a < A; ++a) part[l][a] = T(0);
+    sweep_nodes<Fam, T, DERIV>(m, v, y, nodes, w, S, l, LANES, part[l]);
+  }
+  for (int off = LANES / 2; off > 0; off /= 2) {
+    T next[LANES][A];
+    for (int l = 0; l < LANES; ++l) {
+      for (int a = 0; a < A; ++a) next[l][a] = part[l][a] + part[l ^ off][a];
+    }
+    for (int l = 0; l < LANES; ++l) {
+      for (int a = 0; a < A; ++a) part[l][a] = next[l][a];
+    }
+  }
+  for (int a = 0; a < A; ++a) out[a] = part[0][a];
+}
+
+}  // namespace gh

@@ -30,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import ClassVar
+from typing import ClassVar, Optional
 
 import numpy as np
 import torch
@@ -91,7 +91,8 @@ def on_generator(generator, *tensors):
 @functools.lru_cache(maxsize=None)
 def _var_exp_engine(lik):
     return quadrature.make_var_exp(lik.logpdf, J=lik.dim_f, T=lik.T_var_exp,
-                                   mc_samples=getattr(lik, "mc_samples", 0))
+                                   mc_samples=getattr(lik, "mc_samples", 0),
+                                   sweep=lik.sweep)
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,6 +122,9 @@ class Likelihood:
     T_pred: ClassVar[int] = quadrature.DEFAULT_T
     # size of the trainable likelihood-parameter vector theta (0: none)
     n_theta: ClassVar[int] = 0
+    # the device function of ``logpdf`` in ``quadrature.SWEEP_FAMILIES``
+    # (kernel 6), or None: the GH engine's sweep on the card
+    sweep: ClassVar[Optional[str]] = None
 
     def logpdf(self, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """log p(y | f): (..., dim_f), (..., dim_y) -> (...)."""
@@ -160,14 +164,16 @@ class Likelihood:
         return self
 
     def var_exp(self, Y: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
-                theta=None) -> torch.Tensor:
+                theta=None, use_kernel: bool = True) -> torch.Tensor:
         """E_{N(f; M, V)}[log p(Y | f)] per data point -> (N,), with the
         engine's Bonnet/Price (m, v)-gradients.  ``theta`` (n_theta,): the
         trainable likelihood parameters, with their gradient; None (or
-        n_theta == 0) keeps the constructor constants."""
+        n_theta == 0) keeps the constructor constants.  ``use_kernel=False``
+        takes the GH engine's plain sweep on any device (a CUDA tensor of a
+        family with a ``sweep`` otherwise takes kernel 6)."""
         if theta is not None and self.n_theta:
             return _var_exp_engine_theta(self)(Y, M, V, theta)
-        return _var_exp_engine(self)(Y, M, V)
+        return _var_exp_engine(self)(Y, M, V, use_kernel)
 
     def var_exp_derivatives(self, Y: torch.Tensor, M: torch.Tensor,
                             V: torch.Tensor):

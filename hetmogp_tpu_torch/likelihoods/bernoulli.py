@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import ClassVar
 
 import torch
 
@@ -41,6 +42,7 @@ def _log_probs(f):
 
 @dataclasses.dataclass(frozen=True)
 class Bernoulli(Likelihood):
+    sweep: ClassVar[str] = "bernoulli"
 
     def logpdf(self, F, Y):
         log_p, log_1mp = _log_probs(F[..., 0])

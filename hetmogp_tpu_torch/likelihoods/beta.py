@@ -48,15 +48,15 @@ class Beta(Likelihood):
 
     analytic: bool = True
 
-    def var_exp(self, Y, M, V):
+    def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
-            return Likelihood.var_exp(self, Y, M, V)
+            return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)
         y = Y[:, 0]
         Ea = torch.clamp(safe_exp(M[:, 0] + 0.5 * V[:, 0]), 1e-9, 1e9)
         Eb = torch.clamp(safe_exp(M[:, 1] + 0.5 * V[:, 1]), 1e-9, 1e9)
         lg = _lngamma_engine(quadrature.DEFAULT_T)
-        E_lga = lg(Y, M[:, :1], V[:, :1])
-        E_lgb = lg(Y, M[:, 1:], V[:, 1:])
+        E_lga = lg(Y, M[:, :1], V[:, :1], use_kernel)
+        E_lgb = lg(Y, M[:, 1:], V[:, 1:], use_kernel)
         E_lgab = _lngamma_sum_engine(quadrature.MULTI_T)(Y, M, V)
         return ((Ea - 1.0) * torch.log(y) + (Eb - 1.0) * torch.log1p(-y)
                 - E_lga - E_lgb + E_lgab)

@@ -63,6 +63,13 @@ class Categorical(Likelihood):
     def T_pred(self):  # type: ignore[override]
         return quadrature.MULTI_T
 
+    @property
+    def sweep(self):  # type: ignore[override]
+        """Kernel 6's device function, built for K - 1 <= 5 latent
+        dimensions (every grid the constructor admits at T = 10)."""
+        ok = self.dim_f in quadrature.SWEEP_FAMILIES["categorical"][1]
+        return "categorical" if ok else None
+
     def ismulti(self) -> bool:
         return True
 

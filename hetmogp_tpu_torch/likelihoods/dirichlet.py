@@ -76,16 +76,16 @@ class Dirichlet(Likelihood):
     def ismulti(self) -> bool:
         return True
 
-    def var_exp(self, Y, M, V):
+    def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
-            return Likelihood.var_exp(self, Y, M, V)
+            return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)
         n = M.shape[0]
         Ea = torch.clamp(safe_exp(M + 0.5 * V), 1e-9, 1e9)  # (N, K)
         # the K separable sweeps as one call on the flattened axis (the
         # engine's y operand is unused by the integrand)
         flat_m, flat_v = M.reshape(-1, 1), V.reshape(-1, 1)
         E_lga = _lngamma_engine(quadrature.DEFAULT_T)(
-            flat_m, flat_m, flat_v).reshape(n, self.K)
+            flat_m, flat_m, flat_v, use_kernel).reshape(n, self.K)
         E_lgsum = _lngamma_sumK_engine(self.K, self.T_var_exp,
                                        self.mc_samples)(Y, M, V)
         lin = torch.sum((Ea - 1.0) * torch.log(Y), dim=1)

@@ -30,9 +30,9 @@ class Exponential(Likelihood):
 
     analytic: bool = True
 
-    def var_exp(self, Y, M, V):
+    def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
-            return Likelihood.var_exp(self, Y, M, V)
+            return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)
         y, m, v = Y[:, 0], M[:, 0], V[:, 0]
         return m - y * torch.clamp(safe_exp(m + 0.5 * v), 1e-9, 1e9)
 

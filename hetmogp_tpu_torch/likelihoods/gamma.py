@@ -33,8 +33,8 @@ def _lngamma_engine(T: int):
     """E_{N(m,v)}[ln Gamma(clip(e^f, 1e-9, 1e9))] on a T-node 1-D GH grid,
     through the shared engine so its (m, v)-gradients are Bonnet/Price:
     autodiff of the sweep through the nodes m + sqrt(2v) t is singular as
-    v -> 0."""
-    return quadrature.make_var_exp(_lngamma, J=1, T=T)
+    v -> 0.  Its device function is kernel 6's ``"lngamma"``."""
+    return quadrature.make_var_exp(_lngamma, J=1, T=T, sweep="lngamma")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,16 +53,17 @@ class Gamma(Likelihood):
 
     analytic: bool = True
 
-    def var_exp(self, Y, M, V):
+    def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
-            return Likelihood.var_exp(self, Y, M, V)
+            return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)
         y = Y[:, 0]
         m1, m2 = M[:, 0], M[:, 1]
         v1, v2 = V[:, 0], V[:, 1]
         Ea = torch.clamp(safe_exp(m1 + 0.5 * v1), 1e-9, 1e9)
         Eb = torch.clamp(safe_exp(m2 + 0.5 * v2), 1e-9, 1e9)
         E_gammaln = _lngamma_engine(quadrature.DEFAULT_T)(Y, M[:, :1],
-                                                          V[:, :1])
+                                                          V[:, :1],
+                                                          use_kernel)
         return -E_gammaln + Ea * m2 + (Ea - 1.0) * torch.log(y) - Eb * y
 
     def predictive(self, M, V):

@@ -42,7 +42,7 @@ class Gaussian(Likelihood):
     def logpdf(self, F, Y):
         return -_HALF_LOG_2PI - 0.5 * torch.square(Y[..., 0] - F[..., 0])
 
-    def var_exp(self, Y, M, V, theta=None):
+    def var_exp(self, Y, M, V, theta=None, use_kernel=True):
         if theta is not None and self.n_theta:
             lik_v = torch.exp(2.0 * theta[0])
             log_v = torch.log(lik_v)

@@ -66,8 +66,8 @@ class HetLikelihood:
     def ismulti(self, task: int) -> bool:
         return self.likelihoods_list[task].ismulti()
 
-    def var_exp(self, Y, mu_F, v_F, Y_metadata=None):
-        return [lik.var_exp(Y[t], mu_F[t], v_F[t])
+    def var_exp(self, Y, mu_F, v_F, Y_metadata=None, use_kernel=True):
+        return [lik.var_exp(Y[t], mu_F[t], v_F[t], use_kernel=use_kernel)
                 for t, lik in enumerate(self.likelihoods_list)]
 
     def var_exp_derivatives(self, Y, mu_F, v_F, Y_metadata=None):

@@ -44,7 +44,7 @@ class HetGaussian(Likelihood):
         return (-_HALF_LOG_2PI - 0.5 * torch.log(e_var)
                 - 0.5 * safe_square(ym) / e_var)
 
-    def var_exp(self, Y, M, V):
+    def var_exp(self, Y, M, V, use_kernel=True):
         y = Y[:, 0]
         m1, m2 = M[:, 0], M[:, 1]
         v1, v2 = V[:, 0], V[:, 1]

@@ -60,7 +60,7 @@ class LogNormal(Likelihood):
         s2 = torch.exp(2.0 * theta[..., 0])
         return self._logpdf_s2(F, Y, s2, torch.log(s2))
 
-    def var_exp(self, Y, M, V, theta=None):
+    def var_exp(self, Y, M, V, theta=None, use_kernel=True):
         if theta is not None and self.n_theta:
             s2 = torch.exp(2.0 * theta[0])
             log_s2 = torch.log(s2)

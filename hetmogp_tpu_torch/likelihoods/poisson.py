@@ -25,9 +25,9 @@ class Poisson(Likelihood):
 
     analytic: bool = True
 
-    def var_exp(self, Y, M, V):
+    def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
-            return Likelihood.var_exp(self, Y, M, V)
+            return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)
         y, m, v = Y[:, 0], M[:, 0], V[:, 0]
         return y * m - safe_exp(m + 0.5 * v) - torch.lgamma(y + 1.0)
 

@@ -57,9 +57,9 @@ class Weibull(Likelihood):
         return dataclasses.replace(
             self, k=float(np.exp(theta_array(theta)[0])))
 
-    def var_exp(self, Y, M, V, theta=None):
+    def var_exp(self, Y, M, V, theta=None, use_kernel=True):
         if not self.analytic:
-            return Likelihood.var_exp(self, Y, M, V, theta)
+            return Likelihood.var_exp(self, Y, M, V, theta, use_kernel)
         k = (torch.exp(theta[0]) if theta is not None and self.n_theta
              else self.k)
         log_y = torch.log(torch.clamp(Y[:, 0], min=1e-30))

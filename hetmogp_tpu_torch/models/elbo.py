@@ -76,7 +76,7 @@ def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
     """
     if cached is not None:
         return linalg.chol_cached(_jittered_gram(params, config), *cached,
-                                  precision=config.ve_fwd_precision,
+                                  precision=config.projection_precision,
                                   use_kernel=use_kernel)
     if _float64_island(params, config):
         return linalg.chol_mixed(_jittered_gram(params, config))
@@ -116,7 +116,7 @@ def latent_projection_P(params: SVMOGPParams, config: ModelConfig,
                             params.variance, use_kernel=use_kernel)
     kdiag = kernels.Kdiag_batched(config.kernel, X, params.variance)
     if iLuu is not None:
-        P = linalg.matmul_tril_t(Kfu, iLuu, precision=config.ve_fwd_precision,
+        P = linalg.matmul_tril_t(Kfu, iLuu, precision=config.projection_precision,
                                  use_kernel=use_kernel)
     else:
         P = linalg.solve_tri(Luu, Kfu.mT).mT
@@ -162,11 +162,11 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
         P = linalg.solve_tri(Luu, Kfu.mT).mT
     elif cache_grad:
         P = linalg.solve_tri_cached(Luu, Kfu, iLuu,
-                                    precision=config.ve_fwd_precision,
+                                    precision=config.projection_precision,
                                     use_kernel=use_kernel)
     else:
         P = linalg.matmul_tril_t(Kfu, iLuu,
-                                 precision=config.ve_fwd_precision,
+                                 precision=config.projection_precision,
                                  use_kernel=use_kernel)
     if config.whiten:
         mean_q = (P @ m_u[..., None])[..., 0]
@@ -377,9 +377,10 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
     for t, (lik, td) in enumerate(zip(config.likelihoods, data)):
         if params.lik_theta is not None and lik.n_theta:
             # the trainable likelihood parameters, with their gradient
-            ve = lik.var_exp(td.Y, *moments[t], theta=params.lik_theta[t])
+            ve = lik.var_exp(td.Y, *moments[t], theta=params.lik_theta[t],
+                             use_kernel=use_kernel)
         else:
-            ve = lik.var_exp(td.Y, *moments[t])
+            ve = lik.var_exp(td.Y, *moments[t], use_kernel=use_kernel)
         ve_sums.append(scales[t] * torch.sum(ve * td.mask))
     ve_sums = torch.stack(ve_sums)
     kl = kl_divergence(params, config, Luu)

@@ -147,7 +147,11 @@ def init_params(rng: np.random.Generator, config: ModelConfig, Z, *,
     arrays = (Z, q_mu, np.broadcast_to(np.eye(M), (Qe, M, M)), np.log(ls),
               np.log(var), W, np.zeros((Qe, D)))
     theta = (default_lik_theta(config, device) if with_lik_theta else None)
-    return SVMOGPParams(*(torch.tensor(np.array(a), dtype=config.torch_dtype,
+    # row-major, as a checkpoint's and the JAX package's arrays are (numpy
+    # would keep the broadcast inputs' strides): kernel 7 walks a leaf in
+    # memory order and copies a gradient of another layout
+    return SVMOGPParams(*(torch.tensor(np.ascontiguousarray(a),
+                                       dtype=config.torch_dtype,
                                        device=device) for a in arrays),
                         lik_theta=theta, rank=R)
 

@@ -8,8 +8,11 @@ same for every kernel:
   and whose CPU implementation is the plain PyTorch version;
 * a CUDA float32 tensor goes to the kernel, at every size: there is no
   size gate until a measurement on the card sets one;
-* a CUDA tensor of another dtype raises: the kernels are float32-only, and
-  a silent switch to the plain version would hide that from the caller;
+* a CUDA tensor of another dtype raises: the RBF and triangular kernels
+  are float32-only, and a silent switch to the plain version would hide
+  that from the caller (kernels 6 and 7, the GH sweep and the adam update,
+  take float32 and float64: ``ops/quadrature.py`` and ``train.py`` route
+  to them);
 * ``use_kernel=False`` takes the plain PyTorch version on any device,
   outside the operators (what the kernels are checked against).
 

@@ -14,7 +14,15 @@ A tril(L) in three passes), ``csrc/tril_right_kernel.cu`` (kernel 4:
 A tril(L) in float32, with quad_diag's square and row sum fused), each
 triangular product in two designs, a TMA-fed one (sharing
 ``csrc/tril_tma.cuh``) and a register-staged one (the first port's for A
-and 3, a generic one for 4 and 5), chosen by shape (``tril_route``).
+and 3, a generic one for 4 and 5), chosen by shape (``tril_route``); and,
+for the XLA fusions of the JAX package's trainer,
+``csrc/gh_sweep_kernel.cu`` (kernel 6: the one-pass Gauss-Hermite sweep,
+value, E[d1] and E[d2] of every row in one launch, over the families of
+``csrc/gh_sweep.cuh``; ``gh_sweep``, ``gh_sweep_value``) and
+``csrc/adam_kernel.cu`` (kernel 7: the masked adam update of every leaf
+in one launch; ``adam_update``), both in float32 and float64, launched by
+``ops/quadrature.py`` and ``train.py`` directly (no operator: no exported
+program trains).
 ``ops/_build.py`` builds them when a CUDA tensor first reaches one, and
 they are bound with ``ctypes``.  Importing this module builds and loads
 nothing.
@@ -72,6 +80,11 @@ def _library() -> ctypes.CDLL:
     shape = [ctypes.c_int] * 3  # Q, N, M
     # X, Z, lengthscale, variance, out; Q, N, M, Dx, lengthscale columns
     rbf = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    sweep = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+             + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+    adam = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_double])
     signatures = {
         "hetmogp_rbf_cross_vec_f32": rbf,
         "hetmogp_rbf_cross_f32": rbf,
@@ -87,11 +100,21 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_int] + shape,
         "hetmogp_tril_right3_f32": proj + [ctypes.c_void_p] * 2 + shape,
         "hetmogp_tril_right3_generic_f32": proj + shape,
+        # family, J; m, v, y; their row strides; nodes, w; S, N; value,
+        # Ed1, Ed2
+        "hetmogp_gh_sweep_f32": sweep,
+        "hetmogp_gh_sweep_f64": sweep,
+        # the leaf table (7 pointers a leaf), sizes, leaves; count,
+        # count_out, lr_ptr; lr_value
+        "hetmogp_adam_f32": adam,
+        "hetmogp_adam_f64": adam,
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = args + [ctypes.c_void_p]  # and the stream
         fn.restype = ctypes.c_int
+    lib.hetmogp_adam_max_leaves.argtypes = []
+    lib.hetmogp_adam_max_leaves.restype = ctypes.c_int
     return lib
 
 
@@ -770,6 +793,215 @@ class QuadDiag(torch.autograd.Function):
         return _backward_right(ctx, 2.0 * g[..., None] * AL)
 
 
+# ---- kernel 6: the one-pass Gauss-Hermite sweep -----------------------------
+#
+# The plain version is the autograd engine of ``ops/quadrature.py``
+# (``make_var_exp``), which sends a CUDA tensor of an engine in its
+# ``SWEEP_FAMILIES`` table here.  Two launchers of the one kernel, each
+# counting its own launches: the value with (Ed1, Ed2), and the value alone.
+
+_SWEEP_ENTRIES = {torch.float32: "hetmogp_gh_sweep_f32",
+                  torch.float64: "hetmogp_gh_sweep_f64"}
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (N, k) with each row's entries contiguous: the kernel reads
+    rows at ``t.stride(0)``, so a column slice such as ``M[:, :1]`` is
+    taken as it is."""
+    return t if t.shape[1] == 1 or t.stride(1) == 1 else t.contiguous()
+
+
+def _sweep_launch(wrapper, family: int, y, m, v, nodes, w, deriv: bool):
+    """Check the inputs, launch kernel 6 on the current stream and count
+    the launch on ``wrapper``: (value, Ed1, Ed2), or the value alone."""
+    name = wrapper.__name__
+    tensors = (y, m, v, nodes, w)
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the raw CUDA {name} launcher records no backward; "
+            "differentiate through quadrature.make_var_exp's engine")
+    dtype = m.dtype
+    if dtype not in _SWEEP_ENTRIES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{name} takes float32 or float64 tensors of one "
+                        f"dtype, got {[t.dtype for t in tensors]}")
+    dev = m.device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{name} takes tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if m.ndim != 2 or v.shape != m.shape or y.ndim != 2 \
+            or y.shape[0] != m.shape[0] or y.shape[1] < 1 or nodes.ndim != 2 \
+            or nodes.shape[1] != m.shape[1] or w.shape != nodes.shape[:1]:
+        raise ValueError(
+            f"{name} takes m, v (N, J), y (N, dim_y), nodes (S, J) and w "
+            f"(S,); got {tuple(m.shape)}, {tuple(v.shape)}, "
+            f"{tuple(y.shape)}, {tuple(nodes.shape)}, {tuple(w.shape)}")
+    (N, J), S = m.shape, nodes.shape[0]
+    if N >= 2 ** 28 or S >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: N={N}, S={S}")
+    y, m, v = _rows(y), _rows(m), _rows(v)
+    nodes, w = nodes.contiguous(), w.contiguous()
+    val = torch.empty((N,), dtype=dtype, device=dev)
+    ed1 = torch.empty((N, J), dtype=dtype, device=dev) if deriv else None
+    ed2 = torch.empty((N, J), dtype=dtype, device=dev) if deriv else None
+    result = (val, ed1, ed2) if deriv else val
+    if N == 0:
+        return result
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _SWEEP_ENTRIES[dtype])(
+            family, J, m.data_ptr(), v.data_ptr(), y.data_ptr(), m.stride(0),
+            v.stride(0), y.stride(0), nodes.data_ptr(), w.data_ptr(), S, N,
+            val.data_ptr(), None if ed1 is None else ed1.data_ptr(),
+            None if ed2 is None else ed2.data_ptr(), stream)
+    _raise_on(err, name)
+    wrapper.launches += 1
+    return result
+
+
+def gh_sweep(family: int, y: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+             nodes: torch.Tensor, w: torch.Tensor):
+    """Kernel 6 (``hetmogp_gh_sweep_f32``/``_f64``): for each row n the
+    value sum_s w_s lp(F_ns), Ed1[n, j] = sum_s w_s d lp / dF_j and
+    Ed2[n, j] = sum_s w_s d2 lp / dF_j^2 at F_ns = m_n + sqrt(2 v_n) t_s, in
+    one launch; ``family`` the code of the log density
+    (``quadrature.SWEEP_FAMILIES``).  m, v: (N, J); y: (N, dim_y); nodes:
+    (S, J); w: (S,); float32 or float64 on one CUDA device.  Returns
+    (value (N,), Ed1 (N, J), Ed2 (N, J)); launches on the current stream
+    and does not synchronise.  Counts its launches in
+    ``gh_sweep.launches``."""
+    return _sweep_launch(gh_sweep, family, y, m, v, nodes, w, True)
+
+
+gh_sweep.launches = 0
+
+
+def gh_sweep_value(family: int, y: torch.Tensor, m: torch.Tensor,
+                   v: torch.Tensor, nodes: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """Kernel 6's value alone, (N,), when no input needs a gradient.
+    Counts its launches in ``gh_sweep_value.launches``."""
+    return _sweep_launch(gh_sweep_value, family, y, m, v, nodes, w, False)
+
+
+gh_sweep_value.launches = 0
+
+
+# ---- kernel 7: the masked adam update -----------------------------------------
+#
+# The plain version is ``train._adam``; ``train.make_optimizer`` sends the
+# leaves of a CUDA model here.
+
+_ADAM_ENTRIES = {torch.float32: "hetmogp_adam_f32",
+                 torch.float64: "hetmogp_adam_f64"}
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """Whether t's elements fill its memory span once each (any order of
+    its dimensions in memory): an elementwise kernel may then walk the
+    span."""
+    if any(st <= 0 for st, n in zip(t.stride(), t.shape) if n > 1):
+        return False
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return t.numel() == 0 or span == t.numel()
+
+
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """t in ref's layout: t itself when the strides agree, else a copy."""
+    return t if t.stride() == ref.stride() else torch.empty_like(ref).copy_(t)
+
+
+def adam_leaf_table(tensors, grads) -> list:
+    """Kernel 7's leaf table: (index in ``leaves`` order, element count,
+    free) of every leaf with elements, a leaf free where it has a gradient
+    (the step's mask gives None for the others)."""
+    return [(i, t.numel(), g is not None)
+            for i, (t, g) in enumerate(zip(tensors, grads)) if t.numel()]
+
+
+def adam_update(tensors, grads, mu, nu, count: torch.Tensor, lr):
+    """One masked adam step of every leaf on the card, ``train._adam``'s
+    arithmetic to the bit: ``tensors``, ``mu`` and ``nu`` the leaves and
+    their moments in ``leaves`` order, ``grads`` a gradient for each free
+    leaf and None for the others, ``count`` adam's () int64 step count, and
+    ``lr`` a float or a () tensor of the leaves' dtype (a schedule's rate,
+    read on the device).  Returns (new leaves, new mu, new nu, count + 1):
+    a frozen leaf is returned as it is, everything else is new.  One launch
+    for up to ``hetmogp_adam_max_leaves()`` leaves with elements (32), one
+    more for each 32 after; counts its launches in
+    ``adam_update.launches``."""
+    name = "adam_update"
+    table = adam_leaf_table(tensors, grads)
+    if not table:
+        raise ValueError(f"{name}: no leaf has elements")
+    present = [g for g in grads if g is not None]
+    every = [*tensors, *present, *mu, *nu, count]
+    if any(t.requires_grad for t in every):
+        raise NotImplementedError(f"the raw CUDA {name} launcher records "
+                                  "no backward; call it under no_grad")
+    dtype, dev = tensors[0].dtype, tensors[0].device
+    if dtype not in _ADAM_ENTRIES or any(
+            t.dtype != dtype for t in (*tensors, *present, *mu, *nu)) \
+            or count.dtype != torch.int64 or count.numel() != 1:
+        raise TypeError(f"{name} takes float32 or float64 leaves of one "
+                        "dtype and an int64 count")
+    if not all(t.is_cuda and t.device == dev for t in every):
+        raise ValueError(f"{name} takes tensors on one CUDA device")
+    if isinstance(lr, torch.Tensor) and (lr.numel() != 1 or lr.dtype != dtype
+                                         or lr.device != dev):
+        raise ValueError(f"{name}: a tensor lr must be a () {dtype} tensor "
+                         f"on {dev}, got {tuple(lr.shape)} {lr.dtype} on "
+                         f"{lr.device}")
+    for i, n, free in table:
+        shapes = {tensors[i].shape, mu[i].shape, nu[i].shape}
+        if free:
+            shapes.add(grads[i].shape)
+        if len(shapes) != 1:
+            raise ValueError(f"{name}: leaf {i}'s tensors differ in shape: "
+                             f"{sorted(map(tuple, shapes))}")
+    # the kernel walks each leaf's elements in memory order: a leaf's
+    # tensors share the layout of its parameter (a dense one, whatever its
+    # strides: the flagship's Z and q_sqrt are not row-major), and a tensor
+    # of another layout is copied into it
+    p_in = [t if _dense(t) else t.contiguous() for t in tensors]
+    g_in = [None if g is None else _like(g, p) for g, p in zip(grads, p_in)]
+    mu_in = [_like(t, p) for t, p in zip(mu, p_in)]
+    nu_in = [_like(t, p) for t, p in zip(nu, p_in)]
+    new_p = [torch.empty_like(p) if g is not None else t
+             for t, p, g in zip(tensors, p_in, grads)]
+    new_mu = [torch.empty_like(p) for p in p_in]
+    new_nu = [torch.empty_like(p) for p in p_in]
+    new_count = torch.empty_like(count)
+    lr_ptr = lr.data_ptr() if isinstance(lr, torch.Tensor) else None
+    lr_value = 0.0 if lr_ptr is not None else float(lr)
+    lib = _library()
+    most = lib.hetmogp_adam_max_leaves()
+    entry = getattr(lib, _ADAM_ENTRIES[dtype])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for start in range(0, len(table), most):
+            chunk = table[start:start + most]
+            ptrs = []
+            for i, _, free in chunk:
+                ptrs += [p_in[i].data_ptr(),
+                         g_in[i].data_ptr() if free else None,
+                         mu_in[i].data_ptr(), nu_in[i].data_ptr(),
+                         new_p[i].data_ptr() if free else None,
+                         new_mu[i].data_ptr(), new_nu[i].data_ptr()]
+            err = entry(
+                (ctypes.c_void_p * len(ptrs))(*ptrs),
+                (ctypes.c_longlong * len(chunk))(*(n for _, n, _ in chunk)),
+                len(chunk), count.data_ptr(),
+                new_count.data_ptr() if start == 0 else None, lr_ptr,
+                lr_value, stream)
+            _raise_on(err, name)
+            adam_update.launches += 1
+    return new_p, new_mu, new_nu, new_count
+
+
+adam_update.launches = 0
+
+
 # ---- the kernels as operators -----------------------------------------------
 #
 # Each routed forward is a custom operator of the ``hetmogp`` namespace: its
@@ -816,7 +1048,8 @@ _register("quad_diag_product", quad_diag_product_plain,
 _LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,
               tril_projection_staged, tril_projection_3pass_tma,
               tril_projection_3pass_staged, tril_right_tma,
-              tril_right_generic, tril_right3_tma, tril_right3_generic)
+              tril_right_generic, tril_right3_tma, tril_right3_generic,
+              gh_sweep, gh_sweep_value, adam_update)
 
 
 def launch_counts() -> dict:

@@ -26,12 +26,21 @@ shared by the rows: the (m, v)-gradients as above, and dtheta =
 sum_n g_n sum_s w_s d logp(F_ns, y_n; theta) / d theta.  theta reaches the
 log-density as one copy per row, so the weighted backward of the sweep
 gives each row's sum over its nodes at once, with no per-node Jacobian.
+
+On the card, an engine whose log-density has a device function
+(``SWEEP_FAMILIES``: Bernoulli, Categorical and the lngamma sweep of
+Gamma, Beta and Dirichlet) runs its sweep as kernel 6
+(``csrc/gh_sweep_kernel.cu``): one launch gives the value, E[d1] and
+E[d2] of every row, the JAX engine's one fused ``ve_fwd``; the autograd
+sweep above is its plain version, what CPU tensors and
+``use_kernel=False`` take.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -147,8 +156,21 @@ def _diag_second(d1, F, j):
     return torch.zeros_like(F[..., j]) if g is None else g[..., j]
 
 
-def make_var_exp(logpdf, J: int, T: int, mc_samples: int = 0):
-    """Build ve(y, m, v) -> (N,), E_{N(f; m, v)}[log p(y | f)] per row.
+# Kernel 6's device functions (``csrc/gh_sweep.cuh``), by engine: the
+# family code the kernel switches on and the latent dimensions J it is
+# built for.  A CUDA tensor of an engine made with one of these ``sweep``
+# names goes to the kernel (``cuda_kernels.gh_sweep``); every other engine
+# runs its autograd sweep on the card.  This is a route by family, not a
+# fallback: a build or launch failure raises.
+SWEEP_FAMILIES = {"bernoulli": (0, (1,)),
+                  "categorical": (1, (1, 2, 3, 4, 5)),
+                  "lngamma": (2, (1,))}
+
+
+def make_var_exp(logpdf, J: int, T: int, mc_samples: int = 0,
+                 sweep: Optional[str] = None):
+    """Build ve(y, m, v, use_kernel=True) -> (N,), E_{N(f; m, v)}[log p(y | f)]
+    per row.
 
     Args:
       logpdf: batched log-density, (F: (..., J), y: (..., dim_y)) -> (...),
@@ -157,15 +179,39 @@ def make_var_exp(logpdf, J: int, T: int, mc_samples: int = 0):
       T: GH nodes per dimension (tensor grid of T^J nodes).
       mc_samples: if > 0, that many quasi-MC nodes (``mc_nodes``) in place
         of the tensor grid, for large J where T^J explodes.
+      sweep: the name of ``logpdf``'s device function in
+        ``SWEEP_FAMILIES``, or None.  With a name, a CUDA tensor's sweep is
+        kernel 6 (value, E[d1] and E[d2] in one launch) unless the call
+        passes ``use_kernel=False``; CPU tensors, and an engine without
+        one, take the autograd sweep.
     The gradient with respect to (m, v) is (E[dlogp], 1/2 E[d2logp]) on the
-    same nodes; y gets none.
+    same nodes; y gets none.  The engine function carries ``sweep``.
     """
+    if sweep is not None:
+        if sweep not in SWEEP_FAMILIES:
+            raise ValueError(f"no device function {sweep!r}; kernel 6 has "
+                             f"{sorted(SWEEP_FAMILIES)}")
+        if J not in SWEEP_FAMILIES[sweep][1]:
+            raise ValueError(f"kernel 6's {sweep!r} takes J in "
+                             f"{SWEEP_FAMILIES[sweep][1]}, got {J}")
+
     class VarExp(torch.autograd.Function):
 
         @staticmethod
-        def forward(ctx, y, m, v):
+        def forward(ctx, y, m, v, use_kernel=True):
             nodes, w = _nodes(T, J, mc_samples, m)
-            if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
+            deriv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+            if sweep is not None and use_kernel and m.is_cuda:
+                from hetmogp_tpu_torch.ops import cuda_kernels
+
+                family = SWEEP_FAMILIES[sweep][0]
+                args = (y.detach(), m.detach(), v.detach(), nodes, w)
+                if not deriv:
+                    return cuda_kernels.gh_sweep_value(family, *args)
+                val, Ed1, Ed2 = cuda_kernels.gh_sweep(family, *args)
+                ctx.save_for_backward(Ed1, Ed2)
+                return val
+            if not deriv:
                 return logpdf(_expand_nodes(m, v, nodes), y[:, None, :]) @ w
             with torch.enable_grad():
                 F = _expand_nodes(m, v, nodes).detach().requires_grad_()
@@ -181,9 +227,13 @@ def make_var_exp(logpdf, J: int, T: int, mc_samples: int = 0):
         @staticmethod
         def backward(ctx, g):
             Ed1, Ed2 = ctx.saved_tensors
-            return None, Ed1 * g[:, None], 0.5 * Ed2 * g[:, None]
+            return None, Ed1 * g[:, None], 0.5 * Ed2 * g[:, None], None
 
-    return VarExp.apply
+    def ve(y, m, v, use_kernel: bool = True):
+        return VarExp.apply(y, m, v, use_kernel)
+
+    ve.sweep = sweep
+    return ve
 
 
 def make_var_exp_theta(logpdf_t, J: int, T: int, mc_samples: int = 0):

@@ -9,7 +9,9 @@ joint mode (``vem=False``), with each of the JAX package's optimizers:
   the free leaves move; ``torch.optim.Adam`` would keep moving a frozen
   leaf through its momentum after a VE/VM switch), with the LR schedules
   of ``make_lr_schedule`` driven by adam's count on the device and
-  ``clip_grad_norm`` as ``optax.clip_by_global_norm``;
+  ``clip_grad_norm`` as ``optax.clip_by_global_norm``; on the card the
+  update of every leaf is one launch of kernel 7
+  (``cuda_kernels.adam_update``, ``_adam``'s arithmetic to the bit);
 * ``adadelta``, climin's rule with its momentum lookahead: the gradient is
   taken at params - momentum * step, masked to the mode's free leaves;
 * ``natgrad_adam``: natural gradients on the whitened q(u)
@@ -341,6 +343,23 @@ def _adam(params: SVMOGPParams, opt: AdamState,
                       from_leaves(params, new_nu)))
 
 
+def _adam_step(params: SVMOGPParams, opt: AdamState,
+               grads: Sequence[Optional[torch.Tensor]], lr,
+               use_kernel: bool = True):
+    """``_adam``'s step: kernel 7 (``cuda_kernels.adam_update``, one
+    launch for every leaf, bitwise ``_adam``) for a model on the card,
+    ``_adam`` itself for one on the CPU or under ``use_kernel=False``."""
+    if not (use_kernel and params.Z.is_cuda):
+        return _adam(params, opt, grads, lr)
+    new_p, new_mu, new_nu, count = cuda_kernels.adam_update(
+        [t for _, t in leaves(params)], grads,
+        [t for _, t in leaves(opt.mu)], [t for _, t in leaves(opt.nu)],
+        opt.count, lr)
+    return (from_leaves(params, new_p),
+            AdamState(count, from_leaves(params, new_mu),
+                      from_leaves(params, new_nu)))
+
+
 def _adadelta(params: SVMOGPParams, opt: AdadeltaState,
               grads: Sequence[Optional[torch.Tensor]], train_config):
     """One climin Adadelta step (``climin_adadelta``) with masked updates:
@@ -424,12 +443,15 @@ def adadelta_lookahead_point(params, opt_state, momentum: float,
     return [p - momentum * s for p, s in zip(params, opt_state["step"])]
 
 
-def make_optimizer(train_config: TrainConfig, comm=None) -> Callable:
+def make_optimizer(train_config: TrainConfig, comm=None,
+                   use_kernel: bool = True) -> Callable:
     """update(params, opt_state, grads) -> (params, opt_state): one masked
     step of the configured first-order optimizer, ``grads`` a gradient per
     free leaf and None for the others (in the order of ``leaves``).
     Adadelta refuses a schedule and clipping, as the JAX package does.
-    ``comm``: the mesh's, for the global norm of the clipping."""
+    ``comm``: the mesh's, for the global norm of the clipping.  The adam
+    step of a model on the card is kernel 7 (``_adam_step``) unless
+    ``use_kernel`` is False."""
     if train_config.optimizer == "adadelta":
         if (train_config.lr_schedule is not None
                 or train_config.clip_grad_norm is not None):
@@ -458,7 +480,7 @@ def make_optimizer(train_config: TrainConfig, comm=None) -> Callable:
         if clip is not None:
             grads = clip_by_global_norm(grads, clip, comm)
         rate = lr(opt.count).to(params.Z.dtype) if callable(lr) else lr
-        return _adam(params, opt, grads, rate)
+        return _adam_step(params, opt, grads, rate, use_kernel)
 
     return update
 
@@ -532,7 +554,7 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
     ``ng_backoff`` (0/1/2, 0 on VM steps) under natgrad_adam; ``skipped``
     (0/1) under ``skip_nonfinite_steps``; all on the device.
     """
-    update = make_optimizer(train_config, comm)
+    update = make_optimizer(train_config, comm, use_kernel)
     use_natgrad = train_config.optimizer == "natgrad_adam"
     if use_natgrad and not config.whiten:
         raise ValueError("natural gradients require the whitened "
@@ -699,7 +721,7 @@ def _keep_if_nonfinite(old: TrainState, new: TrainState, elbo, grads, q=None,
 # ---------------------------------------------------------------------------
 
 def _ve_terms(params, data, scales, config, means, gammas, kdiags,
-              comm=None):
+              comm=None, use_kernel: bool = True):
     """(ve_total, ve_sums (T,)): the scaled variational expectations from
     per-task (Q, N_t) latent moments, with the natural-gradient step's
     variance floor 1e-12; under ``comm``, of this rank's rows, the mixing
@@ -711,9 +733,10 @@ def _ve_terms(params, data, scales, config, means, gammas, kdiags,
     for t, (lik, td) in enumerate(zip(config.likelihoods, data)):
         m_F, v_F = moments[t]
         if params.lik_theta is not None and lik.n_theta:
-            ve = lik.var_exp(td.Y, m_F, v_F, theta=params.lik_theta[t])
+            ve = lik.var_exp(td.Y, m_F, v_F, theta=params.lik_theta[t],
+                             use_kernel=use_kernel)
         else:
-            ve = lik.var_exp(td.Y, m_F, v_F)
+            ve = lik.var_exp(td.Y, m_F, v_F, use_kernel=use_kernel)
         ve_sums.append(scales[t] * torch.sum(ve * td.mask))
     total = ve_sums[0]
     for v in ve_sums[1:]:
@@ -807,7 +830,7 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
     with torch.enable_grad():
         ve_total, ve_sums = _ve_terms(params, data, scales, config,
                                       task_views(means), task_views(gammas),
-                                      task_views(kds), comm)
+                                      task_views(kds), comm, use_kernel)
         grads = torch.autograd.grad(ve_total, means + gammas)
     with torch.no_grad():
         ve_total, ve_sums = ve_total.detach(), ve_sums.detach()

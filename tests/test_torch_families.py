@@ -273,7 +273,14 @@ EXTREME = [("Ordinal", {"K": 4}, 2.0), ("StudentT", {}, 0.5),
            ("ZeroInflatedPoisson", {}, 3.0), ("NegativeBinomial", {}, 3.0),
            ("Binomial", {"n": 5}, 2.0), ("LogNormal", {}, 1.5),
            ("Dirichlet", {}, None), ("Beta", {"analytic": False}, 0.3),
-           ("Bernoulli", {}, 1.0)]
+           ("Bernoulli", {}, 1.0),
+           # the flagship's families that kernel 6 sweeps or that had no
+           # such test: Categorical's 2-D grid, Gamma on its 2-D grid and in
+           # its closed form (the lngamma sweep), HetGaussian's closed form
+           ("Categorical", {"K": 3}, 2.0), ("Gamma", {"analytic": False}, 1.5),
+           ("Gamma", {}, 1.5), ("HetGaussian", {}, 0.4)]
+EXTREME_IDS = [name + ("-grid" if name == "Gamma" and kw else "")
+               for name, kw, _ in EXTREME]
 EXTREME_MV = ((-200.0, 50.0), (200.0, 50.0), (-20.0, 5.0), (20.0, 5.0))
 # (family, m, output): where float32 itself is off against float64, by the
 # formula the two packages share, so that neither package is right there
@@ -286,6 +293,12 @@ F32_OFF = {
     # at a clipped scale of 1e-9 the f1-curvature is a sum of node terms
     # of alternating sign, ~1e-5 of their size
     ("StudentT", -200.0, "dv"): "cancellation",
+    # safe_exp clips e^f at e^87.7 in float32 (e^708.8 in float64): every
+    # node of m = 200, v = 50 clips, so p = (1/2, 1/2, 0) and the
+    # derivatives vanish, where float64 still tells the classes apart
+    ("Categorical", 200.0, "value"): "safe_exp's float32 clip",
+    ("Categorical", 200.0, "dm"): "safe_exp's float32 clip",
+    ("Categorical", 200.0, "dv"): "safe_exp's float32 clip",
 }
 
 
@@ -293,8 +306,7 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b))) / max(float(np.max(np.abs(b))), 1e-4)
 
 
-@pytest.mark.parametrize("name,kw,yval", EXTREME,
-                         ids=[c[0] for c in EXTREME])
+@pytest.mark.parametrize("name,kw,yval", EXTREME, ids=EXTREME_IDS)
 def test_f32_at_extreme_moments_against_jax(name, kw, yval):
     """The port in float32 against the JAX package in float64, value and
     (dm, dv), at m = +-200, v = 50 and m = +-20, v = 5: finite everywhere,

@@ -130,7 +130,8 @@ LAUNCHERS = ("rbf_K_batched_vec", "rbf_K_batched_scalar",
              "tril_projection_tma", "tril_projection_staged",
              "tril_projection_3pass_tma", "tril_projection_3pass_staged",
              "tril_right_tma", "tril_right_generic", "tril_right3_tma",
-             "tril_right3_generic")
+             "tril_right3_generic", "gh_sweep", "gh_sweep_value",
+             "adam_update")
 
 
 # the vector kernel is what ``rbf_K_batched`` reaches on the main path, and

@@ -250,19 +250,26 @@ SIXTEEN = (jliks.Gaussian(sigma=0.3, learn_sigma=True), jliks.HetGaussian(),
     (dict(adaptive_jitter=True), None),
     (dict(rank=2), None),
     (dict(chol_dtype="float64"), None),
-    (dict(ve_fwd_precision="default"), "float32"),
-], ids=["family", "kernel", "adaptive", "rank", "chol_dtype", "precision"])
+    (dict(ve_fwd_precision="default"), None),
+    (dict(dtype="bfloat16"), "bfloat16 model would form the projection"),
+], ids=["family", "kernel", "adaptive", "rank", "chol_dtype", "precision",
+        "bfloat16"])
 def test_config_refuses_what_is_not_ported(change, match):
     """Each refusal says what the port runs instead; the ``family``,
-    ``adaptive``, ``rank`` and ``chol_dtype`` cases pin that those
-    refusals are gone: a JAX config of all sixteen families, with adaptive
-    jitter, at rank 2 or with the float64 island, loads, field for
-    field."""
+    ``adaptive``, ``rank``, ``chol_dtype`` and ``precision`` cases pin
+    that those refusals are gone: a JAX config of all sixteen families,
+    with adaptive jitter, at rank 2, with the float64 island or with a
+    ``ve_fwd_precision`` other than "high" and "highest", loads, field for
+    field (and runs the last at "highest", as the JAX package does:
+    ``tests/test_torch_vem.py``).  ``bfloat16`` stays refused, with its
+    reason."""
     cfg, _, _ = _model()
     d = dataclasses.replace(cfg, **change).to_dict()
     if match is None:
         tcfg = tp.ModelConfig.from_dict(d)
         assert tcfg.to_dict() == d
+        if "ve_fwd_precision" in change:
+            assert tcfg.projection_precision == "highest"
         if "likelihoods" in change:
             assert [type(lik).__name__ for lik in tcfg.likelihoods] == [
                 type(lik).__name__ for lik in SIXTEEN]

@@ -244,6 +244,48 @@ def test_jax_default_config_loads_and_trains_with_adaptive_jitter():
     tp.make_scan_trainer(tcfg, tc, (60, 53), (16, 16), device="cpu")
 
 
+def test_jax_config_of_default_precision_loads_and_trains_at_highest():
+    """A JAX ``ModelConfig(ve_fwd_precision="default").to_dict()``, a
+    value the JAX package runs at HIGHEST (it runs every value but "high"
+    so), loads as it is, and the port runs it at "highest": its ELBO with
+    the cached inverse is the JAX one in float64 and bitwise the port's at
+    "highest", and ten steps train as the JAX package's do."""
+    cfg, jparams, X, Y = _stream_problem()
+    jcfg = dataclasses.replace(cfg, ve_fwd_precision="default")
+    tcfg = tp.ModelConfig.from_dict(jcfg.to_dict())
+    assert tcfg.ve_fwd_precision == "default"
+    assert tcfg.projection_precision == "highest"
+    assert tcfg.to_dict() == jcfg.to_dict()
+    highest = dataclasses.replace(tcfg, ve_fwd_precision="highest")
+    params = tp.params_from_jax(jparams, device="cpu")
+    data = tp.make_dataset(X, Y, tcfg, device="cpu")
+    scales = torch.ones(2, dtype=torch.float64)
+    Luu, iLuu = telbo.prior_cholesky_inverse(params, tcfg)
+    got = telbo.elbo_fn(params, data, scales, tcfg, Luu=Luu, iLuu=iLuu)[0]
+    same = telbo.elbo_fn(params, data, scales, highest, Luu=Luu,
+                         iLuu=iLuu)[0]
+    assert torch.equal(got, same)
+    jd = tuple(jelbo.task_data(x, y) for x, y in zip(X, Y))
+    jL, jiL = jelbo.prior_cholesky_inverse(jparams, jcfg)
+    want = jelbo.elbo_fn(jparams, jd, jnp.ones(2), jcfg, Luu=jL, iLuu=jiL)[0]
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
+    tc = tp.TrainConfig(optimizer="adam", step_rate=0.02)
+    state = tp.init_train_state(params, tcfg, tc)
+    step = ttrain.make_step(tcfg, tc)
+    jtc = jhet.TrainConfig(optimizer="adam", step_rate=0.02)
+    jstep = jtrain.make_svi_step(jcfg, jtc)
+    js = jtrain.init_train_state(jparams, jcfg,
+                                 jtrain.make_optimizer(jtc))
+    elbos = []
+    for _ in range(10):
+        state, m = step(state, data, scales)
+        js, jm = jstep(js, jd, jnp.ones(2))
+        np.testing.assert_allclose(m["elbo"].item(), float(jm["elbo"]),
+                                   rtol=1e-8)
+        elbos.append(m["elbo"].item())
+    assert elbos[-1] > elbos[0]
+
+
 def test_callbacks_and_the_metrics_logger(capsys, tmp_path):
     cb = tp.print_callback(every=50)
     for i in range(120):
