@@ -155,12 +155,15 @@ import os
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from hetmogp_tpu_torch.profiling import (BF16_PEAK, F32_PEAK,
+                                         HBM_BYTES_PER_S, bound_ms, card,
+                                         device_times_ms, sampled_clocks)
 
 SEED = 0
 CHUNK = 65536  # rows per serving request (the bench's chunk)
@@ -265,15 +268,6 @@ RAGGED_M = 777
 RAGGED_HIGH_BOUND = 1e-2
 
 
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def device_phase() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -322,47 +316,6 @@ def build_phase(smi: str):
             kernel = kernel_symbol(line)
         elif "registers" in line or "spill" in line:
             print(f"  ptxas, {kernel}: {line.strip()} [card: {smi}]")
-
-
-# H100 SXM peaks (NVIDIA's data sheet, dense): the bounds below are the
-# larger of bytes over the memory rate and operations over the peak rate
-# of their type
-HBM_BYTES_PER_S = 3.35e12
-F32_PEAK = 67e12  # float32 without tensor cores
-BF16_PEAK = 989e12  # bf16 tensor cores
-
-
-def bound_ms(nbytes: float, ops: float, peak: float):
-    """(least time in ms, "bytes" or "operations") for moving ``nbytes``
-    and doing ``ops`` operations at ``peak`` per second."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-# a sleep on the device ahead of each timed call, longer than the host
-# takes to enqueue the call (~2 ms at the card's clock): the events then
-# bracket the call's device work, not the host's launch overhead, which
-# exceeds the device time of the small shapes
-SLEEP_CYCLES = 4_000_000
-
-
-def device_times_ms(fn, reps=20, warmup=3):
-    """Device time of each of `reps` calls of fn() in ms, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
 
 
 # the RBF kernel's timed shapes: the VE step's Kfu (6 x 512 rows), the VM
@@ -710,10 +663,12 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
                          iLuu: torch.Tensor) -> list:
     """Kernel 4 (A tril(L) in float32, with quad_diag's row sum fused) and
     kernel 5 (the same product in three bf16 passes), both routes each:
-    every epilogue against its plain version and float64, two launches
-    bitwise equal, times in turns with cuBLAS and the plain versions at
-    the VE, VM, serving and adjoint shapes; then the "high" cached
-    adjoints' errors against float64, beside the JAX package's."""
+    every epilogue against its plain version and float64, kernel 4's
+    product bitwise cuBLAS's on the TMA route, two launches bitwise equal,
+    times of the three epilogues in turns with cuBLAS and the plain
+    versions at the VE, VM, serving and adjoint shapes (TFLOP/s, share of
+    the bound, clocks.sm sampled beside); then the "high" cached adjoints'
+    errors against float64, beside the JAX package's."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
     from hetmogp_tpu_torch.ops import linalg
 
@@ -762,6 +717,13 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
                     and same):
                 raise AssertionError(f"kernel 4 ({route}) out of bounds or "
                                      f"not deterministic: {name}")
+            # each output one float32 FMA chain over increasing m, as
+            # cuBLAS's: on the TMA route (every shape here but the ragged
+            # one) the product is cuBLAS's to the bit, as it was before
+            # this design
+            if route == "tma" and not torch.equal(out, cub):
+                raise AssertionError(f"kernel 4 (tma) is not bitwise "
+                                     f"cuBLAS's A @ tril(L): {name}")
             del out, again, both, r, rs, rs_again
             got, again = k5(A, L), k5(A, L)
             e_k, f_k = normwise(got, ref_split), normwise(got, ref)
@@ -814,18 +776,24 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
         times[name] = t, tq, t3, bounds
         q, n_, m = A.shape
         flop = q * n_ * m * (m + 1)
+
+        def rate(ms, bound):
+            return (f"{flop / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms * 100:.1f}%"
+                    f" of the bound")
+
+        clocks = sampled_clocks(lambda: ck.tril_right_tma(A, L))
         b, k = bounds["product"], t["kernel 4 (tma)"]
-        rate = flop / k / 1e9
-        print(f"kernel 4 time, {name}: A tril(L) {k:.4f} ms ({rate:.2f} "
-              f"TFLOP/s, {b[0] / k * 100:.1f}% of the bound), generic "
-              f"route {t['kernel 4 (generic)']:.4f} ms, cuBLAS "
-              f"{t['cuBLAS']:.4f} ms, plain version {t['plain']:.4f} ms; "
-              f"bound {b[0]:.4f} ms ({b[1]}, float32 at {F32_PEAK / 1e12:g} "
-              f"TFLOP/s); median of {n} calls each [card: {smi}]")
-        b, k = bounds["rowsum"], tq["kernel 4 (tma, rowsum)"]
+        print(f"kernel 4 time, {name}: A tril(L) {k:.4f} ms ({rate(k, b)}), "
+              f"generic route {t['kernel 4 (generic)']:.4f} ms, cuBLAS "
+              f"{t['cuBLAS']:.4f} ms ({rate(t['cuBLAS'], b)}), plain version "
+              f"{t['plain']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}, float32 at "
+              f"{F32_PEAK / 1e12:g} TFLOP/s); median of {n} calls each; "
+              f"kernel 4 back to back: {clocks} [card: {smi}]")
+        b = bounds["rowsum"]
+        k, kb = tq["kernel 4 (tma, rowsum)"], tq["kernel 4 (tma, both)"]
         print(f"quad_diag time, {name}: kernel 4 row sums alone {k:.4f} ms "
-              f"({b[0] / k * 100:.1f}% of the bound), with the product "
-              f"stored {tq['kernel 4 (tma, both)']:.4f} ms, generic route "
+              f"({rate(k, b)}), with the product stored {kb:.4f} ms "
+              f"({rate(kb, bounds['product'])}), generic route "
               f"{tq['kernel 4 (generic, rowsum)']:.4f} ms, cuBLAS then "
               f"square and sum {tq['cuBLAS, square, sum']:.4f} ms, plain "
               f"version {tq['plain']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) "

@@ -16,11 +16,12 @@
 // un-whitened A = P iLuu, quad_diag's A Lq in every ELBO and serving pass,
 // and the cached adjoints' products at "highest".
 //
-// It is kernel A (tril_proj_kernel.cu) mirrored.  Output column tile
-// [k0, k0 + 128) reduces over m from k0 to M, where kernel A's runs from 0
-// to k0 + 128, so L's zero blocks are never loaded or multiplied: half the
-// FLOPs of the dense product at M = 1024.  Each output is one float32 FMA
-// chain over increasing m, starting from zero.
+// Output column tile [k0, k0 + 128) reduces over m from k0 to M (kernel
+// A's, tril_proj_kernel.cu, runs from 0 to k0 + 128: this is its mirror),
+// so L's zero blocks are never loaded or multiplied: half the FLOPs of the
+// dense product at M = 1024.  Each output is one float32 FMA chain over
+// increasing m, starting from zero, as cuBLAS's A @ tril(L) is: the two
+// are equal to the bit.
 //
 // Three epilogues behind one entry (`mode`):
 //   0: store out (matmul_tril);
@@ -28,45 +29,65 @@
 //   2: write r only (quad_diag under no_grad): out never reaches memory,
 //      which at the serving chunk (4, 65536, 1024) saves writing and
 //      reading back 1.07 GB a request.
-// The row sum is deterministic, with no float atomics: each tile writes
-// the sums of its 128 columns, per row, into a (Q, N, C) scratch of
-// partials (C column tiles; inside a tile, a fixed shuffle tree over the
-// 16 threads that share a row), and a second launch adds each row's C
-// partials in increasing column-tile order.  Two runs are bitwise equal,
-// as a graph replay and the eager step it was captured from must be.
+// The row sum is deterministic, with no float atomics: each row's
+// partial sums of squares go to a scratch (hetmogp_tril_right_partials a
+// row: a fixed shuffle tree over the threads that share a row inside a
+// tile), and a second launch adds each row's partials in increasing
+// column order: a column tile's in order, then the tiles' sums in order.  Two runs are bitwise equal, as a graph replay
+// and the eager step it was captured from must be.
 //
 // 1. tril_right_tma_kernel (entry hetmogp_tril_right_f32), for M % 4 == 0
 //    and 16-byte-aligned operands (TMA's stride rule), the main path's
-//    M = 1024: tril_tma.cuh's pipeline as kernel A has it (one producer
-//    thread issuing TMA loads into a ring of 4 stages of mbarriers, a
-//    producer warpgroup that hands its registers to the 256 FMA threads
-//    with setmaxnreg, persistent blocks on the paired snake schedule,
-//    mirrored).  A's 128 x 32 tile lands 128-byte swizzled, as in kernel
-//    A.  L's tile is rows m and columns k, as stored: a 32 x 128 box whose
-//    512-byte rows land unswizzled, so where kernel A reads L's rows as
-//    columns, here the 16 threads of a row group read one L row's 128
-//    columns as 16 contiguous float4s (conflict-free, no transpose).  Each
-//    thread keeps an 8 x 8 register tile: rows ty + 16 i, columns
-//    4 tx + c + 64 h; per 4-deep chunk it reads 8 A float4s along m and 8
-//    L float4s along k, 256 FMAs for 16 shared reads.  The first 128 rows
-//    of a tile's reduction straddle the diagonal and mask L's m < k
-//    entries as they are read; ragged N, and m or k past M, arrive as
-//    TMA's zero fill.
+//    M = 1024: tril_tma.cuh's pipeline (one producer thread issuing TMA
+//    loads into a ring of 4 stages of mbarriers, a producer warpgroup that
+//    hands its registers to the 8 FMA warps with setmaxnreg, persistent
+//    blocks on the paired snake schedule of tril_tiles.cuh, mirrored).  A
+//    stage holds A's 128 x 32 tile, 128-byte swizzled, and L's 32 x 128
+//    tile as stored (512-byte rows, unswizzled).  It is bound by FFMA
+//    issue: each lane holds an 8 x 8 register tile and reads 8 A float4s
+//    along m and 8 L float4s along k for 256 FFMAs a 4-deep chunk.  What
+//    it does for that (tril_right_plan.cuh holds its index arithmetic,
+//    which the CPU tests walk):
+//    * the stage pointers are pointer arithmetic on the dynamic shared
+//      array, not a round trip through an integer, so the fragments come
+//      by shared loads (LDS) and not by generic ones;
+//    * the 8 warps hold 64 x 32 warp tiles, 2 x 4, and a warp skips the
+//      stages of a tile's diagonal that lie wholly below its 32 columns
+//      and masks only the one stage that straddles them, so the zero half
+//      of the diagonal tile is neither multiplied nor selected; the warps
+//      that share a sub-partition take warp columns from both ends, so
+//      each sub-partition skips as many stages as any other;
+//    * a lane's 8 rows share one swizzle key (one XOR a chunk places all
+//      eight A reads), its 8 columns are two float4s of an L row, 16
+//      apart, and its FFMA nest runs column by column;
+//    * each warp writes one partial a row (its 32 columns: a 2-level
+//      shuffle tree over the 4 lanes of a row), so a row has 4 C partials.
+//    Ragged N, and m or k past M, arrive as TMA's zero fill.  On the card,
+//    chip_smoke.py's right_products_phase holds it to cuBLAS (bitwise) and
+//    to float64 and times it; probes/tril_right.py times it against
+//    another checkout's design (the generic route and kernels A, 3 and 5
+//    are held to be the same there).
 // 2. tril_right_generic_kernel (entry hetmogp_tril_right_generic_f32), for
 //    every other shape (M % 4 != 0 or unaligned bases): one 256-thread
 //    block per 64 x 128 tile, both operands staged through shared memory
 //    16 deep with L's upper entries and the ragged edges zeroed while
-//    staging, two block-wide barriers a stage.  The same FMA order and the
-//    same partials (its column tiles are 128 wide too).
+//    staging, two block-wide barriers a stage.  The same FMA order; one
+//    partial a row per column tile (a shuffle tree over the 16 threads of a
+//    row).
 
 #include <cuda_runtime.h>
 
+#include "tril_right_plan.cuh"
 #include "tril_tma.cuh"
 
 namespace {
 
-constexpr int BN = 128;  // columns k per tile, both designs
+using tril_right_plan::BN;  // columns k per tile, both designs
 constexpr int SUM_THREADS = 256;
+constexpr int SUM_ROWS = 64;   // rows a block of the row sum
+constexpr int SUM_COLS = 32;   // partials a row it stages at a time
+static_assert(SUM_COLS == 32, "a warp stages a row's partials");
+static_assert(SUM_COLS % tril_right_plan::PARTS == 0, "whole runs a chunk");
 
 // Each thread's register tile is a row group of 16 threads (tx = 0..15, in
 // one half of a warp) times some rows; the sum over the group of each
@@ -80,24 +101,47 @@ __device__ __forceinline__ float group_sum(float s) {
   return s;
 }
 
-// r[row] = sum over c of part[row * C + c], in increasing c.
+// r[row] = the sum of the row's C partials part[row * C + c], in
+// increasing c: each run of G partials (one column tile's) added in order,
+// then the runs' sums in order.  With G = 1, a plain sum in increasing c.
+// G divides C and SUM_COLS.
+// One thread a row of a block's SUM_ROWS; the block stages its rows'
+// partials SUM_COLS columns at a time through shared memory, a warp a row,
+// so the loads are coalesced whatever C is.
 __global__ void __launch_bounds__(SUM_THREADS)
 row_sum_kernel(const float* __restrict__ part, float* __restrict__ r,
-               long long rows, int C) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < rows; i += (long long)gridDim.x * blockDim.x) {
-    const float* p = part + i * C;
-    float s = 0.0f;
-    for (int c = 0; c < C; ++c) s += p[c];
-    r[i] = s;
+               long long rows, int C, int G) {
+  __shared__ float tile[SUM_ROWS][SUM_COLS + 1];
+  const long long i0 = blockIdx.x * (long long)SUM_ROWS;
+  const int lane = threadIdx.x % 32;
+  float s = 0.0f;
+  for (int c0 = 0; c0 < C; c0 += SUM_COLS) {
+    for (int rr = threadIdx.x / 32; rr < SUM_ROWS; rr += SUM_THREADS / 32) {
+      const long long i = i0 + rr;
+      if (i < rows && c0 + lane < C) tile[rr][lane] = part[i * C + c0 + lane];
+    }
+    __syncthreads();
+    if (threadIdx.x < SUM_ROWS) {
+      const int n = C - c0 < SUM_COLS ? C - c0 : SUM_COLS;
+      for (int c = 0; c < n; c += G) {
+        float run = 0.0f;
+        for (int g = 0; g < G; ++g) run += tile[threadIdx.x][c + g];
+        s += run;
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < SUM_ROWS && i0 + threadIdx.x < rows) {
+    r[i0 + threadIdx.x] = s;
   }
 }
 
 int launch_row_sum(const float* part, float* r, long long rows, int C,
-                   cudaStream_t stream) {
-  const long long blocks = (rows + SUM_THREADS - 1) / SUM_THREADS;
-  row_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), SUM_THREADS,
-                   0, stream>>>(part, r, rows, C);
+                   int G, cudaStream_t stream) {
+  const long long blocks = (rows + SUM_ROWS - 1) / SUM_ROWS;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  row_sum_kernel<<<(unsigned)blocks, SUM_THREADS, 0, stream>>>(part, r, rows,
+                                                              C, G);
   return (int)cudaGetLastError();
 }
 
@@ -190,60 +234,81 @@ tril_right_generic_kernel(const float* __restrict__ A,
 
 namespace tma_r {
 
-constexpr int BM = 128;               // rows n per tile
-constexpr int BK = 32;                // reduction depth m per stage
+using namespace tril_right_plan;
+
 constexpr int STAGES = 4;             // ring depth
-constexpr int CONSUMERS = 256;        // FMA threads: 16 x 16, 8 x 8 each
+constexpr int CONSUMERS = WARPS * 32;  // FMA threads, 8 x TN each
 constexpr int THREADS = CONSUMERS + 128;  // and one producer warpgroup
+// setmaxnreg: the producer warpgroup keeps 40 registers and hands the
+// rest of the block's (ptxas's cap, 65536 / THREADS) to the FMA threads
 constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
-constexpr int A_TILE = BM * BK * 4;   // 128 rows x 32 floats, swizzled
+constexpr int CONSUMER_REGS =
+    (65536 / THREADS / 8 * 8 * THREADS - PRODUCER_REGS * 128) / CONSUMERS /
+    8 * 8;
+constexpr int A_TILE = BM * BK * 4;   // BM rows x 32 floats, swizzled
 constexpr int L_ROW = BN * 4;         // 512 bytes: one L row of the tile
 constexpr int L_TILE = BK * L_ROW;    // 32 rows x 128 floats, as stored
 constexpr int STAGE_BYTES = A_TILE + L_TILE;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+constexpr int CHUNKS = BK / 4;        // 4-deep chunks of a stage
+static_assert(CHUNKS % 2 == 0, "chunks go in pairs");
+static_assert(LR % 8 == 0 || LR == 4, "the swizzle keys of a lane's rows");
 
-// acc[i][4 h + c] += sum over the stage's m of A[ty + 16 i][m] *
-// L[m][4 tx + c + 64 h], one FMA at a time in increasing m.  MASK zeroes
-// L[m][k] for m < k.  A row r of the swizzled tile holds its 16-byte chunk
-// c at chunk c ^ (r % 8), and r % 8 is ty % 8 for every A row a thread
-// reads.
+// acc[i][j] += sum over the stage's 32 m of A[row i][m] L[m][col j], one
+// FMA at a time in increasing m.  MASK zeroes L[m][k] for m < k (keep);
+// m0 is the stage's first m relative to the tile's k0.
+//
+// A row r of the swizzled A tile holds its 16-byte chunk c (m = 4 c ..
+// 4 c + 3) at chunk c ^ (r % 8); a lane's rows r0 + LR i have the keys
+// r0 % 8 ^ (LR i % 8), so one XOR a chunk places all eight.  Its L
+// columns are GROUPS float4s of an L row, WC / GROUPS apart.  Pairs of
+// chunks run as one unrolled body, the FFMA nest column by column (the
+// compiler schedules each fragment's loads ahead of its FFMAs: loading
+// them a step ahead by hand measured no faster).
 template <bool MASK>
 __device__ __forceinline__ void consume(const uint8_t* As, const uint8_t* Ls,
-                                        float (&acc)[8][8], int tx, int ty,
-                                        int m0, int k0) {
-#pragma unroll 2
-  for (int c = 0; c < BK / 4; ++c) {
-    const uint8_t* ap = As + ty * 128 + (((c ^ ty) & 7) << 4);
-    float4 a[8];
+                                        float (&acc)[8][TN], int warp,
+                                        int lane, int m0) {
+  const int r0 = row(warp, lane, 0), col0 = col(warp, lane, 0);
+  const uint8_t* ap = As + r0 * 128;
+  const uint8_t* lp = Ls + col0 * 4;
+  float4 a[8];
+  float4 l[GROUPS];
+  auto load_a = [&](float4 (&f)[8], int c) {
+    const int off = ((c ^ r0) & 7) << 4;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      a[i] = *reinterpret_cast<const float4*>(ap + i * 16 * 128);
+    for (int i = 0; i < 8; ++i) {
+      f[i] = *reinterpret_cast<const float4*>(
+          ap + i * LR * 128 + (off ^ (((LR * i) & 7) << 4)));
+    }
+  };
+  auto load_l = [&](float4 (&f)[GROUPS], int m) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const uint8_t* lp = Ls + (4 * c + e) * L_ROW + tx * 16;
-      float4 l[2];
-      l[0] = *reinterpret_cast<const float4*>(lp);
-      l[1] = *reinterpret_cast<const float4*>(lp + 256);
-      if (MASK) {
-        const int under = m0 + 4 * c + e - (k0 + 4 * tx);  // m - k at c = 0
+    for (int h = 0; h < GROUPS; ++h) {
+      f[h] = *reinterpret_cast<const float4*>(lp + m * L_ROW +
+                                              WC / GROUPS * 4 * h);
+    }
+  };
+#pragma unroll 1
+  for (int c = 0; c < CHUNKS; c += 2) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int u = under - 64 * h;
-          l[h].x = u >= 0 ? l[h].x : 0.0f;
-          l[h].y = u >= 1 ? l[h].y : 0.0f;
-          l[h].z = u >= 2 ? l[h].z : 0.0f;
-          l[h].w = u >= 3 ? l[h].w : 0.0f;
-        }
+    for (int t = 0; t < 8; ++t) {  // t = 4 (chunk - c) + e
+      const int b = t >> 2, e = t & 3;
+      if (e == 0) load_a(a, c + b);
+      load_l(l, 4 * c + t);
+      float lv[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        lv[j] = reinterpret_cast<const float*>(&l[j >> 2])[j & 3];
+        if (MASK && !keep(m0 + 4 * c + t, col(warp, lane, j))) lv[j] = 0.0f;
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float av = reinterpret_cast<const float*>(&a[i])[e];
+      for (int j = 0; j < TN; ++j) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc[i][j] = fmaf(av,
-                           reinterpret_cast<const float*>(&l[j >> 2])[j & 3],
-                           acc[i][j]);
+        for (int i = 0; i < 8; ++i) {
+          const float av = reinterpret_cast<const float*>(&a[i])[e];
+          acc[i][j] = fmaf(av, lv[j], acc[i][j]);
+        }
       }
     }
   }
@@ -258,9 +323,12 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
                       int N, int M, int mode, tril_tma::Tiles tiles) {
   using namespace tma_r;
   extern __shared__ uint8_t smem_raw[];
-  // the swizzle pattern repeats every 1024 bytes: stages start on it
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // the swizzle pattern repeats every 1024 bytes: stages start on it.
+  // Pointer arithmetic on smem_raw, not a round trip through an integer,
+  // keeps the stages in the shared address space, so their reads are
+  // shared loads (LDS), not generic ones.
+  uint8_t* smem =
+      smem_raw + ((1024 - (tril_tma::smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
   const int tid = threadIdx.x;
@@ -269,17 +337,17 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       tril_tma::mbar_init(full + s, 1);
-      tril_tma::mbar_init(empty + s, CONSUMERS / 32);
+      tril_tma::mbar_init(empty + s, WARPS);
     }
     tril_tma::fence_barrier_init();
   }
   __syncthreads();
 
   const int units = tiles.units();
-  if (warp >= CONSUMERS / 32) {  // the producer
+  if (warp >= WARPS) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS)
                  : "memory");
-    if (warp != CONSUMERS / 32 || lane != 0) return;
+    if (warp != WARPS || lane != 0) return;
     tril_tma::Ring ring;
     for (int turn = 0;; ++turn) {
       const int u = tiles.index(turn, blockIdx.x, gridDim.x);
@@ -287,9 +355,8 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
       for (int p = 0; p < tiles.tiles_in(u); ++p) {
         int q, rt, ct;
         tiles.decode(u, p, q, rt, ct);
-        const int k0 = (tiles.C - 1 - ct) * BN;  // mirrored
-        const int stages = (M - k0 + BK - 1) / BK;
-        for (int s = 0; s < stages; ++s) {
+        const int k0 = k0_of(tiles.C, ct);
+        for (int s = 0; s < stages(M, k0); ++s) {
           tril_tma::mbar_wait(empty + ring.slot, ring.phase ^ 1);
           uint8_t* st = smem + ring.slot * STAGE_BYTES;
           uint64_t* bar = full + ring.slot;
@@ -305,8 +372,8 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS)
                : "memory");
-  const int tx = tid % 16;  // columns 4 tx + c + 64 h
-  const int ty = tid / 16;  // rows ty + 16 i
+  const int s_first = first_stage(warp), s_full = full_stage(warp);
+  const int parts = tiles.C * PARTS;
   tril_tma::Ring ring;
   for (int turn = 0;; ++turn) {
     const int u = tiles.index(turn, blockIdx.x, gridDim.x);
@@ -314,26 +381,25 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
     for (int p = 0; p < tiles.tiles_in(u); ++p) {
       int q, rt, ct;
       tiles.decode(u, p, q, rt, ct);
-      ct = tiles.C - 1 - ct;  // mirrored
       const int n0 = rt * BM;
-      const int k0 = ct * BN;
-      const int stages = (M - k0 + BK - 1) / BK;
+      const int k0 = k0_of(tiles.C, ct);
 
-      float acc[8][8];
+      float acc[8][TN];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-      for (int s = 0; s < stages; ++s) {
+      for (int s = 0; s < stages(M, k0); ++s) {
+        // a skipped stage is waited for all the same: its release on
+        // "empty" must not count towards the slot's previous use
         tril_tma::mbar_wait(full + ring.slot, ring.phase);
         const uint8_t* As = smem + ring.slot * STAGE_BYTES;
         const uint8_t* Ls = As + A_TILE;
-        const int m0 = k0 + s * BK;
-        if (m0 - k0 >= BN - 1) {  // every m of the stage is at or past every k
-          consume<false>(As, Ls, acc, tx, ty, m0, k0);
-        } else {
-          consume<true>(As, Ls, acc, tx, ty, m0, k0);
+        if (s >= s_full) {
+          consume<false>(As, Ls, acc, warp, lane, s * BK);
+        } else if (s >= s_first) {
+          consume<true>(As, Ls, acc, warp, lane, s * BK);
         }
         __syncwarp();
         if (lane == 0) tril_tma::mbar_arrive(empty + ring.slot);
@@ -342,14 +408,14 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
 
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int n = n0 + ty + 16 * i;
+        const int n = n0 + row(warp, lane, i);
         if (mode != 2 && n < N) {
-          float* row = out + ((size_t)q * N + n) * M;
+          float* o = out + ((size_t)q * N + n) * M + k0;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int k = k0 + 4 * tx + 64 * h;
-            if (k < M) {  // M % 4 == 0: k + 3 < M too
-              *reinterpret_cast<float4*>(row + k) =
+          for (int h = 0; h < GROUPS; ++h) {
+            const int k = col(warp, lane, 4 * h);
+            if (k0 + k < M) {  // M % 4 == 0: k + 3 < M too
+              *reinterpret_cast<float4*>(o + k) =
                   make_float4(acc[i][4 * h], acc[i][4 * h + 1],
                               acc[i][4 * h + 2], acc[i][4 * h + 3]);
             }
@@ -358,9 +424,14 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
         if (mode != 0) {
           float s = 0.0f;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) s = fmaf(acc[i][j], acc[i][j], s);
-          s = group_sum(s);
-          if (tx == 0 && n < N) part[((size_t)q * N + n) * tiles.C + ct] = s;
+          for (int j = 0; j < TN; ++j) s = fmaf(acc[i][j], acc[i][j], s);
+#pragma unroll
+          for (int off = LC / 2; off > 0; off >>= 1) {
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+          }
+          if (writes_partial(lane) && n < N) {
+            part[((size_t)q * N + n) * parts + partial(k0, warp)] = s;
+          }
         }
       }
     }
@@ -372,7 +443,14 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
 // negative CUresult when a tensor map cannot be encoded.  The caller checks
 // shapes, dtype, contiguity and device; these check only what would make
 // the launch itself invalid.  `out` may be null for mode 2; `part` (Q, N,
-// ceil(M / 128)) and `r` (Q, N) may be null for mode 0.
+// hetmogp_tril_right_partials(M, tma) floats) and `r` (Q, N) may be null for
+// mode 0.
+
+// Row-sum partials a row: PARTS a column tile in the TMA-fed design
+// (`tma` != 0), one a column tile in the generic one.
+extern "C" int hetmogp_tril_right_partials(int M, int tma) {
+  return (M + BN - 1) / BN * (tma ? tril_right_plan::PARTS : 1);
+}
 
 static bool bad_args(const float* out, const float* part, const float* r,
                      int mode, int Q, int N, int M) {
@@ -425,7 +503,8 @@ extern "C" int hetmogp_tril_right_f32(const float* A, const float* L,
                                                 mode, tiles);
   const cudaError_t launch_err = cudaGetLastError();
   if (launch_err != cudaSuccess || mode == 0) return (int)launch_err;
-  return launch_row_sum(part, r, (long long)Q * N, (int)C, stream);
+  return launch_row_sum(part, r, (long long)Q * N, (int)C * PARTS, PARTS,
+                        stream);
 }
 
 // The generic design, for any shape.
@@ -445,5 +524,5 @@ extern "C" int hetmogp_tril_right_generic_f32(const float* A, const float* L,
       A, L, out, part, N, M, (int)C, mode);
   const cudaError_t launch_err = cudaGetLastError();
   if (launch_err != cudaSuccess || mode == 0) return (int)launch_err;
-  return launch_row_sum(part, r, (long long)Q * N, (int)C, stream);
+  return launch_row_sum(part, r, (long long)Q * N, (int)C, 1, stream);
 }

@@ -8,7 +8,8 @@
 // out[q, n, k] = sum_{m >= k} A[q, n, m] L[q, m, k], whose column tile
 // [k0, k0 + BN) reduces from m = k0 to M (they walk the tiles below with
 // ct -> C - 1 - ct, so the heaviest still come first and a pair is still
-// C + 1 blocks long).  All take the same shape of pipeline:
+// C + 1 blocks long; tril_tiles.cuh).  All take the same shape of
+// pipeline:
 //
 //   * one producer thread (lane 0 of the last warp of the block) issues TMA
 //     loads (cp.async.bulk.tensor) of A's and L's tiles into a ring of
@@ -43,6 +44,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tril_tiles.cuh"  // Tiles: the schedule
 
 namespace tril_tma {
 
@@ -121,44 +124,6 @@ __device__ __forceinline__ uint32_t swz_f32(int r, int c) {
   return (uint32_t)(r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2));
 }
 
-// The output tiles of one launch, grouped into work units.  Unpaired, a
-// unit is one tile, heaviest column tile first.  Paired, a unit is the two
-// column tiles C - 1 - p and p of one row tile (one tile where they
-// coincide), so every unit has the same C + 1 blocks of reduction, and
-// consecutive units are the pairs of one row tile, so the blocks of one
-// turn read their A rows from L2 rather than once per column tile from
-// device memory.
-struct Tiles {
-  int Q, R, C;  // latents, row tiles, column tiles
-  int paired;
-  __device__ __forceinline__ int pairs() const { return (C + 1) / 2; }
-  __device__ __forceinline__ int units() const {
-    return Q * R * (paired ? pairs() : C);
-  }
-  // unit index of block b (of G) on its turn-th turn: a snake over blocks
-  __device__ __forceinline__ int index(int turn, int b, int G) const {
-    return turn * G + ((turn & 1) ? G - 1 - b : b);
-  }
-  __device__ __forceinline__ int tiles_in(int u) const {
-    return paired && 2 * (u % pairs()) != C - 1 ? 2 : 1;
-  }
-  // the i-th tile (q, row tile, column tile) of unit u
-  __device__ __forceinline__ void decode(int u, int i, int& q, int& rt,
-                                         int& ct) const {
-    int rest;
-    if (paired) {
-      const int p = u % pairs();
-      ct = i == 0 ? C - 1 - p : p;
-      rest = u / pairs();
-    } else {
-      ct = C - 1 - u / (Q * R);
-      rest = u % (Q * R);
-    }
-    q = rest / R;
-    rt = rest % R;
-  }
-};
-
 // The ring's position: stage slot and the parity of its current use.
 struct Ring {
   int slot = 0;
@@ -232,19 +197,15 @@ inline int sm_count() {
   return sms;
 }
 
-// The schedule of Q latents of R x C tiles: paired where there are at
-// least two units for every SM (a turn that is not full then costs little),
-// else single tiles, heaviest first, which balance a short launch better.
+// The schedule of Q latents of R x C tiles on this device's SMs
+// (tril_tiles.cuh: make_tiles_on).
 inline Tiles make_tiles(int Q, int R, int C) {
-  const long long pair_units = (long long)Q * R * ((C + 1) / 2);
-  return Tiles{Q, R, C, pair_units >= 2LL * sm_count() ? 1 : 0};
+  return make_tiles_on(Q, R, C, sm_count());
 }
 
 // Persistent grid size: one block per SM, at most one per work unit.
 inline int persistent_blocks(const Tiles& t) {
-  const long long units =
-      (long long)t.Q * t.R * (t.paired ? (t.C + 1) / 2 : t.C);
-  return (int)(units < sm_count() ? units : sm_count());
+  return persistent_blocks_on(t, sm_count());
 }
 
 }  // namespace tril_tma

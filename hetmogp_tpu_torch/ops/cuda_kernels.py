@@ -11,10 +11,16 @@ stores from blocks that walk rows, and the scalar one of the first port),
 A tril(L)^T in float32), ``csrc/tril_proj3_kernel.cu`` (kernel 3: the same
 projection as three bf16 tensor-core passes; and kernel 5: the mirror
 A tril(L) in three passes), ``csrc/tril_right_kernel.cu`` (kernel 4:
-A tril(L) in float32, with quad_diag's square and row sum fused), each
-triangular product in two designs, a TMA-fed one (sharing
-``csrc/tril_tma.cuh``) and a register-staged one (the first port's for A
-and 3, a generic one for 4 and 5), chosen by shape (``tril_route``); and,
+A tril(L) in float32, with quad_diag's square and row sum fused; its
+TMA-fed design gives each warp 32 columns of a tile, so a warp skips the
+diagonal stages below them and masks one; its index arithmetic, in
+``csrc/tril_right_plan.cuh``, is walked on the CPU by
+``tests/test_torch_tril_right_plan.py``, and ``chip_smoke.py``'s
+``right_products_phase`` holds its product bitwise to cuBLAS's on the
+card), each triangular product in two designs, a TMA-fed one (sharing
+``csrc/tril_tma.cuh`` and the schedule of ``csrc/tril_tiles.cuh``) and a
+register-staged one (the first port's for A and 3, a generic one for 4
+and 5), chosen by shape (``tril_route``); and,
 for the XLA fusions of the JAX package's trainer,
 ``csrc/gh_sweep_kernel.cu`` (kernel 6: the one-pass Gauss-Hermite sweep,
 value, E[d1] and E[d2] of every row in one launch, over the families of
@@ -115,6 +121,8 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.hetmogp_adam_max_leaves.argtypes = []
     lib.hetmogp_adam_max_leaves.restype = ctypes.c_int
+    lib.hetmogp_tril_right_partials.argtypes = [ctypes.c_int] * 2
+    lib.hetmogp_tril_right_partials.restype = ctypes.c_int
     return lib
 
 
@@ -576,7 +584,6 @@ class TrilProjection3Pass(torch.autograd.Function):
 # kernel); each launcher counts its own launches, and nothing falls back.
 
 EPILOGUES = {"product": 0, "both": 1, "rowsum": 2}
-RIGHT_TILE = 128  # kernel 4's column tile: one row-sum partial each
 
 
 def matmul_tril_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
@@ -625,9 +632,7 @@ def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
     new = functools.partial(torch.empty, dtype=torch.float32,
                             device=A.device)
     out = new((Q, N, M)) if epilogue != "rowsum" else None
-    part = r = None
-    if epilogue != "product":
-        part, r = new((Q, N, -(-M // RIGHT_TILE))), new((Q, N))
+    r = new((Q, N)) if epilogue != "product" else None
     result = {"product": out, "both": (out, r), "rowsum": r}[epilogue]
     if Q * N == 0 or M == 0:
         if r is not None:
@@ -638,6 +643,9 @@ def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
     if tma:
         _require_tma(wrapper, aligned, M)
     lib = _library()
+    # the row sums' per-tile partials, added by the entry's second launch
+    part = (None if r is None
+            else new((Q, N, lib.hetmogp_tril_right_partials(M, int(tma)))))
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = getattr(lib, entry)(

@@ -33,11 +33,10 @@ from pathlib import Path
 import torch
 
 from hetmogp_tpu_torch.ops import _build, cuda_kernels
+from hetmogp_tpu_torch.profiling import HBM_BYTES_PER_S, device_times_ms
 
 SOURCE = Path(__file__).resolve().parent / "rbf_store_probe.cu"
 ATOL = 2e-6
-SLEEP_CYCLES = 4_000_000  # ~2 ms: longer than the host takes to enqueue
-HBM_BYTES_PER_S = 3.35e12
 SHAPES = {"VE (4, 3072, 1024)": (4, 3072, 1024),
           "VM (4, 768, 1024)": (4, 768, 1024),
           "serving (4, 65536, 1024)": (4, 65536, 1024),
@@ -64,23 +63,6 @@ def build() -> ctypes.CDLL:
                lib.hetmogp_rbf_cross_f32, lib.hetmogp_empty_launch):
         fn.restype = ctypes.c_int
     return lib
-
-
-def device_times_ms(fn, reps=10, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
 
 
 def main() -> int:
@@ -128,7 +110,7 @@ def main() -> int:
         samples = {k: [] for k in variants}
         order = list(variants.items())
         for key, fn in order + order[::-1]:
-            samples[key] += device_times_ms(fn)
+            samples[key] += device_times_ms(fn, reps=10, warmup=2)
         bound = 4 * (out.numel() + X.numel() + Z.numel() + ls.numel()
                      + var.numel()) / HBM_BYTES_PER_S * 1e3
         print(f"{name}: every variant within {ATOL:g} of plain; bound "

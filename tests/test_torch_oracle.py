@@ -1,5 +1,5 @@
-"""The port's variational expectations against the numpy oracle
-(``tests/oracle_numpy.py``): the var_exp half of ROADMAP item 15.
+"""The port against the numpy oracle (``tests/oracle_numpy.py``): its
+variational expectations and its predictive path (ROADMAP item 15).
 
 The oracle integrates the reference's log densities on the same GH grid
 (``gh_var_exp``) and takes their derivatives from hand-derived formulas
@@ -12,7 +12,20 @@ engines that kernel 6 sweeps on the card are held to the oracle in their own
 forms: Bernoulli and Categorical(K=3) are cases below, and Gamma's closed
 form sweeps E[lgamma(clip(e^f, 1e-9, 1e9))], whose derivatives are written
 out here from scipy's digamma and trigamma, in the oracle's manner.
+
+The predictive path, in float64 on the CPU (``device="cpu"``), with the
+cases and tolerances that hold the JAX package to the oracle
+(``tests/test_predict_oracle.py``): q(f_d)'s moments against
+``qf_moments`` and the observation-space ``predictive`` against
+``gh_predictive`` to 1e-9, ``predict_f_projected`` and
+``predict_f_stochastic`` against ``raw_predict_f`` (the reference's
+Woodbury projection) to 1e-8, whitened and not, and the Monte-Carlo
+log-predictive against ``mc_log_predictive`` on shared draws to 1e-10
+relative.  Kernel 4's function (quad_diag's A tril(L) and its row sum)
+sits inside q(f)'s variance; on the CPU it is its plain version.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,7 +33,11 @@ import scipy.special as ssp
 import torch
 
 from hetmogp_tpu_torch import likelihoods as L
+from hetmogp_tpu_torch.config import ModelConfig
 from hetmogp_tpu_torch.likelihoods import gamma as tgamma
+from hetmogp_tpu_torch.models import elbo as telbo
+from hetmogp_tpu_torch.models import predict as tpredict
+from hetmogp_tpu_torch.models.params import SVMOGPParams
 from tests import oracle_numpy as oracle
 
 torch.set_num_threads(1)
@@ -146,3 +163,180 @@ def test_lngamma_sweep_matches_oracle(spread):
     for got, exp in ((dm, edm), (dv, edv)):
         np.testing.assert_allclose(got.numpy(), exp,
                                    atol=1e-8 * max(1.0, np.abs(exp).max()))
+
+
+# ---- the predictive path ----------------------------------------------------
+
+def _predict_setup(seed=0, M=6, Q=2):
+    """The JAX package's oracle model (``tests/test_predict_oracle.py``):
+    Gaussian(0.6), HetGaussian, Bernoulli, un-whitened, float64, on the
+    CPU; and the oracle's arguments."""
+    rng = np.random.RandomState(seed)
+    liks = (L.Gaussian(sigma=0.6), L.HetGaussian(), L.Bernoulli())
+    D = 4  # 1 + 2 + 1
+    Z = np.linspace(0, 1, M)[None, :, None] + 0.02 * rng.randn(Q, M, 1)
+    W = rng.randn(Q, D)
+    ls = 0.15 + 0.1 * rng.rand(Q, 1)
+    var = 0.5 + rng.rand(Q)
+    m_u = rng.randn(Q, M)
+    L_u = np.tril(0.3 * rng.randn(Q, M, M)) + np.eye(M)[None]
+    cfg = ModelConfig(likelihoods=liks, num_latent=Q, num_inducing=M,
+                      input_dim=1, whiten=False, dtype="float64")
+    params = SVMOGPParams(
+        Z=_t(Z), q_mu=_t(m_u), q_sqrt=_t(L_u),
+        log_lengthscale=torch.log(_t(ls)), log_variance=torch.log(_t(var)),
+        W=_t(W), kappa=torch.zeros(Q, D, dtype=torch.float64))
+    oa = dict(Z=Z, W=W, kappa=np.zeros((Q, D)), lengthscales=ls,
+              variances=var, m_u=m_u, L_u=L_u)
+    return cfg, params, oa
+
+
+def _anchors(rng):
+    """Small, well-separated training inputs: the N x N prior Gram the
+    projection inverts stays well conditioned."""
+    return [np.linspace(0, 1, 8)[:, None] + 0.01 * rng.randn(8, 1),
+            np.linspace(0, 1, 7)[:, None] + 0.01 * rng.randn(7, 1),
+            np.linspace(0, 1, 8)[:, None] + 0.01 * rng.randn(8, 1)]
+
+
+def _oracle_moments(oa, X, d):
+    return oracle.qf_moments(X, oa["Z"], oa["W"], oa["kappa"],
+                             oa["lengthscales"], oa["variances"], oa["m_u"],
+                             oa["L_u"], d)
+
+
+def _oracle_projected(oa, Xtrain, Xnew, d):
+    return oracle.raw_predict_f(Xtrain, Xnew, oa["Z"], oa["W"], oa["kappa"],
+                                oa["lengthscales"], oa["variances"],
+                                oa["m_u"], oa["L_u"], d)
+
+
+def _whitened(cfg, params):
+    """The same posterior in the whitened coordinates v = Luu^-1 u."""
+    return (dataclasses.replace(cfg, whiten=True),
+            telbo.whiten_params(params, cfg))
+
+
+@pytest.mark.parametrize("whiten", [False, True], ids=["raw", "whitened"])
+def test_qf_moments_match_oracle(whiten):
+    """predict_f's (mean, var) of every output function against the
+    reference's calculate_q_f equations."""
+    cfg, params, oa = _predict_setup()
+    if whiten:
+        cfg, params = _whitened(cfg, params)
+    X = np.random.RandomState(9).rand(10, 1)
+    for d in range(cfg.num_output_functions):
+        m, v = tpredict.predict_f(params, cfg, X, d)
+        em, ev = _oracle_moments(oa, X, d)
+        np.testing.assert_allclose(m.numpy(), em, atol=1e-9,
+                                   err_msg=f"mean d={d}")
+        np.testing.assert_allclose(v.numpy(), ev, atol=1e-9,
+                                   err_msg=f"var d={d}")
+
+
+@pytest.mark.parametrize("whiten", [False, True], ids=["raw", "whitened"])
+def test_projected_prediction_matches_woodbury_oracle(whiten):
+    """predict_f_projected against the reference's _raw_predict_f (the GPy
+    Posterior's Woodbury projection)."""
+    cfg, params, oa = _predict_setup()
+    rng = np.random.RandomState(5)
+    Xtrain = _anchors(rng)
+    Xnew = rng.rand(11, 1)
+    if whiten:
+        cfg, params = _whitened(cfg, params)
+    for d in range(cfg.num_output_functions):
+        t = cfg.function_index[d]
+        em, ev = _oracle_projected(oa, Xtrain[t], Xnew, d)
+        m, v = tpredict.predict_f_projected(params, cfg, Xtrain, Xnew, d)
+        np.testing.assert_allclose(m.numpy(), em, atol=1e-8,
+                                   err_msg=f"mean d={d}")
+        np.testing.assert_allclose(v.numpy(), ev, atol=1e-8,
+                                   err_msg=f"var d={d}")
+
+
+def test_predict_f_stochastic_minibatch_anchor_matches_oracle():
+    """predict_f_stochastic: with the full anchors it is
+    predict_f_projected, with a minibatch anchor the oracle's projection
+    on that anchor set."""
+    cfg, params, oa = _predict_setup(seed=3)
+    rng = np.random.RandomState(8)
+    Xtrain = _anchors(rng)
+    Xbatch = [x[::2] for x in Xtrain]
+    Xnew = rng.rand(9, 1)
+    for d in range(cfg.num_output_functions):
+        t = cfg.function_index[d]
+        m0, v0 = tpredict.predict_f_projected(params, cfg, Xtrain, Xnew, d)
+        m1, v1 = tpredict.predict_f_stochastic(params, cfg, Xtrain, Xnew, d)
+        assert torch.equal(m1, m0) and torch.equal(v1, v0)
+        em, ev = _oracle_projected(oa, Xbatch[t], Xnew, d)
+        mb, vb = tpredict.predict_f_stochastic(params, cfg, Xbatch, Xnew, d)
+        np.testing.assert_allclose(mb.numpy(), em, atol=1e-8)
+        np.testing.assert_allclose(vb.numpy(), ev, atol=1e-8)
+
+
+def test_observation_space_predictive_matches_oracle():
+    """predictive() against the oracle's q(f) moments pushed through the
+    GH law of total variance: analytic Gaussian, the 2-D grid of
+    HetGaussian, GH Bernoulli."""
+    cfg, params, oa = _predict_setup()
+    rng = np.random.RandomState(6)
+    X_list = [rng.rand(9, 1), rng.rand(8, 1), rng.rand(7, 1)]
+    m_pred, v_pred = tpredict.predictive(params, cfg, X_list)
+
+    def moments(t, dim_f, d0):
+        mv = [_oracle_moments(oa, X_list[t], d0 + j) for j in range(dim_f)]
+        return (np.stack([m for m, _ in mv], -1),
+                np.stack([v for _, v in mv], -1))
+
+    mF, vF = moments(0, 1, 0)
+    np.testing.assert_allclose(m_pred[0].numpy(), mF, atol=1e-9)
+    np.testing.assert_allclose(v_pred[0].numpy(), 0.6 ** 2 + vF, atol=1e-9)
+
+    mF, vF = moments(1, 2, 1)
+    em, ev = oracle.gh_predictive(
+        lambda F: (F[:, :1], np.exp(F[:, 1:2])), mF, vF, T=20)
+    np.testing.assert_allclose(m_pred[1].numpy(), em, atol=1e-9)
+    np.testing.assert_allclose(v_pred[1].numpy(), ev, atol=1e-9)
+
+    mF, vF = moments(2, 1, 3)
+
+    def bern_moments(F):
+        p = np.clip(np.exp(F) / (1 + np.exp(F)), 1e-9, 1 - 1e-9)
+        return p, p * (1 - p)
+
+    em, ev = oracle.gh_predictive(bern_moments, mF, vF, T=20)
+    np.testing.assert_allclose(m_pred[2].numpy(), em, atol=1e-9)
+    np.testing.assert_allclose(v_pred[2].numpy(), ev, atol=1e-9)
+
+
+NLPD_CASES = [
+    (L.Gaussian(sigma=0.6), oracle.logpdf_gaussian, 1,
+     lambda rng, n: rng.randn(n, 1)),
+    (L.HetGaussian(), oracle.logpdf_hetgaussian, 2,
+     lambda rng, n: rng.randn(n, 1)),
+    (L.Bernoulli(), oracle.logpdf_bernoulli, 1,
+     lambda rng, n: (rng.rand(n, 1) > 0.5).astype(float)),
+    (L.Poisson(), oracle.logpdf_poisson, 1,
+     lambda rng, n: rng.poisson(2.0, (n, 1)).astype(float)),
+]
+
+
+@pytest.mark.parametrize("lik,olp,J,gen", NLPD_CASES,
+                         ids=[type(c[0]).__name__ for c in NLPD_CASES])
+@pytest.mark.parametrize("scaling", [True, False],
+                         ids=["reference_scaling", "plain_sum"])
+def test_nlpd_matches_oracle_with_shared_draws(lik, olp, J, gen, scaling):
+    """The MC log-predictive against the reference formula (logsumexp
+    average, and the 1/S quirk unless reference_scaling=False) on the same
+    injected draws."""
+    rng = np.random.RandomState(7)
+    n, S = 12, 64
+    Y = gen(rng, n)
+    M_ = 0.5 * rng.randn(n, J)
+    V_ = 0.1 + 0.3 * rng.rand(n, J)
+    eps = rng.randn(n, S, J)
+    got = lik.log_predictive(None, _t(Y), _t(M_), _t(V_), S,
+                             reference_scaling=scaling, eps=eps)
+    want = oracle.mc_log_predictive(olp, eps, Y, M_, V_,
+                                    reference_scaling=scaling)
+    np.testing.assert_allclose(float(got), want, rtol=1e-10)
