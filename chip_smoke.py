@@ -865,7 +865,7 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
                         errs["k4", ragged, "generic"], t,
                         "kernel 4 (generic)", "plain", bounds["product"]),
              library_ms=t["cuBLAS"]),
-        dict(proj_entry("tril_right3_tma", "tril_proj3_kernel.cu",
+        dict(proj_entry("tril_right3_tma", "tril_right3_kernel.cu",
                         "hetmogp_tpu/ops/linalg.py:189",
                         errs["k5", model, "tma"], t3, "kernel 5 (tma)",
                         "plain", bounds["3pass"]), library_ms=None),
@@ -1342,21 +1342,20 @@ def trajectory_ab_phase(smi: str):
 
 
 # kernel symbol -> the launchers whose launches run it: what a graphed
-# call's profile must show.  Kernels 3 and 5 are the two instantiations of
-# one template, and both launch the split pre-pass.  (Kernel 4's row-sum
+# call's profile must show.  Kernel 3 launches the split pre-pass;
+# kernel 5 splits L in its own shared memory.  (Kernel 4's row-sum
 # launch follows its "both" and "rowsum" epilogues only: no launcher count
 # holds it.)
 _SYMBOLS = {"rbf_cross_vec_kernel": ("rbf_K_batched_vec",),
             "rbf_cross_kernel": ("rbf_K_batched_scalar",),
             "tril_proj_tma_kernel": ("tril_projection_tma",),
             "tril_proj_kernel": ("tril_projection_staged",),
-            "tril_proj3_tma_kernel": ("tril_projection_3pass_tma",
-                                      "tril_right3_tma"),
-            "tril_split_bf16_kernel": ("tril_projection_3pass_tma",
-                                       "tril_right3_tma"),
+            "tril_proj3_tma_kernel": ("tril_projection_3pass_tma",),
+            "tril_split_bf16_kernel": ("tril_projection_3pass_tma",),
             "tril_proj3_kernel": ("tril_projection_3pass_staged",),
             "tril_right_tma_kernel": ("tril_right_tma",),
             "tril_right_generic_kernel": ("tril_right_generic",),
+            "tril_right3_tma_kernel": ("tril_right3_tma",),
             "tril_right3_generic_kernel": ("tril_right3_generic",),
             "gh_sweep_kernel": ("gh_sweep", "gh_sweep_value"),
             "adam_kernel": ("adam_update",)}

@@ -68,29 +68,15 @@
 // step's products summed inside the tensor core.  It is not the plain
 // version's order: check both against a float64 product.
 //
-// Kernel 5, the mirror, in the same file:
+// Kernel 5, the mirror
 //
 //   out[q, n, k] = sum_{m >= k} A[q, n, m] * L[q, m, k]      (A tril(L))
 //
-// in the same three passes.  It replaces no Pallas kernel: it is what the
-// JAX package's cached-inverse adjoints compute at Precision.HIGH
-// (hetmogp_tpu/ops/linalg.py: _chol_cached_bwd's three products and
-// _solve_tri_cached_bwd's Bbar, through matmul_tril and tril_t_matmul),
-// which the port runs at ve_fwd_precision="high" in the VM step.
-// 3. tril_proj3_tma_kernel<true> (entry hetmogp_tril_right3_f32): design 1
-//    mirrored.  The same split pre-pass, whose row-major tril(L) is this
-//    product's layout as it stands: a stage's L tile is rows m of 128
-//    columns k, two 64 x 64 boxes per half (hi, lo), 128-byte swizzled,
-//    and goes to wgmma as an MN-major B operand (imm-trans-b; descriptor
-//    LBO = the 8 KB between the two 64-column boxes, SBO = the 1 KB
-//    between 8-row groups, 2 KB on per 16-deep step).  A column tile
-//    [k0, k0 + 128) reduces from m = k0 to M; the pre-pass's exact zeros
-//    mask the diagonal tile.  Tiles walk tril_tma.cuh's schedule with
-//    ct -> C - 1 - ct.
-// 4. tril_right3_generic_kernel (entry hetmogp_tril_right3_generic_f32),
-//    for every other shape: a 64 x 128 tile a 256-thread block, the
-//    operands split while staged, the three products as float32 FMAs of
-//    bf16-exact values.
+// in the same three passes, keeps its generic design here:
+// 3. tril_right3_generic_kernel (entry hetmogp_tril_right3_generic_f32),
+//    for the shapes its TMA design (tril_right3_kernel.cu) cannot take: a
+//    64 x 128 tile a 256-thread block, the operands split while staged,
+//    the three products as float32 FMAs of bf16-exact values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -439,20 +425,8 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
-// wgmma descriptor of a 128-byte-swizzled MN-major tile at p (1024-byte
-// aligned): K rows of 64 bf16 (128 bytes) of N, 8-row groups 1024 bytes
-// apart (SBO), the second 64 N columns MN_HALF bytes on (LBO).  Adding 128
-// moves it 16 rows deeper along K.
-constexpr int MN_HALF = 64 * 64 * 2;  // one 64-row x 64-column bf16 box
-__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p) {
-  return (uint64_t)((tril_tma::smem_addr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(MN_HALF >> 4) << 16) | (64ull << 32) | (1ull << 62);
-}
-
 // d (64 x 128 over the warpgroup) += a (64 x 16, bf16 registers) b, with b
-// the 16 x 128 bf16 tile named by desc: K-major (the tile holds b^T's rows,
-// TRANS_B = 0) or MN-major (b's rows, TRANS_B = 1).
-template <int TRANS_B>
+// the K-major 16 x 128 bf16 tile named by desc (it holds b^T's rows).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t desc) {
   asm volatile(
@@ -461,7 +435,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       "setp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -471,8 +445,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
-        "n"(TRANS_B));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // Keep the compiler from moving accumulator reads or writes across the
@@ -482,12 +455,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// RIGHT = false: kernel 3, out = A tril(L)^T, L's hi and lo tiles K-major
-// (rows k of 64 m).  RIGHT = true: kernel 5, out = A tril(L), the mirror:
-// a column tile [k0, k0 + 128) reduces from m = k0 to M, and L's tiles are
-// rows m of 128 k as stored, two 64 x 64 boxes each, MN-major B operands
-// that wgmma transposes.
-template <bool RIGHT>
+// Kernel 3, out = A tril(L)^T, L's hi and lo tiles K-major (rows k of
+// 64 m).
 __global__ void __launch_bounds__(THREADS, 1)
 tril_proj3_tma_kernel(const __grid_constant__ CUtensorMap mapA,
                       const __grid_constant__ CUtensorMap mapHi,
@@ -522,30 +491,19 @@ tril_proj3_tma_kernel(const __grid_constant__ CUtensorMap mapA,
       for (int part = 0; part < tiles.tiles_in(u); ++part) {
         int q, rt, ct;
         tiles.decode(u, part, q, rt, ct);
-        if (RIGHT) ct = tiles.C - 1 - ct;
-        const int m_first = RIGHT ? ct * BN : 0;
-        const int m_end = RIGHT ? M : min(M, (ct + 1) * BN);
-        const int stages = (m_end - m_first + BK - 1) / BK;
+        const int m_end = min(M, (ct + 1) * BN);
+        const int stages = (m_end + BK - 1) / BK;
         for (int s = 0; s < stages; ++s) {
           tril_tma::mbar_wait(empty + ring.slot, ring.phase ^ 1);
           uint8_t* st = smem + ring.slot * STAGE_BYTES;
           uint64_t* bar = full + ring.slot;
-          const int m0 = m_first + s * BK;
+          const int m0 = s * BK;
           tril_tma::mbar_expect_tx(bar, STAGE_BYTES);
           tril_tma::tma_load_3d(st, &mapA, bar, m0, rt * BM, q);
           tril_tma::tma_load_3d(st + A_BOX, &mapA, bar, m0 + 32, rt * BM, q);
           uint8_t* lt = st + 2 * A_BOX;
-          if (RIGHT) {  // columns k0 .. k0 + 63 and k0 + 64 .. k0 + 127
-            for (int h = 0; h < 2; ++h) {
-              tril_tma::tma_load_3d(lt + h * MN_HALF, &mapHi, bar,
-                                    ct * BN + 64 * h, m0, q);
-              tril_tma::tma_load_3d(lt + L_TILE + h * MN_HALF, &mapLo, bar,
-                                    ct * BN + 64 * h, m0, q);
-            }
-          } else {
-            tril_tma::tma_load_3d(lt, &mapHi, bar, m0, ct * BN, q);
-            tril_tma::tma_load_3d(lt + L_TILE, &mapLo, bar, m0, ct * BN, q);
-          }
+          tril_tma::tma_load_3d(lt, &mapHi, bar, m0, ct * BN, q);
+          tril_tma::tma_load_3d(lt + L_TILE, &mapLo, bar, m0, ct * BN, q);
           ring.advance(STAGES);
         }
       }
@@ -564,12 +522,10 @@ tril_proj3_tma_kernel(const __grid_constant__ CUtensorMap mapA,
     for (int part = 0; part < tiles.tiles_in(u); ++part) {
       int q, rt, ct;
       tiles.decode(u, part, q, rt, ct);
-      if (RIGHT) ct = tiles.C - 1 - ct;
       const int n0 = rt * BM;
       const int k0 = ct * BN;
-      const int m_first = RIGHT ? k0 : 0;
-      const int m_end = RIGHT ? M : min(M, k0 + BN);
-      const int stages = (m_end - m_first + BK - 1) / BK;
+      const int m_end = min(M, k0 + BN);
+      const int stages = (m_end + BK - 1) / BK;
 
       float acc[64];
 #pragma unroll
@@ -579,13 +535,11 @@ tril_proj3_tma_kernel(const __grid_constant__ CUtensorMap mapA,
       for (int s = 0; s < stages; ++s) {
         tril_tma::mbar_wait(full + ring.slot, ring.phase);
         const uint8_t* st = smem + ring.slot * STAGE_BYTES;
-        // a 16-deep step is 32 bytes on along a K-major row, 16 rows of
-        // 128 bytes on down an MN-major tile (descriptor units of 16 bytes)
-        const uint64_t dhi = RIGHT ? sw128_mn_desc(st + 2 * A_BOX)
-                                   : sw128_desc(st + 2 * A_BOX);
-        const uint64_t dlo = RIGHT ? sw128_mn_desc(st + 2 * A_BOX + L_TILE)
-                                   : sw128_desc(st + 2 * A_BOX + L_TILE);
-        constexpr int STEP = RIGHT ? 128 : 2;
+        // a 16-deep step is 32 bytes on along a K-major row (descriptor
+        // units of 16 bytes)
+        const uint64_t dhi = sw128_desc(st + 2 * A_BOX);
+        const uint64_t dlo = sw128_desc(st + 2 * A_BOX + L_TILE);
+        constexpr int STEP = 2;
         uint32_t ahi[4][4], alo[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {  // 16-deep steps: A box kk / 2
@@ -608,9 +562,9 @@ tril_proj3_tma_kernel(const __grid_constant__ CUtensorMap mapA,
           split2(x3, ahi[kk][3], alo[kk][3]);
           asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
           // the small terms first
-          wgmma_rs<RIGHT>(acc, alo[kk], dhi + STEP * kk);
-          wgmma_rs<RIGHT>(acc, ahi[kk], dlo + STEP * kk);
-          wgmma_rs<RIGHT>(acc, ahi[kk], dhi + STEP * kk);
+          wgmma_rs(acc, alo[kk], dhi + STEP * kk);
+          wgmma_rs(acc, ahi[kk], dlo + STEP * kk);
+          wgmma_rs(acc, ahi[kk], dhi + STEP * kk);
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -650,10 +604,8 @@ tril_proj3_tma_kernel(const __grid_constant__ CUtensorMap mapA,
 
 namespace tma3 {
 
-// Both products' wgmma and TMA entry: the split pre-pass, then the kernel.
-// Kernel 3 loads L's hi and lo as 64 m x 128 k boxes of rows k, kernel 5
-// as 64 k x 64 m boxes of rows m (two a tile).
-template <bool RIGHT>
+// Kernel 3's wgmma and TMA entry: the split pre-pass, then the kernel,
+// which loads L's hi and lo as 64 m x 128 k boxes of rows k.
 int launch(const float* A, const float* L, float* out, void* Lhi, void* Llo,
            int Q, int N, int M, cudaStream_t stream) {
   if (Q <= 0 || N <= 0 || M <= 0 || M % 4 != 0) {
@@ -666,7 +618,7 @@ int launch(const float* A, const float* L, float* out, void* Lhi, void* Llo,
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tril_proj3_tma_kernel<RIGHT>,
+        tril_proj3_tma_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
@@ -675,12 +627,11 @@ int launch(const float* A, const float* L, float* out, void* Lhi, void* Llo,
   int err = tril_tma::encode_3d(&mapA, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, A, M,
                                 N, Q, 4ull * M, 4ull * N * M, 32, BM);
   if (err != 0) return err;
-  const uint32_t box0 = RIGHT ? 64 : BK, box1 = RIGHT ? BK : BN;
   err = tril_tma::encode_3d(&mapHi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, Lhi, M,
-                            M, Q, 2ull * Mp, 2ull * M * Mp, box0, box1);
+                            M, Q, 2ull * Mp, 2ull * M * Mp, BK, BN);
   if (err != 0) return err;
   err = tril_tma::encode_3d(&mapLo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, Llo, M,
-                            M, Q, 2ull * Mp, 2ull * M * Mp, box0, box1);
+                            M, Q, 2ull * Mp, 2ull * M * Mp, BK, BN);
   if (err != 0) return err;
 
   const long long pairs = Q * (long long)M * Mp / 2;
@@ -694,9 +645,9 @@ int launch(const float* A, const float* L, float* out, void* Lhi, void* Llo,
   if (split_err != cudaSuccess) return (int)split_err;
 
   const tril_tma::Tiles tiles = tril_tma::make_tiles(Q, (int)R, (int)C);
-  tril_proj3_tma_kernel<RIGHT><<<tril_tma::persistent_blocks(tiles), THREADS,
-                                 SMEM_BYTES, stream>>>(mapA, mapHi, mapLo,
-                                                       out, N, M, tiles);
+  tril_proj3_tma_kernel<<<tril_tma::persistent_blocks(tiles), THREADS,
+                          SMEM_BYTES, stream>>>(mapA, mapHi, mapLo, out, N, M,
+                                                tiles);
   return (int)cudaGetLastError();
 }
 
@@ -708,14 +659,7 @@ int launch(const float* A, const float* L, float* out, void* Lhi, void* Llo,
 extern "C" int hetmogp_tril_proj3_f32(const float* A, const float* L,
                                       float* out, void* Lhi, void* Llo, int Q,
                                       int N, int M, cudaStream_t stream) {
-  return tma3::launch<false>(A, L, out, Lhi, Llo, Q, N, M, stream);
-}
-
-// Kernel 5's, the mirror A tril(L), with the same operands and scratch.
-extern "C" int hetmogp_tril_right3_f32(const float* A, const float* L,
-                                       float* out, void* Lhi, void* Llo, int Q,
-                                       int N, int M, cudaStream_t stream) {
-  return tma3::launch<true>(A, L, out, Lhi, Llo, Q, N, M, stream);
+  return tma3::launch(A, L, out, Lhi, Llo, Q, N, M, stream);
 }
 
 // The previous design, for any shape.  `aligned` != 0 promises that

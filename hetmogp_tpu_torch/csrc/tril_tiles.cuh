@@ -1,5 +1,5 @@
 // The static tile schedule of the TMA-fed triangular products (kernels A,
-// 3, 4 and 5; tril_tma.cuh describes it), in plain C++ behind TILES_HD,
+// 3 and 4; tril_tma.cuh describes it), in plain C++ behind TILES_HD,
 // which is __host__ __device__ under nvcc and empty under a host compiler,
 // so that the CPU tests walk the same schedule the kernels run
 // (tril_right_plan_host.cpp).  No CUDA header is included here.

@@ -1,12 +1,14 @@
 // Shared machinery of the TMA-fed triangular products, Hopper (sm_90a):
 // tril_proj_kernel.cu (kernel A, float32 FFMA), tril_proj3_kernel.cu
-// (kernel 3, three bf16 wgmma passes, and kernel 5, its mirror) and
-// tril_right_kernel.cu (kernel 4, kernel A's mirror).
+// (kernel 3, three bf16 wgmma passes), tril_right_kernel.cu (kernel 4,
+// kernel A's mirror) and tril_right3_kernel.cu (kernel 5, kernel 3's
+// mirror, which takes the device and host helpers below and walks its own
+// schedule, tril_right3_plan.cuh).
 //
 // Kernels A and 3 compute out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m]
-// over a (Q, N, M) x (Q, M, M) batch, kernels 4 and 5 the mirror
+// over a (Q, N, M) x (Q, M, M) batch, kernel 4 the mirror
 // out[q, n, k] = sum_{m >= k} A[q, n, m] L[q, m, k], whose column tile
-// [k0, k0 + BN) reduces from m = k0 to M (they walk the tiles below with
+// [k0, k0 + BN) reduces from m = k0 to M (it walks the tiles below with
 // ct -> C - 1 - ct, so the heaviest still come first and a pair is still
 // C + 1 blocks long; tril_tiles.cuh).  All take the same shape of
 // pipeline:

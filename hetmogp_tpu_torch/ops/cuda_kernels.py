@@ -9,8 +9,11 @@ cross-covariance, in two designs chosen by shape, ``rbf_route``: float4
 stores from blocks that walk rows, and the scalar one of the first port),
 ``csrc/tril_proj_kernel.cu`` (kernel A: the triangular projection
 A tril(L)^T in float32), ``csrc/tril_proj3_kernel.cu`` (kernel 3: the same
-projection as three bf16 tensor-core passes; and kernel 5: the mirror
-A tril(L) in three passes), ``csrc/tril_right_kernel.cu`` (kernel 4:
+projection as three bf16 tensor-core passes; and kernel 5's generic
+design), ``csrc/tril_right3_kernel.cu`` (kernel 5: the mirror A tril(L) in
+three passes, L split in shared memory, no pre-pass; its schedule, in
+``csrc/tril_right3_plan.cuh``, is walked on the CPU by
+``tests/test_torch_tril_right3_plan.py``), ``csrc/tril_right_kernel.cu`` (kernel 4:
 A tril(L) in float32, with quad_diag's square and row sum fused; its
 TMA-fed design gives each warp 32 columns of a tile, so a warp skips the
 diagonal stages below them and masks one; its index arithmetic, in
@@ -104,7 +107,8 @@ def _library() -> ctypes.CDLL:
         + shape,
         "hetmogp_tril_right_generic_f32": [ctypes.c_void_p] * 5
         + [ctypes.c_int] + shape,
-        "hetmogp_tril_right3_f32": proj + [ctypes.c_void_p] * 2 + shape,
+        # A, L, out, partials; Q, N, M
+        "hetmogp_tril_right3_f32": proj + [ctypes.c_void_p] + shape,
         "hetmogp_tril_right3_generic_f32": proj + shape,
         # family, J; m, v, y; their row strides; nodes, w; S, N; value,
         # Ed1, Ed2
@@ -123,6 +127,8 @@ def _library() -> ctypes.CDLL:
     lib.hetmogp_adam_max_leaves.restype = ctypes.c_int
     lib.hetmogp_tril_right_partials.argtypes = [ctypes.c_int] * 2
     lib.hetmogp_tril_right_partials.restype = ctypes.c_int
+    lib.hetmogp_tril_right3_partials.argtypes = [ctypes.c_int] * 3
+    lib.hetmogp_tril_right3_partials.restype = ctypes.c_longlong
     return lib
 
 
@@ -578,8 +584,8 @@ class TrilProjection3Pass(torch.autograd.Function):
 #
 # Kernel 4 (csrc/tril_right_kernel.cu) in float32, with three epilogues
 # (the product; the product and quad_diag's row sum of squares; the row
-# sum alone), and kernel 5 (csrc/tril_proj3_kernel.cu's
-# hetmogp_tril_right3_*) in three bf16 passes.  Each has a TMA-fed route
+# sum alone), and kernel 5 (csrc/tril_right3_kernel.cu, its generic route
+# in csrc/tril_proj3_kernel.cu) in three bf16 passes.  Each has a TMA-fed route
 # and a generic one, chosen by ``tril_route`` ("tma", else the generic
 # kernel); each launcher counts its own launches, and nothing falls back.
 
@@ -698,17 +704,24 @@ def tril_right(A: torch.Tensor, L: torch.Tensor, epilogue: str = "product"):
 
 
 def tril_right3_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """Kernel 5's wgmma and TMA design (``hetmogp_tril_right3_f32``): A
-    tril(L) in three bf16 passes for M % 4 == 0 and 16-byte-aligned
-    operands, with kernel 3's split pre-pass and scratch.  Counts its
-    launches in ``tril_right3_tma.launches``."""
+    """Kernel 5's wgmma and TMA design (``hetmogp_tril_right3_f32``,
+    ``csrc/tril_right3_kernel.cu``): A tril(L) in three bf16 passes for
+    M % 4 == 0 and 16-byte-aligned operands.  L arrives as float32 and is
+    split in shared memory: no pre-pass, no bf16 scratch.  Where its
+    schedule runs column tile 0's reduction as two parts on two blocks,
+    a float32 scratch of ``hetmogp_tril_right3_partials`` floats
+    (``torch.empty``; the graph's pool under capture) carries one part's
+    sum to the other.  Counts its launches in
+    ``tril_right3_tma.launches``."""
     A, L, out, aligned = _tril_launch_args(tril_right3_tma, A, L)
     if out.numel() == 0:
         return out
     _require_tma(tril_right3_tma, aligned, A.shape[-1])
-    lhi, llo = _bf16_scratch(A)
+    floats = _library().hetmogp_tril_right3_partials(*A.shape)
+    part = (torch.empty(floats, dtype=torch.float32, device=A.device)
+            if floats else None)
     return _launch(tril_right3_tma, "hetmogp_tril_right3_f32", A, L, out,
-                   lhi.data_ptr(), llo.data_ptr())
+                   None if part is None else part.data_ptr())
 
 
 tril_right3_tma.launches = 0

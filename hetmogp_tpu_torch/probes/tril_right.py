@@ -27,10 +27,11 @@ and each time's share of the float32 bound.  Last, the static schedule's
 balance at each shape: the work of the busiest block over the mean.
 
 ``--same-sass`` also builds ``csrc/tril_proj_kernel.cu`` and
-``csrc/tril_proj3_kernel.cu`` (kernels A, 3 and 5, which share
-``tril_tma.cuh`` and ``tril_tiles.cuh`` with kernel 4) of every checkout
-and prints, function by function, whether each one's SASS is the same as
-this checkout's.
+``csrc/tril_proj3_kernel.cu`` (kernel A, kernel 3 and its split pre-pass,
+which share ``tril_tma.cuh`` and ``tril_tiles.cuh`` with kernel 4, and
+kernel 5's generic route) of every checkout and prints, function by
+function, whether each one's SASS is the same as this checkout's
+(``same_sass``).
 
 Each build's SASS is kept beside its library, as
 ``build/hetmogp_tpu_torch/k4probe/<name>/<source>.sass``.
@@ -60,7 +61,7 @@ from hetmogp_tpu_torch.profiling import (F32_PEAK, bound_ms, card,
 HERE = Path(__file__).resolve().parents[2]
 KERNEL = "tril_right_tma_kernel"
 SOURCE = "tril_right_kernel.cu"
-# kernels A, 3 and 5: the other users of tril_tma.cuh and tril_tiles.cuh
+# kernels A and 3: the other users of tril_tma.cuh and tril_tiles.cuh
 SHARED_HEADER_SOURCES = ("tril_proj_kernel.cu", "tril_proj3_kernel.cu")
 SHAPES = {"VE": (4, 3072, 1024), "VM": (4, 768, 1024),
           "serving": (4, 65536, 1024), "adjoint": (4, 1024, 1024)}
@@ -128,13 +129,62 @@ def sass_functions(listing: str) -> dict:
     return {f.splitlines()[0].strip(): f for f in funcs[1:]}
 
 
-CLASSES = (("FFMA", r"FFMA"), ("LDS", r"LDS"), ("LD generic", r"LD"),
+def demangler(names) -> dict:
+    """{mangled: demangled} by the toolkit's cu++filt (names as they are
+    where it is missing)."""
+    try:
+        tool = Path(_build.find_nvcc()).parent / "cu++filt"
+    except RuntimeError:  # no toolkit
+        return {}
+    if not tool.exists() or not names:
+        return {}
+    out = subprocess.run([str(tool)], input="\n".join(names),
+                         capture_output=True, text=True).stdout
+    return dict(zip(names, out.splitlines()))
+
+
+def same_sass(mine: str, theirs: str, name: str, src: str) -> None:
+    """Prints, for each function of this checkout's listing, whether the
+    one of that name in ``theirs`` has the same SASS; a function that has
+    no namesake there is held to those whose names differ from its own
+    in template arguments alone."""
+    a, b = sass_functions(mine), sass_functions(theirs)
+    dm = demangler(sorted(set(a) | set(b)))
+    name_of = lambda k: dm.get(k, k)  # noqa: E731
+    bare = lambda k: re.sub(r"^void |<[^<>]*>", "", name_of(k))  # noqa: E731
+    # the instructions alone, their spacing evened: what follows a
+    # function's last one, and the column its encoding is printed at,
+    # depend on the rest of the listing
+    body = lambda f: [" ".join(ln.split()) for ln in re.findall(  # noqa: E731
+        r"/\*[0-9a-f]{4,}\*/[^\n]*|/\* 0x[0-9a-f]+ \*/", f)]
+    matched = set()
+    for k in sorted(a, key=name_of):
+        cands = [k] if k in b else [j for j in b if bare(j) == bare(k)]
+        same = [j for j in cands if body(b[j]) == body(a[k])]
+        matched.update(same or cands)
+        verdict = ("the same" if same else "DIFFERS" if cands
+                   else "not found")
+        held = f" (as {name_of(same[0])})" if same and same[0] != k else ""
+        if cands and not same:  # the first instruction that differs
+            x, y = body(a[k]), body(b[cands[0]])
+            i = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q),
+                     min(len(x), len(y)))
+            held = (f" ({len(x)} against {len(y)} lines; first difference "
+                    f"at line {i}: {x[i:i + 1]} against {y[i:i + 1]})")
+        print(f"SASS of {src}: {name_of(k)}: {verdict} in {name}{held}")
+    for j in sorted(set(b) - matched, key=name_of):
+        print(f"SASS of {src}: {name_of(j)}: only in {name}")
+
+
+CLASSES = (("FFMA", r"FFMA"), ("HGMMA", r"HGMMA"), ("LDS", r"LDS"),
+           ("LD generic", r"LD"),
            ("global", r"LDG|STG|ST|RED|ATOM"), ("select", r"F?SEL"),
            ("compare", r"[IF]SETP|PLOP3"),
            ("integer", r"IMAD|IADD3|LEA|LOP3|SHF|MOV|IABS|PRMT|SGXT|BMSK|"
                        r"I2F|F2I|VIADD|IMNMX|S2R|S2UR|UMOV|UIADD3|ULEA|"
                        r"ULOP3|USHF|UIMAD|R2UR|CS2R"),
-           ("barrier", r"SYNCS|BAR|WARPSYNC|NANOSLEEP|MEMBAR|DEPBAR"),
+           ("barrier", r"SYNCS|BAR|WARPSYNC|WARPGROUP|NANOSLEEP|MEMBAR|"
+                       r"DEPBAR"),
            ("branch", r"BRA|BSSY|BSYNC|EXIT|RET|CALL|JMP"),
            ("other", r".*"))
 
@@ -153,9 +203,10 @@ def _mix(instr) -> dict:
     return mix
 
 
-def sass_loops(listing: str, kernel: str) -> list:
+def sass_loops(listing: str, kernel: str, key: str = "FFMA") -> list:
     """The loops of ``kernel`` in a cuobjdump -sass listing (each backward
-    branch and its target), the most FFMA first, with their mix."""
+    branch and its target), the most ``key`` instructions first, with
+    their mix."""
     body = next((f for name, f in sass_functions(listing).items()
                  if kernel in name), "")
     instr = []
@@ -172,7 +223,7 @@ def sass_loops(listing: str, kernel: str) -> list:
                           **_mix([i for i in instr if lo <= i[0] <= addr])})
     if not loops:  # no backward branch by address: the whole kernel
         loops = [{"span": "whole kernel", **_mix(instr)}]
-    return sorted(loops, key=lambda d: -d.get("FFMA", 0))
+    return sorted(loops, key=lambda d: -d.get(key, 0))
 
 
 def schedule_balance(Q, N, M, sms=132, BM=128, BN=128, BK=32) -> str:
@@ -243,15 +294,10 @@ def main() -> int:
     print(f"built {len(listings)} of {len(jobs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for src in sources[1:]:
-        mine = sass_functions(listings.get(("this", src), ""))
         for n in trees:
-            if n == "this" or (n, src) not in listings:
-                continue
-            theirs = sass_functions(listings[n, src])
-            for func in sorted(set(mine) | set(theirs)):
-                same = mine.get(func) == theirs.get(func)
-                print(f"SASS of {src}: {func}: "
-                      f"{'the same' if same else 'DIFFERS'} in {n}")
+            if n != "this" and (n, src) in listings:
+                same_sass(listings.get(("this", src), ""), listings[n, src],
+                          n, src)
     if not fns:
         return 1
 

@@ -1,14 +1,19 @@
-"""The triangular projection's two routes per precision on the card: the
-TMA-fed kernels (``csrc/tril_proj_kernel.cu`` and ``tril_proj3_kernel.cu``,
-sharing ``csrc/tril_tma.cuh``) where TMA can address the operands, the
-register-staged kernels elsewhere.
+"""The triangular products' two routes per precision on the card: the
+TMA-fed kernels (``csrc/tril_proj_kernel.cu``, ``tril_proj3_kernel.cu`` and
+``tril_right3_kernel.cu``, sharing ``csrc/tril_tma.cuh``) where TMA can
+address the operands, the register-staged kernels elsewhere.
 
 The kernels run only on the card.  Here: the shape router, the launch
 counters of every route, the autograd.Functions going through the router
-(with the launchers swapped for recording plain versions), and the plain
+(with the launchers swapped for recording plain versions), the plain
 version of kernel 3's L pre-pass against the JAX package's bit-mask split
-(``tools/probe_pallas_proj.py:pallas_proj2``).
+(``tools/probe_pallas_proj.py:pallas_proj2``), kernel 5's router, and what
+kernel 5's TMA-fed launcher hands its entry (no pre-pass scratch: it
+splits L in shared memory), through a stand-in library.
 """
+
+import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -180,3 +185,76 @@ def test_split_prepass_plain_matches_the_jax_split(M):
         np.testing.assert_array_equal(bits[..., :M], want)
         assert not bits[..., M:].any()
         assert not np.triu(bits[..., :M].astype(np.int64), 1).any()
+
+
+@pytest.mark.parametrize("case,route", ROUTE_CASES,
+                         ids=["aligned", "ragged-M", "unaligned-base"])
+def test_3pass_right_router_reaches_the_launcher_of_the_route(
+        monkeypatch, case, route):
+    """Kernel 5's router (``tril_right3``, the CUDA implementation of
+    ``hetmogp::matmul_tril_3pass``) reaches the TMA-fed launcher where TMA
+    can address the operands and the generic one elsewhere."""
+    A, L = _inputs(*case)
+    calls = _recorders(monkeypatch, ("tril_right3_tma",
+                                     "tril_right3_generic"),
+                       cuda_kernels.matmul_tril_3pass_plain)
+    got = cuda_kernels.tril_right3(A.detach(), L.detach())
+    assert calls == [{"tma": "tril_right3_tma",
+                      "staged": "tril_right3_generic"}[route]]
+    assert torch.equal(got, cuda_kernels.matmul_tril_3pass_plain(A, L))
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card: what the launchers' input
+    checks read (``is_cuda``), without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _Library:
+    """Stands for the kernel library: records each entry called with its
+    arguments; ``hetmogp_tril_right3_partials`` answers ``partials``."""
+
+    def __init__(self, partials):
+        self.partials, self.calls = partials, []
+
+    def hetmogp_tril_right3_partials(self, Q, N, M):
+        return self.partials
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.calls.append((entry, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("partials", [0, 3 * 128 * 128],
+                         ids=["no-split", "split"])
+def test_kernel5_launch_takes_no_split_scratch(monkeypatch, partials):
+    """Kernel 5's TMA-fed launcher runs one entry, with A, L, out and the
+    partial-sum scratch its schedule asks for (none where it splits no
+    tile): no bf16 scratch for a split pre-pass, whose entry it no longer
+    has; the launch counts once."""
+    lib = _Library(partials)
+    monkeypatch.setattr(cuda_kernels, "_library", lambda: lib)
+
+    def no_scratch(A):
+        raise AssertionError("kernel 5 took kernel 3's bf16 scratch")
+    monkeypatch.setattr(cuda_kernels, "_bf16_scratch", no_scratch)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    A, L = (t.as_subclass(_OnCard) for t in _inputs(3, 40, 64))
+    cuda_kernels.zero_launch_counts()
+    out = cuda_kernels.tril_right3_tma(A, L)
+    assert out.shape == A.shape
+    assert [entry for entry, _ in lib.calls] == ["hetmogp_tril_right3_f32"]
+    args = lib.calls[0][1]
+    assert args[:3] == (A.data_ptr(), L.data_ptr(), out.data_ptr())
+    assert (args[3] is None) == (partials == 0)
+    assert args[4:] == (3, 40, 64, 0)
+    assert cuda_kernels.launch_counts()["tril_right3_tma"] == 1
+    cuda_kernels.zero_launch_counts()
