@@ -76,7 +76,9 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    two timed calls of 1,000 steps with the kernels' launches per cycle, a
    profile, and every learned theta finite and moved; then serves the
    trained model (``with_trained_likelihoods``) and scores its NLPD,
-   against the plain route and float64;
+   against the plain route and float64, and evaluates its ELBO on a
+   minibatch without a gradient (kernel 6's per-engine value-alone
+   sweeps: none of the ten families is in the task table);
 10. trains with the other optimizers and loops at the flagship's width
    (``optimizers_phase``): ``examples/large_scale.py --natgrad`` (natural
    gradients, both retractions) through the graphed trainer, against
@@ -116,18 +118,27 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
       the unsharded ``make_scan_trainer``, and steps/s of both in turns
       over calls of 1,000 steps.
 
-13. checks kernel 6, the one-pass Gauss-Hermite sweep (value, E[d1] and
-   E[d2] in one launch) of the flagship's Bernoulli, Categorical(K=3) and
-   Gamma lngamma engines, against the plain autograd engine at the VE (512
-   rows), VM (128) and fused (3,072) row counts in float32 and float64,
-   extreme moments included, with its value-only launcher, and times it
-   beside the plain engine and an empty kernel; kernel 7, the masked adam
+13. checks kernel 6 per engine, the one-pass Gauss-Hermite sweep (value,
+   E[d1] and E[d2] in one launch) of the flagship's Bernoulli,
+   Categorical(K=3) and Gamma lngamma engines, against the plain autograd
+   engine at the VE (512 rows), VM (128) and fused (3,072) row counts in
+   float32 and float64, extreme moments included, with its value-only
+   launcher, and times it beside the plain engine and an empty kernel;
+   kernel 6's task table, the ELBO's likelihood term of the six tasks in
+   one launch and its gradient in one more, against the plain term (the
+   sums, the rows' values and coefficients, dM and dV) at 6 x 512,
+   6 x 128, 6 x 3,072 and a ragged, padded table in float32 and float64,
+   random and extreme rows, the value alone bitwise the derivative
+   launch's and two launches bitwise equal, and times it in turns with
+   the per-engine path and the plain term, eager and graphed
+   (``task_check_phase``, ``task_time_phase``); kernel 7, the masked adam
    update of every leaf in one launch, bitwise against ``train._adam`` in
    a VE and a VM step with a float and a schedule's tensor rate, in
    float32 and float64, timed beside ``_adam`` and ``torch._fused_adam_``
    (``sweep_phase``); and profiles ten eager flagship steps with every
-   kernel attributed to the op that launched it, the sweeps and the adam
-   update on their plain versions and on kernels 6 and 7
+   kernel attributed to the op that launched it, grouped into the
+   likelihood term, the adam update and the rest, with the term on the
+   plain versions, on the per-engine path and on the task table
    (``op_profile_phase``).
 
 They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 3b, 13 (the kernels), 5b,
@@ -1068,11 +1079,15 @@ def training_phase(smi: str):
         out = []
         for i, off in enumerate(offsets):
             before = _counts()
-            before67 = (ck.gh_sweep.launches, ck.adam_update.launches)
+            before67 = (ck.task_var_exp.launches
+                        + ck.task_var_exp_backward.launches,
+                        ck.adam_update.launches)
             state, metrics = step(
                 state, ttrain.slice_batch(data, off, sizes, batches), scales)
             out.append(metrics["elbo"])
-            sweeps, adams = (ck.gh_sweep.launches - before67[0],
+            sweeps, adams = (ck.task_var_exp.launches
+                             + ck.task_var_exp_backward.launches
+                             - before67[0],
                              ck.adam_update.launches - before67[1])
             if use_kernel:
                 tril, rbf, bwd, right = (a - b for a, b in zip(_counts(),
@@ -1081,12 +1096,13 @@ def training_phase(smi: str):
                 print(f"  step {i} ({'VM' if vm else 'VE'}): projection "
                       f"kernel launches {tril}, rbf kernel launches {rbf}, "
                       f"rbf backward passes {bwd}, kernel 4 launches "
-                      f"{right}, kernel 6 {sweeps}, kernel 7 {adams}"
+                      f"{right}, kernel 6 (task table, forward and "
+                      f"backward) {sweeps}, kernel 7 {adams}"
                       f" [card: {smi}]")
                 # quad_diag a step; the VM step's four adjoint products;
-                # the three swept tasks' sweeps and the adam update
+                # the task table's forward and backward and the adam update
                 if (tril < 1 or rbf < 1 or (vm and bwd < 1)
-                        or right != (5 if vm else 1) or sweeps != 3
+                        or right != (5 if vm else 1) or sweeps != 2
                         or adams != 1):
                     raise AssertionError(f"step {i} did not run the kernels")
             elif sweeps or adams:
@@ -1358,6 +1374,8 @@ _SYMBOLS = {"rbf_cross_vec_kernel": ("rbf_K_batched_vec",),
             "tril_right3_tma_kernel": ("tril_right3_tma",),
             "tril_right3_generic_kernel": ("tril_right3_generic",),
             "gh_sweep_kernel": ("gh_sweep", "gh_sweep_value"),
+            "ve_tasks_kernel": ("task_var_exp", "task_var_exp_value"),
+            "ve_tasks_grad_kernel": ("task_var_exp_backward",),
             "adam_kernel": ("adam_update",)}
 
 
@@ -1425,9 +1443,12 @@ def graphed_trainer_phase(smi: str, precision: str,
             # never run here
             "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
             "tril_right_generic": 0, "tril_right3_generic": 0,
-            # kernel 6 for the Bernoulli, Categorical and Gamma tasks and
-            # kernel 7 once, every step
-            "gh_sweep": 3 * GRAPH_CALL_STEPS, "gh_sweep_value": 0,
+            # kernel 6's task table for the six tasks' likelihood term,
+            # forward and backward, and kernel 7 once, every step; no
+            # per-engine sweep
+            "task_var_exp": GRAPH_CALL_STEPS,
+            "task_var_exp_backward": GRAPH_CALL_STEPS,
+            "task_var_exp_value": 0, "gh_sweep": 0, "gh_sweep_value": 0,
             "adam_update": GRAPH_CALL_STEPS}
     if replayed != want or any(counts[k] < 1 for k in want if want[k]):
         raise AssertionError(f"the graphs did not run the kernels: {replayed}"
@@ -1934,8 +1955,11 @@ def families_phase(smi: str, device="cuda") -> dict:
     4. NLPD of the ten tasks on ACC_ROWS rows against float64, on the
        generator's draws.
 
+    5. the trained model's ELBO on one minibatch without a gradient
+       (``predict.elbo_evaluator``) against the plain versions.
+
     The launch counts go to 0 just before the first call and are read just
-    after it.  Returns them."""
+    after it, and again around 5.  Returns both."""
     import hetmogp_tpu_torch as tp
     from hetmogp_tpu_torch import train as ttrain
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
@@ -1981,8 +2005,10 @@ def families_phase(smi: str, device="cuda") -> dict:
             "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
             "tril_right_generic": 0, "tril_right3_generic": 0,
             # Beta's two lngamma sweeps and Dirichlet's one (kernel 6's
-            # "lngamma"), and kernel 7, every step
-            "gh_sweep": 15, "adam_update": 5}
+            # per-engine "lngamma"), and kernel 7, every step; no family
+            # of the ten is in kernel 6's task table
+            "gh_sweep": 15, "task_var_exp": 0, "task_var_exp_backward": 0,
+            "adam_update": 5}
     if ({k: cycle[k] for k in want} != want
             or any(counts[k] < 1 for k in want if want[k])):
         raise AssertionError(f"the ten-family graphs did not run the "
@@ -2166,9 +2192,36 @@ def families_phase(smi: str, device="cuda") -> dict:
           f"{time.perf_counter() - t_phase:.1f} s [card: {smi}]")
     if not (r <= NLPD_BOUND and bool(torch.isfinite(drawn))):
         raise AssertionError("ten-family NLPD disagrees with float64")
+
+    # 5. the trained model's ELBO on a minibatch without a gradient
+    # (predict.elbo_evaluator): Beta's and Dirichlet's sweeps take kernel
+    # 6's value-alone launcher, the launch counts from 0 around it
+    from hetmogp_tpu_torch.models import elbo as telbo, predict
+
+    batch = ttrain.slice_batch(
+        ttrain.extend_for_wraparound(dataset, batches, sizes),
+        ttrain.draw_offsets(torch.Generator().manual_seed(SEED + 14), sizes,
+                            batches), sizes, batches)
+    scales = ttrain.batch_scales(sizes, batches, cfg.torch_dtype, device)
+    ck.zero_launch_counts()
+    elbo, _ = predict.elbo_evaluator(cfg)(trained, batch, scales)
+    torch.cuda.synchronize()
+    evaluated = ck.launch_counts()
+    with torch.no_grad():
+        want, _ = telbo.elbo_fn(trained, batch, scales, cfg, use_kernel=False)
+    r = abs(float(elbo) - float(want)) / abs(float(want))
+    print(f"ten-family ELBO without a gradient (elbo_evaluator, {T} x "
+          f"{TRAIN_B} rows): {float(elbo):.6f}, the plain versions' "
+          f"{float(want):.6f}, relative {r:.3e} (bound "
+          f"{GRAPH_PLAIN_F32_VE:g}); launches "
+          f"{ {k: v for k, v in evaluated.items() if v} } [card: {smi}]")
+    if not (r <= GRAPH_PLAIN_F32_VE and evaluated["gh_sweep_value"] == 3
+            and evaluated["gh_sweep"] == 0):
+        raise AssertionError("the ten-family ELBO without a gradient did "
+                             "not take kernel 6's value-alone sweeps")
     del run, state, serve, out, eps
     torch.cuda.empty_cache()
-    return counts
+    return counts, evaluated
 
 
 # ---------------------------------------------------------------------------
@@ -3039,10 +3092,12 @@ def parallel_gloo_phase(smi: str) -> None:
         rel = np.abs(out["elbos"] - eager) / np.abs(eager)
         r_ve, r_all = float(rel[:first_vm].max()), float(rel.max())
         counts = {k: out["counts"][k] for k in want_counts}
-        # kernels 6 and 7: each rank sweeps the rows of its data rank and
-        # updates its own leaves (printed, not held to a count)
+        # kernels 6 and 7: each rank takes the likelihood term of the rows
+        # of its data rank and updates its own leaves (printed, not held
+        # to a count)
         counts.update({k: out["counts"][k] for k in (
-            "gh_sweep", "gh_sweep_value", "adam_update")})
+            "task_var_exp", "task_var_exp_backward", "gh_sweep",
+            "adam_update")})
         shapes = {k: out["shapes"].get(k, set()) for k in want_shapes}
         print(f"{what}, rank {r}: shard rows {out['shard_rows']}, local "
               f"q_sqrt {out['q_sqrt']}, eager steps (captured "
@@ -3154,7 +3209,9 @@ def parallel_nccl_phase(smi: str) -> None:
                 "tril_projection_tma": 2 * n_vm,
                 "tril_projection_3pass_tma": PAR_STEPS - n_vm,
                 "tril_right_tma": PAR_STEPS, "tril_right3_tma": 4 * n_vm,
-                "gh_sweep": 3 * PAR_STEPS, "adam_update": PAR_STEPS}
+                "task_var_exp": PAR_STEPS,
+                "task_var_exp_backward": PAR_STEPS, "gh_sweep": 0,
+                "adam_update": PAR_STEPS}
         if not (meshed.captured and bitwise
                 and all(replayed[k] == v for k, v in want.items())
                 and captured_colls.get("data.all_reduce", 0) > 0):
@@ -3396,7 +3453,376 @@ def sweep_phase(smi: str) -> list:
                  plain_ms=t["plain value"], bound_ms=bound_value[0],
                  bound_by=bound_value[1],
                  max_abs_err=abs_err["categorical", "VE", "value"])
-    return [sweep, value, *adam_phase(smi)]
+    table = task_time_phase(smi, task_check_phase(smi))
+    return [sweep, value, *table, *adam_phase(smi)]
+
+
+# ---- kernel 6 redesigned: the task table -----------------------------------
+
+# rows a task of the flagship's six tasks: a VE step's batch, a VM step's
+# quarter, six batches a task (the fused shape), and a ragged table whose
+# masks end in padding (the last fifth of each task's rows masked out)
+TASK_ROWS = {"VE": (TRAIN_B,) * 6, "VM": (TRAIN_B // 4,) * 6,
+             "fused": (6 * TRAIN_B,) * 6,
+             "ragged": (TRAIN_B, 300, 77, TRAIN_B // 4, 1, 1000)}
+# the task table against the plain term: float32 within SWEEP_VS_PLAIN
+# times the plain float32 term's own error against float64 plus SWEEP_ABS,
+# float64 within SWEEP_F64, normwise per task and output; Gamma's c_v (and
+# so its dV) holds torch's float64 trigamma in the plain engine
+TASK_F64_GAMMA_CV = SWEEP_F64_LNGAMMA
+# the extreme rows' observations, at and past the closed forms' clips
+# (HetGaussian's squares, Gamma's and Exponential's 1e-9 and 1e9), by task
+TASK_EXTREME_Y = ((1e5, -1e5, 0.0, 3.0, 0.5, -0.5), (0, 1, 1, 0, 1, 0),
+                  (1, 3, 2, 1, 3, 2), (0, 1e4, 0, 7, 1, 0),
+                  (1e-9, 1e9, 1e-3, 5.0, 1e-9, 1e9),
+                  (1e-9, 1e9, 1e-3, 5.0, 1e-9, 1e9))
+# operations a row of a closed form does (the value and its 2J first
+# derivatives; the value alone), counted in gh_sweep.cuh as for
+# SWEEP_NODE_OPS: lower bounds on the work, for the bound column
+TASK_CLOSED_OPS = {"hetgaussian": (60, 20), "poisson": (20, 8),
+                   "gamma": (60, 20), "exponential": (20, 8)}
+
+
+def task_liks():
+    """The flagship's six likelihoods (``training_arrays``)."""
+    return training_arrays()[0].likelihoods
+
+
+def task_inputs(rows, seed: int, extreme: bool, ragged: bool):
+    """(Y, M, V, masks, scales) of the six tasks, float64 on the card:
+    random moments (the last len(SWEEP_EXTREME_MV) rows of each task the
+    extreme ones, with TASK_EXTREME_Y, when ``extreme``), observations of
+    each family's support, masks of ones (or, ``ragged``, random ones
+    and zeros ending in zeros), and the bench's scales N_t / rows.  The
+    extreme rows follow random ones: a task of fewer than twice as many
+    rows keeps random rows alone, since a task's normwise error is then
+    the relative error of its extreme rows alone, and there the value is
+    a cancellation (Gamma at m = -200, y = 1e-9: -E[ln Gamma(a)] and
+    (E[a] - 1) log y, two terms of 20.7 that meet at 1e-7)."""
+    rng = np.random.RandomState(seed)
+    out = ([], [], [], [])
+    for t, (lik, n) in enumerate(zip(task_liks(), rows)):
+        J = lik.dim_f
+        m = 1.5 * rng.randn(n, J)
+        v = 0.01 + 2.0 * rng.rand(n, J)
+        y = [rng.randn(n), (rng.rand(n) > 0.5) * 1.0,
+             rng.randint(1, 4, n) * 1.0, rng.poisson(3.0, n) * 1.0,
+             rng.gamma(2.0, 1.0, n) + 1e-3,
+             rng.exponential(1.0, n) + 1e-3][t]
+        ext = len(SWEEP_EXTREME_MV)
+        if extreme and n >= 2 * ext:
+            m[-ext:] = np.array([a for a, _ in SWEEP_EXTREME_MV])[:ext, None]
+            v[-ext:] = np.array([b for _, b in SWEEP_EXTREME_MV])[:ext, None]
+            y[-ext:] = TASK_EXTREME_Y[t][:ext]
+        mask = np.ones(n)
+        if ragged:
+            mask = (rng.rand(n) > 0.3) * 1.0
+            mask[n - n // 5:] = 0.0
+        for a, x in zip(out, (y[:, None], m, v, mask)):
+            a.append(torch.tensor(x, dtype=torch.float64, device="cuda"))
+    scales = torch.tensor([TRAIN_N_PER / max(n, 1) for n in rows],
+                          dtype=torch.float64, device="cuda")
+    return (*out, scales)
+
+
+def task_plain(liks, Y, M, V, masks, scales, use_kernel=False):
+    """The plain term's outputs: (sums, values, c_m, c_v, dM, dV), the
+    per-row ones by task; c = the gradient of each task's var_exp sum, d
+    that of the sums' total."""
+    Ms = [m.clone().requires_grad_() for m in M]
+    Vs = [v.clone().requires_grad_() for v in V]
+    values, cm, cv = [], [], []
+    for lik, y, m, v in zip(liks, Y, Ms, Vs):
+        ve = lik.var_exp(y, m, v, use_kernel=use_kernel)
+        dm, dv = torch.autograd.grad(ve.sum(), (m, v))
+        values.append(ve.detach())
+        cm.append(dm)
+        cv.append(dv)
+    from hetmogp_tpu_torch.ops import quadrature
+
+    sums = quadrature.task_var_exp_plain(liks, Y, Ms, Vs, masks,
+                                         list(scales), use_kernel)
+    grads = torch.autograd.grad(sums.sum(), Ms + Vs)
+    T = len(liks)
+    return (sums.detach(), values, cm, cv, list(grads[:T]), list(grads[T:]))
+
+
+def task_kernel(liks, Y, M, V, masks, scales):
+    """The task table's outputs, as ``task_plain``'s: the rows' values and
+    coefficients from the forward launcher, the sums and (dM, dV) through
+    ``quadrature.task_var_exp`` (a forward and a backward launch, held to
+    one each and to the launcher's sums, bitwise)."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+    from hetmogp_tpu_torch.ops import quadrature
+
+    tasks = [(code, y, m, v, mask, nodes, w) for (code, nodes, w), y, m, v,
+             mask in zip(quadrature._task_table(liks, M[0]), Y, M, V, masks)]
+    sums0, values, coefs = ck.task_var_exp(tasks, list(scales))
+    J = [m.shape[1] for m in M]
+    Ms = [m.clone().requires_grad_() for m in M]
+    Vs = [v.clone().requires_grad_() for v in V]
+    before = (ck.task_var_exp.launches, ck.task_var_exp_backward.launches)
+    sums = quadrature.task_var_exp(liks, Y, Ms, Vs, masks, list(scales))
+    grads = torch.autograd.grad(sums.sum(), Ms + Vs)
+    torch.cuda.synchronize()
+    if (ck.task_var_exp.launches - before[0],
+            ck.task_var_exp_backward.launches - before[1]) != (1, 1):
+        raise AssertionError("the task table did not take one forward and "
+                             "one backward launch")
+    if not torch.equal(sums.detach(), sums0):
+        raise AssertionError("the Function's sums are not the launcher's")
+    T = len(liks)
+    return (sums.detach(), values, [c[:, :j] for c, j in zip(coefs, J)],
+            [c[:, j:] for c, j in zip(coefs, J)], list(grads[:T]),
+            list(grads[T:]))
+
+
+TASK_OUTPUTS = ("sum", "value", "c_m", "c_v", "dM", "dV")
+
+
+def task_errors(got, want, rows_sl=slice(None)):
+    """{output: [normwise error a task]} over the entries where ``want``
+    is finite (the sums: each task's), and whether the non-finite entries
+    agree."""
+    errs, same = {}, True
+    for name, a, b in zip(TASK_OUTPUTS, got, want):
+        if name == "sum":
+            pairs = [(a[t:t + 1], b[t:t + 1]) for t in range(a.numel())]
+        else:
+            pairs = [(x[rows_sl], y[rows_sl]) for x, y in zip(a, b)]
+        errs[name] = [finite_normwise(x, y) for x, y in pairs]
+        same &= all(torch.equal(torch.isfinite(x), torch.isfinite(y))
+                    for x, y in pairs)
+    return errs, same
+
+
+def _fmt(errs) -> str:
+    return "; ".join(f"{k} " + " ".join(f"{e:.1e}" for e in v)
+                     for k, v in errs.items())
+
+
+def task_check_phase(smi: str) -> dict:
+    """The task table against the plain term at TASK_ROWS in float32 and
+    float64, with random rows and with the extreme ones, the value alone
+    bitwise the derivative launch's, two launches bitwise equal.  Returns
+    the largest |kernel - plain| of the float32 VE case, by launcher."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+    from hetmogp_tpu_torch.ops import quadrature
+
+    liks = task_liks()
+    abs_err = {}
+    for i, (label, rows) in enumerate(TASK_ROWS.items()):
+        for extreme in (False, True):
+            what = f"{label} {rows} rows, {'extreme' if extreme else 'random'}"
+            Y, M, V, masks, scales = task_inputs(
+                rows, SEED + 70 + 2 * i + extreme, extreme, label == "ragged")
+            # float32: inputs rounded once, the references on those values
+            Y32, M32, V32, k32, s32 = (
+                [a.float() for a in x] if isinstance(x, list) else x.float()
+                for x in (Y, M, V, masks, scales))
+            up = ([a.double() for a in x] for x in (Y32, M32, V32, k32))
+            want = task_plain(liks, *up, s32.double())
+            plain = task_plain(liks, Y32, M32, V32, k32, s32)
+            got = task_kernel(liks, Y32, M32, V32, k32, s32)
+            again = task_kernel(liks, Y32, M32, V32, k32, s32)
+            bitwise = all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                          else all(torch.equal(x, y) for x, y in zip(a, b))
+                          for a, b in zip(got, again))
+            parts = ((("random rows", slice(None, -len(SWEEP_EXTREME_MV))),
+                      ("extreme rows", slice(-len(SWEEP_EXTREME_MV), None)))
+                     if extreme else (("all rows", slice(None)),))
+            for part, sl in parts:
+                e_k, same = task_errors(got, want, sl)
+                e_p, _ = task_errors(plain, want, sl)
+                _, same_p = task_errors(got, plain, sl)
+                ok = same_p and all(
+                    a <= SWEEP_VS_PLAIN * b + SWEEP_ABS
+                    for k in e_k for a, b in zip(e_k[k], e_p[k]))
+                print(f"kernel 6, task table ({what}, {part}, float32) vs "
+                      f"plain f64, normwise by task: {_fmt(e_k)}; the plain "
+                      f"f32 term's: {_fmt(e_p)}; non-finite where plain "
+                      f"f32's are {same_p}; two launches bitwise equal "
+                      f"{bitwise} [card: {smi}]")
+                if not (ok and bitwise):
+                    raise AssertionError(f"the task table ({what}, {part}, "
+                                         "f32) disagrees with plain")
+            # the value alone: bitwise the derivative launch's
+            tasks = [(c, y, m, v, k, n, w) for (c, n, w), y, m, v, k in zip(
+                quadrature._task_table(liks, M32[0]), Y32, M32, V32, k32)]
+            v_sums, v_rows = ck.task_var_exp_value(tasks, list(s32))
+            alone = torch.equal(v_sums, got[0]) and all(
+                torch.equal(a, b) for a, b in zip(v_rows, got[1]))
+            print(f"kernel 6, task table ({what}, float32), the value "
+                  f"alone (task_var_exp_value): sums and rows bitwise the "
+                  f"derivative launch's {alone} [card: {smi}]")
+            if not alone:
+                raise AssertionError("the task table's value alone differs")
+            if label == "VE" and not extreme:
+                for name, a, b in (("forward", got[1:4], plain[1:4]),
+                                   ("backward", got[4:], plain[4:]),
+                                   ("value", (v_rows,), (plain[1],))):
+                    abs_err[name] = max(
+                        float((x - y)[torch.isfinite(y)].abs().max())
+                        for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+            # float64: the kernel against the plain term
+            want64 = task_plain(liks, Y, M, V, masks, scales)
+            got64 = task_kernel(liks, Y, M, V, masks, scales)
+            e64, same64 = task_errors(got64, want64)
+            bad = [(k, t) for k, v in e64.items() for t, e in enumerate(v)
+                   if not e <= (TASK_F64_GAMMA_CV if t == 4
+                                and k in ("c_v", "dV") else SWEEP_F64)]
+            print(f"kernel 6, task table ({what}, float64) vs plain f64, "
+                  f"normwise by task: {_fmt(e64)} (bound {SWEEP_F64:g}, "
+                  f"Gamma's c_v and dV {TASK_F64_GAMMA_CV:g}); non-finite "
+                  f"where plain's are {same64} [card: {smi}]")
+            if bad or not same64:
+                raise AssertionError(f"the task table ({what}, f64) "
+                                     f"disagrees with plain: {bad}")
+    return abs_err
+
+
+def task_time_phase(smi: str, abs_err: dict) -> list:
+    """The task table's times in float32 at VE, VM and fused, in turns:
+    the whole term (forward and backward) on the table, on the
+    per-engine path (each task's var_exp, kernel 6 per engine for the
+    swept ones, torch ops for the closed forms and the sums) and on the
+    plain versions, each also as a captured CUDA graph; the three launches
+    alone beside the plain term's forward, backward and value; the empty
+    kernel.  Returns the kernel entries at VE."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+    from hetmogp_tpu_torch.ops import quadrature
+
+    liks = task_liks()
+    entries = []
+    for label in ("VE", "VM", "fused"):
+        rows = TASK_ROWS[label]
+        Y, M, V, masks, scales = (
+            [a.float() for a in x] if isinstance(x, list) else x.float()
+            for x in task_inputs(rows, SEED + 80, False, False))
+        Ms = [m.clone().requires_grad_() for m in M]
+        Vs = [v.clone().requires_grad_() for v in V]
+        sc = list(scales)
+        g = torch.ones(len(liks), device="cuda")
+
+        def term(use_kernel, table):
+            # leaves of its own each call: a captured backward must not
+            # meet an autograd node made on another stream
+            def f():
+                fn = (quadrature.task_var_exp if table
+                      else quadrature.task_var_exp_plain)
+                Ml = [m.detach().requires_grad_() for m in M]
+                Vl = [v.detach().requires_grad_() for v in V]
+                sums = fn(liks, Y, Ml, Vl, masks, sc, use_kernel=use_kernel)
+                return torch.autograd.grad(sums, Ml + Vl, g)
+            return f
+
+        def value(use_kernel, table):
+            def f():
+                with torch.no_grad():
+                    fn = (quadrature.task_var_exp if table
+                          else quadrature.task_var_exp_plain)
+                    return fn(liks, Y, M, V, masks, sc, use_kernel=use_kernel)
+            return f
+
+        tasks = [(c, y, m, v, k, n, w) for (c, n, w), y, m, v, k in zip(
+            quadrature._task_table(liks, M[0]), Y, M, V, masks)]
+        _, _, coefs = ck.task_var_exp(tasks, sc)
+        recorded = quadrature.task_var_exp_plain(liks, Y, Ms, Vs, masks, sc,
+                                                 use_kernel=False)
+
+        def graphed(fn):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fn()
+            return graph
+
+        graphs = {"table": graphed(term(True, True)),
+                  "per-engine path": graphed(term(True, False))}
+        fns = {"table": term(True, True),
+               "per-engine path": term(True, False),
+               "plain": term(False, False),
+               "table, graphed": graphs["table"].replay,
+               "per-engine path, graphed": graphs["per-engine path"].replay,
+               "forward launch": lambda: ck.task_var_exp(tasks, sc),
+               "backward launch": lambda: ck.task_var_exp_backward(
+                   coefs, masks, sc, g),
+               "value launch": lambda: ck.task_var_exp_value(tasks, sc),
+               "table value": value(True, True),
+               "per-engine path value": value(True, False),
+               "plain value": value(False, False),
+               "plain forward": lambda: quadrature.task_var_exp_plain(
+                   liks, Y, Ms, Vs, masks, sc, use_kernel=False),
+               "plain backward": lambda: torch.autograd.grad(
+                   recorded, Ms + Vs, g, retain_graph=True),
+               "empty kernel": ck.empty_launch}
+        t, n = time_in_turns(fns)
+        # bytes: y, m, v, the mask and the node tables read, the values,
+        # coefficients and sums written; the backward reads the
+        # coefficients and masks and writes dM and dV
+        N = sum(rows)
+        NJ = sum(r * lik.dim_f for r, lik in zip(rows, liks))
+        tables = sum(n_.numel() + w_.numel() for _, n_, w_ in
+                     quadrature._task_table(liks, M[0]) if n_ is not None)
+        fwd_bytes = 4 * (3 * N + 2 * NJ + tables + 2 * NJ + len(rows))
+        ops, ops_value = 0, 0
+        for lik, r in zip(liks, rows):
+            name = quadrature.task_family(lik)
+            sweep = quadrature.TASK_FAMILIES[name][2]
+            if sweep is not None:
+                S = quadrature._task_table([lik], M[0])[0][1].shape[0]
+                ops += r * S * SWEEP_NODE_OPS[sweep]
+                ops_value += r * S * SWEEP_NODE_OPS_VALUE[sweep]
+            if name in TASK_CLOSED_OPS:
+                ops += r * TASK_CLOSED_OPS[name][0]
+                ops_value += r * TASK_CLOSED_OPS[name][1]
+        bound = bound_ms(fwd_bytes, ops, F32_PEAK)
+        bound_value = bound_ms(fwd_bytes - 4 * 2 * NJ, ops_value, F32_PEAK)
+        bound_bwd = bound_ms(4 * (4 * NJ + N), 2 * NJ + N, F32_PEAK)
+        print(f"kernel 6, task table times ({label}, {N} rows, float32), "
+              f"median of {n} calls each in turns: the term forward and "
+              f"backward on the table {t['table']:.4f} ms (graphed "
+              f"{t['table, graphed']:.4f}), on the per-engine path "
+              f"{t['per-engine path']:.4f} (graphed "
+              f"{t['per-engine path, graphed']:.4f}), plain "
+              f"{t['plain']:.4f}; the "
+              f"value alone: table {t['table value']:.4f}, per-engine path "
+              f"{t['per-engine path value']:.4f}, plain "
+              f"{t['plain value']:.4f}; "
+              f"launches alone: forward {t['forward launch']:.4f} (bound "
+              f"{bound[0]:.6f}, {bound[1]}; plain forward "
+              f"{t['plain forward']:.4f}), backward "
+              f"{t['backward launch']:.4f} (bound {bound_bwd[0]:.6f}, "
+              f"{bound_bwd[1]}; plain backward {t['plain backward']:.4f}), "
+              f"value {t['value launch']:.4f} (bound {bound_value[0]:.6f}, "
+              f"{bound_value[1]}); empty kernel {t['empty kernel']:.4f} ms"
+              f" [card: {smi}]")
+        if label == "VE":
+            source = "hetmogp_tpu_torch/csrc/ve_tasks_kernel.cu"
+            base = {"route": "cuda", "source": source, "library_ms": None}
+            entries = [
+                dict(base, name="task_var_exp",
+                     replaces="hetmogp_tpu/ops/quadrature.py:129",
+                     max_abs_err=abs_err["forward"],
+                     ms=t["forward launch"], plain_ms=t["plain forward"],
+                     bound_ms=bound[0], bound_by=bound[1]),
+                dict(base, name="task_var_exp_backward",
+                     replaces="hetmogp_tpu/ops/quadrature.py:147",
+                     max_abs_err=abs_err["backward"],
+                     ms=t["backward launch"], plain_ms=t["plain backward"],
+                     bound_ms=bound_bwd[0], bound_by=bound_bwd[1]),
+                dict(base, name="task_var_exp_value",
+                     replaces="hetmogp_tpu/ops/quadrature.py:121",
+                     max_abs_err=abs_err["value"], ms=t["value launch"],
+                     plain_ms=t["plain value"], bound_ms=bound_value[0],
+                     bound_by=bound_value[1])]
+        del graphs
+    return entries
 
 
 def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -3524,23 +3950,29 @@ def adam_phase(smi: str) -> list:
              "library_ms": t["library"]}]
 
 
-# the op profile's ranges: the var_exp of the three swept families and the
-# adam update
-OP_SWEEP, OP_ADAM = "hetmogp.var_exp_swept", "hetmogp.adam_update"
+# the op profile's ranges: the ELBO's likelihood term and the adam update
+OP_TERM, OP_ADAM = "hetmogp.likelihood_term", "hetmogp.adam_update"
 OP_STEPS = 10  # two VE/VM cycles
+# the term's routes: the plain versions; the per-engine path (each
+# task's var_exp, kernel 6 per engine for the swept families, torch ops
+# for the closed forms and the masked sums); the task table (one launch,
+# one for the gradient)
+OP_MODES = ("plain", "per-engine path", "task table")
 
 
 def op_profile_phase(smi: str) -> dict:
     """The flagship's eager step at "high", OP_STEPS steps under
-    torch.profiler, twice: with the swept families' var_exp and the adam
-    update on their plain versions (the path before kernels 6 and 7), and
-    on the kernels.  Every kernel's device time goes to the torch op that
-    launched it, and each op to the var_exp of Bernoulli, Categorical and
-    Gamma (launched inside their call, or by the engine's backward), the
-    adam update, or the rest.  Returns {"plain"|"kernels": {group: (calls,
-    device ms)}}."""
+    torch.profiler, once a mode of OP_MODES: the likelihood term on the
+    plain versions (and the adam update too), on the per-engine path, and on
+    kernel 6's task table (the adam update on kernel 7 in both).  Every
+    kernel's device time goes to the torch op that launched it, and each
+    op to the likelihood term (launched inside its forward, or by the
+    backward of a node its forward made), the adam update, or the rest.
+    Returns {mode: {group: (calls, device ms)}}."""
     import hetmogp_tpu_torch as tp
     from hetmogp_tpu_torch import train as ttrain
+    from hetmogp_tpu_torch.models import elbo as telbo
+    from hetmogp_tpu_torch.ops import quadrature
 
     cfg, tc, params, dataset = training_model(precision="high")
     sizes = (TRAIN_N_PER,) * cfg.num_tasks
@@ -3550,32 +3982,43 @@ def op_profile_phase(smi: str) -> dict:
     offsets = [ttrain.draw_offsets(gen, sizes, batches)
                for _ in range(OP_STEPS + 5)]
     scales = ttrain.batch_scales(sizes, batches, cfg.torch_dtype, "cuda")
-    swept = (tp.Bernoulli, tp.Categorical, tp.Gamma)
-    own = {cls: cls.__dict__.get("var_exp") for cls in swept}
-    orig = {cls: cls.var_exp for cls in swept}
-    adam_step = ttrain._adam_step
+    term, adam_step = telbo.likelihood_term, ttrain._adam_step
     out = {}
     try:
-        for mode in ("plain", "kernels"):
-            kernels = mode == "kernels"
-            for cls in swept:
-                def var_exp(self, *args, _f=orig[cls], **kw):
-                    with torch.profiler.record_function(OP_SWEEP):
-                        kw["use_kernel"] = kernels and kw.get("use_kernel",
-                                                              True)
-                        return _f(self, *args, **kw)
-                cls.var_exp = var_exp
+        for mode in OP_MODES:
+            seqs = []
 
-            def adam(params, opt, grads, lr, use_kernel=True):
+            def likelihood_term(params, config, data, moments, scales,
+                                use_kernel=True, _mode=mode, _seqs=seqs):
+                with torch.profiler.record_function(OP_TERM):
+                    # a view's autograd node launches nothing: its sequence
+                    # number bounds the term's nodes (numbers between)
+                    lo = moments[0][0].view_as(moments[0][0]).grad_fn
+                    if _mode == "task table":
+                        sums = term(params, config, data, moments, scales,
+                                    use_kernel=use_kernel)
+                    else:
+                        sums = quadrature.task_var_exp_plain(
+                            config.likelihoods, [td.Y for td in data],
+                            [m for m, _ in moments], [v for _, v in moments],
+                            [td.mask for td in data], list(scales),
+                            use_kernel=use_kernel and _mode != "plain")
+                    hi = sums.view_as(sums).grad_fn
+                    _seqs.append((lo._sequence_nr(), hi._sequence_nr()))
+                    return sums
+            telbo.likelihood_term = likelihood_term
+
+            def adam(params, opt, grads, lr, use_kernel=True, _mode=mode):
                 with torch.profiler.record_function(OP_ADAM):
                     return adam_step(params, opt, grads, lr,
-                                     use_kernel and kernels)
+                                     use_kernel and _mode != "plain")
             ttrain._adam_step = adam
             step = ttrain.make_step(cfg, tc)
             state = tp.init_train_state(params, cfg)
             for off in offsets[:5]:  # one cycle of warm-up
                 state, _ = step(state, ttrain.slice_batch(ext, off, sizes,
                                                           batches), scales)
+            seqs.clear()
 
             def call():
                 nonlocal state
@@ -3584,27 +4027,26 @@ def op_profile_phase(smi: str) -> dict:
                         ext, off, sizes, batches), scales)
 
             out[mode] = profile_by_op(call, f"eager flagship step "
-                                      f"(\"high\", {OP_STEPS} steps), sweeps "
-                                      f"and adam on the {mode}", smi)
+                                      f"(\"high\", {OP_STEPS} steps), the "
+                                      f"likelihood term on the {mode}", smi,
+                                      seqs)
     finally:
-        ttrain._adam_step = adam_step
-        for cls in swept:
-            if own[cls] is not None:
-                cls.var_exp = own[cls]
-            elif "var_exp" in cls.__dict__:
-                delattr(cls, "var_exp")
+        telbo.likelihood_term, ttrain._adam_step = term, adam_step
     return out
 
 
-def profile_by_op(call, what: str, smi: str) -> dict:
+def profile_by_op(call, what: str, smi: str, seqs) -> dict:
     """Profile ``call`` and give each device activity (kernel, copy, fill)
     to the op whose call launched it: the runtime call of the same
     correlation id, and the op around that call.  An activity belongs to
-    the swept var_exp when its launch falls inside an OP_SWEEP range (on any
-    thread: the engine's autograd runs on the device's thread) or under the
-    engine's backward node, to the adam update inside an OP_ADAM range, and
-    to the rest otherwise.  Prints each group's calls and device ms and its
-    heaviest ops; returns {group: (calls, ms)}."""
+    the likelihood term when its launch falls inside an OP_TERM range (on
+    any thread: the plain engines' autograd runs on the device's thread)
+    or under the backward of a node the term's forward made (an autograd
+    node whose sequence number lies strictly between the two of a pair of
+    ``seqs``, the numbers of a view made just before and just after each
+    call of the term), to the adam update inside an
+    OP_ADAM range, and to the rest otherwise.  Prints each group's calls
+    and device ms and its heaviest ops; returns {group: (calls, ms)}."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from hetmogp_tpu_torch.ops import cuda_kernels
@@ -3621,13 +4063,25 @@ def profile_by_op(call, what: str, smi: str) -> dict:
     evts = prof.events()
     cpu, cuda = (torch.autograd.DeviceType.CPU,
                  torch.autograd.DeviceType.CUDA)
+    term, adam = "likelihood term", "adam"
+    # the host's ranges (the profiler also puts each on the device's
+    # timeline, as an annotation)
     ranges = {g: [(e.time_range.start, e.time_range.end) for e in evts
-                  if e.name == label]
-              for g, label in (("var_exp (swept)", OP_SWEEP),
-                               ("adam", OP_ADAM))}
+                  if e.name == label and e.device_type == cpu]
+              for g, label in ((term, OP_TERM), (adam, OP_ADAM))}
+    if len(ranges[term]) != len(seqs):
+        raise AssertionError(f"{what}: {len(ranges[term])} ranges of the "
+                             f"term in the trace, {len(seqs)} calls")
+
+    def in_term(node) -> bool:
+        # a backward node's event: its forward thread and sequence number
+        n = node.sequence_nr
+        return bool(node.fwd_thread) and n >= 0 and any(
+            lo < n < hi for lo, hi in seqs)
+
     launches = {e.id: e for e in evts
                 if e.device_type == cpu and e.name.startswith("cu")}
-    groups = {"var_exp (swept)": {}, "adam": {}, "rest": {}}
+    groups = {term: {}, adam: {}, "rest": {}}
     unlinked = 0
     for k in evts:
         if k.device_type != cuda:
@@ -3642,8 +4096,8 @@ def profile_by_op(call, what: str, smi: str) -> dict:
         parent = launch.cpu_parent
         op = parent.name if parent is not None else launch.name
         while group is None and parent is not None:
-            if "VarExpBackward" in parent.name:
-                group = "var_exp (swept)"
+            if in_term(parent):
+                group = term
             parent = parent.cpu_parent
         ops = groups[group or "rest"]
         calls, ms = ops.get(op, (0, 0.0))
@@ -3702,13 +4156,14 @@ def main():
           f"graphed flagship at \"high\"), per serving pass "
           f"{ {k: served[k] for k in mine} } ({6 * N_CHUNKS} requests)"
           f" [card: {smi}]")
-    mine = ("gh_sweep", "gh_sweep_value", "adam_update")
+    mine = ("task_var_exp", "task_var_exp_backward", "task_var_exp_value",
+            "gh_sweep", "gh_sweep_value", "adam_update")
     print(f"kernels 6 and 7 on the main path: launches per 5-step cycle "
           f"{ {k: replayed[k] * 5 // GRAPH_CALL_STEPS for k in mine} } (the "
           f"graphed flagship at \"high\"), per serving pass "
           f"{ {k: served[k] for k in mine} } [card: {smi}]")
     op_profile_phase(smi)
-    families_phase(smi)
+    families, families_elbo = families_phase(smi)
     optimizers_phase(smi)
     life = lifecycle_phase(smi)
     parallel_phase(smi)
@@ -3716,16 +4171,19 @@ def main():
     # routes; the staged, scalar and generic routes never run at M = 1024,
     # so theirs are from the ragged serving path and the ragged VM step,
     # their own
-    # the value-only sweep runs where an ELBO is evaluated without a
-    # gradient: its launches are the lifecycle's (the full-data ELBOs of
-    # save and load)
+    # the task table's value alone runs where an ELBO is evaluated
+    # without a gradient: its launches are the lifecycle's (the full-data
+    # ELBOs of save and load); the per-engine sweeps run for the families
+    # outside the task table: theirs are the ten-family trainer's first
+    # call and its ELBO without a gradient
     kernels = [*rbf, *proj, *proj3, *right, *sweep]
     own_path = ("_staged", "_scalar", "_generic")
+    source = {"task_var_exp_value": life, "gh_sweep": families,
+              "gh_sweep_value": families_elbo}
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (ragged if name.endswith(own_path)
-                             else life if name == "gh_sweep_value"
-                             else counts)[name]
+                             else source.get(name, counts))[name]
     if not all(entry["launches"] > 0 for entry in kernels):
         raise AssertionError(f"a kernel was not launched on its path: "
                              f"{[(e['name'], e['launches']) for e in kernels]}")

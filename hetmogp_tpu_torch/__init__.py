@@ -27,10 +27,15 @@ tensor-core passes for ``ve_fwd_precision="high"``
 ``quad_diag``'s row sums fused (``csrc/tril_right_kernel.cu``) and in
 three bf16 passes for the VM step's adjoints at ``"high"`` (in
 ``csrc/tril_proj3_kernel.cu``).  Two more serve the trainer outside the
-operators: the one-pass Gauss-Hermite sweep of Bernoulli, Categorical
-and the lngamma engine of Gamma, Beta and Dirichlet (value, E[d1] and
-E[d2] in one launch, ``csrc/gh_sweep_kernel.cu``), and the masked adam
-update of every leaf in one launch (``csrc/adam_kernel.cu``).  Trained parameters cross from the JAX
+operators: the ELBO's likelihood term of every task of a step whose
+family has a device function (HetGaussian, Bernoulli, Categorical,
+Poisson, Gamma and Exponential: each task's var_exp and its masked,
+scaled sum in one launch, their gradient in one more,
+``csrc/ve_tasks_kernel.cu``), with the one-pass Gauss-Hermite sweep of
+each engine for the families outside it (Beta's and Dirichlet's lngamma
+sweeps, ``csrc/gh_sweep_kernel.cu``), and the masked adam update of every
+leaf in one launch (``csrc/adam_kernel.cu``).  Trained parameters cross
+from the JAX
 package with ``params_from_jax`` or a checkpoint, and configs with
 ``ModelConfig.from_dict``.  Entry points put their tensors on the card
 unless the caller passes ``device="cpu"``.  Importing the package needs

@@ -336,23 +336,156 @@ GH_HD inline Jet<T, J> maximum_(const Jet<T, J>& a, const Jet<T, J>& b) {
   return r;
 }
 
+// ---- the first-order jet of the closed forms -----------------------------------
+//
+// Dual<T, D> carries a value and its D first derivatives.  The closed forms
+// of the task table (below) are evaluated on it at (m, v) in the 2J
+// directions m_0 .. m_{J-1}, v_0 .. v_{J-1}: their exact gradient, the one
+// autograd takes of the plain closed form, by the same edge rules.
+
+template <typename T, int D>
+struct Dual {
+  T v;
+  T d[D];
+
+  GH_HD Dual() {}
+  GH_HD explicit Dual(T c) : v(c) {
+    for (int k = 0; k < D; ++k) d[k] = T(0);
+  }
+  GH_HD static Dual variable(T x, int k) {
+    Dual r(x);
+    r.d[k] = T(1);
+    return r;
+  }
+};
+
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator+(const Dual<T, D>& a, const Dual<T, D>& b) {
+  Dual<T, D> r;
+  r.v = a.v + b.v;
+  for (int k = 0; k < D; ++k) r.d[k] = a.d[k] + b.d[k];
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator+(const Dual<T, D>& a, T c) {
+  Dual<T, D> r = a;
+  r.v = a.v + c;
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator+(T c, const Dual<T, D>& a) {
+  Dual<T, D> r = a;
+  r.v = c + a.v;
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator-(const Dual<T, D>& a) {
+  Dual<T, D> r;
+  r.v = -a.v;
+  for (int k = 0; k < D; ++k) r.d[k] = -a.d[k];
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator-(const Dual<T, D>& a, const Dual<T, D>& b) {
+  Dual<T, D> r;
+  r.v = a.v - b.v;
+  for (int k = 0; k < D; ++k) r.d[k] = a.d[k] - b.d[k];
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator-(const Dual<T, D>& a, T c) {
+  Dual<T, D> r = a;
+  r.v = a.v - c;
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator-(T c, const Dual<T, D>& a) {
+  Dual<T, D> r;
+  r.v = c - a.v;
+  for (int k = 0; k < D; ++k) r.d[k] = -a.d[k];
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator*(const Dual<T, D>& a, const Dual<T, D>& b) {
+  Dual<T, D> r;
+  r.v = a.v * b.v;
+  for (int k = 0; k < D; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator*(T c, const Dual<T, D>& a) {
+  Dual<T, D> r;
+  r.v = c * a.v;
+  for (int k = 0; k < D; ++k) r.d[k] = c * a.d[k];
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> operator*(const Dual<T, D>& a, T c) {
+  Dual<T, D> r;
+  r.v = a.v * c;
+  for (int k = 0; k < D; ++k) r.d[k] = a.d[k] * c;
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> exp_(const Dual<T, D>& a) {
+  Dual<T, D> r;
+  r.v = exp_(a.v);
+  for (int k = 0; k < D; ++k) r.d[k] = r.v * a.d[k];
+  return r;
+}
+template <typename T>
+GH_HD inline T square_(T x) {
+  return x * x;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> square_(const Dual<T, D>& a) {
+  Dual<T, D> r;
+  r.v = a.v * a.v;
+  const T g = T(2) * a.v;
+  for (int k = 0; k < D; ++k) r.d[k] = g * a.d[k];
+  return r;
+}
+// a clamp passes the derivative inside its bounds, the bounds included
+template <typename T, int D>
+GH_HD inline Dual<T, D> clamp_(const Dual<T, D>& a, T lo, T hi) {
+  Dual<T, D> r = a.v >= lo && a.v <= hi ? a : Dual<T, D>(T(0));
+  r.v = clamp_(a.v, lo, hi);
+  return r;
+}
+template <typename T, int D>
+GH_HD inline Dual<T, D> clamp_max_(const Dual<T, D>& a, T hi) {
+  Dual<T, D> r = a.v <= hi ? a : Dual<T, D>(T(0));
+  r.v = clamp_max_(a.v, hi);
+  return r;
+}
+
 // ---- the pieces of likelihoods/base.py ----------------------------------------
 
 template <typename T>
 struct Limits;
 // safe_exp's clip, log(finfo.max) - 1, as likelihoods/base.py computes it
+// and safe_square's, sqrt(finfo.max) / 2
 template <>
 struct Limits<float> {
   GH_HD static float safe_exp() { return float(87.72283905206835); }
+  GH_HD static float safe_square() { return float(9.223371761976865e+18); }
 };
 template <>
 struct Limits<double> {
   GH_HD static double safe_exp() { return 708.782712893384; }
+  GH_HD static double safe_square() { return 6.703903964971298e+153; }
 };
 
 template <typename T, typename S>
 GH_HD inline S safe_exp_(const S& x) {
   return exp_(clamp_max_(x, Limits<T>::safe_exp()));
+}
+
+// base.safe_square: the square of x clipped to +-sqrt(finfo.max) / 2
+template <typename T, typename S>
+GH_HD inline S safe_square_(const S& x) {
+  const T lim = Limits<T>::safe_square();
+  return square_(clamp_(x, -lim, lim));
 }
 
 // base.logaddexp: max(a, b) + log1p(e^{-|a - b|})
@@ -485,6 +618,195 @@ inline void sweep_row(const T* m, const T* v, const T* y, const T* nodes,
     }
   }
   for (int a = 0; a < A; ++a) out[a] = part[0][a];
+}
+
+// ---- the task table: a likelihood's whole variational expectation ----------------
+//
+// What ve_tasks_kernel.cu computes for a row of a task: the value of
+// E_q[log p(y | f)] and its gradient coefficients (c_m, c_v) = (dve/dm,
+// dve/dv), each (J,).  A task is a sweep over its first JS latent
+// dimensions (the families above; none where JS = 0) and a closed form
+// value(m, v, y, E) of the moments and the sweep's value E.  The closed
+// form is written once, as a template on the scalar S: S = T gives the
+// value alone, S = Dual<T, 2J> its gradient.  E enters it as a Dual whose
+// derivatives are the sweep's Bonnet/Price forms, E[d1] in the m_j
+// directions and E[d2] / 2 in the v_j ones, so that
+//   c = (closed form's own partial derivatives) + (the sweep's, through E),
+// which is what the plain engines give: autograd of the closed form, with
+// make_var_exp's backward where the sweep enters it.  The closed forms
+// keep likelihoods/*.py's order of operations.
+//
+// The families (the plain versions' var_exp, likelihoods/*.py):
+//   BernoulliTask      J = 1, the sweep alone
+//   CategoricalTask<K> J = K - 1, the sweep alone
+//   HetGaussianTask    J = 2, closed (hetgaussian.py)
+//   PoissonTask        J = 1, closed (poisson.py)
+//   GammaTask          J = 2, closed with LnGamma's sweep on f_0 (gamma.py)
+//   ExponentialTask    J = 1, closed (exponential.py)
+// The codes are ops/quadrature.py::TASK_FAMILIES'.
+
+constexpr double HALF_LOG_2PI = 0.9189385332046727;
+
+struct NoSweep {
+  static constexpr int J = 0;
+};
+
+template <typename T>
+struct BernoulliTask {
+  static constexpr int J = 1;
+  using Sweep = Bernoulli<T>;
+  template <typename S>
+  GH_HD static S value(const S*, const S*, const T*, const S& E) {
+    return E;
+  }
+};
+
+template <typename T, int K>
+struct CategoricalTask {
+  static constexpr int J = K - 1;
+  using Sweep = Categorical<T, K>;
+  template <typename S>
+  GH_HD static S value(const S*, const S*, const T*, const S& E) {
+    return E;
+  }
+};
+
+// -log(2 pi)/2 - m2/2 - precision squares / 2, precision =
+// clip(e^{-m2 + v2/2}, +-1e9), squares = clip(y^2 + m1^2 + v1 - 2 m1 y,
+// +-1e9), the squares through safe_square
+template <typename T>
+struct HetGaussianTask {
+  static constexpr int J = 2;
+  using Sweep = NoSweep;
+  template <typename S>
+  GH_HD static S value(const S* m, const S* v, const T* y, const S&) {
+    const S precision =
+        clamp_(safe_exp_<T>(-m[1] + T(0.5) * v[1]), T(-1e9), T(1e9));
+    const T y2 = safe_square_<T>(y[0]);
+    const S squares = clamp_(
+        y2 + safe_square_<T>(m[0]) + v[0] - T(2) * m[0] * y[0], T(-1e9),
+        T(1e9));
+    return T(-HALF_LOG_2PI) - T(0.5) * m[1] - T(0.5) * precision * squares;
+  }
+};
+
+// y m - e^{m + v/2} - lgamma(y + 1)
+template <typename T>
+struct PoissonTask {
+  static constexpr int J = 1;
+  using Sweep = NoSweep;
+  template <typename S>
+  GH_HD static S value(const S* m, const S* v, const T* y, const S&) {
+    return y[0] * m[0] - safe_exp_<T>(m[0] + T(0.5) * v[0]) -
+           lgamma_(y[0] + T(1));
+  }
+};
+
+// -E[lgamma(a)] + E[a] m2 + (E[a] - 1) log y - E[b] y, E[a], E[b] the
+// lognormal means clipped to [1e-9, 1e9]; E[lgamma(a)] LnGamma's sweep
+template <typename T>
+struct GammaTask {
+  static constexpr int J = 2;
+  using Sweep = LnGamma<T>;
+  template <typename S>
+  GH_HD static S value(const S* m, const S* v, const T* y, const S& E) {
+    const S Ea = clamp_(safe_exp_<T>(m[0] + T(0.5) * v[0]), T(1e-9), T(1e9));
+    const S Eb = clamp_(safe_exp_<T>(m[1] + T(0.5) * v[1]), T(1e-9), T(1e9));
+    return -E + Ea * m[1] + (Ea - T(1)) * log_(y[0]) - Eb * y[0];
+  }
+};
+
+// m - y clip(e^{m + v/2}, 1e-9, 1e9)
+template <typename T>
+struct ExponentialTask {
+  static constexpr int J = 1;
+  using Sweep = NoSweep;
+  template <typename S>
+  GH_HD static S value(const S* m, const S* v, const T* y, const S&) {
+    return m[0] -
+           y[0] * clamp_(safe_exp_<T>(m[0] + T(0.5) * v[0]), T(1e-9), T(1e9));
+  }
+};
+
+// The sweep's accumulators a lane keeps: acc_size of the task's sweep, 1
+// (unused) where it has none.
+template <typename Task, bool DERIV>
+GH_HD constexpr int task_acc_size() {
+  return Task::Sweep::J == 0 ? 1 : (DERIV ? 1 + 2 * Task::Sweep::J : 1);
+}
+
+// The fixed tree that adds the L lanes of a row: for off = the largest
+// power of two below L, then off / 2, ... 1, lane l < off adds lane
+// l + off where that is < L.  The kernel runs it in shared memory, one
+// level between two barriers; lane_tree below on the host.
+GH_HD inline int tree_top(int L) {
+  int off = 1;
+  while (2 * off < L) off *= 2;
+  return L > 1 ? off : 0;
+}
+
+// The row's value, and with DERIV its coefficients coef[0 .. 2J) =
+// (c_m, c_v), from the moments m, v (J,), the observation y and the
+// sweep's node sums acc (value, E[d1], E[d2]; unread where there is no
+// sweep).
+template <typename Task, typename T, bool DERIV>
+GH_HD inline T finish_row(const T* m, const T* v, const T* y, const T* acc,
+                          T* coef) {
+  constexpr int J = Task::J;
+  constexpr int JS = Task::Sweep::J;
+  if constexpr (!DERIV) {
+    return Task::template value<T>(m, v, y, JS > 0 ? acc[0] : T(0));
+  } else {
+    using D = Dual<T, 2 * J>;
+    D md[J], vd[J];
+    for (int j = 0; j < J; ++j) {
+      md[j] = D::variable(m[j], j);
+      vd[j] = D::variable(v[j], J + j);
+    }
+    D E(T(0));
+    if constexpr (JS > 0) {
+      E.v = acc[0];
+      for (int j = 0; j < JS; ++j) {
+        E.d[j] = acc[1 + j];
+        E.d[J + j] = T(0.5) * acc[1 + JS + j];
+      }
+    }
+    const D r = Task::template value<D>(md, vd, y, E);
+    for (int k = 0; k < 2 * J; ++k) coef[k] = r.d[k];
+    return r.v;
+  }
+}
+
+// One row on the host, in the kernel's order: L lanes each add the nodes
+// s = lane, lane + L, ... (sweep_nodes), the lanes meet in tree_top's
+// tree, then finish_row.  out: the value, then with DERIV coef (2J,).
+template <typename Task, typename T, bool DERIV>
+inline void task_row(const T* m, const T* v, const T* y, const T* nodes,
+                     const T* w, int S, int L, T* out) {
+  using Sweep = typename Task::Sweep;
+  constexpr int A = task_acc_size<Task, DERIV>();
+  T acc[A];
+  for (int a = 0; a < A; ++a) acc[a] = T(0);
+  if constexpr (Sweep::J > 0) {
+    T* part = new T[(size_t)L * A];
+    for (int l = 0; l < L; ++l) {
+      for (int a = 0; a < A; ++a) part[(size_t)l * A + a] = T(0);
+      sweep_nodes<Sweep, T, DERIV>(m, v, y, nodes, w, S, l, L,
+                                   part + (size_t)l * A);
+    }
+    for (int off = tree_top(L); off > 0; off /= 2) {
+      for (int l = 0; l < off; ++l) {
+        if (l + off < L) {
+          for (int a = 0; a < A; ++a) {
+            part[(size_t)l * A + a] += part[(size_t)(l + off) * A + a];
+          }
+        }
+      }
+    }
+    for (int a = 0; a < A; ++a) acc[a] = part[a];
+    delete[] part;
+  }
+  out[0] = finish_row<Task, T, DERIV>(m, v, y, acc, out + 1);
 }
 
 }  // namespace gh

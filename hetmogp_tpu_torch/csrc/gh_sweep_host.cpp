@@ -1,8 +1,11 @@
-// The host build of kernel 6's sweep (gh_sweep.cuh), for the CPU tests: the
-// per-row routine the kernel runs, each row's 32 lane sums added by the
-// kernel's shuffle tree (gh::sweep_row), and digamma and trigamma, behind a
-// plain C interface that tests/test_torch_sweep.py loads with ctypes after
-// compiling this file with a host C++ compiler:
+// The host build of kernel 6's arithmetic (gh_sweep.cuh), for the CPU
+// tests: the per-row routine of the per-engine sweep (gh_sweep_kernel.cu),
+// each row's 32 lane sums added by its shuffle tree (gh::sweep_row); the
+// per-row routine of the task table (ve_tasks_kernel.cu): a row's lanes,
+// their fixed tree and the closed form on its jet (gh::task_row); and
+// digamma and trigamma, behind a plain C interface that
+// tests/test_torch_sweep.py and tests/test_torch_task_var_exp.py load with
+// ctypes after compiling this file with a host C++ compiler:
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libgh_sweep_host.so gh_sweep_host.cpp
 //
@@ -71,7 +74,75 @@ int dispatch(int family, int J, const T* m, const T* v, const T* y,
   }
 }
 
+template <typename Task, typename T>
+void task_rows(const T* m, const T* v, const T* y, long long sm, long long sv,
+               long long sy, const T* nodes, const T* w, int S, int L, int N,
+               int deriv, T* out) {
+  constexpr int J = Task::J;
+  constexpr int A = 1 + 2 * J;
+  for (int n = 0; n < N; ++n) {
+    T* o = out + (long long)n * A;
+    for (int a = 0; a < A; ++a) o[a] = T(0);
+    const T* mn = m + n * sm;
+    const T* vn = v + n * sv;
+    const T* yn = y + n * sy;
+    if (deriv) {
+      gh::task_row<Task, T, true>(mn, vn, yn, nodes, w, S, L, o);
+    } else {
+      gh::task_row<Task, T, false>(mn, vn, yn, nodes, w, S, L, o);
+    }
+  }
+}
+
+// the task table's family codes and J (ve_tasks_kernel.cu: dispatch_block;
+// ops/quadrature.py::TASK_FAMILIES); out is (N, 1 + 2 J): the value, c_m,
+// c_v (zeros without deriv)
+template <typename T>
+int task_dispatch(int family, int J, int L, const T* m, const T* v,
+                  const T* y, long long sm, long long sv, long long sy,
+                  const T* nodes, const T* w, int S, int N, int deriv,
+                  T* out) {
+  if (L < 1) return 1;
+#define GH_TASK(...) \
+  task_rows<__VA_ARGS__>(m, v, y, sm, sv, sy, nodes, w, S, L, N, deriv, out); \
+  return 0
+  switch (family * 8 + J) {
+    case 0 * 8 + 1: GH_TASK(gh::BernoulliTask<T>);
+    case 1 * 8 + 1: GH_TASK(gh::CategoricalTask<T, 2>);
+    case 1 * 8 + 2: GH_TASK(gh::CategoricalTask<T, 3>);
+    case 1 * 8 + 3: GH_TASK(gh::CategoricalTask<T, 4>);
+    case 1 * 8 + 4: GH_TASK(gh::CategoricalTask<T, 5>);
+    case 1 * 8 + 5: GH_TASK(gh::CategoricalTask<T, 6>);
+    case 2 * 8 + 2: GH_TASK(gh::HetGaussianTask<T>);
+    case 3 * 8 + 1: GH_TASK(gh::PoissonTask<T>);
+    case 4 * 8 + 2: GH_TASK(gh::GammaTask<T>);
+    case 5 * 8 + 1: GH_TASK(gh::ExponentialTask<T>);
+    default: return 1;
+  }
+#undef GH_TASK
+}
+
 }  // namespace
+
+// L: the lanes a row of a swept family (the kernel's, for its order of
+// additions); the closed forms ignore it and the nodes.
+extern "C" int gh_task_rows_f32(int family, int J, int L, const float* m,
+                                const float* v, const float* y, long long sm,
+                                long long sv, long long sy,
+                                const float* nodes, const float* w, int S,
+                                int N, int deriv, float* out) {
+  return task_dispatch<float>(family, J, L, m, v, y, sm, sv, sy, nodes, w, S,
+                              N, deriv, out);
+}
+
+extern "C" int gh_task_rows_f64(int family, int J, int L, const double* m,
+                                const double* v, const double* y,
+                                long long sm, long long sv, long long sy,
+                                const double* nodes, const double* w, int S,
+                                int N, int deriv, double* out) {
+  return task_dispatch<double>(family, J, L, m, v, y, sm, sv, sy, nodes, w,
+                               S, N, deriv, out);
+}
 
 extern "C" int gh_sweep_rows_f32(int family, int J, const float* m,
                                  const float* v, const float* y, long long sm,

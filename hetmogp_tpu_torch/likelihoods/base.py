@@ -125,6 +125,10 @@ class Likelihood:
     # the device function of ``logpdf`` in ``quadrature.SWEEP_FAMILIES``
     # (kernel 6), or None: the GH engine's sweep on the card
     sweep: ClassVar[Optional[str]] = None
+    # the device function of the whole ``var_exp`` in
+    # ``quadrature.TASK_FAMILIES`` (kernel 6's task table), or None: the
+    # ELBO calls ``var_exp`` itself
+    task: ClassVar[Optional[str]] = None
 
     def logpdf(self, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """log p(y | f): (..., dim_f), (..., dim_y) -> (...)."""
@@ -174,6 +178,11 @@ class Likelihood:
         if theta is not None and self.n_theta:
             return _var_exp_engine_theta(self)(Y, M, V, theta)
         return _var_exp_engine(self)(Y, M, V, use_kernel)
+
+    def task_grid(self):
+        """(T, J, mc_samples) of the GH nodes the task table sweeps for
+        ``var_exp`` (a family whose ``task`` holds a sweep): its engine's."""
+        return self.T_var_exp, self.dim_f, getattr(self, "mc_samples", 0)
 
     def var_exp_derivatives(self, Y: torch.Tensor, M: torch.Tensor,
                             V: torch.Tensor):

@@ -43,6 +43,7 @@ def _log_probs(f):
 @dataclasses.dataclass(frozen=True)
 class Bernoulli(Likelihood):
     sweep: ClassVar[str] = "bernoulli"
+    task: ClassVar[str] = "bernoulli"
 
     def logpdf(self, F, Y):
         log_p, log_1mp = _log_probs(F[..., 0])

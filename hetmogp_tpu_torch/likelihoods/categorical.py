@@ -70,6 +70,11 @@ class Categorical(Likelihood):
         ok = self.dim_f in quadrature.SWEEP_FAMILIES["categorical"][1]
         return "categorical" if ok else None
 
+    @property
+    def task(self):  # type: ignore[override]
+        """Kernel 6's task table takes the var_exp its sweep takes."""
+        return "categorical" if self.sweep is not None else None
+
     def ismulti(self) -> bool:
         return True
 

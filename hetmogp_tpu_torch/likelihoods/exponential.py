@@ -30,6 +30,11 @@ class Exponential(Likelihood):
 
     analytic: bool = True
 
+    @property
+    def task(self):  # type: ignore[override]
+        """Kernel 6's task table takes the closed form."""
+        return "exponential" if self.analytic else None
+
     def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
             return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)

@@ -53,6 +53,16 @@ class Gamma(Likelihood):
 
     analytic: bool = True
 
+    @property
+    def task(self):  # type: ignore[override]
+        """Kernel 6's task table takes the closed form."""
+        return "gamma" if self.analytic else None
+
+    def task_grid(self):
+        """The closed form's one sweep: E[ln Gamma(a)] on the 1-D T=20
+        grid (``_lngamma_engine``)."""
+        return quadrature.DEFAULT_T, 1, 0
+
     def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
             return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)

@@ -31,6 +31,11 @@ class HetGaussian(Likelihood):
 
     analytic: bool = True
 
+    @property
+    def task(self):  # type: ignore[override]
+        """Kernel 6's task table takes the closed form."""
+        return "hetgaussian" if self.analytic else None
+
     def predictive(self, M, V):
         if not self.analytic:
             return Likelihood.predictive(self, M, V)

@@ -29,7 +29,7 @@ import torch
 
 from hetmogp_tpu_torch.config import ModelConfig
 from hetmogp_tpu_torch.models.params import SVMOGPParams
-from hetmogp_tpu_torch.ops import kernels, linalg
+from hetmogp_tpu_torch.ops import kernels, linalg, quadrature
 
 
 class TaskData(NamedTuple):
@@ -324,6 +324,46 @@ def kl_divergence(params: SVMOGPParams, config: ModelConfig,
                             - logdet_q))
 
 
+def likelihood_term(params: SVMOGPParams, config: ModelConfig,
+                    data: Sequence[TaskData], moments, scales: torch.Tensor,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """The ELBO's likelihood term: (T,) sums scales[t] * sum_n mask_t[n]
+    var_exp_t[n] at each task's moments (m_F, v_F).
+
+    The tasks whose likelihood has a device function in
+    ``quadrature.TASK_FAMILIES`` and no trainable theta go to
+    ``quadrature.task_var_exp`` together (on the card, one launch of
+    kernel 6's task table, and one for the gradient); every other task
+    calls its own ``var_exp`` (with ``params.lik_theta[t]`` where its
+    family has theta) and takes its masked, scaled sum.
+    """
+    theta = params.lik_theta
+    table = [t for t, lik in enumerate(config.likelihoods)
+             if quadrature.task_family(lik) is not None
+             and not (theta is not None and lik.n_theta)]
+    sums = {}
+    if table:
+        routed = quadrature.task_var_exp(
+            [config.likelihoods[t] for t in table],
+            [data[t].Y for t in table], [moments[t][0] for t in table],
+            [moments[t][1] for t in table], [data[t].mask for t in table],
+            [scales[t] for t in table], use_kernel=use_kernel)
+        if len(table) == len(data):
+            return routed
+        sums = dict(zip(table, routed.unbind()))
+    for t, (lik, td) in enumerate(zip(config.likelihoods, data)):
+        if t in sums:
+            continue
+        if theta is not None and lik.n_theta:
+            # the trainable likelihood parameters, with their gradient
+            ve = lik.var_exp(td.Y, *moments[t], theta=theta[t],
+                             use_kernel=use_kernel)
+        else:
+            ve = lik.var_exp(td.Y, *moments[t], use_kernel=use_kernel)
+        sums[t] = scales[t] * torch.sum(ve * td.mask)
+    return torch.stack([sums[t] for t in range(len(data))])
+
+
 def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
             scales: torch.Tensor, config: ModelConfig, Luu=None, iLuu=None,
             cache_grad: bool = False, use_kernel: bool = True, comm=None):
@@ -373,16 +413,8 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
             [latent_projections(params, config, Luu, td.X, iLuu,
                                 cache_grad=cache_grad, use_kernel=use_kernel)
              for td in data], params, config, range(len(data)), comm=comm)
-    ve_sums = []
-    for t, (lik, td) in enumerate(zip(config.likelihoods, data)):
-        if params.lik_theta is not None and lik.n_theta:
-            # the trainable likelihood parameters, with their gradient
-            ve = lik.var_exp(td.Y, *moments[t], theta=params.lik_theta[t],
-                             use_kernel=use_kernel)
-        else:
-            ve = lik.var_exp(td.Y, *moments[t], use_kernel=use_kernel)
-        ve_sums.append(scales[t] * torch.sum(ve * td.mask))
-    ve_sums = torch.stack(ve_sums)
+    ve_sums = likelihood_term(params, config, data, moments, scales,
+                              use_kernel=use_kernel)
     kl = kl_divergence(params, config, Luu)
     if comm is not None:
         ve_sums, kl = comm.reduce_metrics(ve_sums, kl)

@@ -25,11 +25,17 @@ card), each triangular product in two designs, a TMA-fed one (sharing
 register-staged one (the first port's for A and 3, a generic one for 4
 and 5), chosen by shape (``tril_route``); and,
 for the XLA fusions of the JAX package's trainer,
-``csrc/gh_sweep_kernel.cu`` (kernel 6: the one-pass Gauss-Hermite sweep,
-value, E[d1] and E[d2] of every row in one launch, over the families of
-``csrc/gh_sweep.cuh``; ``gh_sweep``, ``gh_sweep_value``) and
+``csrc/ve_tasks_kernel.cu`` (kernel 6: the ELBO's likelihood term of every
+task in the task table, each row's variational expectation and
+gradient coefficients and each task's masked, scaled sum in one launch,
+every task's (dM, dV) in one more; ``task_var_exp``,
+``task_var_exp_value``, ``task_var_exp_backward``), beside it
+``csrc/gh_sweep_kernel.cu`` (kernel 6 per engine, for the families
+outside the table: the one-pass Gauss-Hermite sweep, value, E[d1] and
+E[d2] of every row in one launch; ``gh_sweep``, ``gh_sweep_value``), both
+over the device functions of ``csrc/gh_sweep.cuh``, and
 ``csrc/adam_kernel.cu`` (kernel 7: the masked adam update of every leaf
-in one launch; ``adam_update``), both in float32 and float64, launched by
+in one launch; ``adam_update``), all in float32 and float64, launched by
 ``ops/quadrature.py`` and ``train.py`` directly (no operator: no exported
 program trains).
 ``ops/_build.py`` builds them when a CUDA tensor first reaches one, and
@@ -72,7 +78,7 @@ import functools
 
 import torch
 
-from hetmogp_tpu_torch.ops import _build, kernels
+from hetmogp_tpu_torch.ops import _build, kernels, quadrature
 
 # The scalar RBF kernel stages (128 + 32) * Dx floats of shared memory per
 # block and stays under the 48 KiB that needs no opt-in; the vector kernel
@@ -94,6 +100,9 @@ def _library() -> ctypes.CDLL:
              + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
     adam = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
             + [ctypes.c_double])
+    # the task table: pointers, integers, tasks; deriv, partials, count
+    tasks = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+             + [ctypes.c_longlong])
     signatures = {
         "hetmogp_rbf_cross_vec_f32": rbf,
         "hetmogp_rbf_cross_f32": rbf,
@@ -118,6 +127,11 @@ def _library() -> ctypes.CDLL:
         # count_out, lr_ptr; lr_value
         "hetmogp_adam_f32": adam,
         "hetmogp_adam_f64": adam,
+        "hetmogp_ve_tasks_f32": tasks,
+        "hetmogp_ve_tasks_f64": tasks,
+        # the backward's pointers, integers, tasks
+        "hetmogp_ve_tasks_grad_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int],
+        "hetmogp_ve_tasks_grad_f64": [ctypes.c_void_p] * 2 + [ctypes.c_int],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -125,6 +139,11 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.hetmogp_adam_max_leaves.argtypes = []
     lib.hetmogp_adam_max_leaves.restype = ctypes.c_int
+    lib.hetmogp_ve_tasks_max.argtypes = []
+    lib.hetmogp_ve_tasks_max.restype = ctypes.c_int
+    lib.hetmogp_ve_tasks_blocks.argtypes = ([ctypes.c_void_p] * 2
+                                            + [ctypes.c_int] * 2)
+    lib.hetmogp_ve_tasks_blocks.restype = ctypes.c_longlong
     lib.hetmogp_tril_right_partials.argtypes = [ctypes.c_int] * 2
     lib.hetmogp_tril_right_partials.restype = ctypes.c_int
     lib.hetmogp_tril_right3_partials.argtypes = [ctypes.c_int] * 3
@@ -1023,6 +1042,223 @@ def adam_update(tensors, grads, mu, nu, count: torch.Tensor, lr):
 adam_update.launches = 0
 
 
+# ---- kernel 6, redesigned: the likelihood term of every task ---------------
+#
+# The plain version is ``quadrature.task_var_exp_plain`` (each task's
+# var_exp and its masked, scaled sum); ``quadrature.TaskVarExp`` sends the
+# tasks of a CUDA model in ``TASK_FAMILIES`` here.  Three launchers, each
+# counting its own launches: the forward with the gradient coefficients,
+# the forward's value alone, and the backward.
+
+_TASK_ENTRIES = {torch.float32: ("hetmogp_ve_tasks_f32",
+                                 "hetmogp_ve_tasks_grad_f32"),
+                 torch.float64: ("hetmogp_ve_tasks_f64",
+                                 "hetmogp_ve_tasks_grad_f64")}
+TASK_THREADS = 256  # csrc/ve_tasks_kernel.cu: THREADS
+# the family codes whose var_exp holds a sweep (the kernel's has_sweep)
+_SWEPT_TASKS = {code for code, _, sweep in quadrature.TASK_FAMILIES.values()
+                if sweep is not None}
+
+
+def task_lanes(S: int) -> int:
+    """The lanes a row of a swept task takes by default: one node a lane,
+    up to a block's TASK_THREADS (then the nodes are strided over them)."""
+    return max(1, min(int(S), TASK_THREADS))
+
+
+def _task_check(name, tasks, scales):
+    """The dtype and device of a task table, after checking it."""
+    if not tasks or len(scales) != len(tasks):
+        raise ValueError(f"{name} takes one scale a task and at least one "
+                         f"task; got {len(tasks)} tasks, {len(scales)} "
+                         "scales")
+    dtype, dev = tasks[0][2].dtype, tasks[0][2].device
+    if dtype not in _TASK_ENTRIES:
+        raise TypeError(f"{name} takes float32 or float64, got {dtype}")
+    for (family, y, m, v, mask, nodes, w), scale in zip(tasks, scales):
+        tensors = [y, m, v, mask, scale]
+        if family in _SWEPT_TASKS:
+            if nodes is None or w is None:
+                raise ValueError(f"{name}: family {family} sweeps a node "
+                                 "table; none was given")
+            tensors += [nodes, w]
+        if any(t.requires_grad for t in tensors):
+            raise NotImplementedError(
+                f"the raw CUDA {name} launcher records no backward; "
+                "differentiate through quadrature.task_var_exp")
+        if any(t.dtype != dtype for t in tensors):
+            raise TypeError(f"{name} takes tensors of one dtype, got "
+                            f"{[t.dtype for t in tensors]}")
+        if not all(t.is_cuda and t.device == dev for t in tensors):
+            raise ValueError(f"{name} takes tensors on one CUDA device, got "
+                             f"{[str(t.device) for t in tensors]}")
+        N = m.shape[0]
+        if m.ndim != 2 or v.shape != m.shape or y.ndim != 2 \
+                or y.shape[0] != N or y.shape[1] < 1 or mask.shape != (N,) \
+                or scale.numel() != 1 or N >= 2 ** 30:
+            raise ValueError(
+                f"{name} takes m, v (N, J), y (N, dim_y), mask (N,) and a "
+                f"scalar scale; got {tuple(m.shape)}, {tuple(v.shape)}, "
+                f"{tuple(y.shape)}, {tuple(mask.shape)}, "
+                f"{tuple(scale.shape)}")
+        if family in _SWEPT_TASKS and (
+                nodes.ndim != 2 or w.shape != nodes.shape[:1]
+                or nodes.shape[1] != (1 if family == 4 else m.shape[1])):
+            raise ValueError(f"{name}: family {family}'s node table must be "
+                             f"(S, J) and (S,); got {tuple(nodes.shape)}, "
+                             f"{tuple(w.shape)}")
+    return dtype, dev
+
+
+def _task_launch(wrapper, tasks, scales, deriv: bool, lanes=None):
+    """Check the table, launch the forward on the current stream (one
+    launch each ``hetmogp_ve_tasks_max()`` tasks) and count the launches
+    on ``wrapper``: (sums, values, coefs), coefs None without ``deriv``."""
+    name = wrapper.__name__
+    dtype, dev = _task_check(name, tasks, scales)
+    lanes = list(lanes) if lanes is not None else [
+        task_lanes(t[5].shape[0]) if t[0] in _SWEPT_TASKS else 1
+        for t in tasks]
+    rows = [t[2].shape[0] for t in tasks]
+    Js = [t[2].shape[1] for t in tasks]
+    new = functools.partial(torch.empty, dtype=dtype, device=dev)
+    # a task without rows adds nothing: its sum is 0 and it is no entry
+    sums = (new(len(tasks)) if all(rows) else
+            torch.zeros(len(tasks), dtype=dtype, device=dev))
+    val = new(sum(rows))
+    coef = new(sum(n * 2 * J for n, J in zip(rows, Js))) if deriv else None
+    values, coefs, entries = [], [], []
+    v_off = c_off = 0
+    for i, ((family, y, m, v, mask, nodes, w), scale) in enumerate(
+            zip(tasks, scales)):
+        N, J = rows[i], Js[i]
+        values.append(val[v_off:v_off + N])
+        if deriv:
+            coefs.append(coef[c_off:c_off + 2 * N * J].view(N, 2 * J))
+        if N:
+            swept = family in _SWEPT_TASKS
+            y, m, v = _rows(y), _rows(m), _rows(v)
+            if swept:
+                nodes, w = nodes.contiguous(), w.contiguous()
+            scale = scale.reshape(())
+            ptrs = [y.data_ptr(), m.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                    scale.data_ptr(), nodes.data_ptr() if swept else None,
+                    w.data_ptr() if swept else None, values[i].data_ptr(),
+                    coefs[i].data_ptr() if deriv else None,
+                    sums[i:i + 1].data_ptr()]
+            ints = [y.stride(0), m.stride(0), v.stride(0), mask.stride(0),
+                    family, J, lanes[i], nodes.shape[0] if swept else 0, N]
+            # the views keep the (possibly copied) inputs alive to the launch
+            entries.append((ptrs, ints, (y, m, v, nodes, w, scale)))
+        v_off += N
+        c_off += 2 * N * J
+    lib = _library()
+    most = lib.hetmogp_ve_tasks_max()
+    entry = getattr(lib, _TASK_ENTRIES[dtype][0])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for start in range(0, len(entries), most):
+            chunk = entries[start:start + most]
+            ptrs = [p for e in chunk for p in e[0]]
+            ints = [q for e in chunk for q in e[1]]
+            ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+            int_arr = (ctypes.c_longlong * len(ints))(*ints)
+            blocks = lib.hetmogp_ve_tasks_blocks(ptr_arr, int_arr, len(chunk),
+                                                 int(deriv))
+            if blocks <= 0:
+                raise ValueError(f"{name}: the kernel refused the table "
+                                 f"(families, J, lanes, rows): "
+                                 f"{[e[1][4:] for e in chunk]}")
+            partials = new(blocks)
+            err = entry(ptr_arr, int_arr, len(chunk), int(deriv),
+                        partials.data_ptr(), blocks, stream)
+            _raise_on(err, name)
+            wrapper.launches += 1
+    return sums, values, (coefs if deriv else None)
+
+
+def task_var_exp(tasks, scales, lanes=None):
+    """Kernel 6's task table, forward (``hetmogp_ve_tasks_f32``/``_f64``,
+    ``csrc/ve_tasks_kernel.cu``): for every row n of every task t the
+    variational expectation ve_t[n] and its coefficients (dve/dm,
+    dve/dv), and each task's sum scale_t sum_n mask_t[n] ve_t[n], in one
+    launch.  ``tasks``: a sequence of (family code of
+    ``quadrature.TASK_FAMILIES``, y (N, dim_y), m (N, J), v (N, J), mask
+    (N,), nodes (S, J_sweep) and w (S,) of the family's GH sweep, or None
+    for a closed form); ``scales``: one () tensor a task, read on the
+    device; float32 or float64 on one CUDA device.  ``lanes``: the lanes
+    a row of each task (``task_lanes`` by default; a closed form takes
+    one).  Returns (sums (T,), [ve_t (N_t,)], [coef_t (N_t, 2 J_t)], c_m
+    then c_v); launches on the current stream and does not synchronise.
+    Counts its launches in ``task_var_exp.launches``."""
+    return _task_launch(task_var_exp, tasks, scales, True, lanes)
+
+
+task_var_exp.launches = 0
+
+
+def task_var_exp_value(tasks, scales, lanes=None):
+    """The task table's forward, the value alone: (sums (T,), [ve_t]),
+    when no input needs a gradient.  Counts its launches in
+    ``task_var_exp_value.launches``."""
+    sums, values, _ = _task_launch(task_var_exp_value, tasks, scales, False,
+                                   lanes)
+    return sums, values
+
+
+task_var_exp_value.launches = 0
+
+
+def task_var_exp_backward(coefs, masks, scales, g):
+    """Kernel 6's task table, backward (``hetmogp_ve_tasks_grad_f32``/
+    ``_f64``): from the forward's coefficients, the masks, the scales and
+    the upstream gradient g (T,) of the sums, every task's
+    dM_t = c_m (g_t scale_t) mask_t and dV_t = c_v (g_t scale_t) mask_t,
+    (N_t, J_t) each, in one launch.  Returns [(dM_t, dV_t)].  Counts its
+    launches in ``task_var_exp_backward.launches``."""
+    name = "task_var_exp_backward"
+    dtype, dev = coefs[0].dtype, coefs[0].device
+    if dtype not in _TASK_ENTRIES or g.shape != (len(coefs),) \
+            or len(masks) != len(coefs) or len(scales) != len(coefs):
+        raise ValueError(f"{name} takes float32 or float64 coefficients, a "
+                         "mask and a scale a task, and g (T,)")
+    every = [*coefs, *masks, *scales, g]
+    if any(t.dtype != dtype for t in every) or not all(
+            t.is_cuda and t.device == dev for t in every):
+        raise TypeError(f"{name} takes tensors of one dtype on one CUDA "
+                        "device")
+    grads, entries = [], []
+    for i, (c, mask, scale) in enumerate(zip(coefs, masks, scales)):
+        N, J = c.shape[0], c.shape[1] // 2
+        dm = torch.empty((N, J), dtype=dtype, device=dev)
+        dv = torch.empty((N, J), dtype=dtype, device=dev)
+        grads.append((dm, dv))
+        if N:
+            gi = g[i:i + 1]
+            entries.append(([c.data_ptr(), mask.data_ptr(),
+                             scale.reshape(()).data_ptr(), gi.data_ptr(),
+                             dm.data_ptr(), dv.data_ptr()],
+                            [mask.stride(0), J, N]))
+    lib = _library()
+    most = lib.hetmogp_ve_tasks_max()
+    entry = getattr(lib, _TASK_ENTRIES[dtype][1])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for start in range(0, len(entries), most):
+            chunk = entries[start:start + most]
+            ptrs = [p for e in chunk for p in e[0]]
+            ints = [q for e in chunk for q in e[1]]
+            err = entry((ctypes.c_void_p * len(ptrs))(*ptrs),
+                        (ctypes.c_longlong * len(ints))(*ints), len(chunk),
+                        stream)
+            _raise_on(err, name)
+            task_var_exp_backward.launches += 1
+    return grads
+
+
+task_var_exp_backward.launches = 0
+
+
 # ---- the kernels as operators -----------------------------------------------
 #
 # Each routed forward is a custom operator of the ``hetmogp`` namespace: its
@@ -1070,7 +1306,8 @@ _LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,
               tril_projection_staged, tril_projection_3pass_tma,
               tril_projection_3pass_staged, tril_right_tma,
               tril_right_generic, tril_right3_tma, tril_right3_generic,
-              gh_sweep, gh_sweep_value, adam_update)
+              gh_sweep, gh_sweep_value, task_var_exp, task_var_exp_value,
+              task_var_exp_backward, adam_update)
 
 
 def launch_counts() -> dict:

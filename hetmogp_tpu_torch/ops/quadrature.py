@@ -29,11 +29,20 @@ gives each row's sum over its nodes at once, with no per-node Jacobian.
 
 On the card, an engine whose log-density has a device function
 (``SWEEP_FAMILIES``: Bernoulli, Categorical and the lngamma sweep of
-Gamma, Beta and Dirichlet) runs its sweep as kernel 6
+Gamma, Beta and Dirichlet) runs its sweep as kernel 6's per-engine design
 (``csrc/gh_sweep_kernel.cu``): one launch gives the value, E[d1] and
 E[d2] of every row, the JAX engine's one fused ``ve_fwd``; the autograd
 sweep above is its plain version, what CPU tensors and
 ``use_kernel=False`` take.
+
+``task_var_exp`` is the ELBO's whole likelihood term, each task's var_exp
+and its masked, scaled sum, for the tasks whose likelihood has a device
+function in ``TASK_FAMILIES`` (Bernoulli, Categorical, HetGaussian,
+Poisson, Gamma and Exponential with their closed forms): on the card one
+launch of kernel 6's task table (``csrc/ve_tasks_kernel.cu``) gives every
+task's sum and the rows' gradient coefficients, and one more launch every
+task's (dM, dV) (``TaskVarExp``); ``task_var_exp_plain``, the per-task
+loop, is its plain version.
 """
 
 from __future__ import annotations
@@ -234,6 +243,134 @@ def make_var_exp(logpdf, J: int, T: int, mc_samples: int = 0,
 
     ve.sweep = sweep
     return ve
+
+
+# Kernel 6's task table (``csrc/ve_tasks_kernel.cu``): the likelihoods
+# whose whole var_exp has a device function (``gh_sweep.cuh``'s task
+# families), by the name a likelihood gives as its ``task``: the family
+# code the kernel switches on, the J it is built for, and the sweep it runs
+# over its first latent dimensions (a name of SWEEP_FAMILIES), or None for
+# a closed form alone.  ``models/elbo.py::likelihood_term`` sends the tasks
+# of a CUDA model whose likelihood names one of these, and has no trainable
+# theta, to ``task_var_exp``; every other task keeps its own var_exp.  A
+# route by family, not a fallback: a build or launch failure raises.
+TASK_FAMILIES = {"bernoulli": (0, (1,), "bernoulli"),
+                 "categorical": (1, (1, 2, 3, 4, 5), "categorical"),
+                 "hetgaussian": (2, (2,), None),
+                 "poisson": (3, (1,), None),
+                 "gamma": (4, (2,), "lngamma"),
+                 "exponential": (5, (1,), None)}
+
+
+def task_family(lik) -> Optional[str]:
+    """The name of ``lik``'s device function in TASK_FAMILIES, or None."""
+    name = getattr(lik, "task", None)
+    if name is None:
+        return None
+    if name not in TASK_FAMILIES or lik.dim_f not in TASK_FAMILIES[name][1]:
+        raise ValueError(f"{type(lik).__name__} names {name!r} with J = "
+                         f"{lik.dim_f}; kernel 6's task table has "
+                         f"{ {k: v[1] for k, v in TASK_FAMILIES.items()} }")
+    return name
+
+
+def _task_table(liks, like):
+    """(family code, nodes, w) of each likelihood of the table, the node
+    table on ``like``'s dtype and device (None for a closed form)."""
+    out = []
+    for lik in liks:
+        code, _, sweep = TASK_FAMILIES[task_family(lik)]
+        nodes, w = (_nodes(*lik.task_grid(), like) if sweep is not None
+                    else (None, None))
+        out.append((code, nodes, w))
+    return out
+
+
+def _task_launch_args(liks, Y, M, V, masks, scales):
+    """The task table's launcher arguments: (tasks, scales)."""
+    table = _task_table(liks, M[0])
+    return ([(code, y.detach(), m.detach(), v.detach(), mask.detach(), nodes,
+              w) for (code, nodes, w), y, m, v, mask in zip(table, Y, M, V,
+                                                            masks)],
+            [s.detach() for s in scales])
+
+
+class TaskVarExp(torch.autograd.Function):
+    """The likelihood term of the tasks of ``liks`` on kernel 6's task
+    table, with its gradient: forward(liks, scales, Y_0, m_0, v_0, mask_0,
+    Y_1, ...) -> (T,) sums, scales a tuple of () tensors (read on the
+    device).  The forward launch keeps each row's coefficients (dve/dm,
+    dve/dv); the backward launch writes every (dM_t, dV_t)."""
+
+    @staticmethod
+    def forward(ctx, liks, scales, *flat):
+        from hetmogp_tpu_torch.ops import cuda_kernels
+
+        Y, M, V, masks = (flat[k::4] for k in range(4))
+        tasks, scales = _task_launch_args(liks, Y, M, V, masks, scales)
+        sums, _, coefs = cuda_kernels.task_var_exp(tasks, scales)
+        ctx.save_for_backward(*coefs, *(t[4] for t in tasks), *scales)
+        return sums
+
+    @staticmethod
+    def backward(ctx, g):
+        from hetmogp_tpu_torch.ops import cuda_kernels
+
+        saved = ctx.saved_tensors
+        T = len(saved) // 3
+        grads = cuda_kernels.task_var_exp_backward(
+            saved[:T], saved[T:2 * T], saved[2 * T:], g)
+        out = [None, None]
+        for dm, dv in grads:
+            out += [None, dm, dv, None]
+        return tuple(out)
+
+
+def task_var_exp_plain(liks, Y, M, V, masks, scales,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """The task table's plain version: (T,) sums scale_t * sum(var_exp_t *
+    mask_t), each task's ``var_exp`` (its engines' own route, by
+    ``use_kernel``) and its masked, scaled sum, as the JAX package's
+    ``elbo_fn`` computes them."""
+    return torch.stack([s * torch.sum(lik.var_exp(y, m, v,
+                                                  use_kernel=use_kernel)
+                                      * mask)
+                        for lik, y, m, v, mask, s in zip(liks, Y, M, V,
+                                                         masks, scales)])
+
+
+def task_var_exp(liks, Y, M, V, masks, scales,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """The ELBO's likelihood term of the tasks of ``liks``, every one in
+    TASK_FAMILIES: (T,) sums scale_t * sum_n mask_t[n] var_exp_t[n].
+
+    Args:
+      Y, M, V, masks: one (N_t, dim_y), (N_t, J_t), (N_t, J_t), (N_t,)
+        tensor a task.
+      scales: one () tensor a task (the step's scales, views of them).
+    A CUDA model takes kernel 6's task table (``TaskVarExp``: one forward
+    launch, one backward launch for all the tasks; the value-alone launch
+    where grad mode is off or no (M_t, V_t) requires grad) unless the call
+    passes ``use_kernel=False``; CPU tensors take ``task_var_exp_plain``.
+    The gradient with respect to each (M_t, V_t) is the plain term's:
+    autograd of the closed forms, the engines' Bonnet/Price forms where
+    they sweep.
+    """
+    for lik in liks:
+        if task_family(lik) is None:
+            raise ValueError(f"{type(lik).__name__} has no device function "
+                             "in kernel 6's task table; its var_exp takes "
+                             "its own path")
+    if use_kernel and M[0].is_cuda:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (*M, *V)):
+            flat = [t for task in zip(Y, M, V, masks) for t in task]
+            return TaskVarExp.apply(tuple(liks), tuple(scales), *flat)
+        from hetmogp_tpu_torch.ops import cuda_kernels
+
+        return cuda_kernels.task_var_exp_value(
+            *_task_launch_args(liks, Y, M, V, masks, scales))[0]
+    return task_var_exp_plain(liks, Y, M, V, masks, scales, use_kernel)
 
 
 def make_var_exp_theta(logpdf_t, J: int, T: int, mc_samples: int = 0):

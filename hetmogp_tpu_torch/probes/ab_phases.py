@@ -13,8 +13,9 @@ rows/s, the pass's profile), ``high`` and ``highest``
 (``graphed_trainer_phase`` at that precision: steps/s over its timed calls
 and the profile of a 50-step call).  Each side's whole output goes to
 ``<out>/<turn>_<side>.log``; the lines that carry the end-to-end numbers
-and the profiles' totals and rows of kernels 3, 4 and 5 (and of kernel 3's
-split pre-pass) are printed here, with the card's name and power limit.
+and the profiles' totals and rows of kernels 3, 4, 5 and 6 (and of
+kernel 3's split pre-pass) are printed here, with the card's name and
+power limit.
 Exits non-zero if any phase failed.
 
 A measurement script run by hand from a checkout: the packaging leaves
@@ -37,7 +38,9 @@ PHASES = {"serving": "c.serving_phase(smi)",
 # the lines each side's log is read for
 KEEP = re.compile(r"throughput|profile: .* ms of kernel time|"
                   r"tril_right_tma_kernel|tril_right3_tma_kernel|"
-                  r"tril_proj3_tma_kernel|tril_split_bf16_kernel|PHASE")
+                  r"tril_proj3_tma_kernel|tril_split_bf16_kernel|"
+                  r"gh_sweep_kernel|ve_tasks_kernel|ve_tasks_grad_kernel|"
+                  r"PHASE")
 
 
 def side_script(phases) -> str:

@@ -726,22 +726,16 @@ def _ve_terms(params, data, scales, config, means, gammas, kdiags,
     per-task (Q, N_t) latent moments, with the natural-gradient step's
     variance floor 1e-12; under ``comm``, of this rank's rows, the mixing
     summed over the latent axis."""
-    ve_sums = []
     moments = elbo_mod._mix_tasks(list(zip(means, gammas, kdiags)), params,
                                   config, range(len(data)), comm=comm,
                                   var_floor=1e-12)
-    for t, (lik, td) in enumerate(zip(config.likelihoods, data)):
-        m_F, v_F = moments[t]
-        if params.lik_theta is not None and lik.n_theta:
-            ve = lik.var_exp(td.Y, m_F, v_F, theta=params.lik_theta[t],
-                             use_kernel=use_kernel)
-        else:
-            ve = lik.var_exp(td.Y, m_F, v_F, use_kernel=use_kernel)
-        ve_sums.append(scales[t] * torch.sum(ve * td.mask))
-    total = ve_sums[0]
-    for v in ve_sums[1:]:
+    ve_sums = elbo_mod.likelihood_term(params, config, data, moments, scales,
+                                       use_kernel=use_kernel)
+    parts = ve_sums.unbind()
+    total = parts[0]
+    for v in parts[1:]:
         total = total + v
-    return total, torch.stack(ve_sums)
+    return total, ve_sums
 
 
 def _select(ok, new, old):

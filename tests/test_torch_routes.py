@@ -136,6 +136,7 @@ LAUNCHERS = ("rbf_K_batched_vec", "rbf_K_batched_scalar",
              "tril_projection_3pass_tma", "tril_projection_3pass_staged",
              "tril_right_tma", "tril_right_generic", "tril_right3_tma",
              "tril_right3_generic", "gh_sweep", "gh_sweep_value",
+             "task_var_exp", "task_var_exp_value", "task_var_exp_backward",
              "adam_update")
 
 
