@@ -34,6 +34,15 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    square and row sum for quad_diag), kernel 3 and the plain versions,
    with bounds; and prints the "high" cached adjoints' errors (Lbar,
    Kbar) against float64 beside the JAX package's own;
+3c. checks kernel 8 (tril(A^T B) with only the lower tiles formed: the
+   L gradients of quad_diag and of the cached solve), its float32 FFMA and
+   3-pass wgmma designs and their generic routes, against float64 next to
+   their plain versions, with exact zeros above the diagonal and two
+   launches bitwise equal, at the VE, VM and ragged VM shapes; times them
+   in turns with cuBLAS's dense A^T B and mask, with bounds and the
+   schedule's balance; and holds the recursive inverse of the flagship's
+   Luu (rec_tri_inverse, on kernels 4 and A) against float64 beside a
+   triangular solve's, with a refresh's time both ways;
 4. checks the RBF backward (its autograd.Function) against autograd
    through the plain RBF;
 5. trains the flagship model of ``bench.py`` at full width (six
@@ -141,14 +150,14 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    plain versions, on the per-engine path and on the task table
    (``op_profile_phase``).
 
-They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 3b, 13 (the kernels), 5b,
+They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 3b, 3c, 13 (the kernels), 5b,
 13 (the op profile), 9, 10, 11, 12.
 The serving pass is the process's first profiled call: as its sixth,
 after the trainers', the profiler lost one of its twelve requests'
 records (and a prediction is then the first to ask for each quadrature
 grid, as in a process that serves before it trains).  A trainer's profile
 that lost records is taken again (``profile_replays``).  Phases 2, 3 and
-3b take the model's (Kfu, Luu, iLuu) from 5a.
+3b take the model's (Kfu, Luu, iLuu) from 5a, and 3c its Luu.
 
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
@@ -159,6 +168,7 @@ JSON (every kernel launcher, each route included); the last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import datetime
 import json
@@ -887,6 +897,225 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
              library_ms=None)]
 
 
+# Kernel 8 (tril(A^T B), tril_out_phase) against float64, normwise: the
+# float32 routes within OUT_VS_PLAIN times the plain float32 product's
+# error (cuBLAS's dense A^T B and mask: the same sums in another order)
+# plus OUT_ABS; the 3-pass routes within PROJ3_VS_PLAIN times the plain
+# 3-pass product's error against the float64 product of the split
+# operands, and within PROJ3_VS_ONE_PASS of a 1-pass bf16 product's error
+# against the unsplit one (kernel 5's bounds).  A lost tile, a part added
+# twice or a wrong mask is off by a share of order one.
+OUT_VS_PLAIN, OUT_ABS = 4.0, 1e-6
+# its shapes: the VE step's gL (quad_diag's, on 6 x 512 rows), the VM
+# step's Lbar (a quarter of the rows), and the ragged VM step's Lbar
+OUT_SHAPES = {"VE (4, 3072, 1024)": (Q, 6 * TRAIN_B, M),
+              "VM (4, 768, 1024)": (Q, 6 * TRAIN_B // 4, M),
+              "ragged VM (4, 768, 777)": (Q, 6 * TRAIN_B // 4, RAGGED_M)}
+# The recursive inverse of the flagship's Luu against float64, normwise:
+# at most this multiple of trsm's error (a triangular solve against I).
+INV_VS_TRSM = 2.0
+# kernel 4's and kernel A's launches in one refresh of (Luu, iLuu) at
+# M = 1024: rec_tri_inverse's levels below M (leaf 128), one of each a
+# level
+REFRESH_LEVELS = 3
+
+
+def refresh_shapes(q: int) -> set:
+    """The (Q, N, M) of kernel 4's and kernel A's launches in one
+    refresh of q latents' (Luu, iLuu) at M = 1024: each level's batch,
+    flattened into Q, at half its depth."""
+    return {(q * M // (2 * h), h, h) for h in (M // 2, M // 4, M // 8)}
+
+
+def out_bound(A, passes: int, peak: float):
+    """Bound of tril(A^T B): A and B read once, the (Q, M, M) output
+    written once; ``passes`` products of the Q N M (M + 1) FLOPs of the
+    lower triangle."""
+    q, n, m = A.shape
+    return bound_ms(4 * (2 * A.numel() + q * m * m),
+                    passes * q * n * m * (m + 1), peak)
+
+
+def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
+    """Kernel 8 (tril(A^T B), only the lower tiles formed), its four
+    launchers: the float32 FFMA and the 3-pass wgmma TMA designs and their
+    generic routes, each against its plain version and float64 with exact
+    zeros above the diagonal and two launches bitwise equal, at the VE and
+    VM shapes and the ragged VM step's; timed in turns with cuBLAS's dense
+    A^T B and mask and the plain versions, with bounds, TFLOP/s and the
+    schedule's balance.  Then the recursive inverse (rec_tri_inverse, on
+    kernels 4 and A) of the flagship's Luu against float64 beside trsm's,
+    its residual, its launches, and a refresh's time both ways."""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+    from hetmogp_tpu_torch.ops import linalg
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    errs, times = {}, {}
+    for name, shape in OUT_SHAPES.items():
+        A = torch.randn(shape, generator=gen, device="cuda")
+        B = torch.randn(shape, generator=gen, device="cuda")
+        ref = torch.tril(A.double().mT @ B.double())
+        ahi, alo = (t.double() for t in ck.split_bf16(A))
+        bhi, blo = (t.double() for t in ck.split_bf16(B))
+        ref_split = torch.tril((alo.mT @ bhi + ahi.mT @ blo) + ahi.mT @ bhi)
+        del ahi, alo, bhi, blo
+        plain = ck.t_matmul_tril_out_plain(A, B)
+        plain3 = ck.t_matmul_tril_out_3pass_plain(A, B)
+        one = torch.tril(A.to(torch.bfloat16).float().mT
+                         @ B.to(torch.bfloat16).float())
+        e_p, e_p3 = normwise(plain, ref), normwise(plain3, ref_split)
+        f_1 = normwise(one, ref)
+        del one
+        m = shape[-1]
+        upper = torch.triu(torch.ones(m, m, dtype=torch.bool,
+                                      device="cuda"), 1)
+        routes = (("tma", "generic") if ck.tril_out_route(m, True) == "tma"
+                  else ("generic",))
+        for route in routes:
+            for three in (False, True):
+                launcher = getattr(ck, f"tril_out{'3' if three else ''}_"
+                                       f"{route}")
+                got, again = launcher(A, B), launcher(A, B)
+                zeros = not bool(got[:, upper].any())
+                same = torch.equal(got, again)
+                what = f"kernel 8 ({launcher.__name__}), {name}"
+                if three:
+                    e_k, f_k = normwise(got, ref_split), normwise(got, ref)
+                    errs[launcher.__name__, name] = float(
+                        (got - plain3).abs().max())
+                    ok = (e_k <= PROJ3_VS_PLAIN * e_p3
+                          and f_k <= PROJ3_VS_ONE_PASS * f_1)
+                    print(f"{what}: normwise error vs f64 of the split "
+                          f"operands {e_k:.3e}, plain 3-pass {e_p3:.3e} "
+                          f"(bound {PROJ3_VS_PLAIN:g}x plain); vs f64 of "
+                          f"the unsplit operands {f_k:.3e}, 1-pass bf16 "
+                          f"{f_1:.3e} (bound {PROJ3_VS_ONE_PASS:g}x "
+                          f"1-pass); max abs difference from plain "
+                          f"{errs[launcher.__name__, name]:.3e}; zeros "
+                          f"above the diagonal {zeros}; two launches "
+                          f"bitwise equal {same} [card: {smi}]")
+                else:
+                    e_k = normwise(got, ref)
+                    errs[launcher.__name__, name] = float(
+                        (got - plain).abs().max())
+                    ok = e_k <= OUT_VS_PLAIN * e_p + OUT_ABS
+                    print(f"{what}: normwise error vs f64 {e_k:.3e}, plain "
+                          f"f32 (cuBLAS A^T B, tril) {e_p:.3e} (bound "
+                          f"{OUT_VS_PLAIN:g}x plain + {OUT_ABS:g}); max "
+                          f"abs difference from plain "
+                          f"{errs[launcher.__name__, name]:.3e}; zeros "
+                          f"above the diagonal {zeros}; two launches "
+                          f"bitwise equal {same} [card: {smi}]")
+                if not (ok and zeros and same):
+                    raise AssertionError(f"{what}: out of bounds, not zero "
+                                         "above the diagonal, or not "
+                                         "deterministic")
+                del got, again
+        del ref, ref_split, plain, plain3, upper
+
+        fns = {"plain": ck.t_matmul_tril_out_plain,
+               "plain 3-pass": ck.t_matmul_tril_out_3pass_plain}
+        for route in routes:
+            fns[f"kernel 8 ({route})"] = getattr(ck, f"tril_out_{route}")
+            fns[f"kernel 8 3-pass ({route})"] = getattr(ck,
+                                                        f"tril_out3_{route}")
+        t, n = time_in_turns(fns, A, B)
+        bounds = {"f32": out_bound(A, 1, F32_PEAK),
+                  "3pass": out_bound(A, 3, BF16_PEAK)}
+        times[name] = t, bounds
+        q, n_, m = A.shape
+        flop = q * n_ * m * (m + 1)
+
+        def rate(ms, bound):
+            return (f"{flop / ms / 1e9:.2f} TFLOP/s a pass, "
+                    f"{bound[0] / ms * 100:.1f}% of the bound")
+
+        balance = ""
+        if "tma" in routes:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            sched = (ctypes.c_longlong * 6)()
+            for three in (0, 1):
+                ck._library().hetmogp_tril_out_schedule(q, n_, m, three, sms,
+                                                        sched)
+                G, F, rem, P, busy, total = list(sched)
+                balance += (f"; {'3-pass' if three else 'f32'} schedule: "
+                            f"{G} blocks, {F} whole turns, {rem} tiles cut "
+                            f"into {P} parts, balance "
+                            f"{total / G / busy:.3f}")
+        for route in routes:
+            b, k = bounds["f32"], t[f"kernel 8 ({route})"]
+            b3, k3 = bounds["3pass"], t[f"kernel 8 3-pass ({route})"]
+            print(f"kernel 8 time, {name}, {route} route: f32 {k:.4f} ms "
+                  f"({rate(k, b)}; bound {b[0]:.4f} ms, {b[1]}), 3-pass "
+                  f"{k3:.4f} ms ({rate(k3, b3)}; bound {b3[0]:.4f} ms, "
+                  f"{b3[1]}) [card: {smi}]")
+        print(f"kernel 8 time, {name}: cuBLAS's dense A^T B and mask (the "
+              f"plain version, what the port ran before) {t['plain']:.4f} "
+              f"ms ({rate(t['plain'], bounds['f32'])}), plain 3-pass "
+              f"{t['plain 3-pass']:.4f} ms; median of {n} calls each"
+              f"{balance} [card: {smi}]")
+        del A, B
+    torch.cuda.empty_cache()
+
+    # the recursive inverse of the flagship's Luu, beside trsm against I
+    eye = torch.eye(M, device="cuda").expand_as(Luu)
+    eye64 = torch.eye(M, dtype=torch.float64, device="cuda")
+    ref = torch.linalg.solve_triangular(Luu.double(), eye64.expand_as(Luu),
+                                        upper=False)
+    ck.zero_launch_counts()
+    rec = linalg.rec_tri_inverse(Luu)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ck.launch_counts().items() if v}
+    trsm = torch.linalg.solve_triangular(Luu, eye, upper=False)
+    e_rec, e_trsm = normwise(rec, ref), normwise(trsm, ref)
+    res_rec, res_trsm = (float((Luu.double() @ X.double() - eye64).abs()
+                               .max()) for X in (rec, trsm))
+    K = Luu @ Luu.mT
+    t, n = time_in_turns({
+        "rec_tri_inverse": lambda: linalg.rec_tri_inverse(Luu),
+        "trsm against I": lambda: torch.linalg.solve_triangular(
+            Luu, eye, upper=False),
+        "refresh, potrf and rec_tri_inverse":
+            lambda: linalg.blocked_cholesky_inverse(K),
+        "refresh, potrf and trsm": lambda: torch.linalg.solve_triangular(
+            linalg.cholesky(K), eye, upper=False)})
+    print(f"rec_tri_inverse of the flagship's Luu ({Q}, {M}, {M}): "
+          f"normwise error vs float64 {e_rec:.3e}, trsm against I "
+          f"{e_trsm:.3e} (bound {INV_VS_TRSM:g}x trsm); residual "
+          f"max|tril(L) iL - I| {res_rec:.3e}, trsm {res_trsm:.3e}; "
+          f"launches {launched}; device ms (median of {n}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f" [card: {smi}]")
+    if not (e_rec <= INV_VS_TRSM * e_trsm and torch.isfinite(rec).all()
+            and not torch.triu(rec, 1).any()
+            and launched == {"tril_right_tma": REFRESH_LEVELS,
+                             "tril_projection_tma": REFRESH_LEVELS}):
+        raise AssertionError("the recursive inverse is off, or did not run "
+                             "on kernels 4 and A")
+    del ref, rec, trsm, K
+
+    ve, ragged = "VE (4, 3072, 1024)", "ragged VM (4, 768, 777)"
+    entries = []
+    for launcher, shape, passes in (("tril_out_tma", ve, "f32"),
+                                    ("tril_out3_tma", ve, "3pass"),
+                                    ("tril_out_generic", ragged, "f32"),
+                                    ("tril_out3_generic", ragged, "3pass")):
+        t, bounds = times[shape]
+        route = "generic" if launcher.endswith("generic") else "tma"
+        key = (f"kernel 8 3-pass ({route})" if passes == "3pass"
+               else f"kernel 8 ({route})")
+        entries.append(dict(
+            proj_entry(launcher, "tril_out_kernel.cu",
+                       "hetmogp_tpu/ops/linalg.py:636",
+                       errs[launcher, shape], t, key,
+                       "plain 3-pass" if passes == "3pass" else "plain",
+                       bounds[passes]),
+            # cuBLAS's dense product and mask computes the float32
+            # function; no PyTorch call computes the 3-pass one
+            library_ms=t["plain"] if passes == "f32" else None))
+    return entries
+
+
 # The ragged VM step's hyper gradients (ragged_adjoint_phase) against
 # float64, normwise: at most this multiple of the plain route's error.
 # Both multiply the same 3-pass split of the same operands; the VM step's
@@ -897,11 +1126,12 @@ RAGGED_GRAD_VS_PLAIN = 4.0
 
 
 def ragged_adjoint_phase(smi: str) -> dict:
-    """Kernel 5's generic route on its own path: the VM step's loss of the
-    serving model at RAGGED_M inducing points and "high" (``elbo_fn`` with
-    the cached inverse and ``cache_grad``), differentiated in its hypers,
-    with the counts from 0, against the plain versions and float64.
-    Returns the launch counts."""
+    """Kernels 5's and 8's generic routes on their own path: the VM step's
+    loss of the serving model at RAGGED_M inducing points (``elbo_fn``
+    with the cached inverse and ``cache_grad``) at "high" and at
+    "highest", differentiated in its hypers, with the counts from 0,
+    against the plain versions and float64.  Returns the launch counts of
+    both."""
     import hetmogp_tpu_torch as tp
     from hetmogp_tpu_torch.models import elbo as telbo
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
@@ -917,8 +1147,8 @@ def ragged_adjoint_phase(smi: str) -> dict:
     X_list = [X[t * n:(t + 1) * n].cpu().numpy()
               for t in range(cfg.num_tasks)]
 
-    def grads(dtype, use_kernel):
-        c = dataclasses.replace(cfg, ve_fwd_precision="high", dtype=dtype)
+    def grads(dtype, use_kernel, precision="high"):
+        c = dataclasses.replace(cfg, ve_fwd_precision=precision, dtype=dtype)
         p = params.to(dtype=c.torch_dtype)
         data = tp.make_dataset(X_list, Y, c)
         scales = torch.full((c.num_tasks,), 100.0, dtype=c.torch_dtype,
@@ -936,22 +1166,34 @@ def ragged_adjoint_phase(smi: str) -> dict:
         torch.cuda.synchronize()
         return out, ck.launch_counts()
 
-    got, counts = grads("float32", True)
-    plain, _ = grads("float32", False)
     ref, _ = grads("float64", False)
-    e_k = max(normwise(a, b) for a, b in zip(got, ref))
-    e_p = max(normwise(a, b) for a, b in zip(plain, ref))
-    print(f"ragged VM step (M={RAGGED_M}, \"high\", {cfg.num_tasks} x {n} "
-          f"rows): launches { {k: v for k, v in counts.items() if v} }; "
-          f"hyper gradients (Z, log lengthscale) vs float64 {e_k:.3e} "
-          f"normwise, the plain route {e_p:.3e} (bound "
-          f"{RAGGED_GRAD_VS_PLAIN:g}x plain) [card: {smi}]")
-    if not (counts["tril_right3_generic"] == 4 and counts["tril_right3_tma"]
-            == 0 and counts["tril_right_generic"] == 1
-            and e_k <= RAGGED_GRAD_VS_PLAIN * e_p):
-        raise AssertionError("the ragged VM step did not run kernel 5's "
-                             "generic route, or disagrees")
-    return counts
+    total = {}
+    # at "high": kernel 5's four adjoint products and kernel 8's Lbar in
+    # three passes; at "highest": kernel 4's and kernel 8's float32 ones;
+    # quad_diag's forward on kernel 4 (q(u) is frozen: no gL)
+    want = {"high": {"tril_right3_generic": 4, "tril_right_generic": 1,
+                     "tril_out3_generic": 1},
+            "highest": {"tril_right_generic": 5, "tril_out_generic": 1}}
+    for prec in ("high", "highest"):
+        got, counts = grads("float32", True, prec)
+        plain, _ = grads("float32", False, prec)
+        e_k = max(normwise(a, b) for a, b in zip(got, ref))
+        e_p = max(normwise(a, b) for a, b in zip(plain, ref))
+        launched = {k: v for k, v in counts.items() if v}
+        mine = {k: v for k, v in launched.items()
+                if k.startswith(("tril_right", "tril_out"))}
+        print(f"ragged VM step (M={RAGGED_M}, \"{prec}\", {cfg.num_tasks} x "
+              f"{n} rows): launches {launched}; hyper gradients (Z, log "
+              f"lengthscale) vs float64 {e_k:.3e} "
+              f"normwise, the plain route {e_p:.3e} (bound "
+              f"{RAGGED_GRAD_VS_PLAIN:g}x plain) [card: {smi}]")
+        if not (mine == want[prec] and e_k <= RAGGED_GRAD_VS_PLAIN * e_p):
+            raise AssertionError(f"the ragged VM step at {prec!r} did not "
+                                 f"run the generic routes {want[prec]}, or "
+                                 "disagrees")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def rbf_backward_phase(smi: str):
@@ -1032,7 +1274,7 @@ def training_model(device="cuda", precision="highest", **config):
 
 def _counts():
     """(kernel A launches, RBF launches, RBF backward passes, kernel 4 and
-    5 launches)."""
+    5 launches, kernel 8 launches)."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
     c = ck.launch_counts()
@@ -1040,7 +1282,9 @@ def _counts():
             c["rbf_K_batched_vec"] + c["rbf_K_batched_scalar"],
             c["rbf_backward"],
             sum(c[k] for k in ("tril_right_tma", "tril_right_generic",
-                               "tril_right3_tma", "tril_right3_generic")))
+                               "tril_right3_tma", "tril_right3_generic")),
+            sum(c[k] for k in ("tril_out_tma", "tril_out_generic",
+                               "tril_out3_tma", "tril_out3_generic")))
 
 
 def _zero_counts():
@@ -1090,20 +1334,22 @@ def training_phase(smi: str):
                              - before67[0],
                              ck.adam_update.launches - before67[1])
             if use_kernel:
-                tril, rbf, bwd, right = (a - b for a, b in zip(_counts(),
-                                                               before))
+                tril, rbf, bwd, right, out8 = (
+                    a - b for a, b in zip(_counts(), before))
                 vm = i % cycle == tc.ve_steps_per_vm
                 print(f"  step {i} ({'VM' if vm else 'VE'}): projection "
                       f"kernel launches {tril}, rbf kernel launches {rbf}, "
                       f"rbf backward passes {bwd}, kernel 4 launches "
-                      f"{right}, kernel 6 (task table, forward and "
-                      f"backward) {sweeps}, kernel 7 {adams}"
-                      f" [card: {smi}]")
-                # quad_diag a step; the VM step's four adjoint products;
-                # the task table's forward and backward and the adam update
+                      f"{right}, kernel 8 launches {out8}, kernel 6 (task "
+                      f"table, forward and backward) {sweeps}, kernel 7 "
+                      f"{adams} [card: {smi}]")
+                # quad_diag a step; the VM step's four adjoint products
+                # and the refresh's levels; quad_diag's gL (VE) or the
+                # solve's Lbar (VM); the task table's forward and backward
+                # and the adam update
                 if (tril < 1 or rbf < 1 or (vm and bwd < 1)
-                        or right != (5 if vm else 1) or sweeps != 2
-                        or adams != 1):
+                        or right != (5 + REFRESH_LEVELS if vm else 1)
+                        or out8 != 1 or sweeps != 2 or adams != 1):
                     raise AssertionError(f"step {i} did not run the kernels")
             elif sweeps or adams:
                 raise AssertionError(f"the plain step {i} launched kernel 6 "
@@ -1155,9 +1401,12 @@ def training_phase(smi: str):
     print(f"host-loop call of {HOST_CALL_STEPS} steps (warm-up, {warm:.3f} "
           f"s): projection kernel launches {counts[0]}, rbf kernel launches "
           f"{counts[1]}, rbf backward passes {counts[2]}, kernel 4 launches "
-          f"{counts[3]} ({n_vm} VM steps) [card: {smi}]")
+          f"{counts[3]}, kernel 8 launches {counts[4]} ({n_vm} VM steps) "
+          f"[card: {smi}]")
     if (counts[0] < HOST_CALL_STEPS or counts[1] < HOST_CALL_STEPS
-            or counts[2] < n_vm or counts[3] != HOST_CALL_STEPS + 4 * n_vm):
+            or counts[2] < n_vm
+            or counts[3] != HOST_CALL_STEPS + (4 + REFRESH_LEVELS) * n_vm
+            or counts[4] != HOST_CALL_STEPS):
         raise AssertionError("the trainer did not go through the kernels")
 
     calls = [first]
@@ -1373,6 +1622,10 @@ _SYMBOLS = {"rbf_cross_vec_kernel": ("rbf_K_batched_vec",),
             "tril_right_generic_kernel": ("tril_right_generic",),
             "tril_right3_tma_kernel": ("tril_right3_tma",),
             "tril_right3_generic_kernel": ("tril_right3_generic",),
+            "tril_out_tma_kernel": ("tril_out_tma",),
+            "tril_out3_tma_kernel": ("tril_out3_tma",),
+            "tril_out_generic_kernel": ("tril_out_generic",
+                                        "tril_out3_generic"),
             "gh_sweep_kernel": ("gh_sweep", "gh_sweep_value"),
             "ve_tasks_kernel": ("task_var_exp", "task_var_exp_value"),
             "ve_tasks_grad_kernel": ("task_var_exp_backward",),
@@ -1428,21 +1681,28 @@ def graphed_trainer_phase(smi: str, precision: str,
     high = precision == "high"
     # a step: the RBF kernel, the projection (kernel 3 at "high" in the VE
     # step, kernel A in the VM step's solve_tri_cached and at "highest"),
-    # quad_diag (kernel 4, "both"); the VM step adds kernel A for
-    # quad_diag's gA and its four adjoint products (kernel 5 at "high",
-    # kernel 4 at "highest")
+    # quad_diag (kernel 4, "both"), and kernel 8 once (quad_diag's gL in a
+    # VE step, the solve's Lbar in the VM step; 3-pass at "high"); the VM
+    # step adds kernel A for quad_diag's gA, its four adjoint products
+    # (kernel 5 at "high", kernel 4 at "highest") and the refresh of
+    # (Luu, iLuu): kernels 4 and A once a level of rec_tri_inverse
+    refresh = REFRESH_LEVELS * n_vm
     want = {"rbf_K_batched_vec": GRAPH_CALL_STEPS, "rbf_backward": n_vm,
             "rbf_K_batched_scalar": 0,
             "tril_projection_tma": (2 * n_vm if high
-                                    else GRAPH_CALL_STEPS + n_vm),
+                                    else GRAPH_CALL_STEPS + n_vm) + refresh,
             "tril_projection_3pass_tma": (GRAPH_CALL_STEPS - n_vm
                                           if high else 0),
-            "tril_right_tma": GRAPH_CALL_STEPS + (0 if high else 4 * n_vm),
+            "tril_right_tma": (GRAPH_CALL_STEPS + (0 if high else 4 * n_vm)
+                               + refresh),
             "tril_right3_tma": 4 * n_vm if high else 0,
+            "tril_out3_tma": GRAPH_CALL_STEPS if high else 0,
+            "tril_out_tma": 0 if high else GRAPH_CALL_STEPS,
             # M = 1024 is aligned: the staged, scalar and generic kernels
             # never run here
             "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
             "tril_right_generic": 0, "tril_right3_generic": 0,
+            "tril_out_generic": 0, "tril_out3_generic": 0,
             # kernel 6's task table for the six tasks' likelihood term,
             # forward and backward, and kernel 7 once, every step; no
             # per-engine sweep
@@ -1573,7 +1833,7 @@ def serving_phase(smi: str, device="cuda", m=M, q=Q) -> dict:
     _zero_counts()
     out = serve_all()
     torch.cuda.synchronize()
-    tril, launches, _, _ = _counts()
+    tril, launches, *_ = _counts()
     per_pass = cuda_kernels.launch_counts()
     rows = cfg.num_tasks * X.shape[0]
     print(f"serving pass: {rows} rows, {len(out)} chunk requests, "
@@ -1999,11 +2259,16 @@ def families_phase(smi: str, device="cuda") -> dict:
           f"{cycle['tril_projection_tma']}, kernel 4 "
           f"{cycle['tril_right_tma']}, kernel 5 {cycle['tril_right3_tma']}"
           f" [card: {smi}]")
+    # the flagship's cycle at "high" (graphed_trainer_phase), the refresh's
+    # levels of kernels 4 and A included
     want = {"rbf_K_batched_vec": 5, "tril_projection_3pass_tma": 4,
-            "tril_projection_tma": 2, "tril_right_tma": 5,
-            "tril_right3_tma": 4, "rbf_K_batched_scalar": 0,
+            "tril_projection_tma": 2 + REFRESH_LEVELS,
+            "tril_right_tma": 5 + REFRESH_LEVELS, "tril_right3_tma": 4,
+            "tril_out3_tma": 5, "tril_out_tma": 0,
+            "rbf_K_batched_scalar": 0,
             "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
             "tril_right_generic": 0, "tril_right3_generic": 0,
+            "tril_out_generic": 0, "tril_out3_generic": 0,
             # Beta's two lngamma sweeps and Dirichlet's one (kernel 6's
             # per-engine "lngamma"), and kernel 7, every step; no family
             # of the ten is in kernel 6's task table
@@ -2802,6 +3067,8 @@ def launch_shapes():
                            (Z.shape[0], X.shape[0], Z.shape[1])),
                           ("_launch", lambda w, e, A, *a: tuple(A.shape)),
                           ("_right_launch", lambda w, e, A, *a, **k:
+                           tuple(A.shape)),
+                          ("_out_launch", lambda w, e, A, *a, **k:
                            tuple(A.shape))):
         originals[helper] = getattr(ck, helper)
 
@@ -2831,9 +3098,11 @@ def rank_phase(smi: str) -> None:
             cfg, tc, params, dataset, sizes, batches, True, SEED + 8,
             "rank 2 (8 latent copies), \"high\"", smi,
             plain_bounds=(GRAPH_PLAIN_F32_VE, GRAPH_PLAIN_F32, GRAPH_F64))
-    seen = {k: {q for q, _, _ in v} for k, v in shapes.items()}
-    print(f"rank 2: batches the kernels were launched at {seen} "
-          f"[card: {smi}]")
+    # the model's own launches, at depth M; the refresh's levels apart
+    seen = {k: {q for q, _, m in v if m == M} for k, v in shapes.items()}
+    levels = {k: {s for s in v if s[-1] != M} for k, v in shapes.items()}
+    print(f"rank 2: batches the kernels were launched at {seen}; the "
+          f"refresh's launches (Q, N, M) {levels} [card: {smi}]")
     gen = torch.Generator().manual_seed(SEED + 10)
     rates = []
     for _ in range(RANK_CALLS):
@@ -2846,8 +3115,12 @@ def rank_phase(smi: str) -> None:
     report_rates("rank 2 graphed trainer (\"high\")", rates, RANK_STEPS,
                  smi)
     if not ({"rbf_K_batched_vec", "tril_projection_3pass_tma",
-             "tril_right_tma", "tril_right3_tma"} <= set(seen)
-            and all(b == {Q * 2} for b in seen.values())):
+             "tril_right_tma", "tril_right3_tma", "tril_out3_tma"}
+            <= set(seen)
+            and all(b == {Q * 2} for b in seen.values() if b)
+            and {k: v for k, v in levels.items() if v} == {
+                k: refresh_shapes(Q * 2)
+                for k in ("tril_right_tma", "tril_projection_tma")}):
         raise AssertionError(f"rank 2 did not run the kernels at batch 8: "
                              f"{seen}")
 
@@ -3072,21 +3345,36 @@ def parallel_gloo_phase(smi: str) -> None:
             "(collectives through the host)")
     first_vm = tc.ve_steps_per_vm + 1
     n_vm = sum(1 for i in range(PAR_STEPS) if i % first_vm == tc.ve_steps_per_vm)
+    refresh = REFRESH_LEVELS * n_vm  # a rank's latents' (Luu, iLuu)
     want_counts = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
-                   "tril_projection_tma": 2 * n_vm,
+                   "tril_projection_tma": 2 * n_vm + refresh,
                    "tril_projection_3pass_tma": PAR_STEPS - n_vm,
-                   "tril_right_tma": PAR_STEPS, "tril_right3_tma": 4 * n_vm,
+                   "tril_right_tma": PAR_STEPS + refresh,
+                   "tril_right3_tma": 4 * n_vm, "tril_out3_tma": PAR_STEPS,
                    "rbf_K_batched_scalar": 0, "tril_projection_staged": 0,
                    "tril_projection_3pass_staged": 0,
-                   "tril_right_generic": 0, "tril_right3_generic": 0}
+                   "tril_right_generic": 0, "tril_right3_generic": 0,
+                   "tril_out_tma": 0, "tril_out_generic": 0,
+                   "tril_out3_generic": 0}
     rows = 6 * TRAIN_B // 2  # a data rank's rows of the VE batch
     want_shapes = {"rbf_K_batched_vec": {(2, rows, M), (2, rows // 4, M)},
                    "tril_projection_3pass_tma": {(2, rows, M)},
-                   "tril_projection_tma": {(2, rows // 4, M)},
+                   "tril_projection_tma": ({(2, rows // 4, M)}
+                                           | refresh_shapes(2)),
                    # quad_diag in both steps; the adjoints' (M, M) products
-                   # and the VM step's Kfubar
-                   "tril_right_tma": {(2, rows, M), (2, rows // 4, M)},
-                   "tril_right3_tma": {(2, M, M), (2, rows // 4, M)}}
+                   # and the VM step's Kfubar; the refresh's levels
+                   "tril_right_tma": ({(2, rows, M), (2, rows // 4, M)}
+                                      | refresh_shapes(2)),
+                   "tril_right3_tma": {(2, M, M), (2, rows // 4, M)},
+                   # quad_diag's gL (VE), the solve's Lbar (VM)
+                   "tril_out3_tma": {(2, rows, M), (2, rows // 4, M)}}
+    # the sharded predictive: a request a task on each rank's rows, after
+    # one refresh of its latents' (Luu, iLuu)
+    serve_shapes = {k: {(2, PAR_SERVE_ROWS // 2, M)}
+                    for k in ("rbf_K_batched_vec", "tril_projection_3pass_tma",
+                              "tril_right_tma")}
+    serve_shapes["tril_right_tma"] |= refresh_shapes(2)
+    serve_shapes["tril_projection_tma"] = refresh_shapes(2)
     bad = []
     for r, out in enumerate(outs):
         rel = np.abs(out["elbos"] - eager) / np.abs(eager)
@@ -3138,11 +3426,10 @@ def parallel_gloo_phase(smi: str) -> None:
               and out["serve_finite"]
               and out["serve_counts"]["rbf_K_batched_vec"] == 6
               and out["serve_counts"]["tril_projection_3pass_tma"] == 6
-              and out["serve_counts"]["tril_right_tma"] == 6
-              and out["serve_shapes"] == {
-                  k: {(2, PAR_SERVE_ROWS // 2, M)}
-                  for k in ("rbf_K_batched_vec", "tril_projection_3pass_tma",
-                            "tril_right_tma")}
+              and out["serve_counts"]["tril_right_tma"] == 6 + REFRESH_LEVELS
+              and out["serve_counts"]["tril_projection_tma"]
+              == REFRESH_LEVELS
+              and out["serve_shapes"] == serve_shapes
               and out["serve_collectives"] == [("data", "all_gather"),
                                                ("latent", "all_reduce")])
         if not ok:
@@ -3206,9 +3493,10 @@ def parallel_nccl_phase(smi: str) -> None:
               f"[card: {smi}]")
         n_vm = meshed.replays["vm"]
         want = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
-                "tril_projection_tma": 2 * n_vm,
+                "tril_projection_tma": (2 + REFRESH_LEVELS) * n_vm,
                 "tril_projection_3pass_tma": PAR_STEPS - n_vm,
-                "tril_right_tma": PAR_STEPS, "tril_right3_tma": 4 * n_vm,
+                "tril_right_tma": PAR_STEPS + REFRESH_LEVELS * n_vm,
+                "tril_right3_tma": 4 * n_vm, "tril_out3_tma": PAR_STEPS,
                 "task_var_exp": PAR_STEPS,
                 "task_var_exp_backward": PAR_STEPS, "gh_sweep": 0,
                 "adam_update": PAR_STEPS}
@@ -4138,6 +4426,7 @@ def main():
     proj = projection_phase(smi, Kfu, iLuu)
     proj3 = projection3_phase(smi, Kfu, iLuu)
     right = right_products_phase(smi, Kfu, Luu, iLuu)
+    out8 = tril_out_phase(smi, Luu)
     del Kfu, Luu, iLuu
     sweep = sweep_phase(smi)
     graphed_parity_phase(smi)
@@ -4146,7 +4435,8 @@ def main():
     # the steps/s of two trainers of one configuration differ by more than
     # the spread within one; the third times five calls, the others three;
     # the last "high" is the main path, the flagship as bench.py runs it
-    graphed_trainer_phase(smi, "highest", timed_calls=3)
+    highest, replayed_highest, _ = graphed_trainer_phase(smi, "highest",
+                                                         timed_calls=3)
     graphed_trainer_phase(smi, "high", timed_calls=3)
     counts, replayed, _ = graphed_trainer_phase(smi, "high")
     graphed_trainer_phase(smi, "highest", timed_calls=3)
@@ -4155,6 +4445,13 @@ def main():
           f"{ {k: replayed[k] * 5 // GRAPH_CALL_STEPS for k in mine} } (the "
           f"graphed flagship at \"high\"), per serving pass "
           f"{ {k: served[k] for k in mine} } ({6 * N_CHUNKS} requests)"
+          f" [card: {smi}]")
+    print(f"kernel 8 on the main path: launches per 5-step cycle "
+          f"{replayed['tril_out3_tma'] * 5 // GRAPH_CALL_STEPS} of "
+          f"tril_out3_tma (the graphed flagship at \"high\"), "
+          f"{replayed_highest['tril_out_tma'] * 5 // GRAPH_CALL_STEPS} of "
+          f"tril_out_tma (at \"highest\"); none per serving pass "
+          f"{ {k: served[k] for k in ('tril_out_tma', 'tril_out3_tma')} }"
           f" [card: {smi}]")
     mine = ("task_var_exp", "task_var_exp_backward", "task_var_exp_value",
             "gh_sweep", "gh_sweep_value", "adam_update")
@@ -4168,18 +4465,19 @@ def main():
     life = lifecycle_phase(smi)
     parallel_phase(smi)
     # launches: the main path's for the vector RBF kernel and the TMA
-    # routes; the staged, scalar and generic routes never run at M = 1024,
-    # so theirs are from the ragged serving path and the ragged VM step,
-    # their own
+    # routes (kernel 8's float32 one from the graphed flagship at
+    # "highest", the only precision that runs it); the staged, scalar and
+    # generic routes never run at M = 1024, so theirs are from the ragged
+    # serving path and the ragged VM step, their own
     # the task table's value alone runs where an ELBO is evaluated
     # without a gradient: its launches are the lifecycle's (the full-data
     # ELBOs of save and load); the per-engine sweeps run for the families
     # outside the task table: theirs are the ten-family trainer's first
     # call and its ELBO without a gradient
-    kernels = [*rbf, *proj, *proj3, *right, *sweep]
+    kernels = [*rbf, *proj, *proj3, *right, *out8, *sweep]
     own_path = ("_staged", "_scalar", "_generic")
     source = {"task_var_exp_value": life, "gh_sweep": families,
-              "gh_sweep_value": families_elbo}
+              "gh_sweep_value": families_elbo, "tril_out_tma": highest}
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (ragged if name.endswith(own_path)

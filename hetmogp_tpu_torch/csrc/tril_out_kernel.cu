@@ -1,0 +1,753 @@
+// Kernel 8: the lower triangle of a batched transposed product, Hopper
+// (sm_90a).
+//
+//   out[q, m1, m2] = sum_n A[q, n, m1] * B[q, n, m2]   for m1 >= m2
+//   out[q, m1, m2] = 0                                 for m1 <  m2
+//
+// tril(A^T B).  A and B (Q, N, M), contiguous float32 row-major; out
+// (Q, M, M) float32.  Only the lower output tiles are formed: at M = 1024
+// 36 of a latent's 64 tiles of 128 x 128, about half the FLOPs of the
+// dense product and mask.  The reduction runs over the rows n of both
+// operands, so each stage's tiles are rows of A and of B as they are
+// stored, and a rank-1 update per row is the natural product.
+//
+// It replaces no Pallas kernel: the JAX package forms it at the XLA level,
+// blocked by hand (hetmogp_tpu/ops/linalg.py:636 t_matmul_tril_out, the L
+// gradient of quad_diag_train), and its cached adjoints' Lbar is the same
+// masked product at Precision.HIGH (_solve_tri_cached_bwd).  The port runs
+// here quad_diag's gL (QuadDiag's backward, every step), the VM step's
+// Lbar, and the projections' dL.
+//
+// What bounds it on an H100, at the VE step's (4, 3072, 1024): Q N M (M+1)
+// = 12.9 GFLOP a pass, 0.193 ms in float32 at 67 TFLOP/s and 0.039 ms for
+// three bf16 passes at 989 TFLOP/s; 101 MB of operands read and 16.8 MB
+// written, 0.035 ms at 3.35 TB/s.  Three designs:
+//
+// 1. tril_out_tma_kernel (entry hetmogp_tril_out_f32, "highest"): full
+//    float32 FFMA, no TF32.  tril_tma.cuh's pipeline: one producer thread
+//    issues TMA loads of A's and B's BK_F32 x 128 tiles (512-byte rows, as
+//    stored) into a ring of 4 stages; 8 FMA warps hold 64 x 32 warp tiles,
+//    each lane 8 x 8 outputs, and take each row n of a stage as a rank-1
+//    update from four 16-byte shared loads (tril_out_plan.cuh's f32_row,
+//    f32_col); the stage pointers are pointer arithmetic on the dynamic
+//    shared array, so the loads are LDS.
+// 2. tril_out3_tma_kernel (entry hetmogp_tril_out3_f32, "high"): three
+//    bf16 passes on wgmma.  Each float32 x is split bit for bit as kernel
+//    3's and 5's: hi = x & 0xFFFF0000, lo = bf16_rn(x - hi), and every
+//    16-deep step adds lo*hi + hi*lo, then hi*hi, to a float32 sum; lo*lo
+//    is dropped.  Both operands arrive as float32 by TMA (BK_3PASS x 128
+//    tiles, 512-byte rows) and a splitter warpgroup writes each tile's hi
+//    and lo over it as wgmma's MN-major operand (kernel 5's layout: two
+//    64-column boxes, 128-byte swizzled), so no pre-pass writes split
+//    copies to device memory, and the consumers read no fragment: two
+//    consumer warpgroups each own 64 rows m1 of a 128 x 128 tile and issue
+//    wgmma m64n128k16 with A^T and B both from shared memory, both
+//    transposed (MN-major).  A stage's 12 products are one commit group;
+//    the stage before is released once its group is done.
+// 3. tril_out_generic_kernel<THREE> (entries hetmogp_tril_out_generic_f32
+//    and hetmogp_tril_out3_generic_f32): every other shape (M % 4 != 0 or
+//    unaligned bases): one 256-thread block a lower 64 x 64 tile, both
+//    operands staged 16 rows deep through shared memory (split while
+//    staged for THREE, the three products as float32 FMAs of bf16-exact
+//    values), two block-wide barriers a stage.
+//
+// The TMA designs are persistent and walk tril_out_plan.cuh's schedule:
+// whole tiles for the full waves, and the last wave's tiles cut into parts
+// of their reduction that meet through a float32 scratch and flags in a
+// fixed order (no atomics: two launches are bitwise equal, as a graph
+// replay and the eager step it was captured from must be).  Ragged N, and
+// m1 or m2 past M, arrive as TMA's zero fill.  Above the diagonal nothing
+// is computed: the block of a lower tile writes its mirror's zeros, and a
+// diagonal tile's epilogue zeroes m1 < m2.
+//
+// On the card, chip_smoke.py's tril_out_phase holds every route to its
+// plain version and float64, two launches bitwise equal, and times it
+// beside cuBLAS's dense A^T B and mask.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tril_out_plan.cuh"
+#include "tril_tma.cuh"
+
+namespace {
+
+using tril_out_plan::keep;
+using tril_out_plan::lower_tile;
+
+// The bit-mask split of one float32: hi, and lo = bf16_rn(x - hi), both
+// as float32 holding bf16 values.
+__device__ __forceinline__ void split1(float x, float& hi, float& lo) {
+  hi = __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
+  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
+}
+
+// The bit-mask split of two float32 (x.x in the low half): hi's and lo's
+// bf16 pairs.
+__device__ __forceinline__ void split2(float2 x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t h0 = __float_as_uint(x.x) & 0xFFFF0000u;
+  const uint32_t h1 = __float_as_uint(x.y) & 0xFFFF0000u;
+  hi = (h0 >> 16) | h1;
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x.x - __uint_as_float(h0),
+                                                  x.y - __uint_as_float(h1));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A split tile's flag: raised (release) by the block of a part that
+// writes its partial, waited for (acquire) and lowered again by the block
+// that adds it, so every launch starts and ends with the flags down.
+__device__ __forceinline__ void raise_flag(uint32_t* flag) {
+  asm volatile("st.release.gpu.u32 [%0], %1;\n" ::"l"(flag), "r"(1u)
+               : "memory");
+}
+
+constexpr long long FLAG_SPINS = 1ll << 24;
+
+__device__ __forceinline__ void wait_flag(uint32_t* flag) {
+  for (long long spins = 0;; ++spins) {
+    uint32_t ready;
+    asm volatile("ld.acquire.gpu.u32 %0, [%1];\n"
+                 : "=r"(ready)
+                 : "l"(flag)
+                 : "memory");
+    if (ready) break;
+    if (spins > FLAG_SPINS) __trap();
+    __nanosleep(64);
+  }
+  *flag = 0u;  // read by the next launch only
+}
+
+// ---- the generic design ----------------------------------------------------
+
+constexpr int GT = 64;  // rows m1 and columns m2 of a block's tile
+constexpr int GD = 16;  // rows n a stage
+constexpr int GTHREADS = 256;
+
+template <bool THREE>
+__global__ void __launch_bounds__(GTHREADS)
+tril_out_generic_kernel(const float* __restrict__ A,
+                        const float* __restrict__ B, float* __restrict__ out,
+                        int N, int M) {
+  __shared__ float Ah[GD][GT], Bh[GD][GT];
+  __shared__ float Al[THREE ? GD : 1][GT], Bl[THREE ? GD : 1][GT];
+  const int q = blockIdx.y;
+  int ti, tj;
+  lower_tile(blockIdx.x, ti, tj);
+  const int m1_0 = ti * GT, m2_0 = tj * GT;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // columns m2: tx + 16 j
+  const int ty = tid / 16;  // rows m1: ty + 16 i
+  const float* Aq = A + (size_t)q * N * M;
+  const float* Bq = B + (size_t)q * N * M;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int n0 = 0; n0 < N; n0 += GD) {
+#pragma unroll
+    for (int p = 0; p < GD * GT / GTHREADS; ++p) {
+      const int idx = tid + GTHREADS * p;
+      const int r = idx / GT, c = idx % GT;
+      const int n = n0 + r;
+      const float a = (n < N && m1_0 + c < M) ? Aq[(size_t)n * M + m1_0 + c]
+                                              : 0.0f;
+      const float b = (n < N && m2_0 + c < M) ? Bq[(size_t)n * M + m2_0 + c]
+                                              : 0.0f;
+      if constexpr (THREE) {
+        split1(a, Ah[r][c], Al[r][c]);
+        split1(b, Bh[r][c], Bl[r][c]);
+      } else {
+        Ah[r][c] = a;
+        Bh[r][c] = b;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < GD; ++r) {
+      float a[4], b[4], al[4], bl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = Ah[r][ty + 16 * i];
+        b[i] = Bh[r][tx + 16 * i];
+        if constexpr (THREE) {
+          al[i] = Al[r][ty + 16 * i];
+          bl[i] = Bl[r][tx + 16 * i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (THREE) {  // the small terms first, as on wgmma
+            acc[i][j] = fmaf(al[i], b[j], acc[i][j]);
+            acc[i][j] = fmaf(a[i], bl[j], acc[i][j]);
+          }
+          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+  float* outq = out + (size_t)q * M * M;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m1 = m1_0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m2 = m2_0 + tx + 16 * j;
+      if (m1 < M && m2 < M) {
+        outq[(size_t)m1 * M + m2] = keep(m1, m2) ? acc[i][j] : 0.0f;
+      }
+      // the mirror tile above the diagonal
+      const int r = m2_0 + ty + 16 * i, c = m1_0 + tx + 16 * j;
+      if (ti > tj && r < M && c < M) outq[(size_t)r * M + c] = 0.0f;
+    }
+  }
+}
+
+}  // namespace
+
+// ---- the FFMA design ("highest") --------------------------------------------
+
+namespace k8f {
+
+using namespace tril_out_plan;
+
+constexpr int BK = BK_F32;
+constexpr int STAGES = 4;
+constexpr int WARPS = CONSUMERS / 32;
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int TILE_BYTES = BK * BT * 4;  // BK rows of 128 floats, as stored
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // A's tile, then B's
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+constexpr int CONSUMER_BAR = 1;
+static_assert(CONSUMERS == 8 * 32, "eight FMA warps of 64 x 32");
+
+__device__ uint32_t ready[MAX_SLOTS];
+
+// acc[i][j] += sum over the stage's BK rows n of A[n][row i] B[n][col j],
+// one FMA chain per output in increasing n.
+__device__ __forceinline__ void consume(const float* As, const float* Bs,
+                                        float (&acc)[8][8], int tid) {
+  const float* ap = As + f32_row(tid, 0);
+  const float* bp = Bs + f32_col(tid, 0);
+#pragma unroll 4
+  for (int n = 0; n < BK; ++n) {
+    const float4 a0 = *reinterpret_cast<const float4*>(ap + n * BT);
+    const float4 a1 = *reinterpret_cast<const float4*>(ap + n * BT + 32);
+    const float4 b0 = *reinterpret_cast<const float4*>(bp + n * BT);
+    const float4 b1 = *reinterpret_cast<const float4*>(bp + n * BT + 16);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+}  // namespace k8f
+
+__global__ void __launch_bounds__(k8f::THREADS, 1)
+tril_out_tma_kernel(const __grid_constant__ CUtensorMap mapA,
+                    const __grid_constant__ CUtensorMap mapB,
+                    float* __restrict__ out, float* __restrict__ partials,
+                    int M, const __grid_constant__ tril_out_plan::Plan plan) {
+  using namespace k8f;
+  extern __shared__ uint8_t smem_raw[];
+  // stages on 1024-byte boundaries; pointer arithmetic on smem_raw, not a
+  // round trip through an integer, keeps the reads shared loads (LDS)
+  uint8_t* smem =
+      smem_raw + ((1024 - (tril_tma::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      tril_tma::mbar_init(full + s, 1);
+      tril_tma::mbar_init(empty + s, WARPS);
+    }
+    tril_tma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer
+    if (tid != CONSUMERS) return;
+    tril_tma::Ring ring;
+    for (Cursor c(plan, blockIdx.x); !c.done; c.next()) {
+      tril_tma::mbar_wait(empty + ring.slot, ring.phase ^ 1);
+      uint8_t* st = smem + ring.slot * STAGE_BYTES;
+      uint64_t* bar = full + ring.slot;
+      tril_tma::mbar_expect_tx(bar, STAGE_BYTES);
+      tril_tma::tma_load_3d(st, &mapA, bar, c.w.i * BT, c.s * BK, c.w.q);
+      tril_tma::tma_load_3d(st + TILE_BYTES, &mapB, bar, c.w.j * BT,
+                            c.s * BK, c.w.q);
+      ring.advance(STAGES);
+    }
+    return;
+  }
+
+  tril_tma::Ring ring;
+  for (int turn = 0; turn < plan.turns(blockIdx.x); ++turn) {
+    const Work w = plan.work(blockIdx.x, turn);
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+    for (int s = w.s0; s < w.s1; ++s) {
+      tril_tma::mbar_wait(full + ring.slot, ring.phase);
+      const float* As =
+          reinterpret_cast<const float*>(smem + ring.slot * STAGE_BYTES);
+      consume(As, As + BK * BT, acc, tid);
+      __syncwarp();
+      if (lane == 0) tril_tma::mbar_arrive(empty + ring.slot);
+      ring.advance(STAGES);
+    }
+
+    float4* part = reinterpret_cast<float4*>(partials);
+    if (w.role == WRITES_PARTIAL) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int i = x >> 1, h = x & 1;
+        part[f32_partial_at(w.slot, x, tid)] =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      }
+      __threadfence();
+      named_barrier(CONSUMER_BAR, CONSUMERS);
+      if (tid == 0) raise_flag(ready + w.slot);
+      continue;
+    }
+    if (w.role == ADDS_PARTIAL) {
+      if (tid == 0) {
+        for (int k = 0; k < w.parts - 1; ++k) wait_flag(ready + w.slot + k);
+      }
+      named_barrier(CONSUMER_BAR, CONSUMERS);
+      // ((partial 0 + partial 1) + ...) + this part's sum
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int i = x >> 1, h = x & 1;
+        float4 s = __ldcg(part + f32_partial_at(w.slot, x, tid));
+        for (int k = 1; k < w.parts - 1; ++k) {
+          const float4 p = __ldcg(part + f32_partial_at(w.slot + k, x, tid));
+          s.x += p.x;
+          s.y += p.y;
+          s.z += p.z;
+          s.w += p.w;
+        }
+        acc[i][4 * h] = s.x + acc[i][4 * h];
+        acc[i][4 * h + 1] = s.y + acc[i][4 * h + 1];
+        acc[i][4 * h + 2] = s.z + acc[i][4 * h + 2];
+        acc[i][4 * h + 3] = s.w + acc[i][4 * h + 3];
+      }
+    }
+
+    float* outq = out + (size_t)w.q * M * M;
+    const int m1_0 = w.i * BT, m2_0 = w.j * BT;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m1 = m1_0 + f32_row(tid, i);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m2 = m2_0 + f32_col(tid, 4 * h);
+        if (m1 < M && m2 < M) {  // M % 4 == 0: m2 + 3 < M too
+          float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                 acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          if (w.i == w.j) {
+            if (!keep(m1, m2)) v.x = 0.0f;
+            if (!keep(m1, m2 + 1)) v.y = 0.0f;
+            if (!keep(m1, m2 + 2)) v.z = 0.0f;
+            if (!keep(m1, m2 + 3)) v.w = 0.0f;
+          }
+          *reinterpret_cast<float4*>(outq + (size_t)m1 * M + m2) = v;
+        }
+        // the mirror tile above the diagonal
+        const int r = m2_0 + f32_row(tid, i), c = m1_0 + f32_col(tid, 4 * h);
+        if (w.i > w.j && r < M && c < M) {
+          *reinterpret_cast<float4*>(outq + (size_t)r * M + c) =
+              make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+    }
+  }
+}
+
+// ---- the three-pass wgmma design ("high") ----------------------------------
+
+namespace k8w {
+
+using namespace tril_out_plan;
+
+constexpr int BK = BK_3PASS;
+constexpr int TILE_BYTES = BK * BT * 4;  // float32, then its hi and lo
+constexpr int HALF = BK * 128;           // one BK x 64 bf16 box
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // A's tile, then B's
+constexpr int STAGES = 3;
+constexpr int STEPS = BK / 16;           // 16-deep steps of a stage
+constexpr int PRODUCER = 32;             // one warp; one thread loads
+constexpr int THREADS = CONSUMERS + SPLITTERS + PRODUCER;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 3 * STAGES * 8 + 1024;
+constexpr int SPLIT_BAR = 1;     // named barrier of the splitter warpgroup
+constexpr int CONSUMER_BAR = 2;  // and of the consumers (split tiles)
+static_assert(4 * HALF == TILE_BYTES, "hi and lo fill the float32 tile");
+
+__device__ uint32_t ready[MAX_SLOTS];
+
+// wgmma descriptor of a 128-byte-swizzled MN-major tile at p (1024-byte
+// aligned): K rows of 64 bf16 (128 bytes) of M or N, 8-row groups 1024
+// bytes apart (SBO), the second 64 columns HALF bytes on (LBO).  Adding
+// 128 moves it 16 rows deeper along K.
+__device__ __forceinline__ uint64_t mn_desc(const void* p) {
+  return (uint64_t)((tril_tma::smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(HALF >> 4) << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d (64 x 128 over the warpgroup) += a^T b: a the MN-major 16 x 64 tile
+// named by da, b the MN-major 16 x 128 tile named by db, both bf16 in
+// shared memory (wgmma transposes both).
+__device__ __forceinline__ void wgmma_tt(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One arrival on `bar` where `pred` holds, as a predicated instruction (a
+// branch around it, with products still running, would make ptxas
+// serialize them).
+__device__ __forceinline__ void arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(tril_tma::smem_addr(bar)),
+      "r"((int)pred)
+      : "memory");
+}
+
+}  // namespace k8w
+
+__global__ void __launch_bounds__(k8w::THREADS, 1)
+tril_out3_tma_kernel(const __grid_constant__ CUtensorMap mapA,
+                     const __grid_constant__ CUtensorMap mapB,
+                     float* __restrict__ out, float* __restrict__ partials,
+                     int M, const __grid_constant__ tril_out_plan::Plan plan) {
+  using namespace k8w;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: stages start on it
+  uint8_t* smem =
+      smem_raw + ((1024 - (tril_tma::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* split = full + STAGES;
+  uint64_t* empty = split + STAGES;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      tril_tma::mbar_init(full + s, 1);
+      tril_tma::mbar_init(split + s, SPLITTERS / 32);
+      tril_tma::mbar_init(empty + s, CONSUMERS / 32);
+    }
+    tril_tma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS + SPLITTERS) {  // the producer
+    if (tid != CONSUMERS + SPLITTERS) return;
+    tril_tma::Ring ring;
+    for (Cursor c(plan, blockIdx.x); !c.done; c.next()) {
+      tril_tma::mbar_wait(empty + ring.slot, ring.phase ^ 1);
+      uint8_t* st = smem + ring.slot * STAGE_BYTES;
+      uint64_t* bar = full + ring.slot;
+      tril_tma::mbar_expect_tx(bar, STAGE_BYTES);
+      tril_tma::tma_load_3d(st, &mapA, bar, c.w.i * BT, c.s * BK, c.w.q);
+      tril_tma::tma_load_3d(st + TILE_BYTES, &mapB, bar, c.w.j * BT,
+                            c.s * BK, c.w.q);
+      ring.advance(STAGES);
+    }
+    return;
+  }
+  if (tid >= CONSUMERS) {  // the splitter
+    const int t = tid - CONSUMERS;
+    tril_tma::Ring ring;
+    for (Cursor c(plan, blockIdx.x); !c.done; c.next()) {
+      tril_tma::mbar_wait(full + ring.slot, ring.phase);
+      uint8_t* st = smem + ring.slot * STAGE_BYTES;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {  // A's tile, then B's
+        uint8_t* lt = st + x * TILE_BYTES;
+        float4 v[SPLIT_VEC];
+#pragma unroll
+        for (int i = 0; i < SPLIT_VEC; ++i) {
+          v[i] = *reinterpret_cast<const float4*>(
+              lt + split_row(t, i) * (BT * 4) + split_c4(t, i) * 16);
+        }
+        named_barrier(SPLIT_BAR, SPLITTERS);  // every float of it read
+#pragma unroll
+        for (int i = 0; i < SPLIT_VEC; ++i) {
+          uint32_t h01, h23, l01, l23;
+          split2(make_float2(v[i].x, v[i].y), h01, l01);
+          split2(make_float2(v[i].z, v[i].w), h23, l23);
+          const int off = split_offset(split_row(t, i), split_c4(t, i));
+          *reinterpret_cast<uint2*>(lt + off) = make_uint2(h01, h23);
+          *reinterpret_cast<uint2*>(lt + 2 * HALF + off) =
+              make_uint2(l01, l23);
+        }
+      }
+      // the generic-proxy writes, before wgmma reads them (async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) tril_tma::mbar_arrive(split + ring.slot);
+      ring.advance(STAGES);
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g holds rows m1 in [64 g, 64 g + 64)
+  const int g = tid / 128;
+  tril_tma::Ring ring;
+  for (int turn = 0; turn < plan.turns(blockIdx.x); ++turn) {
+    const Work w = plan.work(blockIdx.x, turn);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    fence_acc(acc);
+    for (int s = w.s0; s < w.s1; ++s) {
+      tril_tma::mbar_wait(split + ring.slot, ring.phase);
+      const uint8_t* st = smem + ring.slot * STAGE_BYTES;
+      const uint64_t ahi = mn_desc(st + g * HALF);
+      const uint64_t alo = mn_desc(st + 2 * HALF + g * HALF);
+      const uint64_t bhi = mn_desc(st + TILE_BYTES);
+      const uint64_t blo = mn_desc(st + TILE_BYTES + 2 * HALF);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < STEPS; ++kk) {
+        wgmma_tt(acc, alo + 128 * kk, bhi + 128 * kk);  // the small terms
+        wgmma_tt(acc, ahi + 128 * kk, blo + 128 * kk);  // first
+        wgmma_tt(acc, ahi + 128 * kk, bhi + 128 * kk);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the stage before is done: release its slot
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      arrive_if(empty + (ring.slot + STAGES - 1) % STAGES,
+                lane == 0 && s > w.s0);
+      ring.advance(STAGES);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    arrive_if(empty + (ring.slot + STAGES - 1) % STAGES, lane == 0);
+
+    float2* part = reinterpret_cast<float2*>(partials);
+    if (w.role == WRITES_PARTIAL) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        part[acc_partial_at(w.slot, x, tid)] =
+            make_float2(acc[2 * x], acc[2 * x + 1]);
+      }
+      __threadfence();
+      named_barrier(CONSUMER_BAR, CONSUMERS);
+      if (tid == 0) raise_flag(ready + w.slot);
+      continue;
+    }
+    if (w.role == ADDS_PARTIAL) {
+      if (tid == 0) {
+        for (int k = 0; k < w.parts - 1; ++k) wait_flag(ready + w.slot + k);
+      }
+      named_barrier(CONSUMER_BAR, CONSUMERS);
+      // ((partial 0 + partial 1) + ...) + this part's sum
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        float2 s = __ldcg(part + acc_partial_at(w.slot, x, tid));
+        for (int k = 1; k < w.parts - 1; ++k) {
+          const float2 p = __ldcg(part + acc_partial_at(w.slot + k, x, tid));
+          s.x += p.x;
+          s.y += p.y;
+        }
+        acc[2 * x] = s.x + acc[2 * x];
+        acc[2 * x + 1] = s.y + acc[2 * x + 1];
+      }
+    }
+
+    // accumulator 4 j + 2 h + e: row acc_row(tid, 2 h), column
+    // acc_col(tid, 4 j) + e
+    float* outq = out + (size_t)w.q * M * M;
+    const int m1_0 = w.i * BT, m2_0 = w.j * BT;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = acc_row(tid, 2 * h);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = acc_col(tid, 4 * j);
+        const int m1 = m1_0 + r, m2 = m2_0 + c;
+        if (m1 < M && m2 < M) {  // M % 4 == 0, m2 even: m2 + 1 < M too
+          float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          if (w.i == w.j) {
+            if (!keep(m1, m2)) v.x = 0.0f;
+            if (!keep(m1, m2 + 1)) v.y = 0.0f;
+          }
+          *reinterpret_cast<float2*>(outq + (size_t)m1 * M + m2) = v;
+        }
+        // the mirror tile above the diagonal
+        if (w.i > w.j && m2_0 + r < M && m1_0 + c < M) {
+          *reinterpret_cast<float2*>(outq + (size_t)(m2_0 + r) * M + m1_0 +
+                                     c) = make_float2(0.0f, 0.0f);
+        }
+      }
+    }
+  }
+}
+
+// Plain C entry points, bound with ctypes.  Each launches on `stream`, does
+// not synchronise, and returns cudaGetLastError() (0 on success), or a
+// negative CUresult when a tensor map cannot be encoded.  The caller checks
+// shapes, dtype, contiguity and device, and N > 0.  Launches of one design
+// in one process on one device must not overlap: they share the split
+// tiles' flags.
+
+namespace {
+
+int bk_of(int three) {
+  return three ? tril_out_plan::BK_3PASS : tril_out_plan::BK_F32;
+}
+
+bool bad_shape(int Q, int N, int M) {
+  return Q <= 0 || N <= 0 || M <= 0 ||
+         (long long)Q * ((M + 127) / 128) * ((M + 127) / 128 + 1) / 2 >
+             2147483647LL;
+}
+
+template <typename Kernel>
+int launch_tma(Kernel kernel, int smem_bytes, int threads, bool& attr_set,
+               const float* A, const float* B, float* out, float* partials,
+               int Q, int N, int M, int three, cudaStream_t stream) {
+  using namespace tril_out_plan;
+  if (bad_shape(Q, N, M) || M % 4 != 0) return (int)cudaErrorInvalidValue;
+  const Plan plan = make_plan(Q, N, M, bk_of(three), tril_tma::sm_count());
+  if (plan.slots() && partials == nullptr) return (int)cudaErrorInvalidValue;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  CUtensorMap mapA, mapB;
+  const int bk = bk_of(three);
+  int err = tril_tma::encode_3d(&mapA, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, A, M,
+                                N, Q, 4ull * M, 4ull * N * M, BT, bk,
+                                CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  err = tril_tma::encode_3d(&mapB, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, B, M, N,
+                            Q, 4ull * M, 4ull * N * M, BT, bk,
+                            CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  kernel<<<plan.G, threads, smem_bytes, stream>>>(mapA, mapB, out, partials,
+                                                  M, plan);
+  return (int)cudaGetLastError();
+}
+
+template <bool THREE>
+int launch_generic(const float* A, const float* B, float* out, int Q, int N,
+                   int M, cudaStream_t stream) {
+  if (bad_shape(Q, N, M) || Q > 65535) return (int)cudaErrorInvalidValue;
+  const long long C = (M + GT - 1) / GT;
+  const dim3 grid((unsigned)(C * (C + 1) / 2), Q);
+  tril_out_generic_kernel<THREE><<<grid, GTHREADS, 0, stream>>>(A, B, out, N,
+                                                                M);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of partial-sum scratch a TMA launch at (Q, N, M) needs (`three`:
+// the three-pass design): one 128 x 128 tile a split partial, 0 where the
+// plan splits none.
+extern "C" long long hetmogp_tril_out_partials(int Q, int N, int M,
+                                               int three) {
+  using namespace tril_out_plan;
+  if (bad_shape(Q, N, M)) return 0;
+  const Plan p = make_plan(Q, N, M, bk_of(three), tril_tma::sm_count());
+  return (long long)p.slots() * BT * BT;
+}
+
+// The schedule at (Q, N, M) on `sms` SMs: blocks, whole turns, tiles of
+// the last turn, their parts, the busiest block's stages and all blocks'
+// stages.  For chip_smoke.py's report.
+extern "C" int hetmogp_tril_out_schedule(int Q, int N, int M, int three,
+                                         int sms, long long* out6) {
+  using namespace tril_out_plan;
+  if (bad_shape(Q, N, M) || sms <= 0) return -1;
+  const Plan p = make_plan(Q, N, M, bk_of(three), sms);
+  long long total = 0;
+  for (int b = 0; b < p.G; ++b) total += block_stages(p, b);
+  out6[0] = p.G;
+  out6[1] = p.F;
+  out6[2] = p.rem;
+  out6[3] = p.P;
+  out6[4] = busiest(p);
+  out6[5] = total;
+  return 0;
+}
+
+// The FFMA design: M % 4 == 0 and A, B and out 16-byte aligned.
+extern "C" int hetmogp_tril_out_f32(const float* A, const float* B,
+                                    float* out, float* partials, int Q, int N,
+                                    int M, cudaStream_t stream) {
+  static bool attr_set = false;
+  return launch_tma(tril_out_tma_kernel, k8f::SMEM_BYTES, k8f::THREADS,
+                    attr_set, A, B, out, partials, Q, N, M, 0, stream);
+}
+
+// The three-pass wgmma design: M % 4 == 0 and A, B and out 16-byte aligned.
+extern "C" int hetmogp_tril_out3_f32(const float* A, const float* B,
+                                     float* out, float* partials, int Q,
+                                     int N, int M, cudaStream_t stream) {
+  static bool attr_set = false;
+  return launch_tma(tril_out3_tma_kernel, k8w::SMEM_BYTES, k8w::THREADS,
+                    attr_set, A, B, out, partials, Q, N, M, 1, stream);
+}
+
+// The generic designs, for any shape.
+extern "C" int hetmogp_tril_out_generic_f32(const float* A, const float* B,
+                                            float* out, int Q, int N, int M,
+                                            cudaStream_t stream) {
+  return launch_generic<false>(A, B, out, Q, N, M, stream);
+}
+
+extern "C" int hetmogp_tril_out3_generic_f32(const float* A, const float* B,
+                                             float* out, int Q, int N, int M,
+                                             cudaStream_t stream) {
+  return launch_generic<true>(A, B, out, Q, N, M, stream);
+}

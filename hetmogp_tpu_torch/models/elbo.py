@@ -170,16 +170,20 @@ def latent_projections(params: SVMOGPParams, config: ModelConfig,
                                  use_kernel=use_kernel)
     if config.whiten:
         mean_q = (P @ m_u[..., None])[..., 0]
-        gamma_q = (kdiag + linalg.quad_diag(P, Lq, use_kernel=use_kernel)
-                   - torch.sum(torch.square(P), dim=-1))
+        quad = linalg.quad_diag(P, Lq,
+                                precision=config.projection_precision,
+                                use_kernel=use_kernel)
+        gamma_q = kdiag + quad - torch.sum(torch.square(P), dim=-1)
     else:
         if iLuu is None:
             A = linalg.solve_tri(Luu, P.mT, trans=True).mT
         else:
             A = linalg.matmul_tril(P, iLuu, use_kernel=use_kernel)
         mean_q = (A @ m_u[..., None])[..., 0]
-        gamma_q = (kdiag + linalg.quad_diag(A, Lq, use_kernel=use_kernel)
-                   - torch.sum(A * Kfu, dim=-1))
+        quad = linalg.quad_diag(A, Lq,
+                                precision=config.projection_precision,
+                                use_kernel=use_kernel)
+        gamma_q = kdiag + quad - torch.sum(A * Kfu, dim=-1)
     return mean_q, gamma_q, kdiag
 
 

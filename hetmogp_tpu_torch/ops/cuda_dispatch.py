@@ -25,10 +25,12 @@ in float32 and kernel 5 in three bf16 passes (the VM step's cached
 adjoints at ``"high"``).  ``quad_diag`` is kernel 4 with its row sum of
 squares fused: the row sums alone when no input needs a gradient (the
 product never reaches memory), the product and the row sums otherwise,
-in an ``autograd.Function`` whose backward is kernel A and a dense
-matmul.  ``"high"`` on float64 takes the full-precision route: the 3-pass
-split is a float32 scheme, and the JAX package's ``Precision.HIGH`` is a
-no-op in float64 as well.
+in an ``autograd.Function`` whose backward is kernel A (gA) and kernel 8
+(gL at ``precision``).  ``t_matmul_tril_out``, tril(A^T B) with only the
+lower tiles formed, is kernel 8 in float32 and in three bf16 passes at
+``"high"``.  ``"high"`` on float64 takes the full-precision route: the
+3-pass split is a float32 scheme, and the JAX package's
+``Precision.HIGH`` is a no-op in float64 as well.
 """
 
 from __future__ import annotations
@@ -100,12 +102,26 @@ def matmul_tril(A, L, *, precision: str = "highest", use_kernel: bool = True):
     return cuda_kernels.matmul_tril_plain(A, L)
 
 
-def quad_diag(A, L, *, use_kernel: bool = True):
+def quad_diag(A, L, *, precision: str = "highest", use_kernel: bool = True):
     from hetmogp_tpu_torch.ops import cuda_kernels
 
+    _check_precision(precision)
     use_tril_kernel(A, use_kernel)  # a CUDA tensor of another dtype raises
     if not use_kernel:
         return cuda_kernels.quad_diag_plain(A, L)
     if torch.is_grad_enabled() and (A.requires_grad or L.requires_grad):
-        return cuda_kernels.QuadDiag.apply(A, L)
+        return cuda_kernels.QuadDiag.apply(A, L, precision)
     return torch.ops.hetmogp.quad_diag(A, L)
+
+
+def t_matmul_tril_out(A, B, *, precision: str = "highest",
+                      use_kernel: bool = True):
+    from hetmogp_tpu_torch.ops import cuda_kernels
+
+    _check_precision(precision)
+    use_tril_kernel(A, use_kernel)  # a CUDA tensor of another dtype raises
+    if use_kernel:
+        return cuda_kernels._tril_out_op(A, B, precision)
+    if precision == "high" and A.dtype == torch.float32:
+        return cuda_kernels.t_matmul_tril_out_3pass_plain(A, B)
+    return cuda_kernels.t_matmul_tril_out_plain(A, B)

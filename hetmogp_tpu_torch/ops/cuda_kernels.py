@@ -3,8 +3,8 @@
 Counterpart of ``hetmogp_tpu/ops/pallas_kernels.py``, of the two Pallas
 projections of ``tools/probe_pallas_proj.py`` and of the JAX package's
 hand-blocked triangular products (``hetmogp_tpu/ops/linalg.py``:
-``matmul_tril``, ``quad_diag`` and the cached adjoints at
-``Precision.HIGH``).  The kernels are ``csrc/rbf_kernel.cu`` (the RBF
+``matmul_tril``, ``quad_diag``, ``t_matmul_tril_out`` and the cached
+adjoints at ``Precision.HIGH``).  The kernels are ``csrc/rbf_kernel.cu`` (the RBF
 cross-covariance, in two designs chosen by shape, ``rbf_route``: float4
 stores from blocks that walk rows, and the scalar one of the first port),
 ``csrc/tril_proj_kernel.cu`` (kernel A: the triangular projection
@@ -20,10 +20,14 @@ diagonal stages below them and masks one; its index arithmetic, in
 ``csrc/tril_right_plan.cuh``, is walked on the CPU by
 ``tests/test_torch_tril_right_plan.py``, and ``chip_smoke.py``'s
 ``right_products_phase`` holds its product bitwise to cuBLAS's on the
-card), each triangular product in two designs, a TMA-fed one (sharing
+card), ``csrc/tril_out_kernel.cu`` (kernel 8: tril(A^T B), the lower
+tiles alone, in float32 FFMA and in three bf16 wgmma passes, A and B
+split in shared memory; its schedule, in ``csrc/tril_out_plan.cuh``, is
+walked on the CPU by ``tests/test_torch_tril_out_plan.py``), each
+triangular product in two designs, a TMA-fed one (sharing
 ``csrc/tril_tma.cuh`` and the schedule of ``csrc/tril_tiles.cuh``) and a
-register-staged one (the first port's for A and 3, a generic one for 4
-and 5), chosen by shape (``tril_route``); and,
+register-staged one (the first port's for A and 3, a generic one for 4,
+5 and 8), chosen by shape (``tril_route``, ``tril_out_route``); and,
 for the XLA fusions of the JAX package's trainer,
 ``csrc/ve_tasks_kernel.cu`` (kernel 6: the ELBO's likelihood term of every
 task in the task table, each row's variational expectation and
@@ -48,25 +52,29 @@ For each kernel:
   ``tril_projection_tma``, ``tril_projection_staged``,
   ``tril_projection_3pass_tma``, ``tril_projection_3pass_staged``,
   ``tril_right_tma``, ``tril_right_generic``, ``tril_right3_tma``,
-  ``tril_right3_generic``) runs it on float32 CUDA tensors, counts its
-  launches in ``<launcher>.launches``, and refuses inputs that require
-  grad: it records no graph; ``rbf_K_batched``, ``tril_projection``,
-  ``tril_projection_3pass``, ``tril_right`` and ``tril_right3`` route to
-  the launcher of the shape;
+  ``tril_right3_generic``, ``tril_out_tma``, ``tril_out_generic``,
+  ``tril_out3_tma``, ``tril_out3_generic``) runs it on float32 CUDA
+  tensors, counts its launches in ``<launcher>.launches``, and refuses
+  inputs that require grad: it records no graph; ``rbf_K_batched``,
+  ``tril_projection``, ``tril_projection_3pass``, ``tril_right``,
+  ``tril_right3``, ``tril_out`` and ``tril_out3`` route to the launcher
+  of the shape;
 * the plain version (``*_plain``) is what CPU tensors take and what the
   kernel is checked against on the card;
 * a custom operator (``hetmogp::rbf_K_batched``,
   ``hetmogp::tril_projection``, ``hetmogp::tril_projection_3pass``,
   ``hetmogp::matmul_tril``, ``hetmogp::matmul_tril_3pass``,
-  ``hetmogp::quad_diag``, ``hetmogp::quad_diag_product``) whose CUDA
-  implementation is the router and whose CPU implementation is the plain
-  version, so that ``torch.export`` keeps the kernels in an exported
-  graph;
+  ``hetmogp::quad_diag``, ``hetmogp::quad_diag_product``,
+  ``hetmogp::t_matmul_tril_out``, ``hetmogp::t_matmul_tril_out_3pass``)
+  whose CUDA implementation is the router and whose CPU implementation is
+  the plain version, so that ``torch.export`` keeps the kernels in an
+  exported graph;
 * an ``autograd.Function`` (``RBFCrossCovariance``, ``TrilProjection``,
   ``TrilProjection3Pass``, ``MatmulTril``, ``MatmulTril3Pass``,
   ``QuadDiag``) runs the operator forward and a backward of plain PyTorch
   and the other triangular kernels (the projection's dA is kernel 4, the
-  right product's and quad_diag's dA kernel A).  The JAX package
+  right product's and quad_diag's dA kernel A, every dL kernel 8 at the
+  forward's precision).  The JAX package
   differentiates its Pallas RBF with XLA einsums (``_rbf_bwd``), so
   ``rbf_K_batched_bwd`` is that algebra on tensors.
 """
@@ -119,6 +127,11 @@ def _library() -> ctypes.CDLL:
         # A, L, out, partials; Q, N, M
         "hetmogp_tril_right3_f32": proj + [ctypes.c_void_p] + shape,
         "hetmogp_tril_right3_generic_f32": proj + shape,
+        # A, B, out, partials; Q, N, M
+        "hetmogp_tril_out_f32": proj + [ctypes.c_void_p] + shape,
+        "hetmogp_tril_out3_f32": proj + [ctypes.c_void_p] + shape,
+        "hetmogp_tril_out_generic_f32": proj + shape,
+        "hetmogp_tril_out3_generic_f32": proj + shape,
         # family, J; m, v, y; their row strides; nodes, w; S, N; value,
         # Ed1, Ed2
         "hetmogp_gh_sweep_f32": sweep,
@@ -148,6 +161,11 @@ def _library() -> ctypes.CDLL:
     lib.hetmogp_tril_right_partials.restype = ctypes.c_int
     lib.hetmogp_tril_right3_partials.argtypes = [ctypes.c_int] * 3
     lib.hetmogp_tril_right3_partials.restype = ctypes.c_longlong
+    lib.hetmogp_tril_out_partials.argtypes = [ctypes.c_int] * 4
+    lib.hetmogp_tril_out_partials.restype = ctypes.c_longlong
+    lib.hetmogp_tril_out_schedule.argtypes = ([ctypes.c_int] * 5
+                                              + [ctypes.c_void_p])
+    lib.hetmogp_tril_out_schedule.restype = ctypes.c_int
     return lib
 
 
@@ -460,14 +478,15 @@ def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     return _routed(A, L, tril_projection_tma, tril_projection_staged)
 
 
-def _backward_tril(ctx, g):
+def _backward_tril(ctx, g, precision="highest"):
     """dA = g tril(L) (kernel 4's operator, ``hetmogp::matmul_tril``),
-    dL = tril(g^T A) (a dense matmul and a mask): the projection's
-    float32 backward."""
+    dL = tril(g^T A) (kernel 8's operator of ``precision``): the
+    projection's backward."""
     A, L = ctx.saved_tensors
     dA = torch.ops.hetmogp.matmul_tril(g, L) if ctx.needs_input_grad[0] \
         else None
-    dL = torch.tril(g.mT @ A) if ctx.needs_input_grad[1] else None
+    dL = _tril_out_op(g, A.detach(), precision) \
+        if ctx.needs_input_grad[1] else None
     return dA, dL
 
 
@@ -475,7 +494,7 @@ class TrilProjection(torch.autograd.Function):
     """A tril(L)^T with a gradient: the operator ``hetmogp::tril_projection``
     forward (the routed kernel for a CUDA tensor, the plain version for a
     CPU one); the backward dA = g tril(L) by kernel 4's operator,
-    dL = tril(g^T A) as a matmul."""
+    dL = tril(g^T A) by kernel 8's."""
 
     @staticmethod
     def forward(ctx, A, L):
@@ -585,7 +604,7 @@ class TrilProjection3Pass(torch.autograd.Function):
     ``hetmogp::tril_projection_3pass`` forward (the routed 3-pass kernel
     for a CUDA tensor, the plain version for a CPU one; the plain version
     without the operator where ``use_kernel`` is False), and
-    ``TrilProjection``'s float32 backward."""
+    ``TrilProjection``'s backward with dL in three passes."""
 
     @staticmethod
     def forward(ctx, A, L, use_kernel=True):
@@ -596,7 +615,7 @@ class TrilProjection3Pass(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*_backward_tril(ctx, g), None)
+        return (*_backward_tril(ctx, g, "high"), None)
 
 
 # ---- A tril(L): the right product, and quad_diag ---------------------------
@@ -767,21 +786,23 @@ def tril_right3(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     return _routed(A, L, tril_right3_tma, tril_right3_generic)
 
 
-def _backward_right(ctx, g):
+def _backward_right(ctx, g, precision="highest"):
     """dA = g tril(L)^T (kernel A's operator, ``hetmogp::tril_projection``),
-    dL = tril(A^T g) (a dense matmul and a mask): the right product's
-    float32 backward."""
+    dL = tril(A^T g) (kernel 8's operator of ``precision``): the right
+    product's backward."""
     A, L = ctx.saved_tensors[:2]
     dA = torch.ops.hetmogp.tril_projection(g.contiguous(), L) \
         if ctx.needs_input_grad[0] else None
-    dL = torch.tril(A.mT @ g) if ctx.needs_input_grad[1] else None
+    dL = _tril_out_op(A.detach(), g, precision) \
+        if ctx.needs_input_grad[1] else None
     return dA, dL
 
 
 class MatmulTril(torch.autograd.Function):
     """A tril(L) with a gradient: the operator ``hetmogp::matmul_tril``
     forward (kernel 4 for a CUDA tensor, the plain version for a CPU one);
-    backward dA = g tril(L)^T by kernel A's operator, dL = tril(A^T g)."""
+    backward dA = g tril(L)^T by kernel A's operator, dL = tril(A^T g) by
+    kernel 8's."""
 
     @staticmethod
     def forward(ctx, A, L):
@@ -795,8 +816,8 @@ class MatmulTril3Pass(torch.autograd.Function):
     """A tril(L) in three bf16 passes with a gradient: the operator
     ``hetmogp::matmul_tril_3pass`` forward (kernel 5 for a CUDA tensor, the
     plain version for a CPU one; the plain version without the operator
-    where ``use_kernel`` is False), and ``MatmulTril``'s float32
-    backward."""
+    where ``use_kernel`` is False), and ``MatmulTril``'s backward with dL
+    in three passes."""
 
     @staticmethod
     def forward(ctx, A, L, use_kernel=True):
@@ -807,30 +828,193 @@ class MatmulTril3Pass(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*_backward_right(ctx, g), None)
+        return (*_backward_right(ctx, g, "high"), None)
 
 
 class QuadDiag(torch.autograd.Function):
     """quad_diag(A, L) = sum_k (A tril(L))[..., k]^2 with a gradient: the
     operator ``hetmogp::quad_diag_product`` forward (kernel 4's "both"
-    epilogue, which keeps A tril(L) for the backward), and the backward of
-    the JAX package's ``_quad_diag_train_bwd``'s A half and its
-    ``_quad_diag_jvp``'s L half: with dAL = 2 g AL, gA = dAL tril(L)^T by
-    kernel A's operator, gL = tril(A^T dAL) as a dense matmul and a mask.
-    Only the cotangents asked for are formed (a VE step asks for gL
-    alone).  Without a gradient, ``hetmogp::quad_diag`` (the "rowsum"
-    epilogue, no product stored) takes its place."""
+    epilogue in float32, which keeps A tril(L) for the backward), and the
+    backward of the JAX package's ``_quad_diag_train_bwd``: with
+    dAL = 2 g AL, gA = dAL tril(L)^T by kernel A's operator, gL =
+    tril(A^T dAL) by kernel 8's (``t_matmul_tril_out``) at ``precision``,
+    the lower tiles alone.  Only the cotangents asked for are formed (a VE
+    step asks for gL alone).  Without a gradient, ``hetmogp::quad_diag``
+    (the "rowsum" epilogue, no product stored) takes its place."""
 
     @staticmethod
-    def forward(ctx, A, L):
+    def forward(ctx, A, L, precision="highest"):
         AL, r = torch.ops.hetmogp.quad_diag_product(A.detach(), L.detach())
         ctx.save_for_backward(A, L, AL)
+        ctx.precision = precision
         return r
 
     @staticmethod
     def backward(ctx, g):
         AL = ctx.saved_tensors[2]
-        return _backward_right(ctx, 2.0 * g[..., None] * AL)
+        return (*_backward_right(ctx, 2.0 * g[..., None] * AL,
+                                 ctx.precision), None)
+
+
+# ---- kernel 8: tril(A^T B), the lower tiles only ---------------------------
+#
+# csrc/tril_out_kernel.cu in float32 FFMA ("highest") and in three bf16
+# wgmma passes ("high"), each with a TMA-fed route and a generic one,
+# chosen by ``tril_out_route``; each launcher counts its own launches, and
+# nothing falls back.
+
+def tril_out_route(M: int, aligned: bool) -> str:
+    """The kernel a tril(A^T B) of ``M`` columns takes on the card:
+    ``"tma"`` when M % 4 == 0 and the operands start on 16-byte
+    boundaries (``aligned``), else ``"generic"``: ``tril_route``'s rule,
+    which ``_routed`` applies."""
+    return "tma" if tril_route(M, aligned) == "tma" else "generic"
+
+
+def t_matmul_tril_out_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 8: tril(A^T B), (..., N, M), (..., N, M) ->
+    (..., M, M)."""
+    return torch.tril(A.mT @ B)
+
+
+def t_matmul_tril_out_3pass_plain(A: torch.Tensor,
+                                  B: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 8's three passes: tril of three float32
+    products of the bit-mask split, (alo^T bhi + ahi^T blo) + ahi^T bhi
+    (``split_bf16``).  Float32 only."""
+    if A.dtype != torch.float32 or B.dtype != torch.float32:
+        raise TypeError(f"the 3-pass product splits float32 only, got "
+                        f"{A.dtype} and {B.dtype}")
+    ahi, alo = split_bf16(A.detach())
+    bhi, blo = split_bf16(B.detach())
+    return torch.tril((alo.mT @ bhi + ahi.mT @ blo) + ahi.mT @ bhi)
+
+
+def _tril_out_op(A: torch.Tensor, B: torch.Tensor,
+                 precision: str) -> torch.Tensor:
+    """tril(A^T B) through kernel 8's operator: the three-pass one at
+    ``"high"`` for float32, the float32 one otherwise (float64 ignores the
+    precision).  The operators record no backward: a gradient through
+    them raises."""
+    three = precision == "high" and A.dtype == torch.float32
+    op = (torch.ops.hetmogp.t_matmul_tril_out_3pass if three
+          else torch.ops.hetmogp.t_matmul_tril_out)
+    return op(A, B)
+
+
+def _out_launch(wrapper, entry: str, A, B, tma: bool,
+                three: bool) -> torch.Tensor:
+    """Check (A, B), launch kernel 8's ``entry`` (TMA-fed or generic,
+    float32 or three passes) on the current stream and count the launch
+    on ``wrapper``."""
+    name = wrapper.__name__
+    _check_launch_inputs(name, (A, B))
+    if A.ndim != 3 or B.shape != A.shape:
+        raise ValueError(f"A and B must both be (Q, N, M); got "
+                         f"{tuple(A.shape)} and {tuple(B.shape)}")
+    Q, N, M = A.shape
+    if Q > 65535 or N >= 2 ** 31 or M >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: Q={Q}, N={N}, "
+                         f"M={M} (Q <= 65535)")
+    A, B = A.contiguous(), B.contiguous()
+    out = torch.empty((Q, M, M), dtype=torch.float32, device=A.device)
+    if out.numel() == 0:
+        return out
+    if N == 0:  # a sum over no rows
+        return out.zero_()
+    aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (A, B, out))
+    lib = _library()
+    extra = ()
+    if tma:
+        if tril_out_route(M, aligned) != "tma":
+            raise ValueError(
+                f"{name} takes M % 4 == 0 and 16-byte-aligned operands (got "
+                f"M={M}); tril_out_route sends other shapes to the generic "
+                "kernel")
+        # the last turn's split partials (torch.empty: the graph's pool
+        # under capture)
+        floats = lib.hetmogp_tril_out_partials(Q, N, M, int(three))
+        part = (torch.empty(floats, dtype=torch.float32, device=A.device)
+                if floats else None)
+        extra = (None if part is None else part.data_ptr(),)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = getattr(lib, entry)(A.data_ptr(), B.data_ptr(), out.data_ptr(),
+                                  *extra, Q, N, M, stream)
+    _raise_on(err, name)
+    wrapper.launches += 1
+    return out
+
+
+def tril_out_tma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Kernel 8's FFMA design (``hetmogp_tril_out_f32``,
+    ``csrc/tril_out_kernel.cu``): tril(A^T B) in full float32 for
+    M % 4 == 0 and 16-byte-aligned operands, only the lower tiles formed.
+    Where its schedule cuts the last turn's tiles into parts, a float32
+    scratch of ``hetmogp_tril_out_partials`` floats carries the parts'
+    sums to the block that adds them.  Counts its launches in
+    ``tril_out_tma.launches``."""
+    return _out_launch(tril_out_tma, "hetmogp_tril_out_f32", A, B, tma=True,
+                       three=False)
+
+
+tril_out_tma.launches = 0
+
+
+def tril_out_generic(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Kernel 8's generic design in float32
+    (``hetmogp_tril_out_generic_f32``), for any shape.  Counts its
+    launches in ``tril_out_generic.launches``."""
+    return _out_launch(tril_out_generic, "hetmogp_tril_out_generic_f32", A,
+                       B, tma=False, three=False)
+
+
+tril_out_generic.launches = 0
+
+
+def tril_out3_tma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Kernel 8's wgmma design (``hetmogp_tril_out3_f32``): tril(A^T B) in
+    three bf16 passes of the bit-mask split for M % 4 == 0 and
+    16-byte-aligned operands; both operands arrive as float32 and are
+    split in shared memory.  Counts its launches in
+    ``tril_out3_tma.launches``."""
+    return _out_launch(tril_out3_tma, "hetmogp_tril_out3_f32", A, B,
+                       tma=True, three=True)
+
+
+tril_out3_tma.launches = 0
+
+
+def tril_out3_generic(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Kernel 8's generic design in three passes
+    (``hetmogp_tril_out3_generic_f32``), for any shape.  Counts its
+    launches in ``tril_out3_generic.launches``."""
+    return _out_launch(tril_out3_generic, "hetmogp_tril_out3_generic_f32",
+                       A, B, tma=False, three=True)
+
+
+tril_out3_generic.launches = 0
+
+
+def tril_out(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """out[q, m1, m2] = sum_n A[q, n, m1] B[q, n, m2] for m1 >= m2, exact
+    zeros above the diagonal, on the card (deterministic: no atomics).
+
+    A, B: (Q, N, M) float32 on one CUDA device.  Full float32 (no TF32).
+    Routed by ``tril_out_route`` to ``tril_out_tma`` or
+    ``tril_out_generic``; launches on the current stream and does not
+    synchronise.  The CUDA implementation of the operator
+    ``hetmogp::t_matmul_tril_out``.
+    """
+    return _routed(A, B, tril_out_tma, tril_out_generic)
+
+
+def tril_out3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """tril(A^T B) on the card's tensor cores in three bf16 passes of the
+    bit-mask split (lo*hi + hi*lo + hi*hi, float32 accumulation): the
+    backward's L cotangents at ``"high"``.  Routed by ``tril_out_route``
+    to ``tril_out3_tma`` or ``tril_out3_generic``."""
+    return _routed(A, B, tril_out3_tma, tril_out3_generic)
 
 
 # ---- kernel 6: the one-pass Gauss-Hermite sweep -----------------------------
@@ -1300,14 +1484,19 @@ _register("quad_diag", quad_diag_plain,
 _register("quad_diag_product", quad_diag_product_plain,
           lambda A, L: tril_right(A, L, "both"),
           lambda A, L: [A.shape, A.shape[:-1]])
+_register("t_matmul_tril_out", t_matmul_tril_out_plain, tril_out,
+          lambda A, B: (*A.shape[:-2], A.shape[-1], A.shape[-1]))
+_register("t_matmul_tril_out_3pass", t_matmul_tril_out_3pass_plain,
+          tril_out3, lambda A, B: (*A.shape[:-2], A.shape[-1], A.shape[-1]))
 
 
 _LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,
               tril_projection_staged, tril_projection_3pass_tma,
               tril_projection_3pass_staged, tril_right_tma,
               tril_right_generic, tril_right3_tma, tril_right3_generic,
-              gh_sweep, gh_sweep_value, task_var_exp, task_var_exp_value,
-              task_var_exp_backward, adam_update)
+              tril_out_tma, tril_out_generic, tril_out3_tma,
+              tril_out3_generic, gh_sweep, gh_sweep_value, task_var_exp,
+              task_var_exp_value, task_var_exp_backward, adam_update)
 
 
 def launch_counts() -> dict:

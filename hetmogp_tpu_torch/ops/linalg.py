@@ -16,11 +16,17 @@ that skip them too (``ops/cuda_dispatch.py`` decides):
   ``precision="high"``;
 * ``matmul_tril`` and ``tril_t_matmul``, A tril(L) and tril(L)^T B:
   kernel 4 (``csrc/tril_right_kernel.cu``) in float32, kernel 5
-  (``csrc/tril_proj3_kernel.cu``) in three bf16 passes at ``"high"``;
-* ``quad_diag``: kernel 4 with the square and the row sum fused.
+  (``csrc/tril_right3_kernel.cu``) in three bf16 passes at ``"high"``;
+* ``quad_diag``: kernel 4 with the square and the row sum fused, its L
+  gradient kernel 8;
+* ``t_matmul_tril_out``, tril(A^T B) with only the lower tiles formed:
+  kernel 8 (``csrc/tril_out_kernel.cu``) in float32, or in three bf16
+  passes at ``"high"`` (the L cotangents of ``quad_diag``, of
+  ``solve_tri_cached`` and of the products above).
 
-``tril_matmul`` stays a masked cuBLAS product, as does every product
-without a triangular operand (the Lbar of ``solve_tri_cached``).  Float32
+``tri_inverse`` is ``rec_tri_inverse``, the JAX package's recursive
+blocked inverse: one batched ``trsm`` at the leaves, then its corners as
+kernels 4 and A.  ``tril_matmul`` stays a masked cuBLAS product.  Float32
 matmuls must run in full float32: TF32 ruins the projection P = Kfu @
 iLuu^T (see ``models/elbo.py``), so nothing here may run under
 ``torch.set_float32_matmul_precision("high")`` (TF32, not the 3-pass
@@ -176,11 +182,46 @@ def cho_solve_batched(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return solve_tri(L, solve_tri(L, B), trans=True)
 
 
+def rec_tri_inverse(L: torch.Tensor, leaf: int = 128) -> torch.Tensor:
+    """tril(L)^{-1} of (..., m, m) lower-triangular L, by recursive
+    blocking: the JAX package's ``rec_tri_inverse``.
+
+    inv([[A, 0], [B, C]]) = [[iA, 0], [-iC B iA, iC]].  The two half-size
+    inverses are independent, so each level stacks A and C into the batch
+    axis (a contiguous copy): one batched triangular solve against I at
+    the leaves (m <= ``leaf`` or m odd), then per level the corner as two
+    triangular products of the level's whole batch, flattened into their
+    Q: X = B tril(iA) (``matmul_tril``: kernel 4 for CUDA float32) and
+    iC X = (X^T tril(iC)^T)^T (``matmul_tril_t``: kernel A), in full
+    float32 as the JAX package's ``_CHOL = HIGHEST``.  Float64 takes the
+    products' plain versions.  At M = 1024: leaves of 32 blocks of 128 at
+    Q = 4, then products at (16, 128, 128), (8, 256, 256) and
+    (4, 512, 512).  A NaN in L (a failed factorization) gives NaNs in
+    every block it reaches; no host synchronisation, so a captured graph
+    takes it.
+    """
+    m = L.shape[-1]
+    if m <= leaf or m % 2:
+        eye = torch.eye(m, dtype=L.dtype, device=L.device)
+        return torch.linalg.solve_triangular(L, eye.expand_as(L),
+                                             upper=False)
+    h = m // 2
+    inv = rec_tri_inverse(torch.stack([L[..., :h, :h], L[..., h:, h:]]),
+                          leaf=leaf)
+    iA, iC = inv[0], inv[1]
+    kw = dict(use_kernel=L.dtype == torch.float32)
+    X = matmul_tril(L[..., h:, :h].reshape(-1, h, h), iA.reshape(-1, h, h),
+                    **kw)
+    corner = -matmul_tril_t(X.mT, iC.reshape(-1, h, h), **kw).mT
+    top = torch.cat([iA, torch.zeros_like(iA)], dim=-1)
+    bottom = torch.cat([corner.reshape(iC.shape), iC], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
 def tri_inverse(L: torch.Tensor) -> torch.Tensor:
-    """tril(L)^{-1} of (..., M, M) lower-triangular L, by a triangular
-    solve against I (``trsm``; the JAX package's ``rec_tri_inverse``)."""
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    """tril(L)^{-1} of (..., M, M) lower-triangular L: ``rec_tri_inverse``
+    (kernels 4 and A around a batched ``trsm`` of the leaves)."""
+    return rec_tri_inverse(L)
 
 
 def blocked_cholesky_inverse(K: torch.Tensor):
@@ -225,6 +266,23 @@ def matmul_tril(A: torch.Tensor, L: torch.Tensor, *,
     """
     return cuda_dispatch.matmul_tril(A, L, precision=precision,
                                      use_kernel=use_kernel)
+
+
+def t_matmul_tril_out(A: torch.Tensor, B: torch.Tensor, *,
+                      precision: str = "highest",
+                      use_kernel: bool = True) -> torch.Tensor:
+    """tril(A^T B): (Q, N, M), (Q, N, M) -> (Q, M, M), out[..., m1, m2] =
+    sum_n A[..., n, m1] B[..., n, m2] for m1 >= m2 and exact zeros above
+    the diagonal, with only the lower tiles formed (the JAX package's
+    ``t_matmul_tril_out``).
+
+    precision: as ``matmul_tril_t``'s ("high": three bf16 passes, float32
+      only; float64 ignores it).  CUDA float32 runs kernel 8, CPU tensors
+      (or ``use_kernel=False``) its plain versions.  No gradient: it is a
+      backward's product (a gradient through the kernel raises).
+    """
+    return cuda_dispatch.t_matmul_tril_out(A, B, precision=precision,
+                                           use_kernel=use_kernel)
 
 
 def tril_matmul(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -333,7 +391,7 @@ class _SolveTriCached(torch.autograd.Function):
     def backward(ctx, gP):
         P, iL = ctx.saved_tensors
         gKfu = matmul_tril(gP, iL, **ctx.kw)  # (L^{-T} ybar)^T
-        gL = -torch.tril(gKfu.mT @ P)
+        gL = -t_matmul_tril_out(gKfu, P.detach(), **ctx.kw)
         return gL, gKfu, None, None, None
 
 
@@ -346,14 +404,15 @@ def solve_tri_cached(L: torch.Tensor, Kfu: torch.Tensor, iL: torch.Tensor, *,
     Kfu, returning P rather than its transpose.  Forward: the triangular
     projection in full float32 (the kernel for CUDA float32).  Backward,
     the exact solve adjoints with y = P^T: Kfubar = Pbar iL, a triangular
-    product at ``precision``, and Lbar = -tril(Kfubar^T P), a dense
-    product in full float32 (it has no triangular operand); iL is a cache
-    and gets no gradient.
+    product at ``precision``, and Lbar = -tril(Kfubar^T P), the lower
+    tiles alone (kernel 8) at ``precision``, as the JAX package's
+    ``Precision.HIGH``; iL is a cache and gets no gradient.
     """
     return _SolveTriCached.apply(L, Kfu, iL, use_kernel, precision)
 
 
 def quad_diag(A: torch.Tensor, L: torch.Tensor, *,
+              precision: str = "highest",
               use_kernel: bool = True) -> torch.Tensor:
     """diag(A L L^T A^T), batched: (Q, N, M), (Q, M, M) -> (Q, N).
 
@@ -361,6 +420,9 @@ def quad_diag(A: torch.Tensor, L: torch.Tensor, *,
     the square and the row sum fused, in full float32 (the JAX package
     runs this product at its default precision); CPU tensors (or
     ``use_kernel=False``) the plain version.  Without a gradient to form,
-    A tril(L) never reaches memory.
+    A tril(L) never reaches memory.  ``precision`` is the L gradient's
+    (kernel 8, tril(A^T dAL): "high" is three bf16 passes, stricter than
+    the JAX package's one-pass default); the forward stays float32.
     """
-    return cuda_dispatch.quad_diag(A, L, use_kernel=use_kernel)
+    return cuda_dispatch.quad_diag(A, L, precision=precision,
+                                   use_kernel=use_kernel)

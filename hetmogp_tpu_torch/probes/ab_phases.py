@@ -13,9 +13,9 @@ rows/s, the pass's profile), ``high`` and ``highest``
 (``graphed_trainer_phase`` at that precision: steps/s over its timed calls
 and the profile of a 50-step call).  Each side's whole output goes to
 ``<out>/<turn>_<side>.log``; the lines that carry the end-to-end numbers
-and the profiles' totals and rows of kernels 3, 4, 5 and 6 (and of
-kernel 3's split pre-pass) are printed here, with the card's name and
-power limit.
+and the profiles' totals and rows of kernels A, 3, 4, 5, 6 and 8 (and
+of kernel 3's split pre-pass), and of cuBLAS's sgemm and trsm kernels,
+are printed here, with the card's name and power limit.
 Exits non-zero if any phase failed.
 
 A measurement script run by hand from a checkout: the packaging leaves
@@ -39,6 +39,8 @@ PHASES = {"serving": "c.serving_phase(smi)",
 KEEP = re.compile(r"throughput|profile: .* ms of kernel time|"
                   r"tril_right_tma_kernel|tril_right3_tma_kernel|"
                   r"tril_proj3_tma_kernel|tril_split_bf16_kernel|"
+                  r"tril_proj_tma_kernel|tril_out_tma_kernel|"
+                  r"tril_out3_tma_kernel|sgemm|trsm|"
                   r"gh_sweep_kernel|ve_tasks_kernel|ve_tasks_grad_kernel|"
                   r"PHASE")
 

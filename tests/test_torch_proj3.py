@@ -138,18 +138,22 @@ def test_high_f32_routes_to_the_plain_3pass_on_the_cpu():
 
 
 def test_3pass_gradient_is_the_projection_gradient():
-    """TrilProjection3Pass's backward is TrilProjection's plain one: the
-    gradient of the full float32 product."""
+    """TrilProjection3Pass's backward is TrilProjection's, dL at the
+    forward's precision: dA the gradient of the full float32 product, dL
+    = tril(g^T A) in kernel 8's three passes (its plain version on the
+    CPU)."""
     A, L = (torch.from_numpy(a) for a in _tri_inputs(2, 30, 40, seed=4))
     g = torch.from_numpy(np.random.RandomState(5).randn(2, 30, 40).astype(
         np.float32))
     a3, l3 = A.clone().requires_grad_(), L.clone().requires_grad_()
     got = torch.autograd.grad(
         linalg.matmul_tril_t(a3, l3, precision="high"), (a3, l3), g)
-    a1, l1 = A.clone().requires_grad_(), L.clone().requires_grad_()
-    want = torch.autograd.grad(a1 @ torch.tril(l1).mT, (a1, l1), g)
-    for x, y in zip(got, want):
-        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+    a1 = A.clone().requires_grad_()
+    (want,) = torch.autograd.grad(a1 @ torch.tril(L).mT, a1, g)
+    torch.testing.assert_close(got[0], want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(
+        got[1], cuda_kernels.t_matmul_tril_out_3pass_plain(g, A),
+        rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype,err", [(np.float32, ValueError),

@@ -9,7 +9,10 @@ counters of every route, the autograd.Functions going through the router
 version of kernel 3's L pre-pass against the JAX package's bit-mask split
 (``tools/probe_pallas_proj.py:pallas_proj2``), kernel 5's router, and what
 kernel 5's TMA-fed launcher hands its entry (no pre-pass scratch: it
-splits L in shared memory), through a stand-in library.
+splits L in shared memory), through a stand-in library; kernel 8's
+(tril(A^T B)) router, launchers and what they hand their entries; and
+the ``hetmogp::`` operators a VE and a VM step reach on the CPU, what each
+launches on the card.
 """
 
 import contextlib
@@ -20,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from hetmogp_tpu_torch.ops import cuda_kernels, linalg
 
@@ -88,9 +92,9 @@ def test_3pass_function_goes_through_the_router(monkeypatch, case, route):
     """TrilProjection3Pass with the kernel asked for: the CUDA
     implementation of its operator is the routed launcher (called
     directly: the dispatcher sends a CPU tensor to the plain version), its
-    gradient the full float32 product's (rtol 1e-6, as
-    test_torch_proj3.py), and the dispatch of a CPU tensor takes the plain
-    version without reaching the router."""
+    dA the full float32 product's and its dL kernel 8's three-pass plain
+    version's (rtol 1e-6, as test_torch_proj3.py), and the dispatch of a
+    CPU tensor takes the plain version without reaching the router."""
     A, L = _inputs(*case)
     calls = _recorders(monkeypatch, ("tril_projection_3pass_tma",
                                      "tril_projection_3pass_staged"),
@@ -107,10 +111,12 @@ def test_3pass_function_goes_through_the_router(monkeypatch, case, route):
     g = torch.from_numpy(np.random.RandomState(5).randn(*A.shape).astype(
         np.float32))
     got = torch.autograd.grad(out, (a, l), g)
-    a1, l1 = A.clone().requires_grad_(), L.clone().requires_grad_()
-    want = torch.autograd.grad(a1 @ torch.tril(l1).mT, (a1, l1), g)
-    for x, y in zip(got, want):
-        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+    a1 = A.clone().requires_grad_()
+    (want,) = torch.autograd.grad(a1 @ torch.tril(L).mT, a1, g)
+    torch.testing.assert_close(got[0], want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(
+        got[1], cuda_kernels.t_matmul_tril_out_3pass_plain(g, A),
+        rtol=1e-6, atol=1e-6)
     linalg.matmul_tril_t(A, L, precision="high")
     assert len(calls) == 1
 
@@ -135,9 +141,10 @@ LAUNCHERS = ("rbf_K_batched_vec", "rbf_K_batched_scalar",
              "tril_projection_tma", "tril_projection_staged",
              "tril_projection_3pass_tma", "tril_projection_3pass_staged",
              "tril_right_tma", "tril_right_generic", "tril_right3_tma",
-             "tril_right3_generic", "gh_sweep", "gh_sweep_value",
-             "task_var_exp", "task_var_exp_value", "task_var_exp_backward",
-             "adam_update")
+             "tril_right3_generic", "tril_out_tma", "tril_out_generic",
+             "tril_out3_tma", "tril_out3_generic", "gh_sweep",
+             "gh_sweep_value", "task_var_exp", "task_var_exp_value",
+             "task_var_exp_backward", "adam_update")
 
 
 # the vector kernel is what ``rbf_K_batched`` reaches on the main path, and
@@ -259,3 +266,176 @@ def test_kernel5_launch_takes_no_split_scratch(monkeypatch, partials):
     assert args[4:] == (3, 40, 64, 0)
     assert cuda_kernels.launch_counts()["tril_right3_tma"] == 1
     cuda_kernels.zero_launch_counts()
+
+
+# ---- kernel 8: tril(A^T B) ----------------------------------------------------
+
+@pytest.mark.parametrize("M,aligned,route", [
+    (1024, True, "tma"),       # the main path: the VE and VM steps' gL
+    (772, True, "tma"),        # M % 4 == 0, not a multiple of the tile
+    (777, True, "generic"),    # chip_smoke's ragged VM step
+    (1022, True, "generic"),   # rows not a multiple of 16 bytes
+    (1024, False, "generic"),  # an unaligned base
+])
+def test_tril_out_route_picks_by_shape(M, aligned, route):
+    assert cuda_kernels.tril_out_route(M, aligned) == route
+
+
+@pytest.mark.parametrize("three", [False, True], ids=["f32", "3pass"])
+@pytest.mark.parametrize("case,route", ROUTE_CASES,
+                         ids=["aligned", "ragged-M", "unaligned-base"])
+def test_tril_out_router_reaches_the_launcher_of_the_route(
+        monkeypatch, case, route, three):
+    """Kernel 8's routers (``tril_out`` and ``tril_out3``, the CUDA
+    implementations of ``hetmogp::t_matmul_tril_out`` and its 3-pass
+    twin) reach the TMA-fed launcher where TMA can address the operands
+    and the generic one elsewhere."""
+    A, _ = _inputs(*case)
+    B, _ = _inputs(*case[:3], seed=1)
+    name = "tril_out3" if three else "tril_out"
+    plain = (cuda_kernels.t_matmul_tril_out_3pass_plain if three
+             else cuda_kernels.t_matmul_tril_out_plain)
+    calls = _recorders(monkeypatch, (f"{name}_tma", f"{name}_generic"),
+                       plain)
+    got = getattr(cuda_kernels, name)(A.detach(), B)
+    assert calls == [{"tma": f"{name}_tma",
+                      "staged": f"{name}_generic"}[route]]
+    assert torch.equal(got, plain(A, B))
+
+
+class _OutLibrary(_Library):
+    """``_Library`` with kernel 8's scratch query: answers ``partials``
+    and records which design asked."""
+
+    def __init__(self, partials):
+        super().__init__(partials)
+        self.asked = []
+
+    def hetmogp_tril_out_partials(self, Q, N, M, three):
+        self.asked.append(three)
+        return self.partials
+
+
+@pytest.mark.parametrize("partials", [0, 12 * 10 * 128 * 128],
+                         ids=["no-split", "split"])
+def test_kernel8_launchers_hand_their_entries_what_they_take(monkeypatch,
+                                                             partials):
+    """Kernel 8's launchers run one entry each, with A, B and out; the
+    TMA-fed ones the partial-sum scratch their schedule asks for (none
+    where it splits no tile), each asking for its own design's; the
+    generic ones no scratch.  Each launch counts once; the output is
+    (Q, M, M)."""
+    lib = _OutLibrary(partials)
+    monkeypatch.setattr(cuda_kernels, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    A = _inputs(3, 40, 64)[0].as_subclass(_OnCard)
+    B = _inputs(3, 40, 64, seed=1)[0].as_subclass(_OnCard)
+    cuda_kernels.zero_launch_counts()
+    for name, entry, three in (
+            ("tril_out_tma", "hetmogp_tril_out_f32", 0),
+            ("tril_out3_tma", "hetmogp_tril_out3_f32", 1),
+            ("tril_out_generic", "hetmogp_tril_out_generic_f32", None),
+            ("tril_out3_generic", "hetmogp_tril_out3_generic_f32", None)):
+        lib.calls, lib.asked = [], []
+        out = getattr(cuda_kernels, name)(A, B)
+        assert out.shape == (3, 64, 64)
+        assert [e for e, _ in lib.calls] == [entry]
+        args = lib.calls[0][1]
+        assert args[:3] == (A.data_ptr(), B.data_ptr(), out.data_ptr())
+        if three is None:
+            assert lib.asked == [] and args[3:] == (3, 40, 64, 0)
+        else:
+            assert lib.asked == [three]
+            assert (args[3] is None) == (partials == 0)
+            assert args[4:] == (3, 40, 64, 0)
+        assert cuda_kernels.launch_counts()[name] == 1
+    cuda_kernels.zero_launch_counts()
+
+
+def test_kernel8_launchers_refuse_what_they_cannot_take():
+    A, _ = _inputs(1, 8, 8)
+    for name in ("tril_out_tma", "tril_out_generic", "tril_out3_tma",
+                 "tril_out3_generic"):
+        launcher = getattr(cuda_kernels, name)
+        with pytest.raises(ValueError, match="CUDA"):
+            launcher(A, A)
+        with pytest.raises(TypeError, match="float32"):
+            launcher(A.double(), A.double())
+        with pytest.raises(NotImplementedError, match="no backward"):
+            launcher(A, A.clone().requires_grad_())
+    assert not any(cuda_kernels.launch_counts().values())
+
+
+class _OpCounts(TorchDispatchMode):
+    """Counts the ``hetmogp::`` operators that run inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.name().split(".")[0]
+        if name.startswith("hetmogp::"):
+            name = name[len("hetmogp::"):]
+            self.seen[name] = self.seen.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_operator_counts_of_a_ve_and_a_vm_step(precision):
+    """The flagship's steps on the CPU at M = 256 (one level of the
+    recursive inverse), every ``hetmogp::`` operator counted: what a
+    launch each is on the card.  A VE step: the RBF, the projection at
+    ``precision``, quad_diag's forward and its gL (kernel 8 at
+    ``precision``).  The VM step: the RBF, the solve's float32 projection
+    and quad_diag's gA (kernel A; q(u) is frozen, so no gL), the four
+    adjoint products at ``precision``, the solve's Lbar (kernel 8), and
+    the refresh of (Luu, iLuu): one level of kernels 4 and A in float32,
+    as the state's first factorization has."""
+    import hetmogp_tpu_torch as tp
+    from hetmogp_tpu_torch import train as ttrain
+
+    liks = (tp.HetGaussian(), tp.Bernoulli(), tp.Categorical(K=3),
+            tp.Poisson(), tp.Gamma(), tp.Exponential())
+    n, b, m = 48, 16, 256
+    rng = np.random.RandomState(0)
+    X = [rng.rand(n, 2).astype(np.float32) for _ in liks]
+    Y = [rng.randn(n, 1), (rng.rand(n, 1) > 0.5).astype(float),
+         rng.randint(1, 4, (n, 1)).astype(float),
+         rng.poisson(3.0, (n, 1)).astype(float),
+         rng.gamma(2.0, 1.0, (n, 1)) + 1e-3,
+         rng.exponential(1.0, (n, 1)) + 1e-3]
+    cfg = tp.ModelConfig(likelihoods=liks, num_latent=2, num_inducing=m,
+                         input_dim=2, dtype="float32", jitter=1e-4,
+                         adaptive_jitter=False, fuse_task_rows=True,
+                         ve_fwd_precision=precision)
+    tc = tp.TrainConfig(optimizer="adam", step_rate=0.005,
+                        minibatch="slice", vm_batch_fraction=0.25)
+    params = tp.init_params(rng, cfg, rng.rand(m, 2).astype(np.float32),
+                            lengthscale=0.2, variance=0.5, q_mu_scale=0.1,
+                            device="cpu")
+    sizes, batches = (n,) * 6, (b,) * 6
+    ext = ttrain.extend_for_wraparound(
+        tp.prepare_dataset_on_device(cfg, X, Y, device="cpu"), batches,
+        sizes)
+    step = ttrain.make_step(cfg, tc)
+    scales = ttrain.batch_scales(sizes, batches, torch.float32, "cpu")
+    refresh = {"matmul_tril": 1, "tril_projection": 1}
+    with _OpCounts() as ops:
+        state = tp.init_train_state(params, cfg)
+    assert ops.seen == refresh
+    p3 = "_3pass" if precision == "high" else ""
+    ve = {"rbf_K_batched": 1, f"tril_projection{p3}": 1,
+          "quad_diag_product": 1, f"t_matmul_tril_out{p3}": 1}
+    vm = {"rbf_K_batched": 1, "tril_projection": 2 + 1,
+          "quad_diag_product": 1, f"t_matmul_tril_out{p3}": 1}
+    vm[f"matmul_tril{p3}"] = 4
+    vm["matmul_tril"] = vm.get("matmul_tril", 0) + 1
+    for i in range(tc.ve_steps_per_vm + 1):
+        with _OpCounts() as ops:
+            state, _ = step(state, ttrain.slice_batch(ext, (0,) * 6, sizes,
+                                                      batches), scales)
+        assert ops.seen == (vm if i == tc.ve_steps_per_vm else ve), i

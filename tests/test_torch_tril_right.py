@@ -136,9 +136,10 @@ def test_quad_diag_value_and_gradients_match_jax(dtype, tol, M):
         got = linalg.quad_diag(a, l)
         gA, gL = torch.autograd.grad(got, (a, l), _t(c, dtype))
     # forward: the product epilogue that keeps A tril(L); backward: kernel
-    # A's operator for gA
+    # A's operator for gA, kernel 8's for gL
     assert ops.seen == {"hetmogp::quad_diag_product": 1,
-                        "hetmogp::tril_projection": 1}
+                        "hetmogp::tril_projection": 1,
+                        "hetmogp::t_matmul_tril_out": 1}
     assert _normwise(got, want) < tol
     assert _normwise(gA, wA) < tol
     assert _normwise(gL, np.tril(np.asarray(wL))) < tol
@@ -148,14 +149,16 @@ def test_quad_diag_value_and_gradients_match_jax(dtype, tol, M):
 @pytest.mark.parametrize("M", SIZES)
 def test_quad_diag_gradient_in_L_alone(M):
     """The VE step: P comes from the frozen cache, only Lq needs a
-    gradient, and the A half of the backward is not formed."""
+    gradient, and the A half of the backward is not formed: gL is kernel
+    8's operator alone."""
     A, L, junk, c = _inputs(M, seed=4)
     want, (_, wL) = _jax_quad(A, L, c)
     l = _t(junk, np.float64).requires_grad_()
     with _Ops() as ops:
         (gL,) = torch.autograd.grad(linalg.quad_diag(_t(A, np.float64), l),
                                     (l,), _t(c, np.float64))
-    assert ops.seen == {"hetmogp::quad_diag_product": 1}
+    assert ops.seen == {"hetmogp::quad_diag_product": 1,
+                        "hetmogp::t_matmul_tril_out": 1}
     assert _normwise(gL, np.tril(np.asarray(wL))) < F64
 
 
@@ -240,8 +243,9 @@ def test_cached_adjoints_at_high_match_jax(M):
     # float64 takes the full-precision route at either precision
     assert max(errs[np.float64, "high"] + errs[np.float64, "highest"]) < 1e-9
     assert max(errs[np.float32, "high"]) < HIGH_ADJOINT, errs
-    # the 3-pass route was taken where the product is triangular (Kbar,
-    # Bbar); Lbar = -tril(Bbar^T P) is a dense float32 product either way
+    # the 3-pass route was taken where its error shows (Kbar, Bbar); Lbar
+    # = -tril(Bbar^T P), kernel 8's at "high" too, carries the float32
+    # error of its operands at this conditioning either way
     for i in (0, 2):
         assert errs[np.float32, "high"][i] > 4 * errs[np.float32,
                                                       "highest"][i], errs
@@ -257,11 +261,14 @@ def test_high_adjoint_products_go_through_the_3pass_operator():
             _chol_cached_grads(K, L, iL, gL, np.float32, prec)
             _solve_tri_cached_grads(L, iL, Kfu, yb, np.float32, prec)
         seen[prec] = ops.seen
-    # three products in the Cholesky pullback, one in the solve's Kfubar
+    # three products in the Cholesky pullback, one in the solve's Kfubar,
+    # and the solve's Lbar (kernel 8) at the same precision
     assert seen["high"] == {"hetmogp::matmul_tril_3pass": 4,
-                            "hetmogp::tril_projection": 1}
+                            "hetmogp::tril_projection": 1,
+                            "hetmogp::t_matmul_tril_out_3pass": 1}
     assert seen["highest"] == {"hetmogp::matmul_tril": 4,
-                               "hetmogp::tril_projection": 1}
+                               "hetmogp::tril_projection": 1,
+                               "hetmogp::t_matmul_tril_out": 1}
 
 
 # ---- kernel 5's plain version -------------------------------------------------
