@@ -949,6 +949,17 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
     from hetmogp_tpu_torch.ops import linalg
 
+    from hetmogp_tpu_torch.ops import _build
+
+    # ptxas -v of kernel 8's TMA designs (the build's log): their spills
+    kernel = None
+    for line in _build.library_path().with_suffix(".log").read_text() \
+            .splitlines():
+        if "entry function" in line:
+            kernel = kernel_symbol(line)
+        elif kernel in ("tril_out_tma_kernel", "tril_out3_tma_kernel") and (
+                "spill" in line or "registers" in line):
+            print(f"kernel 8, ptxas, {kernel}: {line.strip()} [card: {smi}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
     errs, times = {}, {}
     for name, shape in OUT_SHAPES.items():
@@ -1033,15 +1044,19 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
         balance = ""
         if "tma" in routes:
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            sched = (ctypes.c_longlong * 6)()
+            sched = (ctypes.c_longlong * 7)()
             for three in (0, 1):
                 ck._library().hetmogp_tril_out_schedule(q, n_, m, three, sms,
                                                         sched)
-                G, F, rem, P, busy, total = list(sched)
+                G, F, rem, P, busy, total, reads = list(sched)
+                # the units: whole tiles, and the parts of the split ones
                 balance += (f"; {'3-pass' if three else 'f32'} schedule: "
-                            f"{G} blocks, {F} whole turns, {rem} tiles cut "
-                            f"into {P} parts, balance "
-                            f"{total / G / busy:.3f}")
+                            f"{G} blocks, {F} whole turns ({F * G} whole "
+                            f"tiles), {rem} tiles cut into {P} parts "
+                            f"({rem * P} parts, the last turn), balance "
+                            f"{total / G / busy:.3f}, the fix-up's reads "
+                            f"a block {reads} float4s ({reads * 16 / 1024:.1f}"
+                            f" KB: {P} partials of 1/{P} of a tile)")
         for route in routes:
             b, k = bounds["f32"], t[f"kernel 8 ({route})"]
             b3, k3 = bounds["3pass"], t[f"kernel 8 3-pass ({route})"]

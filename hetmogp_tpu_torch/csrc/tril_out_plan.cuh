@@ -21,13 +21,18 @@
 //   from L2 after.
 // * One last turn for the rem = tiles - F G tiles left: each is cut into P
 //   parts of its reduction (stages [p S / P, (p + 1) S / P)), one part a
-//   block, P = min(G / rem, S).  The parts 0 .. P - 2 each write their
-//   float32 partial sum to scratch and raise its flag; part P - 1 waits
-//   for the flags and stores ((partial_0 + partial_1) + ...) + its own
-//   sum, in increasing part order.  The order is fixed by the shape and
-//   the SM count alone, no atomic is used, and every block of the grid is
-//   resident at once (G <= SMs), so two launches are bitwise equal and
-//   the waits end.
+//   block, P = min(G / rem, S).  Every part writes its float32 partial
+//   sum to its own scratch slot, in the tile's row-major layout, raises
+//   its flag and waits for the tile's P flags; then part p reduces its
+//   own 1/P of the tile (float4s [p V / P, (p + 1) V / P) of its V =
+//   BT BT / 4): for each element it loads the P partials, adds them in
+//   part order, ((partial_0 + partial_1) + ...) + partial_{P-1}, and
+//   stores the sum with the diagonal's mask (the same float4s of the
+//   mirror tile get their zeros from the part, or in the three-pass
+//   design from the producer's idle warps).  The order is fixed by the
+//   shape and the SM count alone, no atomic touches a value, and every
+//   block of the grid is resident at once (G <= the resident blocks), so
+//   two launches are bitwise equal and the waits end.
 //
 // Tiles above the diagonal are never computed: the block that stores the
 // lower tile (i, j), i > j, writes zeros over its mirror (j, i), and a
@@ -46,21 +51,28 @@ namespace tril_out_plan {
 constexpr int BT = 128;          // rows m1 and columns m2 of a tile
 constexpr int CONSUMERS = 256;   // threads that hold the tile's sums
 constexpr int MAX_SLOTS = 1024;  // split partials a launch may have: flags
+constexpr int TILE_VEC = BT * BT / 4;  // float4s of a tile
 
-// The design's depth of a stage: BK rows n.  The FFMA route (f32) takes
-// 32, the three-pass wgmma route 64.
+// The design's depth of a stage: BK rows n.  The FFMA route (f32) and
+// the three-pass wgmma route both take 32.
 constexpr int BK_F32 = 32;
-constexpr int BK_3PASS = 64;
+constexpr int BK_3PASS = 32;
 
-// What a unit's block does with its sum.
-enum Role { WHOLE = 0, WRITES_PARTIAL = 1, ADDS_PARTIAL = 2 };
+// What a unit's block does with its sum: store it, or, as one part of a
+// split tile, write it to its slot and reduce its share of the tile.
+enum Role { WHOLE = 0, PART = 1 };
 
 // One tile, or one part of a split tile: latent q, row tile i (m1 from
 // i BT), column tile j (m2 from j BT), stages [s0, s1) of its reduction,
-// the role, and the slot: the partial a writer writes, or the first of the
-// P - 1 partials (slot .. slot + P - 2, in part order) an adder adds.
+// the role, the part p of `parts`, and the tile's first slot `base`: part
+// k of the tile writes slot base + k, and every part reads all P.
 struct Work {
-  int q, i, j, s0, s1, role, slot, parts;
+  int q, i, j, s0, s1, role, part, parts, base;
+  // this part's own slot
+  K8_HD int slot() const { return base + part; }
+  // the float4s [v0, v1) of the tile (row-major, 32 a row) it reduces
+  K8_HD int v0() const { return part * TILE_VEC / parts; }
+  K8_HD int v1() const { return (part + 1) * TILE_VEC / parts; }
 };
 
 // The lower tile of index l (of C (C + 1) / 2) of a latent, row by row:
@@ -73,7 +85,7 @@ K8_HD void lower_tile(int l, int& i, int& j) {
 
 struct Plan {
   int Q, C, S;  // latents, tiles along M, stages of a tile's reduction
-  int G;        // persistent blocks
+  int G;        // persistent blocks, at most the resident ones
   int F;        // turns of whole tiles
   int rem;      // tiles of the last turn
   int P;        // parts each of those (1: whole)
@@ -83,14 +95,15 @@ struct Plan {
   // turns block b takes: F, and one more where it holds a part (or, with
   // P = 1, a whole tile) of the last turn
   K8_HD int turns(int b) const { return F + (b < rem * P ? 1 : 0); }
-  // split partials a launch writes
-  K8_HD int slots() const { return P > 1 ? rem * (P - 1) : 0; }
+  // split partials a launch writes, one a part, and their flags
+  K8_HD int slots() const { return P > 1 ? rem * P : 0; }
   K8_HD Work work(int b, int turn) const {
     Work w;
     int t;
     w.role = WHOLE;
-    w.slot = 0;
+    w.part = 0;
     w.parts = 1;
+    w.base = 0;
     w.s0 = 0;
     w.s1 = S;
     if (turn < F) {
@@ -101,9 +114,10 @@ struct Plan {
       if (P > 1) {
         w.s0 = p * S / P;
         w.s1 = (p + 1) * S / P;
+        w.role = PART;
+        w.part = p;
         w.parts = P;
-        w.role = p == P - 1 ? ADDS_PARTIAL : WRITES_PARTIAL;
-        w.slot = r * (P - 1) + (p == P - 1 ? 0 : p);
+        w.base = r * P;
       }
     }
     w.q = t / per_latent();
@@ -113,14 +127,16 @@ struct Plan {
 };
 
 // The schedule of Q latents of M x M outputs over N rows in stages of BK
-// on `sms` SMs.
-inline Plan make_plan(int Q, int N, int M, int BK, int sms) {
+// for `resident` blocks that the card holds at once (one a block an SM:
+// the SM count).  The split tiles' waits end only if every block of the
+// grid is resident, so G never exceeds it.
+inline Plan make_plan(int Q, int N, int M, int BK, int resident) {
   Plan p;
   p.Q = Q;
   p.C = (M + BT - 1) / BT;
   p.S = (N + BK - 1) / BK;
   const int T = p.tiles();
-  p.G = T < sms ? T : sms;
+  p.G = T < resident ? T : resident;
   p.F = T / p.G;
   p.rem = T - p.F * p.G;
   p.P = 1;
@@ -128,7 +144,7 @@ inline Plan make_plan(int Q, int N, int M, int BK, int sms) {
     int parts = p.G / p.rem;
     if (parts > p.S) parts = p.S;
     if (parts < 1) parts = 1;
-    while (parts > 1 && p.rem * (parts - 1) > MAX_SLOTS) --parts;
+    while (parts > 1 && p.rem * parts > MAX_SLOTS) --parts;
     p.P = parts;
   }
   return p;
@@ -150,6 +166,21 @@ inline int busiest(const Plan& p) {
   for (int b = 0; b < p.G; ++b) {
     const int n = block_stages(p, b);
     most = n > most ? n : most;
+  }
+  return most;
+}
+
+// The most partial float4s one block reads in its fix-up: P partials of
+// its share of a split tile.
+inline long long most_fixup_reads(const Plan& p) {
+  long long most = 0;
+  for (int b = 0; b < p.G; ++b) {
+    for (int turn = 0; turn < p.turns(b); ++turn) {
+      const Work w = p.work(b, turn);
+      const long long n =
+          w.role == PART ? (long long)w.parts * (w.v1() - w.v0()) : 0;
+      most = n > most ? n : most;
+    }
   }
   return most;
 }
@@ -182,6 +213,10 @@ struct Cursor {
   }
 };
 
+// A split tile's slot, as floats: element (r, c) of slot k at
+// slot_at(k) + r BT + c, the tile's row-major layout.
+K8_HD long long slot_at(int k) { return (long long)k * BT * BT; }
+
 // ---- the FFMA route: which outputs a consumer thread holds ----------------
 //
 // Eight warps hold 64 x 32 warp tiles, 2 x 4; a lane holds 8 rows m1 (two
@@ -198,12 +233,6 @@ K8_HD int f32_col(int tid, int j) {
   const int warp = tid / 32, lane = tid % 32;
   return (warp % 4) * 32 + 4 * (lane % 4) + (j & 3) + 16 * (j >> 2);
 }
-// The float4 of a split tile's partial that holds acc[i][4 h .. 4 h + 3]
-// of consumer thread tid (x = 2 i + h): a thread's 16 float4s, a warp's
-// float4s contiguous for each x.
-K8_HD long long f32_partial_at(int slot, int x, int tid) {
-  return ((long long)slot * 16 + x) * CONSUMERS + tid;
-}
 
 // ---- the three-pass route: wgmma's m64n128 accumulator ---------------------
 //
@@ -217,18 +246,40 @@ K8_HD int acc_row(int tid, int e) {
 K8_HD int acc_col(int tid, int e) {
   return 8 * (e >> 2) + 2 * (tid % 4) + (e & 1);
 }
-// The float2 of a split tile's partial that holds accumulators 2 x and
-// 2 x + 1 of consumer thread tid.
-K8_HD long long acc_partial_at(int slot, int x, int tid) {
-  return ((long long)slot * 32 + x) * CONSUMERS + tid;
+// A's stage lands as four 128-byte-swizzled boxes of 32 columns m1 by
+// BK rows n (tril_tma.cuh's layout: the 16-byte chunk c of row n at
+// c ^ (n % 8)), box b holding m1 in [32 b, 32 b + 32).  At 16-deep step kk
+// consumer thread tid reads wgmma's A fragment of its warp's 16 rows m1
+// there, as float32, and splits it in registers: element e (of 8; register
+// e / 2 of the fragment's 4, half e % 2) is A[n][m1] at
+//   m1 = 64 (warp / 4) + 16 (warp % 4) + lane / 4 + 8 ((e / 2) & 1),
+//   n  = 16 kk + 2 (lane % 4) + e % 2 + 8 (e / 4).
+// A warp's 32 loads of one element fall in 32 banks.
+K8_HD int afrag_m1(int tid, int e) {
+  const int warp = tid / 32, lane = tid % 32;
+  return 64 * (warp / 4) + 16 * (warp % 4) + lane / 4 + 8 * ((e >> 1) & 1);
 }
+K8_HD int afrag_n(int tid, int kk, int e) {
+  return 16 * kk + 2 * (tid % 4) + (e & 1) + 8 * (e >> 2);
+}
+// its byte offset in the stage's A boxes
+K8_HD int afrag_offset(int tid, int kk, int e) {
+  const int m1 = afrag_m1(tid, e), n = afrag_n(tid, kk, e), c = m1 & 31;
+  return (m1 >> 5) * (BK_3PASS * 128) + n * 128 +
+         ((((c >> 2) ^ n) & 7) << 4) + ((c & 3) << 2);
+}
+// The same as afrag_offset(tid, 0, e % 4) plus a constant: n % 8, and so
+// the swizzle, does not depend on kk or e / 4, so a thread keeps four
+// offsets and adds 16 kk + 8 (e / 4) rows.
+K8_HD int afrag_step(int kk, int e) { return (16 * kk + 8 * (e >> 2)) * 128; }
 
-// The splitter's thread t (of SPLITTERS = 128) takes float4 i (of
-// SPLIT_VEC) of a stage's BK x BT float32 tile of A or B: row n, columns
-// 4 c4 .. 4 c4 + 3; a warp reads one 512-byte row.  It writes hi and lo
-// as wgmma's MN-major operand: two boxes of BK rows by 64 columns, BK 128
-// bytes apart, of 128-byte rows whose 16-byte chunk c sits at c ^ (n % 8)
-// (kernel 5's layout, tril_right3_plan.cuh).
+// The splitter warpgroup: thread t (of SPLITTERS = 128) takes float4 i (of
+// SPLIT_VEC) of the stage's BK x BT float32 tile of B, as it landed: row
+// n, columns 4 c4 .. 4 c4 + 3; a warp reads one 512-byte row.  It writes
+// hi and lo into the split ring's slot as wgmma's MN-major operand: two
+// boxes of BK rows by 64 columns, BK 128 bytes apart, of 128-byte rows
+// whose 16-byte chunk c sits at c ^ (n % 8) (kernel 5's layout,
+// tril_right3_plan.cuh).
 constexpr int SPLITTERS = 128;
 constexpr int SPLIT_VEC = BK_3PASS * BT / 4 / SPLITTERS;
 K8_HD int split_row(int t, int i) { return (t + SPLITTERS * i) >> 5; }

@@ -2,9 +2,9 @@
 // (tril_out_plan.cuh), for the CPU tests: walks every block, turn and
 // stage of one launch of tril_out_tma_kernel or tril_out3_tma_kernel
 // (tril_out_kernel.cu) with the cursor their loads (and the three-pass
-// splitter) walk and the turns their consumers walk, replays their
-// epilogues' stores, and checks what the kernel computes without running
-// it.  tests/test_torch_tril_out_plan.py loads it with ctypes after
+// splitters) walk and the turns their consumers walk, replays their
+// epilogues' and the split tiles' fix-ups' stores, and checks what the
+// kernel computes without running it.  tests/test_torch_tril_out_plan.py loads it with ctypes after
 // compiling it with a host C++ compiler:
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libplan.so tril_out_plan_host.cpp
@@ -28,9 +28,10 @@ enum Stat {
   ORDER_FAULTS,   // cursor and consumer turns that disagree, or a
                   // block's stages out of order within a unit
   SPLIT_FAULTS,   // split tiles whose parts are not P consecutive blocks
-                  // of the last turn, writers whose slot is not their
-                  // tile's base + part, an adder whose slot is not the
-                  // base, a slot written twice or out of range
+                  // of the last turn with the tile's stages in part
+                  // order, a part whose slot is not its tile's base +
+                  // part, a slot written twice, not at all or out of
+                  // range, a grid larger than the resident blocks
   MAP_FAULTS,     // the thread, partial and splitter maps not one to one
   WRITE_FAULTS,   // outputs not written exactly once, or a value where
                   // m1 < m2, or a zero where m1 >= m2
@@ -40,13 +41,18 @@ enum Stat {
   PARTS,          // parts each of those
   BUSIEST,        // the busiest block's stages
   TOTAL,          // all blocks' stages
+  FIXUP_FAULTS,   // a split tile's float4s not reduced by exactly one of
+                  // its parts, or an element's partials not read from the
+                  // tile's P slots in part order
+  MOST_READS,     // the most partial float4s one block reads
+  SLOTS,          // the split partials of the launch
   N_STATS
 };
 
 // The maps of one tile, the same in every launch.
 static long long map_faults(int three) {
   long long faults = 0;
-  std::vector<int> out(BT * BT, 0), part(64 * CONSUMERS, 0);
+  std::vector<int> out(BT * BT, 0), part(BT * BT, 0);
   for (int tid = 0; tid < CONSUMERS; ++tid) {
     for (int e = 0; e < 64; ++e) {
       const int r = three ? acc_row(tid, e) : f32_row(tid, e / 8);
@@ -57,18 +63,16 @@ static long long map_faults(int three) {
       }
       ++out[r * BT + c];
     }
-    // the partials' float4s (FFMA) or float2s (wgmma), in floats
-    const int width = three ? 2 : 4, n = 64 / width;
-    for (int x = 0; x < n; ++x) {
-      const long long p = three ? acc_partial_at(3, x, tid) -
-                                      acc_partial_at(3, 0, 0)
-                                : f32_partial_at(3, x, tid) -
-                                      f32_partial_at(3, 0, 0);
-      if (p < 0 || p >= (long long)n * CONSUMERS) {
+    // the partial's floats in slot 3: the tile's row-major layout
+    for (int e = 0; e < 64; ++e) {
+      const int r = three ? acc_row(tid, e) : f32_row(tid, e / 8);
+      const int c = three ? acc_col(tid, e) : f32_col(tid, e % 8);
+      const long long p = slot_at(3) + r * BT + c - slot_at(3);
+      if (p < 0 || p >= (long long)BT * BT) {
         ++faults;
         continue;
       }
-      for (int k = 0; k < width; ++k) ++part[p * width + k];
+      ++part[p];
     }
     // a stored vector's elements are consecutive columns of one row
     if (!three) {
@@ -103,13 +107,42 @@ static long long map_faults(int three) {
     }
     for (int s : seen) faults += s != 1;
     for (int s : bytes) faults += s != 1;
+    // the consumers' A fragments: every float of a stage's A boxes read
+    // once over the steps, a warp's loads of one element in 32 banks
+    std::vector<int> a(BK_3PASS * BT, 0);
+    for (int kk = 0; kk < BK_3PASS / 16; ++kk) {
+      for (int tid = 0; tid < CONSUMERS; ++tid) {
+        for (int e = 0; e < 8; ++e) {
+          const int off = afrag_offset(tid, kk, e);
+          const int m1 = afrag_m1(tid, e), n = afrag_n(tid, kk, e);
+          const int box = m1 / 32, c = m1 % 32;
+          faults += off != box * BK_3PASS * 128 + n * 128 +
+                               (((c / 4) ^ (n % 8)) * 16) + (c % 4) * 4;
+          faults += off != afrag_offset(tid, 0, e & 3) + afrag_step(kk, e);
+          if (off < 0 || off >= BK_3PASS * BT * 4 || off % 4) {
+            ++faults;
+            continue;
+          }
+          ++a[off / 4];
+        }
+      }
+      for (int warp = 0; warp < CONSUMERS / 32; ++warp) {
+        for (int e = 0; e < 8; ++e) {
+          unsigned banks = 0;
+          for (int lane = 0; lane < 32; ++lane)
+            banks |= 1u << ((afrag_offset(32 * warp + lane, kk, e) / 4) % 32);
+          faults += banks != 0xFFFFFFFFu;
+        }
+      }
+    }
+    for (int s : a) faults += s != 1;
   }
   return faults;
 }
 
-// Walks one launch over (Q, N, M) on `sms` SMs of the FFMA design
-// (three = 0) or the three-pass one; fills stats[N_STATS] and returns the
-// number of faults.
+// Walks one launch over (Q, N, M) for `sms` resident blocks of the FFMA
+// design (three = 0) or the three-pass one; fills stats[N_STATS] and
+// returns the number of faults.
 extern "C" long long tril_out_plan_walk(int Q, int N, int M, int three,
                                         int sms, long long* stats) {
   std::fill(stats, stats + N_STATS, 0LL);
@@ -120,13 +153,18 @@ extern "C" long long tril_out_plan_walk(int Q, int N, int M, int three,
   stats[LAST_TILES] = p.rem;
   stats[PARTS] = p.P;
   stats[BUSIEST] = busiest(p);
+  stats[SLOTS] = p.slots();
   stats[MAP_FAULTS] = map_faults(three);
   if (p.G > sms || p.G < 1 || p.slots() > MAX_SLOTS) ++stats[SPLIT_FAULTS];
   const int C = p.C, T = p.per_latent();
-  // per tile: the stages taken; per slot: writes; per output: writes and
-  // whether a value was stored
+  // per tile: the stages taken; per slot: its writer's (q, i, j, s0, s1)
+  // and writes; per split tile's float4: its reducers; per output: writes
+  // and whether a value was stored
   std::vector<std::vector<int>> taken((size_t)Q * C * C);
-  std::vector<int> slot_writes(p.slots() > 0 ? p.slots() : 1, 0);
+  const size_t nslots = p.slots() > 0 ? p.slots() : 1;
+  std::vector<int> slot_writes(nslots, 0);
+  std::vector<Work> slot_writer(nslots);
+  std::vector<std::vector<int>> reducers(nslots);  // by the tile's base
   std::vector<unsigned char> writes((size_t)Q * M * M, 0);
   std::vector<unsigned char> value((size_t)Q * M * M, 0);
   auto store = [&](int q, int m1, int m2, bool is_value) {
@@ -135,6 +173,7 @@ extern "C" long long tril_out_plan_walk(int Q, int N, int M, int three,
     ++writes[o];
     value[o] = is_value;
   };
+  std::vector<Work> parts_seen;
   for (int b = 0; b < p.G; ++b) {
     // the cursor's stages, in ring order
     std::vector<std::pair<int, int>> cursor;  // (turn, stage)
@@ -143,6 +182,7 @@ extern "C" long long tril_out_plan_walk(int Q, int N, int M, int three,
       cursor.emplace_back(c.turn, c.s);
     }
     size_t k = 0;
+    long long reads = 0;
     for (int turn = 0; turn < p.turns(b); ++turn) {
       const Work w = p.work(b, turn);
       if (w.q < 0 || w.q >= Q || w.i < 0 || w.i >= C || w.j < 0 ||
@@ -159,32 +199,32 @@ extern "C" long long tril_out_plan_walk(int Q, int N, int M, int three,
         }
         taken[tile].push_back(s);
       }
-      if (w.role != WHOLE) {
+      if (w.role == PART) {
         const int r = b / p.P, part = b % p.P;
-        const bool adds = w.role == ADDS_PARTIAL;
-        const bool bad = turn != p.F || w.parts != p.P ||
+        const bool bad = turn != p.F || w.parts != p.P || w.part != part ||
+                         w.base != r * p.P ||
                          w.s0 != part * p.S / p.P ||
-                         w.s1 != (part + 1) * p.S / p.P ||
-                         adds != (part == p.P - 1) ||
-                         w.slot != r * (p.P - 1) + (adds ? 0 : part) ||
-                         w.slot < 0 || w.slot + (adds ? p.P - 2 : 0) >=
-                                           p.slots();
+                         w.s1 != (part + 1) * p.S / p.P || w.slot() < 0 ||
+                         w.slot() >= p.slots() || w.v0() >= w.v1();
         stats[SPLIT_FAULTS] += bad;
-        if (!bad && !adds) ++slot_writes[w.slot];
-        if (adds || bad) {
-          // the adder reads slots slot .. slot + P - 2: each its tile's
-          // part, in increasing part order, so in increasing n
-          for (int kk = 0; kk + 1 < w.parts && !bad; ++kk) {
-            const int writer = r * p.P + kk;
-            const Work ww = p.work(writer, p.F);
-            stats[SPLIT_FAULTS] += ww.slot != w.slot + kk ||
-                                   ww.q != w.q || ww.i != w.i ||
-                                   ww.j != w.j || ww.s1 > w.s0 ||
-                                   (kk > 0 && ww.s0 < kk * p.S / p.P);
+        if (bad) continue;
+        ++slot_writes[w.slot()];
+        slot_writer[w.slot()] = w;
+        parts_seen.push_back(w);
+        reads += (long long)w.parts * (w.v1() - w.v0());
+        // the fix-up: its float4s of the tile, and of the mirror's zeros
+        for (int v = w.v0(); v < w.v1(); ++v) {
+          reducers[w.base].push_back(v);
+          const int row = v / (BT / 4), c = 4 * (v % (BT / 4));
+          for (int e = 0; e < 4; ++e) {
+            const int m1 = w.i * BT + row, m2 = w.j * BT + c + e;
+            store(w.q, m1, m2, w.i != w.j || keep(m1, m2));
+            if (w.i > w.j) store(w.q, w.j * BT + row, w.i * BT + c + e,
+                                 false);
           }
         }
+        continue;
       }
-      if (w.role == WRITES_PARTIAL) continue;
       // the epilogue: the tile's values and the diagonal's zeros, and the
       // mirror's zeros
       for (int tid = 0; tid < CONSUMERS; ++tid) {
@@ -198,8 +238,30 @@ extern "C" long long tril_out_plan_walk(int Q, int N, int M, int three,
       }
     }
     if (k != cursor.size()) ++stats[ORDER_FAULTS];
+    stats[MOST_READS] = std::max(stats[MOST_READS], reads);
   }
   for (int s : slot_writes) stats[SPLIT_FAULTS] += p.slots() > 0 && s != 1;
+  // the kernel entry's report of the reads is the walk's
+  stats[FIXUP_FAULTS] += most_fixup_reads(p) != stats[MOST_READS];
+  // each element of a split tile: the P slots it adds, in the kernel's
+  // order base + 0, ..., base + P - 1, are the tile's parts in increasing
+  // n; and one part reduces it
+  for (const Work& w : parts_seen) {
+    for (int kk = 0; kk < w.parts; ++kk) {
+      const Work& ww = slot_writer[w.base + kk];
+      stats[FIXUP_FAULTS] +=
+          slot_writes[w.base + kk] != 1 || ww.q != w.q || ww.i != w.i ||
+          ww.j != w.j || ww.part != kk ||
+          (kk > 0 && ww.s0 != slot_writer[w.base + kk - 1].s1);
+    }
+    if (w.part == 0) {
+      std::vector<int> v = reducers[w.base];
+      std::sort(v.begin(), v.end());
+      bool once = (int)v.size() == TILE_VEC;
+      for (int x = 0; once && x < TILE_VEC; ++x) once = v[x] == x;
+      stats[FIXUP_FAULTS] += !once;
+    }
+  }
   for (int q = 0; q < Q; ++q) {
     for (int l = 0; l < T; ++l) {
       int i, j;
@@ -216,7 +278,7 @@ extern "C" long long tril_out_plan_walk(int Q, int N, int M, int three,
     stats[WRITE_FAULTS] += writes[o] != 1 || value[o] != (m1 >= m2);
   }
   return stats[TILE_FAULTS] + stats[ORDER_FAULTS] + stats[SPLIT_FAULTS] +
-         stats[MAP_FAULTS] + stats[WRITE_FAULTS];
+         stats[MAP_FAULTS] + stats[WRITE_FAULTS] + stats[FIXUP_FAULTS];
 }
 
 extern "C" int tril_out_plan_stats() { return N_STATS; }

@@ -21,8 +21,9 @@ diagonal stages below them and masks one; its index arithmetic, in
 ``tests/test_torch_tril_right_plan.py``, and ``chip_smoke.py``'s
 ``right_products_phase`` holds its product bitwise to cuBLAS's on the
 card), ``csrc/tril_out_kernel.cu`` (kernel 8: tril(A^T B), the lower
-tiles alone, in float32 FFMA and in three bf16 wgmma passes, A and B
-split in shared memory; its schedule, in ``csrc/tril_out_plan.cuh``, is
+tiles alone, in float32 FFMA and in three bf16 wgmma passes, A split in
+registers and B in shared memory; its schedule, in
+``csrc/tril_out_plan.cuh``, is
 walked on the CPU by ``tests/test_torch_tril_out_plan.py``), each
 triangular product in two designs, a TMA-fed one (sharing
 ``csrc/tril_tma.cuh`` and the schedule of ``csrc/tril_tiles.cuh``) and a
@@ -951,9 +952,9 @@ def tril_out_tma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     ``csrc/tril_out_kernel.cu``): tril(A^T B) in full float32 for
     M % 4 == 0 and 16-byte-aligned operands, only the lower tiles formed.
     Where its schedule cuts the last turn's tiles into parts, a float32
-    scratch of ``hetmogp_tril_out_partials`` floats carries the parts'
-    sums to the block that adds them.  Counts its launches in
-    ``tril_out_tma.launches``."""
+    scratch of ``hetmogp_tril_out_partials`` floats, a tile for each
+    part, carries the parts' sums to the parts that reduce the tile, each
+    its own share.  Counts its launches in ``tril_out_tma.launches``."""
     return _out_launch(tril_out_tma, "hetmogp_tril_out_f32", A, B, tma=True,
                        three=False)
 
@@ -975,8 +976,9 @@ tril_out_generic.launches = 0
 def tril_out3_tma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Kernel 8's wgmma design (``hetmogp_tril_out3_f32``): tril(A^T B) in
     three bf16 passes of the bit-mask split for M % 4 == 0 and
-    16-byte-aligned operands; both operands arrive as float32 and are
-    split in shared memory.  Counts its launches in
+    16-byte-aligned operands; both operands arrive as float32, A is split
+    in the consumers' registers and B in shared memory; the parts of split
+    tiles meet as in ``tril_out_tma``.  Counts its launches in
     ``tril_out3_tma.launches``."""
     return _out_launch(tril_out3_tma, "hetmogp_tril_out3_f32", A, B,
                        tma=True, three=True)

@@ -83,9 +83,10 @@ def test_gram_and_kdiag_match_jax():
 def test_cpu_tensors_take_the_plain_version():
     arrays = [torch.from_numpy(a) for a in
               _inputs(**CASES["ard"], dtype=np.float32)]
+    before = cuda_kernels.launch_counts()
     got = kernels.K_batched("rbf", *arrays)
     assert not cuda_dispatch.use_rbf_kernel(arrays[0])
-    assert not any(cuda_kernels.launch_counts().values())
+    assert cuda_kernels.launch_counts() == before
     torch.testing.assert_close(
         got, cuda_kernels.rbf_K_batched_plain(*arrays), rtol=0, atol=0)
 
@@ -94,12 +95,13 @@ def test_cpu_tensors_take_the_plain_version():
 def test_cuda_wrapper_refuses_cpu_tensors(dtype):
     arrays = [torch.from_numpy(a) for a in
               _inputs(**CASES["ard"], dtype=dtype)]
+    before = cuda_kernels.launch_counts()
     for launcher in (cuda_kernels.rbf_K_batched,
                      cuda_kernels.rbf_K_batched_vec,
                      cuda_kernels.rbf_K_batched_scalar):
         with pytest.raises(TypeError if dtype == np.float64 else ValueError):
             launcher(*arrays)
-    assert not any(cuda_kernels.launch_counts().values())
+    assert cuda_kernels.launch_counts() == before
 
 
 def test_cuda_wrapper_refuses_grad():
@@ -297,9 +299,10 @@ def _tri(dtype=np.float32, Q=2, N=9, M=7):
 
 def test_cpu_tensors_take_the_plain_projection():
     A, L = _tri()
+    before = cuda_kernels.launch_counts()
     got = linalg.matmul_tril_t(A, L)
     assert not cuda_dispatch.use_tril_kernel(A)
-    assert not any(cuda_kernels.launch_counts().values())
+    assert cuda_kernels.launch_counts() == before
     torch.testing.assert_close(got, cuda_kernels.tril_projection_plain(A, L),
                                rtol=0, atol=0)
 
@@ -307,12 +310,13 @@ def test_cpu_tensors_take_the_plain_projection():
 @pytest.mark.parametrize("dtype,err", [(np.float32, ValueError),
                                        (np.float64, TypeError)])
 def test_projection_wrapper_refuses_cpu_and_non_f32(dtype, err):
+    before = cuda_kernels.launch_counts()
     for launcher in (cuda_kernels.tril_projection,
                      cuda_kernels.tril_projection_tma,
                      cuda_kernels.tril_projection_staged):
         with pytest.raises(err):
             launcher(*_tri(dtype))
-    assert not any(cuda_kernels.launch_counts().values())
+    assert cuda_kernels.launch_counts() == before
 
 
 def test_projection_wrapper_refuses_grad():

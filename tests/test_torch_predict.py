@@ -296,6 +296,7 @@ def test_predictive_computes_no_inverse(monkeypatch):
         raise AssertionError("an explicit inverse was computed")
 
     monkeypatch.setattr(linalg, "blocked_cholesky_inverse", boom)
+    before = cuda_kernels.launch_counts()
     tp.predictive(tpar, tcfg, X_list)
     tp.predict_f(tpar, tcfg, Xs, 1)
     tp.predict_f_all(tpar, tcfg, X_list)
@@ -303,7 +304,7 @@ def test_predictive_computes_no_inverse(monkeypatch):
     tp.predict_f_projected_task(tpar, tcfg, X_list, Xs, 0)
     with pytest.raises(AssertionError, match="explicit inverse"):
         tp.make_serving_predictive(tpar, tcfg, 0)
-    assert not any(cuda_kernels.launch_counts().values())
+    assert cuda_kernels.launch_counts() == before
 
 
 def test_solve_path_matches_the_cached_inverse_path():

@@ -160,6 +160,7 @@ def test_3pass_gradient_is_the_projection_gradient():
                                        (np.float64, TypeError)])
 def test_3pass_launcher_refuses_cpu_and_non_f32(dtype, err):
     A, L = (torch.from_numpy(a) for a in _tri_inputs(1, 8, 8, dtype=dtype))
+    before = cuda_kernels.launch_counts()
     for launcher in (cuda_kernels.tril_projection_3pass,
                      cuda_kernels.tril_projection_3pass_tma,
                      cuda_kernels.tril_projection_3pass_staged):
@@ -167,7 +168,7 @@ def test_3pass_launcher_refuses_cpu_and_non_f32(dtype, err):
             launcher(A, L)
         with pytest.raises(NotImplementedError, match="no backward"):
             launcher(A, L.clone().requires_grad_())
-    assert not any(cuda_kernels.launch_counts().values())
+    assert cuda_kernels.launch_counts() == before
     if dtype == np.float64:
         with pytest.raises(TypeError, match="float32"):
             cuda_kernels.tril_projection_3pass_plain(A, L.detach())

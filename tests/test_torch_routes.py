@@ -30,6 +30,16 @@ from hetmogp_tpu_torch.ops import cuda_kernels, linalg
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _launch_counts_down_after():
+    """The launch counts are global to the process, and this file's cases
+    drive the launchers on stand-ins for a
+    card tensor: each case leaves them at 0, so that a
+    later file in the same process starts from 0 too."""
+    yield
+    cuda_kernels.zero_launch_counts()
+
+
 @pytest.mark.parametrize("M,aligned,route", [
     (1024, True, "tma"),     # the main path: trainer, VM step and serving
     (1000, True, "tma"),     # M % 4 == 0, not a multiple of the tile
@@ -357,6 +367,7 @@ def test_kernel8_launchers_hand_their_entries_what_they_take(monkeypatch,
 
 def test_kernel8_launchers_refuse_what_they_cannot_take():
     A, _ = _inputs(1, 8, 8)
+    before = cuda_kernels.launch_counts()
     for name in ("tril_out_tma", "tril_out_generic", "tril_out3_tma",
                  "tril_out3_generic"):
         launcher = getattr(cuda_kernels, name)
@@ -366,7 +377,7 @@ def test_kernel8_launchers_refuse_what_they_cannot_take():
             launcher(A.double(), A.double())
         with pytest.raises(NotImplementedError, match="no backward"):
             launcher(A, A.clone().requires_grad_())
-    assert not any(cuda_kernels.launch_counts().values())
+    assert cuda_kernels.launch_counts() == before
 
 
 class _OpCounts(TorchDispatchMode):

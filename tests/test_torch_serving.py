@@ -165,6 +165,7 @@ def test_task_qf_moments_match_jax(model):
 
 def test_serving_predictive_matches_jax(model):
     cfg, jparams, X_list, tcfg, tparams = model
+    before = cuda_kernels.launch_counts()
     for t, X in enumerate(X_list):
         jm, jv = jpredict.make_serving_predictive(jparams, cfg, t)(
             jnp.asarray(X))
@@ -172,7 +173,7 @@ def test_serving_predictive_matches_jax(model):
         assert tm.shape == jm.shape and tv.shape == jv.shape
         _close(tm, jm)
         _close(tv, jv)
-    assert not any(cuda_kernels.launch_counts().values())
+    assert cuda_kernels.launch_counts() == before
 
 
 def test_predictive_matches_jax(model):

@@ -56,6 +56,16 @@ torch.set_num_threads(1)
 HOST_SOURCES = (_build.CSRC / "gh_sweep_host.cpp", _build.CSRC / "gh_sweep.cuh")
 
 
+@pytest.fixture(autouse=True)
+def _launch_counts_down_after():
+    """The launch counts are global to the process, and this file's cases
+    drive the launchers on stand-ins for a
+    card tensor: each case leaves them at 0, so that a
+    later file in the same process starts from 0 too."""
+    yield
+    cuda_kernels.zero_launch_counts()
+
+
 @pytest.fixture(scope="module")
 def host_sweep():
     """``csrc/gh_sweep_host.cpp`` built with g++ into ``build/`` (the name

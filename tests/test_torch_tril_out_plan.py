@@ -5,25 +5,36 @@ float32 FFMA, and in three bf16 wgmma passes) run only on the card.
 Which lower output tile, or which part of a tile's reduction, each
 persistent block takes turn by turn, the order in which its stages pass
 through the ring, where the parts of a split tile meet, and the maps of
-its threads, partials and splitter (``csrc/tril_out_plan.cuh``) are plain
-C++ behind a ``__host__ __device__`` macro that is empty under a host
-compiler.  So this file compiles ``csrc/tril_out_plan_host.cpp`` with g++
-into ``build/`` and walks every block, turn and stage of one launch of
-each design, replaying its epilogue's stores, at the flagship's VE and VM
-shapes, a ragged one, one with fewer stages than parts, a one-tile one
-and one of many latents, on the H100's 132 SMs and on 7, asserting that
+its threads, partials, splitter and A fragments
+(``csrc/tril_out_plan.cuh``) are plain C++ behind a ``__host__
+__device__`` macro that is empty under a host compiler.  So this file
+compiles ``csrc/tril_out_plan_host.cpp`` with g++ into ``build/`` and
+walks every block, turn and stage of one launch of each design, replaying
+its epilogues' and fix-ups' stores, at the flagship's VE and VM shapes, a
+ragged one, one with fewer stages than parts, a one-tile one and one of
+many latents, for the H100's 132 SMs and for 66 and 7 resident blocks,
+asserting that
 
 * every lower tile (i >= j) takes its whole reduction n in [0, N) once: its
   stages [0, S) once, as one unit or as the P parts of the last turn;
 * the consumers walk the stages in the cursor's order (the loads', and
-  the three-pass route's splitter's);
-* a split tile's P - 1 writers each write their own slot, and its adder,
-  on the same turn, adds them in increasing part order, so in increasing
-  n: a fixed order, the same in every launch, whatever the data;
+  the three-pass route's splitters');
+* each of a split tile's P parts writes its own slot, once, in the
+  tile's row-major layout, and reduces its own 1/P of the tile's
+  float4s: every float4 by exactly one part, each element's P partials
+  read from the tile's slots in part order, so in increasing n: a fixed
+  order, the same in every launch, whatever the data;
+* no block reads more than its share of a split tile's partials: P
+  partials of at most ceil(V / P) of the tile's V = 4,096 float4s;
 * every output of (Q, M, M) is stored once: a value where m1 >= m2, a
   zero above the diagonal (a diagonal tile's own, or a lower tile's
-  mirror);
-* the thread, partial and splitter maps are each one to one;
+  mirror), by a tile's epilogue or by the fix-up of a split tile;
+* the grid never holds more blocks than the card keeps resident (132 on
+  the H100, and fewer, as where clusters or another kernel hold SMs), so
+  the split tiles' waits end, and the slots fit the flags (MAX_SLOTS);
+* the thread, partial and splitter maps are each one to one, and the
+  three-pass consumers' A-fragment loads read every float of a stage
+  once, a warp's 32 loads of one element in 32 banks;
 * the schedule's balance (the mean block's stages over the busiest
   block's, on 132 SMs) is at least 0.9 at the VE and VM shapes, where a
   grid of one tile a block would give 144 tiles on 132 SMs (0.545).
@@ -47,9 +58,11 @@ HOST_SOURCES = (_build.CSRC / "tril_out_plan_host.cpp",
                 _build.CSRC / "tril_out_plan.cuh")
 STATS = ("tile_faults", "order_faults", "split_faults", "map_faults",
          "write_faults", "blocks", "whole_turns", "last_tiles", "parts",
-         "busiest", "total")
+         "busiest", "total", "fixup_faults", "most_reads", "slots")
 BT = 128  # a tile's rows and columns
-BK = {0: 32, 1: 64}  # a stage's depth: FFMA, three-pass
+BK = {0: 32, 1: 32}  # a stage's depth: FFMA, three-pass
+TILE_VEC = BT * BT // 4  # a tile's float4s
+MAX_SLOTS = 1024  # tril_out_plan.cuh: the flags
 SHAPES = {"VE": (4, 3072, 1024), "VM": (4, 768, 1024),
           "ragged": (3, 1000, 772), "few stages": (4, 40, 1024),
           "one tile": (1, 100, 128), "many latents": (40, 300, 512)}
@@ -128,3 +141,37 @@ def test_schedule_balance_on_132_sms(walk, shape, three):
     SMs)."""
     _, st = walk(*SHAPES[shape], three, 132)
     assert st["total"] / 132 / st["busiest"] >= 0.9
+
+
+@pytest.mark.parametrize("three", [0, 1], ids=["f32", "3pass"])
+@pytest.mark.parametrize("sms", [132, 66, 7])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_split_tiles_meet_in_part_order_each_part_its_share(walk, shape, sms,
+                                                           three):
+    """Every part of a split tile writes one slot and reduces 1/P of the
+    tile from all P slots in part order; no block reads more than P
+    partials of ceil(V / P) float4s; the slots, one a part, fit the
+    flags."""
+    faults, st = walk(*SHAPES[shape], three, sms)
+    assert faults == 0 and st["fixup_faults"] == 0, st
+    P = st["parts"]
+    if P > 1:
+        assert st["slots"] == st["last_tiles"] * P <= MAX_SLOTS
+        assert st["most_reads"] <= P * -(-TILE_VEC // P)
+    else:
+        assert st["slots"] == 0 and st["most_reads"] == 0
+
+
+@pytest.mark.parametrize("three", [0, 1], ids=["f32", "3pass"])
+@pytest.mark.parametrize("resident", [132, 66, 7])
+@pytest.mark.parametrize("shape", ["VE", "VM", "many latents"])
+def test_grid_stays_within_the_resident_blocks(walk, shape, resident, three):
+    """The split tiles' parts wait for each other, which ends only if every
+    block of the grid is resident at once: G never exceeds the resident
+    blocks the plan is given (the H100's 132 SMs, or fewer), and every
+    output is still stored once."""
+    faults, st = walk(*SHAPES[shape], three, resident)
+    assert faults == 0, st
+    Q, N, M = SHAPES[shape]
+    C = -(-M // BT)
+    assert st["blocks"] == min(resident, Q * C * (C + 1) // 2)
