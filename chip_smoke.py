@@ -42,7 +42,22 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    in turns with cuBLAS's dense A^T B and mask, with bounds and the
    schedule's balance; and holds the recursive inverse of the flagship's
    Luu (rec_tri_inverse, on kernels 4 and A) against float64 beside a
-   triangular solve's, with a refresh's time both ways;
+   triangular solve's, with its time beside the solve's;
+3d. the factorization (``factor_phase``): kernel
+   9 (a diagonal panel's Cholesky factor and inverse, one block a matrix)
+   against its plain version and float64 in float32 (a panel of the
+   flagship's Kuu read through its strides, random panels of 128, 100
+   and 9) and float64, exact zeros above the diagonal, NaN for a non-SPD
+   panel, two launches bitwise equal; the blocked factorization
+   (``blocked_cholesky_inverse``: kernel 9 on its panels, kernels A and 4
+   on its products) of the flagship's Kuu and of the ragged M = 777's
+   against float64 within twice potrf's and trsm's errors, its launches,
+   NaN from the failing panel on, a CUDA graph of it replayed bitwise
+   equal to the eager call, its profile (no copy of an operand on the way
+   to kernels A and 4); kernel 9 timed in turns with its plain version,
+   cholesky_ex and trsm and an empty kernel, and a refresh timed both
+   ways (potrf and rec_tri_inverse; the blocked pair), eager and as
+   replayed graphs;
 4. checks the RBF backward (its autograd.Function) against autograd
    through the plain RBF;
 5. trains the flagship model of ``bench.py`` at full width (six
@@ -150,7 +165,7 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    plain versions, on the per-engine path and on the task table
    (``op_profile_phase``).
 
-They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 3b, 3c, 13 (the kernels), 5b,
+They run in the order 1, 4, 6, 7, 8, 5a, 2, 3, 3b, 3c, 3d, 13 (the kernels), 5b,
 13 (the op profile), 9, 10, 11, 12.
 The serving pass is the process's first profiled call: as its sixth,
 after the trainers', the profiler lost one of its twelve requests'
@@ -914,17 +929,9 @@ OUT_SHAPES = {"VE (4, 3072, 1024)": (Q, 6 * TRAIN_B, M),
 # The recursive inverse of the flagship's Luu against float64, normwise:
 # at most this multiple of trsm's error (a triangular solve against I).
 INV_VS_TRSM = 2.0
-# kernel 4's and kernel A's launches in one refresh of (Luu, iLuu) at
-# M = 1024: rec_tri_inverse's levels below M (leaf 128), one of each a
-# level
+# kernel 4's and kernel A's launches in one rec_tri_inverse at M = 1024:
+# its levels below M (leaf 128), one of each a level
 REFRESH_LEVELS = 3
-
-
-def refresh_shapes(q: int) -> set:
-    """The (Q, N, M) of kernel 4's and kernel A's launches in one
-    refresh of q latents' (Luu, iLuu) at M = 1024: each level's batch,
-    flattened into Q, at half its depth."""
-    return {(q * M // (2 * h), h, h) for h in (M // 2, M // 4, M // 8)}
 
 
 def out_bound(A, passes: int, peak: float):
@@ -945,7 +952,7 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
     A^T B and mask and the plain versions, with bounds, TFLOP/s and the
     schedule's balance.  Then the recursive inverse (rec_tri_inverse, on
     kernels 4 and A) of the flagship's Luu against float64 beside trsm's,
-    its residual, its launches, and a refresh's time both ways."""
+    its residual, its launches, and its time beside trsm's."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
     from hetmogp_tpu_torch.ops import linalg
 
@@ -1085,15 +1092,10 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
     e_rec, e_trsm = normwise(rec, ref), normwise(trsm, ref)
     res_rec, res_trsm = (float((Luu.double() @ X.double() - eye64).abs()
                                .max()) for X in (rec, trsm))
-    K = Luu @ Luu.mT
     t, n = time_in_turns({
         "rec_tri_inverse": lambda: linalg.rec_tri_inverse(Luu),
         "trsm against I": lambda: torch.linalg.solve_triangular(
-            Luu, eye, upper=False),
-        "refresh, potrf and rec_tri_inverse":
-            lambda: linalg.blocked_cholesky_inverse(K),
-        "refresh, potrf and trsm": lambda: torch.linalg.solve_triangular(
-            linalg.cholesky(K), eye, upper=False)})
+            Luu, eye, upper=False)})
     print(f"rec_tri_inverse of the flagship's Luu ({Q}, {M}, {M}): "
           f"normwise error vs float64 {e_rec:.3e}, trsm against I "
           f"{e_trsm:.3e} (bound {INV_VS_TRSM:g}x trsm); residual "
@@ -1107,7 +1109,7 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
                              "tril_projection_tma": REFRESH_LEVELS}):
         raise AssertionError("the recursive inverse is off, or did not run "
                              "on kernels 4 and A")
-    del ref, rec, trsm, K
+    del ref, rec, trsm
 
     ve, ragged = "VE (4, 3072, 1024)", "ragged VM (4, 768, 777)"
     entries = []
@@ -1129,6 +1131,283 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
             # function; no PyTorch call computes the 3-pass one
             library_ms=t["plain"] if passes == "f32" else None))
     return entries
+
+
+# ---------------------------------------------------------------------------
+# the factorization: cuSOLVER's potrf, and the blocked panels on kernel 9
+# ---------------------------------------------------------------------------
+
+# The blocked pair (L, iL) of the flagship's Kuu against float64,
+# normwise, each at most this multiple of potrf's and trsm's (cuSOLVER's
+# factor and a triangular solve against I): INV_VS_TRSM's bound, which
+# tril_out_phase holds rec_tri_inverse to.
+FACTOR_VS_POTRF = INV_VS_TRSM
+# Kernel 9 against float64, normwise, in float32: at most this multiple of
+# its plain version's error (cholesky_ex and a triangular solve against I)
+# plus an absolute term; the two sum in other orders.  Float64: within
+# PANEL_F64 of the plain float64 version on a well-conditioned panel.
+PANEL_VS_PLAIN, PANEL_ABS, PANEL_F64 = 4.0, 1e-6, 1e-12
+# One refresh of (Luu, iLuu) at M = 1024 in panels of 128: kernel 9 on
+# each of its 8 diagonal panels, kernel A twice on the rows below 7 of them
+# (the product and its refinement) and kernel 4 on the inverse's 7 row
+# strips.
+PANEL = 128
+REFRESH_PANELS = M // PANEL
+REFRESH_STRIPS = REFRESH_PANELS - 1
+REFRESH_BELOW = 2 * REFRESH_STRIPS
+
+
+def refresh_shapes(q: int) -> dict:
+    """{launcher: {(Q, N, M), ...}} of one refresh of q latents' (Luu,
+    iLuu) at M = 1024: kernel 9's panels, kernel A's rows below each panel
+    (N rows at the panel's depth, twice) and kernel 4's strips (a panel's rows
+    at the depth of the inverse above them)."""
+    return {"chol_panel": {(q, PANEL, PANEL)},
+            "tril_projection_tma": {(q, M - r1, PANEL)
+                                    for r1 in range(PANEL, M, PANEL)},
+            "tril_right_tma": {(q, PANEL, r0) for r0 in range(PANEL, M,
+                                                               PANEL)}}
+
+
+def flagship_kuu(m=M, q=Q) -> torch.Tensor:
+    """Kuu + jitter I of the serving model (the flagship's Z, lengthscale,
+    variance and jitter): what a refresh factorizes."""
+    from hetmogp_tpu_torch.models import elbo
+
+    cfg, params, _ = serving_model(m=m, q=q)
+    with torch.no_grad():
+        return elbo._jittered_gram(params, cfg)
+
+
+def operand_copies(call) -> int:
+    """The contiguous copies (``aten::clone``, what ``.contiguous()`` of a
+    strided tensor makes) in one ``call``, from torch.profiler's record of
+    its ATen ops."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key == "aten::clone")
+
+
+def factor_phase(smi: str) -> list:
+    """Kernel 9 and the blocked factorization on the card: kernel 9 against
+    its plain version and float64 in float32 (a diagonal panel of the
+    flagship's Kuu, read through its strides, and random panels of 128,
+    100 and 9, the ragged M = 777's last) and float64, with exact zeros
+    above the diagonal, NaN for a non-SPD panel and two launches bitwise
+    equal; the blocked pair (L, iL) of the flagship's Kuu and of the
+    ragged M = 777's against float64 beside potrf's and trsm's errors, its
+    launches, NaN from the failing panel on, a CUDA graph of it replayed
+    bitwise equal to the eager call, and its profile; a refresh's time
+    both ways in turns, eager and as replayed graphs.  Returns kernel 9's
+    entry of the kernel table.  (The library's own factorization, potrf's
+    kernels at the port's batch shapes, is measured by
+    ``hetmogp_tpu_torch/probes/ab_phases.py --phases factor``.)"""
+    from hetmogp_tpu_torch.ops import cuda_kernels as ck
+    from hetmogp_tpu_torch.ops import linalg
+
+    K = flagship_kuu()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+
+    def rand_spd(q, n, dtype):
+        X = torch.randn(q, n, n + 8, generator=gen, device="cuda",
+                        dtype=torch.float64)
+        return (X @ X.mT / n + torch.eye(n, device="cuda",
+                                         dtype=torch.float64)).to(dtype)
+
+    cases = {"flagship panel (4, 128, 128), a view of Kuu":
+             K[:, :PANEL, :PANEL],
+             "random (4, 128, 128)": rand_spd(Q, PANEL, torch.float32),
+             "random (4, 100, 100)": rand_spd(Q, 100, torch.float32),
+             "random (4, 9, 9)": rand_spd(Q, 9, torch.float32)}
+    err = 0.0
+    for name, A in cases.items():
+        ref = ck.chol_panel_plain(A.double())
+        plain = ck.chol_panel_plain(A)
+        got, again = ck.chol_panel(A), ck.chol_panel(A)
+        e_k = max(normwise(g, r) for g, r in zip(got, ref))
+        e_p = max(normwise(g, r) for g, r in zip(plain, ref))
+        diff = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+        zeros = not any(bool(torch.triu(g, 1).any()) for g in got)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if name.startswith("flagship"):
+            err = diff
+        print(f"kernel 9 (chol_panel), {name}, float32: normwise error of "
+              f"(L, iL) vs float64 {e_k:.3e}, plain (cholesky_ex, trsm) "
+              f"{e_p:.3e} (bound {PANEL_VS_PLAIN:g}x plain + "
+              f"{PANEL_ABS:g}); max abs difference from plain {diff:.3e}; "
+              f"zeros above the diagonal {zeros}; two launches bitwise "
+              f"equal {same} [card: {smi}]")
+        if not (e_k <= PANEL_VS_PLAIN * e_p + PANEL_ABS and zeros and same):
+            raise AssertionError(f"kernel 9 at {name}: out of bounds, not "
+                                 "zero above the diagonal, or not "
+                                 "deterministic")
+    A64 = rand_spd(Q, PANEL, torch.float64)
+    got, want = ck.chol_panel(A64), ck.chol_panel_plain(A64)
+    e64 = max(normwise(g, w) for g, w in zip(got, want))
+    bad = rand_spd(Q, PANEL, torch.float32)
+    bad[2, 70, 70] = -1.0
+    nan = ck.chol_panel(bad)
+    rows, cols = torch.tril_indices(PANEL, PANEL, device="cuda")
+    nan_ok = (bool(torch.isnan(nan[0][2][rows, cols]).all())
+              and not bool(torch.triu(nan[0][2], 1).any())
+              and bool(torch.isnan(nan[1][2]).all())
+              and all(bool(torch.isfinite(t[[0, 1, 3]]).all()) for t in nan))
+    print(f"kernel 9, float64 (4, 128, 128): normwise from the plain float64 "
+          f"version {e64:.3e} (bound {PANEL_F64:g}); a non-SPD panel: that "
+          f"matrix's L NaN on and below the diagonal and zero above, its iL "
+          f"NaN, the others finite {nan_ok} [card: {smi}]")
+    if not (e64 <= PANEL_F64 and nan_ok):
+        raise AssertionError("kernel 9 in float64, or its NaN contract, is "
+                             "off")
+
+    # the blocked pair against float64, beside potrf's and trsm's
+    for what, Kc in (("flagship (4, 1024, 1024)", K),
+                     (f"ragged (4, {RAGGED_M}, {RAGGED_M})",
+                      flagship_kuu(m=RAGGED_M))):
+        m = Kc.shape[-1]
+        L64 = torch.linalg.cholesky(Kc.double())
+        eye64 = torch.eye(m, dtype=torch.float64, device="cuda")
+        iL64 = torch.linalg.solve_triangular(L64, eye64.expand_as(L64),
+                                             upper=False)
+        ck.zero_launch_counts()
+        L, iL = linalg.blocked_cholesky_inverse(Kc)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ck.launch_counts().items() if v}
+        # kernels A and 4 read the panels' views where TMA can address
+        # them (rows a multiple of 16 bytes apart), else copies
+        copies = operand_copies(lambda: linalg.blocked_cholesky_inverse(Kc))
+        Lp = linalg.cholesky(Kc)
+        iLp = torch.linalg.solve_triangular(
+            Lp, torch.eye(m, device="cuda").expand_as(Lp), upper=False)
+        errs = [normwise(a, b) for a, b in ((L, L64), (iL, iL64),
+                                            (Lp, L64), (iLp, iL64))]
+        zeros = not (torch.triu(L, 1).any() or torch.triu(iL, 1).any())
+        panels = -(-m // PANEL)
+        want = {"chol_panel": panels,
+                "tril_projection_tma": 2 * (panels - 1),
+                "tril_right_tma": panels - 1}
+        print(f"blocked_cholesky_inverse, {what}: normwise error vs float64 "
+              f"L {errs[0]:.3e}, iL {errs[1]:.3e}; potrf {errs[2]:.3e}, trsm "
+              f"against I {errs[3]:.3e} (bound {FACTOR_VS_POTRF:g}x each); "
+              f"zeros above the diagonal {zeros}; launches {launched}; "
+              f"operands copied to reach kernels A and 4 {copies} "
+              f"[card: {smi}]")
+        if not (errs[0] <= FACTOR_VS_POTRF * errs[2]
+                and errs[1] <= FACTOR_VS_POTRF * errs[3] and zeros
+                and launched == want and (m % 4 or copies == 0)):
+            raise AssertionError(f"the blocked pair at {what} is off, did "
+                                 "not run on kernels 9, A and 4, or copied "
+                                 "views TMA can read")
+        del L64, iL64, L, iL, Lp, iLp
+
+    # NaN from the failing panel on; a graph replay bitwise the eager call
+    Kbad = K.clone()
+    Kbad[1, 400, 400] = -1.0
+    L, iL = linalg.blocked_cholesky_inverse(Kbad)
+    first = 400 // PANEL * PANEL
+    nan_ok = (bool(torch.isfinite(L[[0, 2, 3]]).all())
+              and bool(torch.isfinite(iL[[0, 2, 3]]).all())
+              and bool(torch.isfinite(L[1, :, :first]).all())
+              and bool(torch.isnan(L[1, first + PANEL:,
+                                     first:first + PANEL]).all())
+              and bool(torch.isnan(L[1, first:first + PANEL,
+                                     first:first + PANEL][rows, cols]).all())
+              and not bool(torch.triu(L[1], 1).any())
+              and bool(torch.isfinite(iL[1, :first, :first]).all())
+              and bool(torch.isnan(iL[1, first:, :first + 1]).all()))
+    eager = linalg.blocked_cholesky_inverse(K)
+    static = K.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        linalg.blocked_cholesky_inverse(static)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = linalg.blocked_cholesky_inverse(static)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    print(f"blocked_cholesky_inverse, a non-SPD Kuu (matrix 1, pivot 400): "
+          f"the other matrices and the panels before the failing one "
+          f"finite, NaN from the failing panel on (L's columns on and below "
+          f"the diagonal, iL's rows) "
+          f"{nan_ok}; a CUDA graph of it replayed bitwise equal to the "
+          f"eager call {bitwise} [card: {smi}]")
+    if not (nan_ok and bitwise):
+        raise AssertionError("the blocked pair's NaN contract or its graph "
+                             "replay is off")
+    del graph, captured, eager, static
+    profile(lambda: linalg.blocked_cholesky_inverse(K),
+            "factorization, blocked_cholesky_inverse (4, 1024, 1024)", smi)
+
+    # timed in turns: kernel 9 at the panel shape, and a refresh both ways
+    panel = K[:, :PANEL, :PANEL].contiguous()
+    eye = torch.eye(PANEL, device="cuda").expand_as(panel)
+    t, n = time_in_turns({
+        "kernel 9": lambda: ck.chol_panel(panel),
+        "plain (cholesky_ex, where, trsm)": lambda: ck.chol_panel_plain(panel),
+        "cholesky_ex and trsm against I": lambda: torch.linalg
+        .solve_triangular(torch.linalg.cholesky_ex(panel)[0], eye,
+                          upper=False),
+        "empty kernel": ck.empty_launch})
+    # bytes: A's lower triangle read, L and iL written whole (their zeros
+    # above the diagonal are part of the output); operations: n^3 / 3 each
+    # for the factor and the inverse
+    q, m = panel.shape[0], panel.shape[-1]
+    bound = bound_ms(4 * q * (m * (m + 1) // 2 + 2 * m * m),
+                     2 * q * m ** 3 / 3, F32_PEAK)
+    print(f"kernel 9 time (4, 128, 128): kernel {t['kernel 9']:.4f} ms, plain "
+          f"{t['plain (cholesky_ex, where, trsm)']:.4f}, cholesky_ex and trsm "
+          f"{t['cholesky_ex and trsm against I']:.4f}, empty kernel "
+          f"{t['empty kernel']:.4f} (median of {n}); bound {bound[0]:.6f} "
+          f"ms, {bound[1]} ({bound[0] / t['kernel 9'] * 100:.2f}%) "
+          f"[card: {smi}]")
+    # the chain's length: kernel 9 at a panel of 32, 64, 96 and 128 columns
+    widths = {f"kernel 9, n = {w}": (lambda w=w: ck.chol_panel(
+        panel[:, :w, :w])) for w in (1, 8, 16, 32, 64, 96, PANEL)}
+    tw, n = time_in_turns(widths)
+    print("kernel 9 by panel width, (4, n, n), device ms (median of "
+          f"{n}, in turns): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tw.items())
+          + f" [card: {smi}]")
+    refresh = {"potrf and rec_tri_inverse":
+               lambda: linalg.rec_tri_inverse(linalg.cholesky(K)),
+               "blocked_cholesky_inverse (kernel 9)":
+               lambda: linalg.blocked_cholesky_inverse(K),
+               "blocked_cholesky (the panels alone)":
+               lambda: linalg.blocked_cholesky(K),
+               "potrf": lambda: linalg.cholesky(K)}
+    tr, n = time_in_turns(refresh)
+    print("a refresh of the flagship's (Luu, iLuu), eager, device ms (median "
+          f"of {n}, in turns; the blocked pair's ~80 launches outlast the "
+          "device sleep, so its number holds host time): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tr.items())
+          + f" [card: {smi}]")
+    # as the trainer runs it: each refresh captured in a CUDA graph, the
+    # replays timed in turns
+    graphs = {}
+    for name, fn in refresh.items():
+        fn()  # warm-up: cuBLAS and cuSOLVER handles, the allocator
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            fn()
+    tg, n = time_in_turns({k: g.replay for k, g in graphs.items()})
+    print("a refresh of the flagship's (Luu, iLuu), each a CUDA graph "
+          f"replayed, device ms (median of {n}, in turns): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tg.items())
+          + f" [card: {smi}]")
+    del graphs
+    return [dict(proj_entry("chol_panel", "chol_panel_kernel.cu",
+                            "hetmogp_tpu/ops/linalg.py:411", err, t,
+                            "kernel 9", "plain (cholesky_ex, where, trsm)",
+                            bound),
+                 library_ms=t["cholesky_ex and trsm against I"])]
 
 
 # The ragged VM step's hyper gradients (ragged_adjoint_phase) against
@@ -1340,14 +1619,15 @@ def training_phase(smi: str):
             before = _counts()
             before67 = (ck.task_var_exp.launches
                         + ck.task_var_exp_backward.launches,
-                        ck.adam_update.launches)
+                        ck.adam_update.launches, ck.chol_panel.launches)
             state, metrics = step(
                 state, ttrain.slice_batch(data, off, sizes, batches), scales)
             out.append(metrics["elbo"])
-            sweeps, adams = (ck.task_var_exp.launches
-                             + ck.task_var_exp_backward.launches
-                             - before67[0],
-                             ck.adam_update.launches - before67[1])
+            sweeps, adams, panels = (ck.task_var_exp.launches
+                                     + ck.task_var_exp_backward.launches
+                                     - before67[0],
+                                     ck.adam_update.launches - before67[1],
+                                     ck.chol_panel.launches - before67[2])
             if use_kernel:
                 tril, rbf, bwd, right, out8 = (
                     a - b for a, b in zip(_counts(), before))
@@ -1357,14 +1637,15 @@ def training_phase(smi: str):
                       f"rbf backward passes {bwd}, kernel 4 launches "
                       f"{right}, kernel 8 launches {out8}, kernel 6 (task "
                       f"table, forward and backward) {sweeps}, kernel 7 "
-                      f"{adams} [card: {smi}]")
+                      f"{adams}, kernel 9 {panels} [card: {smi}]")
                 # quad_diag a step; the VM step's four adjoint products
-                # and the refresh's levels; quad_diag's gL (VE) or the
+                # and the refresh's strips; quad_diag's gL (VE) or the
                 # solve's Lbar (VM); the task table's forward and backward
-                # and the adam update
+                # and the adam update; the refresh's diagonal panels
                 if (tril < 1 or rbf < 1 or (vm and bwd < 1)
-                        or right != (5 + REFRESH_LEVELS if vm else 1)
-                        or out8 != 1 or sweeps != 2 or adams != 1):
+                        or right != (5 + REFRESH_STRIPS if vm else 1)
+                        or out8 != 1 or sweeps != 2 or adams != 1
+                        or panels != (REFRESH_PANELS if vm else 0)):
                     raise AssertionError(f"step {i} did not run the kernels")
             elif sweeps or adams:
                 raise AssertionError(f"the plain step {i} launched kernel 6 "
@@ -1420,7 +1701,8 @@ def training_phase(smi: str):
           f"[card: {smi}]")
     if (counts[0] < HOST_CALL_STEPS or counts[1] < HOST_CALL_STEPS
             or counts[2] < n_vm
-            or counts[3] != HOST_CALL_STEPS + (4 + REFRESH_LEVELS) * n_vm
+            or counts[3] != HOST_CALL_STEPS + (4 + REFRESH_STRIPS) * n_vm
+            or ck.chol_panel.launches != REFRESH_PANELS * n_vm
             or counts[4] != HOST_CALL_STEPS):
         raise AssertionError("the trainer did not go through the kernels")
 
@@ -1644,7 +1926,8 @@ _SYMBOLS = {"rbf_cross_vec_kernel": ("rbf_K_batched_vec",),
             "gh_sweep_kernel": ("gh_sweep", "gh_sweep_value"),
             "ve_tasks_kernel": ("task_var_exp", "task_var_exp_value"),
             "ve_tasks_grad_kernel": ("task_var_exp_backward",),
-            "adam_kernel": ("adam_update",)}
+            "adam_kernel": ("adam_update",),
+            "chol_panel_kernel": ("chol_panel",)}
 
 
 def own_kernel_rows(rows: dict) -> dict:
@@ -1700,16 +1983,17 @@ def graphed_trainer_phase(smi: str, precision: str,
     # VE step, the solve's Lbar in the VM step; 3-pass at "high"); the VM
     # step adds kernel A for quad_diag's gA, its four adjoint products
     # (kernel 5 at "high", kernel 4 at "highest") and the refresh of
-    # (Luu, iLuu): kernels 4 and A once a level of rec_tri_inverse
-    refresh = REFRESH_LEVELS * n_vm
+    # (Luu, iLuu): kernel 9 on each diagonal panel, kernel A on the rows
+    # below each panel and kernel 4 on each of the inverse's row strips
     want = {"rbf_K_batched_vec": GRAPH_CALL_STEPS, "rbf_backward": n_vm,
             "rbf_K_batched_scalar": 0,
             "tril_projection_tma": (2 * n_vm if high
-                                    else GRAPH_CALL_STEPS + n_vm) + refresh,
+                                    else GRAPH_CALL_STEPS + n_vm)
+            + REFRESH_BELOW * n_vm,
             "tril_projection_3pass_tma": (GRAPH_CALL_STEPS - n_vm
                                           if high else 0),
             "tril_right_tma": (GRAPH_CALL_STEPS + (0 if high else 4 * n_vm)
-                               + refresh),
+                               + REFRESH_STRIPS * n_vm),
             "tril_right3_tma": 4 * n_vm if high else 0,
             "tril_out3_tma": GRAPH_CALL_STEPS if high else 0,
             "tril_out_tma": 0 if high else GRAPH_CALL_STEPS,
@@ -1724,7 +2008,8 @@ def graphed_trainer_phase(smi: str, precision: str,
             "task_var_exp": GRAPH_CALL_STEPS,
             "task_var_exp_backward": GRAPH_CALL_STEPS,
             "task_var_exp_value": 0, "gh_sweep": 0, "gh_sweep_value": 0,
-            "adam_update": GRAPH_CALL_STEPS}
+            "adam_update": GRAPH_CALL_STEPS,
+            "chol_panel": REFRESH_PANELS * n_vm}
     if replayed != want or any(counts[k] < 1 for k in want if want[k]):
         raise AssertionError(f"the graphs did not run the kernels: {replayed}"
                              f" replayed, {want} expected")
@@ -1755,12 +2040,19 @@ def graphed_trainer_phase(smi: str, precision: str,
         raise AssertionError("ELBO not finite or not rising")
 
     offsets = ttrain.draw_offset_stream(gen, sizes, batches, PROFILE_STEPS)
-    profile_replays(run, lambda: run(state, dataset, offsets=offsets),
-                    f"{what}, one call of {PROFILE_STEPS} steps", smi)
+    rows = profile_replays(run, lambda: run(state, dataset, offsets=offsets),
+                           f"{what}, one call of {PROFILE_STEPS} steps", smi)
+    # the refresh is the blocked pair: no cuSOLVER factor, no triangular
+    # solve runs in the graphs
+    library = sorted(k for k in rows if re.search(r"potrf|trsm", k))
+    print(f"{what}: cuSOLVER potrf and trsm kernels in the profile: "
+          f"{library or 'none'} [card: {smi}]")
+    if library:
+        raise AssertionError(f"the graphs ran {library}")
     return counts, replayed, med
 
 
-def profile_replays(run, call, what: str, smi: str) -> None:
+def profile_replays(run, call, what: str, smi: str) -> dict:
     """Profile ``call``, a call of the trainer ``run``'s graphs, and hold
     the calls of each hand kernel in the trace to the launches that its
     replays hold.
@@ -1771,12 +2063,13 @@ def profile_replays(run, call, what: str, smi: str) -> None:
     from every trace, and more calls than launches is never a loss, so the
     check fails on more calls at once, takes a trace with fewer again, up
     to PROFILE_TRIES traces of the same call, and fails unless one of them
-    shows every kernel's calls exactly."""
+    shows every kernel's calls exactly.  Returns that trace's rows (empty
+    where the profiler saw no device time)."""
     for attempt in range(1, PROFILE_TRIES + 1):
         before = dict(run.replays)
         rows = profile(call, what, smi)
         if not rows:
-            return
+            return rows
         steps = {k: run.replays[k] - before[k] for k in run.replays}
         short = {}
         for sym, (ms, seen) in own_kernel_rows(rows).items():
@@ -1793,7 +2086,7 @@ def profile_replays(run, call, what: str, smi: str) -> None:
             if seen < per_graph:
                 short[sym] = (seen, per_graph)
         if not short:
-            return
+            return rows
         print(f"{what}: trace {attempt} of {PROFILE_TRIES} lost device "
               f"records, (calls in the profile, launches by the replays) "
               f"{short} [card: {smi}]")
@@ -2100,9 +2393,13 @@ def ragged_serving_phase(smi: str) -> dict:
             ("highest", "tril_projection_staged", PLAIN_F32_BOUND),
             ("high", "tril_projection_3pass_staged", RAGGED_HIGH_BOUND)):
         c = dataclasses.replace(cfg, ve_fwd_precision=prec)
+        # the serving functions first: their cache's blocked factorization
+        # runs kernels 9, A and 4 on its 128-wide panels (aligned), which
+        # are not the requests' launches
+        serve = [tp.make_serving_predictive(params, c, t)
+                 for t in range(c.num_tasks)]
         ck.zero_launch_counts()
-        got = [tp.make_serving_predictive(params, c, t)(Xs)
-               for t in range(c.num_tasks)]
+        got = [f(Xs) for f in serve]
         torch.cuda.synchronize()
         counts = ck.launch_counts()
         worst = 0.0
@@ -2275,10 +2572,11 @@ def families_phase(smi: str, device="cuda") -> dict:
           f"{cycle['tril_right_tma']}, kernel 5 {cycle['tril_right3_tma']}"
           f" [card: {smi}]")
     # the flagship's cycle at "high" (graphed_trainer_phase), the refresh's
-    # levels of kernels 4 and A included
+    # launches of kernels 9, A and 4 included
     want = {"rbf_K_batched_vec": 5, "tril_projection_3pass_tma": 4,
-            "tril_projection_tma": 2 + REFRESH_LEVELS,
-            "tril_right_tma": 5 + REFRESH_LEVELS, "tril_right3_tma": 4,
+            "tril_projection_tma": 2 + REFRESH_BELOW,
+            "tril_right_tma": 5 + REFRESH_STRIPS, "tril_right3_tma": 4,
+            "chol_panel": REFRESH_PANELS,
             "tril_out3_tma": 5, "tril_out_tma": 0,
             "rbf_K_batched_scalar": 0,
             "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
@@ -3080,10 +3378,13 @@ def launch_shapes():
     seen, originals = {}, {}
     for helper, shape in (("_rbf_launch", lambda w, e, X, Z, *a, **k:
                            (Z.shape[0], X.shape[0], Z.shape[1])),
-                          ("_launch", lambda w, e, A, *a: tuple(A.shape)),
+                          ("_launch", lambda w, e, A, *a, **k:
+                           tuple(A.shape)),
                           ("_right_launch", lambda w, e, A, *a, **k:
                            tuple(A.shape)),
                           ("_out_launch", lambda w, e, A, *a, **k:
+                           tuple(A.shape)),
+                          ("_panel_launch", lambda w, e, A, *a, **k:
                            tuple(A.shape))):
         originals[helper] = getattr(ck, helper)
 
@@ -3133,9 +3434,8 @@ def rank_phase(smi: str) -> None:
              "tril_right_tma", "tril_right3_tma", "tril_out3_tma"}
             <= set(seen)
             and all(b == {Q * 2} for b in seen.values() if b)
-            and {k: v for k, v in levels.items() if v} == {
-                k: refresh_shapes(Q * 2)
-                for k in ("tril_right_tma", "tril_projection_tma")}):
+            and {k: v for k, v in levels.items() if v}
+            == refresh_shapes(Q * 2)):
         raise AssertionError(f"rank 2 did not run the kernels at batch 8: "
                              f"{seen}")
 
@@ -3360,26 +3660,29 @@ def parallel_gloo_phase(smi: str) -> None:
             "(collectives through the host)")
     first_vm = tc.ve_steps_per_vm + 1
     n_vm = sum(1 for i in range(PAR_STEPS) if i % first_vm == tc.ve_steps_per_vm)
-    refresh = REFRESH_LEVELS * n_vm  # a rank's latents' (Luu, iLuu)
+    # a rank's latents' (Luu, iLuu)
     want_counts = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
-                   "tril_projection_tma": 2 * n_vm + refresh,
+                   "tril_projection_tma": (2 + REFRESH_BELOW) * n_vm,
                    "tril_projection_3pass_tma": PAR_STEPS - n_vm,
-                   "tril_right_tma": PAR_STEPS + refresh,
+                   "tril_right_tma": PAR_STEPS + REFRESH_STRIPS * n_vm,
                    "tril_right3_tma": 4 * n_vm, "tril_out3_tma": PAR_STEPS,
                    "rbf_K_batched_scalar": 0, "tril_projection_staged": 0,
                    "tril_projection_3pass_staged": 0,
                    "tril_right_generic": 0, "tril_right3_generic": 0,
                    "tril_out_tma": 0, "tril_out_generic": 0,
-                   "tril_out3_generic": 0}
+                   "tril_out3_generic": 0,
+                   "chol_panel": REFRESH_PANELS * n_vm}
     rows = 6 * TRAIN_B // 2  # a data rank's rows of the VE batch
+    rs = refresh_shapes(2)
     want_shapes = {"rbf_K_batched_vec": {(2, rows, M), (2, rows // 4, M)},
                    "tril_projection_3pass_tma": {(2, rows, M)},
                    "tril_projection_tma": ({(2, rows // 4, M)}
-                                           | refresh_shapes(2)),
+                                           | rs["tril_projection_tma"]),
                    # quad_diag in both steps; the adjoints' (M, M) products
-                   # and the VM step's Kfubar; the refresh's levels
+                   # and the VM step's Kfubar; the refresh's strips
                    "tril_right_tma": ({(2, rows, M), (2, rows // 4, M)}
-                                      | refresh_shapes(2)),
+                                      | rs["tril_right_tma"]),
+                   "chol_panel": rs["chol_panel"],
                    "tril_right3_tma": {(2, M, M), (2, rows // 4, M)},
                    # quad_diag's gL (VE), the solve's Lbar (VM)
                    "tril_out3_tma": {(2, rows, M), (2, rows // 4, M)}}
@@ -3388,8 +3691,9 @@ def parallel_gloo_phase(smi: str) -> None:
     serve_shapes = {k: {(2, PAR_SERVE_ROWS // 2, M)}
                     for k in ("rbf_K_batched_vec", "tril_projection_3pass_tma",
                               "tril_right_tma")}
-    serve_shapes["tril_right_tma"] |= refresh_shapes(2)
-    serve_shapes["tril_projection_tma"] = refresh_shapes(2)
+    serve_shapes["tril_right_tma"] |= rs["tril_right_tma"]
+    serve_shapes["tril_projection_tma"] = rs["tril_projection_tma"]
+    serve_shapes["chol_panel"] = rs["chol_panel"]
     bad = []
     for r, out in enumerate(outs):
         rel = np.abs(out["elbos"] - eager) / np.abs(eager)
@@ -3441,9 +3745,11 @@ def parallel_gloo_phase(smi: str) -> None:
               and out["serve_finite"]
               and out["serve_counts"]["rbf_K_batched_vec"] == 6
               and out["serve_counts"]["tril_projection_3pass_tma"] == 6
-              and out["serve_counts"]["tril_right_tma"] == 6 + REFRESH_LEVELS
+              and out["serve_counts"]["tril_right_tma"]
+              == 6 + REFRESH_STRIPS
               and out["serve_counts"]["tril_projection_tma"]
-              == REFRESH_LEVELS
+              == REFRESH_BELOW
+              and out["serve_counts"]["chol_panel"] == REFRESH_PANELS
               and out["serve_shapes"] == serve_shapes
               and out["serve_collectives"] == [("data", "all_gather"),
                                                ("latent", "all_reduce")])
@@ -3508,9 +3814,10 @@ def parallel_nccl_phase(smi: str) -> None:
               f"[card: {smi}]")
         n_vm = meshed.replays["vm"]
         want = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
-                "tril_projection_tma": (2 + REFRESH_LEVELS) * n_vm,
+                "tril_projection_tma": (2 + REFRESH_BELOW) * n_vm,
                 "tril_projection_3pass_tma": PAR_STEPS - n_vm,
-                "tril_right_tma": PAR_STEPS + REFRESH_LEVELS * n_vm,
+                "tril_right_tma": PAR_STEPS + REFRESH_STRIPS * n_vm,
+                "chol_panel": REFRESH_PANELS * n_vm,
                 "tril_right3_tma": 4 * n_vm, "tril_out3_tma": PAR_STEPS,
                 "task_var_exp": PAR_STEPS,
                 "task_var_exp_backward": PAR_STEPS, "gh_sweep": 0,
@@ -4443,6 +4750,7 @@ def main():
     right = right_products_phase(smi, Kfu, Luu, iLuu)
     out8 = tril_out_phase(smi, Luu)
     del Kfu, Luu, iLuu
+    factor = factor_phase(smi)
     sweep = sweep_phase(smi)
     graphed_parity_phase(smi)
     trajectory_ab_phase(smi)
@@ -4468,6 +4776,12 @@ def main():
           f"tril_out_tma (at \"highest\"); none per serving pass "
           f"{ {k: served[k] for k in ('tril_out_tma', 'tril_out3_tma')} }"
           f" [card: {smi}]")
+    print(f"kernel 9 on the main path: launches per 5-step cycle "
+          f"{replayed['chol_panel'] * 5 // GRAPH_CALL_STEPS} (the graphed "
+          f"flagship at \"high\": a refresh's {REFRESH_PANELS} diagonal "
+          f"panels), {counts['chol_panel']} in its first call (the init's "
+          f"refresh and the capture's); none per serving pass "
+          f"{served['chol_panel']} [card: {smi}]")
     mine = ("task_var_exp", "task_var_exp_backward", "task_var_exp_value",
             "gh_sweep", "gh_sweep_value", "adam_update")
     print(f"kernels 6 and 7 on the main path: launches per 5-step cycle "
@@ -4489,7 +4803,7 @@ def main():
     # ELBOs of save and load); the per-engine sweeps run for the families
     # outside the task table: theirs are the ten-family trainer's first
     # call and its ELBO without a gradient
-    kernels = [*rbf, *proj, *proj3, *right, *out8, *sweep]
+    kernels = [*rbf, *proj, *proj3, *right, *out8, *sweep, *factor]
     own_path = ("_staged", "_scalar", "_generic")
     source = {"task_var_exp_value": life, "gh_sweep": families,
               "gh_sweep_value": families_elbo, "tril_out_tma": highest}

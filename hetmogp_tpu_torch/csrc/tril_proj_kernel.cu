@@ -28,8 +28,10 @@
 // increasing m, starting from zero.  That is cuBLAS's order too, which is
 // why the results are bitwise equal to cuBLAS's A @ tril(L)^T on the card.
 //
-// 1. tril_proj_tma_kernel (entry hetmogp_tril_proj_f32), the main path's
-//    design, for M % 4 == 0 and 16-byte-aligned A (TMA's stride rule):
+// 1. tril_proj_tma_kernel (entry hetmogp_tril_proj_strided_f32: A and L
+//    read through their row and plane strides), the main path's design,
+//    for M % 4 == 0, 16-byte-aligned A and L and strides of a multiple of
+//    16 bytes (TMA's stride rule):
 //    * tril_tma.cuh's pipeline: one producer thread issues TMA loads of A's
 //      and L's 128 x 32 float32 tiles, 128-byte swizzled, into a ring of 4
 //      stages; the 256 FMA threads wait on each stage's mbarrier and
@@ -368,13 +370,18 @@ tril_proj_tma_kernel(const __grid_constant__ CUtensorMap mapA,
 // shapes, dtype, contiguity and device; these check only what would make
 // the launch itself invalid.
 
-// The TMA-fed design: M % 4 == 0 and A 16-byte aligned (a TMA global
-// stride is a multiple of 16 bytes).
-extern "C" int hetmogp_tril_proj_f32(const float* A, const float* L,
-                                     float* out, int Q, int N, int M,
-                                     cudaStream_t stream) {
+// The TMA-fed design: M % 4 == 0, A and L 16-byte aligned, and A's and
+// L's rows and planes a_row, a_plane, l_row and l_plane floats apart, each
+// a multiple of 4 (a TMA global stride is a multiple of 16 bytes): A may
+// be a (Q, N, M) view of a wider array, L a (Q, M, M) one, read where
+// they lie; TMA's bounds keep every load inside the view.
+extern "C" int hetmogp_tril_proj_strided_f32(
+    const float* A, long long a_row, long long a_plane, const float* L,
+    long long l_row, long long l_plane, float* out, int Q, int N, int M,
+    cudaStream_t stream) {
   using namespace tma_a;
-  if (Q <= 0 || N <= 0 || M <= 0 || M % 4 != 0) {
+  if (Q <= 0 || N <= 0 || M <= 0 || M % 4 != 0 || a_row < M ||
+      l_row < M || a_plane < a_row * N || l_plane < l_row * M) {
     return (int)cudaErrorInvalidValue;
   }
   const long long R = (N + BM - 1) / BM;
@@ -390,10 +397,10 @@ extern "C" int hetmogp_tril_proj_f32(const float* A, const float* L,
   }
   CUtensorMap mapA, mapL;
   int err = tril_tma::encode_3d(&mapA, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, A, M,
-                                N, Q, 4ull * M, 4ull * N * M, BK, BM);
+                                N, Q, 4ull * a_row, 4ull * a_plane, BK, BM);
   if (err != 0) return err;
   err = tril_tma::encode_3d(&mapL, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, L, M, M,
-                            Q, 4ull * M, 4ull * M * M, BK, BN);
+                            Q, 4ull * l_row, 4ull * l_plane, BK, BN);
   if (err != 0) return err;
   const tril_tma::Tiles tiles = tril_tma::make_tiles(Q, (int)R, (int)C);
   // setmaxnreg.inc waits for registers the block holds: refuse a build

@@ -36,9 +36,11 @@
 // column order: a column tile's in order, then the tiles' sums in order.  Two runs are bitwise equal, as a graph replay
 // and the eager step it was captured from must be.
 //
-// 1. tril_right_tma_kernel (entry hetmogp_tril_right_f32), for M % 4 == 0
-//    and 16-byte-aligned operands (TMA's stride rule), the main path's
-//    M = 1024: tril_tma.cuh's pipeline (one producer thread issuing TMA
+// 1. tril_right_tma_kernel (entries hetmogp_tril_right_f32 and, for A and
+//    L read through row and plane strides, hetmogp_tril_right_strided_f32),
+//    for M % 4 == 0, 16-byte-aligned operands and strides of a multiple of
+//    16 bytes (TMA's stride rule), the main path's M = 1024: tril_tma.cuh's
+//    pipeline (one producer thread issuing TMA
 //    loads into a ring of 4 stages of mbarriers, a producer warpgroup that
 //    hands its registers to the 8 FMA warps with setmaxnreg, persistent
 //    blocks on the paired snake schedule of tril_tiles.cuh, mirrored).  A
@@ -459,13 +461,18 @@ static bool bad_args(const float* out, const float* part, const float* r,
          (mode != 0 && (part == nullptr || r == nullptr));
 }
 
-// The TMA-fed design: M % 4 == 0 and A, L and out 16-byte aligned.
-extern "C" int hetmogp_tril_right_f32(const float* A, const float* L,
-                                      float* out, float* part, float* r,
-                                      int mode, int Q, int N, int M,
-                                      cudaStream_t stream) {
+// The TMA-fed design: M % 4 == 0, A, L and out 16-byte aligned, and A's
+// and L's rows and planes a_row, a_plane, l_row and l_plane floats apart,
+// each a multiple of 4: A may be a (Q, N, M) view of a wider array, L a
+// (Q, M, M) one, read where they lie; TMA's bounds keep every load inside
+// the view.
+extern "C" int hetmogp_tril_right_strided_f32(
+    const float* A, long long a_row, long long a_plane, const float* L,
+    long long l_row, long long l_plane, float* out, float* part, float* r,
+    int mode, int Q, int N, int M, cudaStream_t stream) {
   using namespace tma_r;
-  if (bad_args(out, part, r, mode, Q, N, M) || M % 4 != 0) {
+  if (bad_args(out, part, r, mode, Q, N, M) || M % 4 != 0 || a_row < M ||
+      l_row < M || a_plane < a_row * N || l_plane < l_row * M) {
     return (int)cudaErrorInvalidValue;
   }
   const long long R = (N + BM - 1) / BM;
@@ -481,10 +488,10 @@ extern "C" int hetmogp_tril_right_f32(const float* A, const float* L,
   }
   CUtensorMap mapA, mapL;
   int err = tril_tma::encode_3d(&mapA, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, A, M,
-                                N, Q, 4ull * M, 4ull * N * M, BK, BM);
+                                N, Q, 4ull * a_row, 4ull * a_plane, BK, BM);
   if (err != 0) return err;
   err = tril_tma::encode_3d(&mapL, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, L, M, M,
-                            Q, 4ull * M, 4ull * M * M, BN, BK,
+                            Q, 4ull * l_row, 4ull * l_plane, BN, BK,
                             CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err;
   const tril_tma::Tiles tiles = tril_tma::make_tiles(Q, (int)R, (int)C);
@@ -505,6 +512,17 @@ extern "C" int hetmogp_tril_right_f32(const float* A, const float* L,
   if (launch_err != cudaSuccess || mode == 0) return (int)launch_err;
   return launch_row_sum(part, r, (long long)Q * N, (int)C * PARTS, PARTS,
                         stream);
+}
+
+// The same on contiguous A and L (probes/tril_right.py compares this entry
+// across checkouts).
+extern "C" int hetmogp_tril_right_f32(const float* A, const float* L,
+                                      float* out, float* part, float* r,
+                                      int mode, int Q, int N, int M,
+                                      cudaStream_t stream) {
+  return hetmogp_tril_right_strided_f32(A, M, (long long)N * M, L, M,
+                                        (long long)M * M, out, part, r, mode,
+                                        Q, N, M, stream);
 }
 
 // The generic design, for any shape.

@@ -61,7 +61,8 @@ def _jittered_gram(params: SVMOGPParams, config: ModelConfig) -> torch.Tensor:
 
 
 def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
-                   cached=None, *, use_kernel: bool = True) -> torch.Tensor:
+                   cached=None, blocked: bool = False, *,
+                   use_kernel: bool = True) -> torch.Tensor:
     """Luu: (Q, M, M) lower Cholesky factors of Kuu_q + jitter I.
 
     cached: optional (Luu, iLuu) valid for the current hypers (the VM
@@ -70,9 +71,13 @@ def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
     at the config's ``ve_fwd_precision`` (``linalg.chol_cached``;
     ``use_kernel=False`` takes their plain versions).
     ``config.chol_dtype="float64"`` on a float32 model factorizes in
-    float64 (``linalg.chol_mixed``) at the fixed jitter.  Otherwise
-    ``config.adaptive_jitter`` escalates the jitter where the factorization
-    fails (``linalg.jitchol``, which reads ``info`` on the host).
+    float64 (``linalg.chol_mixed``) at the fixed jitter.  blocked: the
+    factorization by ``linalg.blocked_cholesky`` (kernel 9 on its
+    diagonal panels; the trainer's init and its refresh without an
+    inverse), taken only at fixed jitter in the working dtype, as the JAX
+    package's ``blocked=True``.  Otherwise ``config.adaptive_jitter``
+    escalates the jitter where the factorization fails
+    (``linalg.jitchol``, which reads ``info`` on the host).
     """
     if cached is not None:
         return linalg.chol_cached(_jittered_gram(params, config), *cached,
@@ -80,6 +85,8 @@ def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
                                   use_kernel=use_kernel)
     if _float64_island(params, config):
         return linalg.chol_mixed(_jittered_gram(params, config))
+    if blocked and not config.adaptive_jitter:
+        return linalg.blocked_cholesky(_jittered_gram(params, config))
     if config.adaptive_jitter:
         Kuu = kernels.K_gram_batched(config.kernel, params.Z,
                                      params.lengthscale, params.variance)
@@ -93,10 +100,12 @@ def _float64_island(params: SVMOGPParams, config: ModelConfig) -> bool:
 
 
 def prior_cholesky_inverse(params: SVMOGPParams, config: ModelConfig):
-    """(Luu, Luu^{-1}) of Kuu + jitter I, each (Q, M, M): the fused
-    factorization and inverse at fixed jitter in the working dtype, else
-    ``prior_cholesky`` (the float64 island, or the adaptive ``jitchol``)
-    and a triangular solve against I."""
+    """(Luu, Luu^{-1}) of Kuu + jitter I, each (Q, M, M): the fused,
+    blocked factorization and inverse (``linalg.blocked_cholesky_inverse``:
+    kernel 9 on the diagonal panels) at fixed jitter in the working dtype,
+    else ``prior_cholesky`` (the float64 island, or the adaptive
+    ``jitchol``) and the recursive inverse.  No gradient: the VM step
+    differentiates through ``chol_cached`` against this cache."""
     if not config.adaptive_jitter and not _float64_island(params, config):
         return linalg.blocked_cholesky_inverse(_jittered_gram(params, config))
     Luu = prior_cholesky(params, config)

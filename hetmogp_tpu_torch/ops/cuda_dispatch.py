@@ -31,6 +31,11 @@ lower tiles formed, is kernel 8 in float32 and in three bf16 passes at
 ``"high"``.  ``"high"`` on float64 takes the full-precision route: the
 3-pass split is a float32 scheme, and the JAX package's
 ``Precision.HIGH`` is a no-op in float64 as well.
+
+Kernel 9 (``chol_panel``), the Cholesky factor and inverse of one
+diagonal panel of the blocked factorization, takes float32 and float64;
+it writes into the views it is given, so it is a launcher, not an
+operator (no exported program reaches it).
 """
 
 from __future__ import annotations
@@ -125,3 +130,16 @@ def t_matmul_tril_out(A, B, *, precision: str = "highest",
     if precision == "high" and A.dtype == torch.float32:
         return cuda_kernels.t_matmul_tril_out_3pass_plain(A, B)
     return cuda_kernels.t_matmul_tril_out_plain(A, B)
+
+
+def chol_panel(A, L=None, iL=None):
+    """(L, L^{-1}) of the (batch, n, n) SPD ``A``, n <= 128, written into
+    ``L`` and ``iL`` where given: kernel 9 for a CUDA tensor (float32 or
+    float64; another dtype raises), its plain version for a CPU tensor."""
+    from hetmogp_tpu_torch.ops import cuda_kernels
+
+    if A.is_cuda:
+        return cuda_kernels.chol_panel(A, L, iL)
+    Lp, iLp = cuda_kernels.chol_panel_plain(A)
+    return (Lp if L is None else L.copy_(Lp),
+            iLp if iL is None else iL.copy_(iLp))

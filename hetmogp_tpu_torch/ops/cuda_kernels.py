@@ -42,7 +42,11 @@ over the device functions of ``csrc/gh_sweep.cuh``, and
 ``csrc/adam_kernel.cu`` (kernel 7: the masked adam update of every leaf
 in one launch; ``adam_update``), all in float32 and float64, launched by
 ``ops/quadrature.py`` and ``train.py`` directly (no operator: no exported
-program trains).
+program trains); and ``csrc/chol_panel_kernel.cu`` (kernel 9: the
+Cholesky factor of a (n, n) diagonal panel, n <= 128, and its inverse, in
+float32 and float64; ``chol_panel``), launched by ``ops/linalg.py``'s
+blocked factorization (no operator: no exported program factorizes through
+it).
 ``ops/_build.py`` builds them when a CUDA tensor first reaches one, and
 they are bound with ``ctypes``.  Importing this module builds and loads
 nothing.
@@ -102,6 +106,8 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build()))
     proj = [ctypes.c_void_p] * 3  # A, L, out
     shape = [ctypes.c_int] * 3  # Q, N, M
+    # A and L, each with its row and plane strides
+    strided = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 2
     # X, Z, lengthscale, variance, out; Q, N, M, Dx, lengthscale columns
     rbf = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     sweep = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
@@ -112,17 +118,22 @@ def _library() -> ctypes.CDLL:
     # the task table: pointers, integers, tasks; deriv, partials, count
     tasks = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
              + [ctypes.c_longlong])
+    panel = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 3 + [
+        ctypes.c_int] * 2
     signatures = {
         "hetmogp_rbf_cross_vec_f32": rbf,
         "hetmogp_rbf_cross_f32": rbf,
         "hetmogp_empty_launch": [],
-        "hetmogp_tril_proj_f32": proj + shape,
+        # A, its row and plane strides, L, its strides, out; Q, N, M
+        "hetmogp_tril_proj_strided_f32": strided + [ctypes.c_void_p] + shape,
         "hetmogp_tril_proj_staged_f32": proj + [ctypes.c_int] + shape,
         "hetmogp_tril_proj3_f32": proj + [ctypes.c_void_p] * 2 + shape,
         "hetmogp_tril_proj3_staged_f32": proj + [ctypes.c_int] + shape,
         # A, L, out, partials, r; epilogue; Q, N, M
         "hetmogp_tril_right_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int]
         + shape,
+        "hetmogp_tril_right_strided_f32": strided + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] + shape,
         "hetmogp_tril_right_generic_f32": [ctypes.c_void_p] * 5
         + [ctypes.c_int] + shape,
         # A, L, out, partials; Q, N, M
@@ -146,6 +157,9 @@ def _library() -> ctypes.CDLL:
         # the backward's pointers, integers, tasks
         "hetmogp_ve_tasks_grad_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int],
         "hetmogp_ve_tasks_grad_f64": [ctypes.c_void_p] * 2 + [ctypes.c_int],
+        # A, L and iL, each with its batch and row strides; batch, n
+        "hetmogp_chol_panel_f32": panel,
+        "hetmogp_chol_panel_f64": panel,
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -371,7 +385,11 @@ class RBFCrossCovariance(torch.autograd.Function):
 # multiple of 16 bytes, and 16-byte-aligned bases: the main path's
 # M = 1024), the register-staged designs of the first port everywhere
 # else.  Each launcher counts its own launches; a failed launch raises, and
-# nothing falls back from one route to the other.
+# nothing falls back from one route to the other.  The TMA-fed float32
+# designs of kernels A and 4 read A and L where they lie, through their row
+# and plane strides (the blocked factorization's panels and strips are
+# views of its (M, M) buffers); every other launcher, and a view TMA cannot
+# address, takes contiguous copies.
 
 def tril_route(M: int, aligned: bool) -> str:
     """The kernel a float32 projection of depth ``M`` takes on the card:
@@ -380,7 +398,30 @@ def tril_route(M: int, aligned: bool) -> str:
     return "tma" if aligned and M % 4 == 0 else "staged"
 
 
-def _routed(A: torch.Tensor, L: torch.Tensor, tma, staged, *extra):
+def _tma_strides(t: torch.Tensor):
+    """(row, plane) strides, in elements, through which TMA reads the
+    (Q, R, C) float32 ``t`` where it lies, or None where it cannot: the
+    last stride 1, the base 16-byte aligned, rows and planes apart by
+    multiples of 4 floats (16 bytes) and not overlapping.  A size-1
+    dimension's stride is taken as the packed one."""
+    Q, R, C = t.shape
+    row = t.stride(1) if R > 1 else C
+    plane = t.stride(0) if Q > 1 else row * R
+    if (t.stride(2) != 1 or t.data_ptr() % 16 or row % 4 or plane % 4
+            or row < C or plane < row * R):
+        return None
+    return row, plane
+
+
+def _routed(A: torch.Tensor, L: torch.Tensor, tma, staged, *extra,
+            views: bool = False):
+    """Launch ``tma`` or ``staged`` by ``tril_route``.  With ``views`` (a
+    TMA launcher that takes strided operands) A and L reach it as they
+    are where TMA can address both; else both are copied to contiguous
+    tensors first."""
+    if (views and A.shape[-1] % 4 == 0 and _tma_strides(A) is not None
+            and _tma_strides(L) is not None):
+        return tma(A, L, *extra)
     A, L = A.contiguous(), L.contiguous()
     aligned = A.data_ptr() % 16 == 0 and L.data_ptr() % 16 == 0
     launcher = tma if tril_route(A.shape[-1], aligned) == "tma" else staged
@@ -392,17 +433,38 @@ def tril_projection_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     return A @ torch.tril(L).mT
 
 
-def _tril_launch_args(wrapper, A: torch.Tensor, L: torch.Tensor):
+def _operands(A: torch.Tensor, L: torch.Tensor, views: bool):
+    """(A, L) as a launcher hands them on: with ``views`` each as it is
+    where TMA can address it (``_tma_strides``), else a contiguous copy;
+    and whether both then start on 16-byte boundaries with TMA-able
+    strides."""
+    if views:
+        A, L = (t if _tma_strides(t) is not None else t.contiguous()
+                for t in (A, L))
+        return A, L, all(_tma_strides(t) is not None for t in (A, L))
+    A, L = A.contiguous(), L.contiguous()
+    return A, L, all(t.data_ptr() % 16 == 0 for t in (A, L))
+
+
+def _tril_launch_args(wrapper, A: torch.Tensor, L: torch.Tensor,
+                      views: bool = False):
     """Check (A, L) for the projection launcher ``wrapper``; return the
-    contiguous operands, the output, and whether the three are 16-byte
-    aligned with M % 4 == 0."""
+    operands (``_operands``), the output, and whether the three are
+    16-byte aligned with M % 4 == 0."""
     _check_tril_shapes(wrapper.__name__, A, L)
     Q, N, M = A.shape
     out = torch.empty((Q, N, M), dtype=torch.float32, device=A.device)
-    A = A.contiguous()
-    L = L.contiguous()
-    aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (A, L, out))
+    A, L, aligned = _operands(A, L, views)
+    aligned = aligned and M % 4 == 0 and out.data_ptr() % 16 == 0
     return A, L, out, aligned
+
+
+def _pointers(A: torch.Tensor, L: torch.Tensor, strided: bool) -> tuple:
+    """A's and L's arguments to an entry: their pointers, each followed by
+    its row and plane strides for a strided entry."""
+    if not strided:
+        return A.data_ptr(), L.data_ptr()
+    return (A.data_ptr(), *_tma_strides(A), L.data_ptr(), *_tma_strides(L))
 
 
 def _check_tril_shapes(name: str, A: torch.Tensor, L: torch.Tensor) -> None:
@@ -417,14 +479,16 @@ def _check_tril_shapes(name: str, A: torch.Tensor, L: torch.Tensor) -> None:
                          f"M={M} (Q <= 65535)")
 
 
-def _launch(wrapper, entry: str, A, L, out, *extra) -> torch.Tensor:
+def _launch(wrapper, entry: str, A, L, out, *extra,
+            strided: bool = False) -> torch.Tensor:
     """Launch the projection kernel ``entry`` on the current stream and
-    count the launch on ``wrapper``."""
+    count the launch on ``wrapper``; a ``strided`` entry takes A's and L's
+    row and plane strides after each pointer."""
     Q, N, M = A.shape
     lib = _library()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = getattr(lib, entry)(A.data_ptr(), L.data_ptr(), out.data_ptr(),
+        err = getattr(lib, entry)(*_pointers(A, L, strided), out.data_ptr(),
                                   *extra, Q, N, M, stream)
     _raise_on(err, wrapper.__name__)
     wrapper.launches += 1
@@ -440,14 +504,19 @@ def _require_tma(wrapper, aligned: bool, M: int) -> None:
 
 
 def tril_projection_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """Kernel A's TMA-fed design (``hetmogp_tril_proj_f32``): A tril(L)^T in
-    full float32 for M % 4 == 0 and 16-byte-aligned operands.  Counts its
-    launches in ``tril_projection_tma.launches``."""
-    A, L, out, aligned = _tril_launch_args(tril_projection_tma, A, L)
+    """Kernel A's TMA-fed design (``hetmogp_tril_proj_strided_f32``):
+    A tril(L)^T in full float32 for M % 4 == 0 and 16-byte-aligned
+    operands, each read where it lies when TMA can address it
+    (``_tma_strides``: a row-strided view of a wider array), else from a
+    contiguous copy.  Counts its launches in
+    ``tril_projection_tma.launches``."""
+    A, L, out, aligned = _tril_launch_args(tril_projection_tma, A, L,
+                                           views=True)
     if out.numel() == 0:
         return out
     _require_tma(tril_projection_tma, aligned, A.shape[-1])
-    return _launch(tril_projection_tma, "hetmogp_tril_proj_f32", A, L, out)
+    return _launch(tril_projection_tma, "hetmogp_tril_proj_strided_f32", A,
+                   L, out, strided=True)
 
 
 tril_projection_tma.launches = 0
@@ -476,7 +545,8 @@ def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     ``tril_projection_tma`` or ``tril_projection_staged``; launches on the
     current stream and does not synchronise.
     """
-    return _routed(A, L, tril_projection_tma, tril_projection_staged)
+    return _routed(A, L, tril_projection_tma, tril_projection_staged,
+                   views=True)
 
 
 def _backward_tril(ctx, g, precision="highest"):
@@ -673,7 +743,7 @@ def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
                          f"{epilogue!r}")
     _check_tril_shapes(wrapper.__name__, A, L)
     Q, N, M = A.shape
-    A, L = A.contiguous(), L.contiguous()
+    A, L, aligned = _operands(A, L, views=tma)
     new = functools.partial(torch.empty, dtype=torch.float32,
                             device=A.device)
     out = new((Q, N, M)) if epilogue != "rowsum" else None
@@ -683,8 +753,8 @@ def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
         if r is not None:
             r.zero_()
         return result
-    aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (A, L, out) if t is not None)
+    aligned = aligned and M % 4 == 0 and (out is None
+                                          or out.data_ptr() % 16 == 0)
     if tma:
         _require_tma(wrapper, aligned, M)
     lib = _library()
@@ -694,8 +764,8 @@ def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = getattr(lib, entry)(
-            A.data_ptr(), L.data_ptr(), *(None if t is None else t.data_ptr()
-                                          for t in (out, part, r)),
+            *_pointers(A, L, tma), *(None if t is None else t.data_ptr()
+                                     for t in (out, part, r)),
             EPILOGUES[epilogue], Q, N, M, stream)
     _raise_on(err, wrapper.__name__)
     wrapper.launches += 1
@@ -704,13 +774,15 @@ def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
 
 def tril_right_tma(A: torch.Tensor, L: torch.Tensor,
                    epilogue: str = "product"):
-    """Kernel 4's TMA-fed design (``hetmogp_tril_right_f32``) for M % 4 == 0
-    and 16-byte-aligned operands: A tril(L) in full float32, and with
-    ``epilogue="both"`` or ``"rowsum"`` its row sums of squares (the second
-    launch of the entry adds the per-tile partials).  Counts its launches
-    in ``tril_right_tma.launches``."""
-    return _right_launch(tril_right_tma, "hetmogp_tril_right_f32", A, L,
-                         epilogue, tma=True)
+    """Kernel 4's TMA-fed design (``hetmogp_tril_right_strided_f32``) for
+    M % 4 == 0 and 16-byte-aligned operands, each read where it lies when
+    TMA can address it (``_tma_strides``), else from a contiguous copy:
+    A tril(L) in full float32, and with ``epilogue="both"`` or
+    ``"rowsum"`` its row sums of squares (the second launch of the entry
+    adds the per-tile partials).  Counts its launches in
+    ``tril_right_tma.launches``."""
+    return _right_launch(tril_right_tma, "hetmogp_tril_right_strided_f32",
+                         A, L, epilogue, tma=True)
 
 
 tril_right_tma.launches = 0
@@ -739,7 +811,8 @@ def tril_right(A: torch.Tensor, L: torch.Tensor, epilogue: str = "product"):
     ``tril_right_tma`` or ``tril_right_generic``; launches on the current
     stream and does not synchronise.
     """
-    return _routed(A, L, tril_right_tma, tril_right_generic, epilogue)
+    return _routed(A, L, tril_right_tma, tril_right_generic, epilogue,
+                   views=True)
 
 
 def tril_right3_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
@@ -1445,6 +1518,100 @@ def task_var_exp_backward(coefs, masks, scales, g):
 task_var_exp_backward.launches = 0
 
 
+# ---- kernel 9: a diagonal panel's Cholesky factor and its inverse -----------
+#
+# csrc/chol_panel_kernel.cu, one thread block a matrix of the batch, float32
+# and float64.  ``ops/linalg.py``'s blocked factorization hands it each
+# (nb, nb) diagonal panel and lets it write the factor and the inverse
+# straight into the panel's place in the (M, M) outputs: every operand is a
+# (batch, n, n) view whose last stride is 1, passed with its strides, so no
+# panel is copied to reach the kernel.
+
+PANEL_MAX = 128  # the widest panel kernel 9 takes (csrc: NMAX)
+_PANEL_ENTRIES = {torch.float32: "hetmogp_chol_panel_f32",
+                  torch.float64: "hetmogp_chol_panel_f64"}
+
+
+def chol_panel_plain(A: torch.Tensor):
+    """Plain version of kernel 9: (L, L^{-1}) of (..., n, n) SPD ``A``,
+    only its lower triangle read; a matrix whose factorization fails gets
+    NaN in L's lower triangle and in all of L^{-1}
+    (``torch.linalg.cholesky_ex``, then a triangular solve against I: the
+    JAX package's ``jnp.linalg.cholesky`` and ``solve_triangular`` of the
+    panel)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    L = torch.where((info != 0)[..., None, None],
+                    torch.full_like(L, float("nan")).tril(), L)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return L, torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+
+def _panel_operand(name: str, what: str, t: torch.Tensor, shape, dtype,
+                   device):
+    if t.shape != shape or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name}: {what} must be {tuple(shape)} {dtype} on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+    if t.stride(-1) != 1 or t.stride(-2) < shape[-1] or t.stride(0) < 0:
+        raise ValueError(f"{name}: {what} must have rows of unit stride no "
+                         f"closer than {shape[-1]} apart, got strides "
+                         f"{t.stride()}")
+    return (t.data_ptr(), t.stride(0), t.stride(1))
+
+
+def _panel_launch(wrapper, entry: str, A, L, iL) -> None:
+    """Check the operands of kernel 9, launch ``entry`` on the current
+    stream and count the launch on ``wrapper``."""
+    name = wrapper.__name__
+    args = []
+    for what, t in (("A", A), ("L", L), ("iL", iL)):
+        args += _panel_operand(name, what, t, A.shape, A.dtype, A.device)
+    lib = _library()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = getattr(lib, entry)(*args, A.shape[0], A.shape[-1], stream)
+    _raise_on(err, name)
+    wrapper.launches += 1
+
+
+def chol_panel(A: torch.Tensor, L=None, iL=None):
+    """Kernel 9 (``hetmogp_chol_panel_f32``/``_f64``,
+    ``csrc/chol_panel_kernel.cu``): the Cholesky factor L of each (n, n)
+    SPD matrix of ``A`` (batch, n, n), n <= 128, its lower triangle read,
+    and L^{-1}, both with exact zeros above the diagonal; a pivot that is
+    not positive fills that matrix's L on and below the diagonal, and all
+    of its L^{-1}, with NaN.  Float32 or float64 on one CUDA device.
+    ``L`` and ``iL`` are written where given (views of A's shape whose
+    last stride is 1, such as a panel of the blocked factorization's
+    (M, M) outputs), else allocated.  Returns (L, iL).  Launches on the
+    current stream and does not synchronise; counts its launches in
+    ``chol_panel.launches``."""
+    name = "chol_panel"
+    tensors = [t for t in (A, L, iL) if t is not None]
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"the raw CUDA {name} launcher records no "
+                                  "backward; call it under no_grad")
+    if A.dtype not in _PANEL_ENTRIES:
+        raise TypeError(f"{name} takes float32 or float64, got {A.dtype}")
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name} takes CUDA tensors, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if A.ndim != 3 or A.shape[-1] != A.shape[-2] or not (
+            0 < A.shape[-1] <= PANEL_MAX) or A.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name} takes (batch, n, n) with 0 < n <= "
+                         f"{PANEL_MAX}, got {tuple(A.shape)}")
+    L = torch.empty_like(A, memory_format=torch.contiguous_format) \
+        if L is None else L
+    iL = torch.empty_like(A, memory_format=torch.contiguous_format) \
+        if iL is None else iL
+    if A.shape[0]:
+        _panel_launch(chol_panel, _PANEL_ENTRIES[A.dtype], A, L, iL)
+    return L, iL
+
+
+chol_panel.launches = 0
+
+
 # ---- the kernels as operators -----------------------------------------------
 #
 # Each routed forward is a custom operator of the ``hetmogp`` namespace: its
@@ -1498,7 +1665,8 @@ _LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,
               tril_right_generic, tril_right3_tma, tril_right3_generic,
               tril_out_tma, tril_out_generic, tril_out3_tma,
               tril_out3_generic, gh_sweep, gh_sweep_value, task_var_exp,
-              task_var_exp_value, task_var_exp_backward, adam_update)
+              task_var_exp_value, task_var_exp_backward, adam_update,
+              chol_panel)
 
 
 def launch_counts() -> dict:

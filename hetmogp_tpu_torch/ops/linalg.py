@@ -3,8 +3,9 @@
 Counterpart of ``hetmogp_tpu/ops/linalg.py``, with its packing helpers
 (``pack_tril``, in GPy's order) and its float64 island (``chol_mixed``).
 The JAX package blocks these by hand for the
-TPU's matrix unit; here the factorizations and solves are plain PyTorch
-calls (cuSOLVER and cuBLAS on the card: ``solve_tri`` is ``trsm``, which
+TPU's matrix unit; here the unblocked factorizations and the solves are
+plain PyTorch calls (cuSOLVER and cuBLAS on the card: ``solve_tri`` is
+``trsm``, which
 the JAX package too computes outside any Pallas kernel), and the products
 against a triangular factor, which the JAX package blocks to skip the
 factor's zero blocks, are hand-written kernels for CUDA float32 tensors
@@ -26,7 +27,12 @@ that skip them too (``ops/cuda_dispatch.py`` decides):
 
 ``tri_inverse`` is ``rec_tri_inverse``, the JAX package's recursive
 blocked inverse: one batched ``trsm`` at the leaves, then its corners as
-kernels 4 and A.  ``tril_matmul`` stays a masked cuBLAS product.  Float32
+kernels 4 and A.  ``blocked_cholesky_inverse`` and ``blocked_cholesky``
+are the JAX package's blocked factorization: left-looking panels of 128,
+each diagonal panel factored and inverted by kernel 9
+(``csrc/chol_panel_kernel.cu``), the rows below it on kernel A and the
+inverse's row strips on kernel 4.  ``tril_matmul`` stays a masked cuBLAS
+product.  Float32
 matmuls must run in full float32: TF32 ruins the projection P = Kfu @
 iLuu^T (see ``models/elbo.py``), so nothing here may run under
 ``torch.set_float32_matmul_precision("high")`` (TF32, not the 3-pass
@@ -224,15 +230,155 @@ def tri_inverse(L: torch.Tensor) -> torch.Tensor:
     return rec_tri_inverse(L)
 
 
-def blocked_cholesky_inverse(K: torch.Tensor):
-    """(chol(K), inv(chol(K))) for (..., M, M) SPD K.
+# ---------------------------------------------------------------------------
+# the blocked factorization: left-looking panels with shared panel inverses
+# ---------------------------------------------------------------------------
+#
+# The JAX package's ``_blocked_cholesky_panels`` and
+# ``_blocked_cholesky_inverse_single`` (hetmogp_tpu/ops/linalg.py:390-450):
+# only the (nb, nb) diagonal panels are factored by a serial routine, here
+# kernel 9, which also inverts each; the rest of the O(M^3) work is
+# products.  Panel j (rows and columns r0:r1):
+#   acc = K[r0:, r0:r1] - L[r0:, :r0] L[r0:r1, :r0]^T   (cuBLAS)
+#   Lkk, iLkk = kernel 9 of acc[:nb]
+#   L[r1:, r0:r1] = acc[nb:] tril(iLkk)^T               (kernel A)
+# refined once: R = acc[nb:] - L[r1:, r0:r1] Lkk^T, L[r1:, r0:r1] += R
+# tril(iLkk)^T (kernel A again).  Two departures from the JAX package, for
+# accuracy in float32: the JAX package multiplies by the inverse alone,
+# which against float64 loses up to cond(Lkk) eps (several times
+# cuSOLVER's potrf on the flagship's Kuu, cond ~1e6), and it accumulates
+# the updates acc in float32 over up to M - nb terms; here the refinement
+# restores a triangular solve's accuracy and the updates run in float64
+# (cuBLAS on the card's FP64 tensor cores, from a float64 copy of L's
+# finished columns), rounded to float32 once.  Together they put the pair
+# within potrf's and trsm's errors (``chip_smoke.py::factor_phase``).
+# Then the inverse, a row strip at a time from the same panel inverses:
+#   iL[r0:r1, :r0] = -iLkk (L[r0:r1, :r0] tril(iL[:r0, :r0]))
+# (the inner product on kernel 4; the outer one on cuBLAS, which writes the
+# negated product straight into iL's rows through its leading dimension:
+# kernel A would need X^T and its transposed result copied, and iLkk's
+# zeros above the diagonal are exact, so no mask is needed).  L and iL are
+# two (M, M) buffers written through views, where the JAX package
+# concatenates (in-place updates were slower on the TPU); kernel 9 writes
+# its panel's L and iL in place, and iLkk is that view of iL.  Kernels A
+# and 4 read their operands where they lie (``below``'s first panel, a
+# view of K; iLkk; each strip's two operands), through the strides TMA
+# takes when the rows are a multiple of 16 bytes apart (M % 4 == 0, as
+# the flagship's 1024); at another M they copy them to contiguous
+# tensors first.  Float64 runs kernel 9 and the products' plain
+# versions.  The panel width is fixed at 128, the widest kernel 9 takes
+# (the JAX package tunes it to the TPU: ``_auto_nb``); an M that 128 does
+# not divide gets a narrower last panel, not the unblocked factor.
 
-    The contract of the JAX ``blocked_cholesky_inverse``: both factors come
-    back lower-triangular, and a factorization that fails surfaces as NaNs
-    in both, not as an exception (and without a host synchronisation).
+PANEL = 128
+
+
+def _panels(m: int, nb: int):
+    return [(r0, min(r0 + nb, m)) for r0 in range(0, m, nb)]
+
+
+def _check_nb(nb):
+    nb = PANEL if nb is None else int(nb)
+    if not 0 < nb <= PANEL:
+        raise ValueError(f"the panel width must be in [1, {PANEL}], got {nb}")
+    return nb
+
+
+def _blocked_panels(K3, nb, L, iL):
+    """Factor (B, M, M) K3 into L (zeros on entry), panel by panel; return
+    the panels' inverses, written into ``iL``'s diagonal blocks (views of
+    it) when ``iL`` is not None, else into scratch."""
+    m, dtype = K3.shape[-1], K3.dtype
+    products = dtype == torch.float32  # kernels A and 4 take float32
+    # the updates K - L L^T in float64, from a float64 copy of L's finished
+    # columns (L itself in float64)
+    K64 = K3.to(torch.float64)
+    L64 = L if dtype == torch.float64 else torch.zeros_like(K64)
+    iLkks = []
+    for r0, r1 in _panels(m, nb):
+        top, row = K3[:, r0:r1, r0:r1], L64[:, r0:r1, :r0]
+        if r0:
+            top = torch.baddbmm(K64[:, r0:r1, r0:r1], row, row.mT,
+                                alpha=-1).to(dtype)
+        iLkk = (torch.empty_like(top, memory_format=torch.contiguous_format)
+                if iL is None else iL[:, r0:r1, r0:r1])
+        cuda_dispatch.chol_panel(top, L[:, r0:r1, r0:r1], iLkk)
+        if r1 < m:
+            acc = K3[:, r1:, r0:r1]
+            if r0:
+                acc = torch.baddbmm(K64[:, r1:, r0:r1], L64[:, r1:, :r0],
+                                    row.mT, alpha=-1).to(dtype)
+            below = matmul_tril_t(acc, iLkk, use_kernel=products)
+            # one step of refinement against the panel's factor: the
+            # explicit inverse loses up to cond(Lkk) eps, where a
+            # triangular solve does not
+            res = torch.baddbmm(acc, below, L[:, r0:r1, r0:r1].mT, alpha=-1)
+            torch.add(below, matmul_tril_t(res, iLkk, use_kernel=products),
+                      out=L[:, r1:, r0:r1])
+        if L64 is not L:
+            L64[:, r0:, r0:r1] = L[:, r0:, r0:r1]
+        iLkks.append(iLkk)
+    return iLkks
+
+
+def blocked_cholesky_inverse(K: torch.Tensor, nb=None):
+    """(chol(K), inv(chol(K))) for (..., M, M) SPD K, fused and blocked: the
+    JAX package's ``blocked_cholesky_inverse``.
+
+    Both come back lower-triangular with exact zeros above the diagonal.
+    A factorization that fails surfaces as NaNs, not as an exception and
+    without a host read: from the failing panel on, in both outputs.
+    ``nb``: the panel width (128 unless given, at most 128); M <= nb is one
+    launch of kernel 9.  On a CUDA tensor kernel 9 factors and inverts
+    every diagonal panel (float32 and float64), kernel A forms the rows
+    below each and kernel 4 the inverse's strips (float32; float64 takes
+    their plain versions); a CPU tensor takes the plain versions.  It
+    records no gradient: a K that requires one raises
+    (``blocked_cholesky`` is the differentiable factor).
     """
-    L = cholesky(K)
-    return L, tri_inverse(L)
+    if torch.is_grad_enabled() and K.requires_grad:
+        raise RuntimeError("blocked_cholesky_inverse records no gradient; "
+                           "call it under torch.no_grad(), or differentiate "
+                           "blocked_cholesky")
+    nb = _check_nb(nb)
+    m = K.shape[-1]
+    K3 = K.reshape(-1, m, m)
+    if m <= nb:
+        L, iL = cuda_dispatch.chol_panel(K3)
+        return L.reshape(K.shape), iL.reshape(K.shape)
+    L, iL = torch.zeros_like(K3), torch.zeros_like(K3)
+    iLkks = _blocked_panels(K3, nb, L, iL)
+    products = K.dtype == torch.float32
+    for (r0, r1), iLkk in list(zip(_panels(m, nb), iLkks))[1:]:
+        X = matmul_tril(L[:, r0:r1, :r0], iL[:, :r0, :r0],
+                        use_kernel=products)
+        iL[:, r0:r1, :r0].baddbmm_(iLkk, X, beta=0, alpha=-1)
+    return L.reshape(K.shape), iL.reshape(K.shape)
+
+
+def blocked_cholesky(K: torch.Tensor, nb=None) -> torch.Tensor:
+    """Cholesky factor of (..., M, M) SPD K by the blocked factorization:
+    the JAX package's ``blocked_cholesky``, the panels of
+    ``blocked_cholesky_inverse`` without the inverse's strips.
+
+    Lower-triangular, NaN from the failing panel on where the factorization
+    fails.  Differentiable: where K requires a gradient the pair is formed
+    without one and the factor returned through ``chol_cached``, whose
+    backward is the Cholesky pullback as triangular products against the
+    inverse just formed (in full precision).
+    """
+    nb = _check_nb(nb)
+    if torch.is_grad_enabled() and K.requires_grad:
+        with torch.no_grad():
+            L, iL = blocked_cholesky_inverse(K.detach(), nb)
+        return chol_cached(K, L, iL, use_kernel=K.dtype == torch.float32)
+    m = K.shape[-1]
+    K3 = K.reshape(-1, m, m)
+    if m <= nb:
+        return cuda_dispatch.chol_panel(K3)[0].reshape(K.shape)
+    L = torch.zeros_like(K3)
+    _blocked_panels(K3, nb, L, None)
+    return L.reshape(K.shape)
 
 
 def matmul_tril_t(A: torch.Tensor, L: torch.Tensor, *,

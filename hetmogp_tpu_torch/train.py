@@ -198,7 +198,7 @@ def init_train_state(params: SVMOGPParams, config: ModelConfig,
         if cache_luu and fast:
             Luu, iLuu = elbo_mod.prior_cholesky_inverse(view, config)
         elif cache_luu:
-            Luu = elbo_mod.prior_cholesky(view, config)
+            Luu = elbo_mod.prior_cholesky(view, config, blocked=True)
         S_inv = s_inverse(params.q_sqrt) if natgrad_exact else None
         opt = init_optimizer_state(params, train_config)
     return TrainState(params, opt, 0, Luu, iLuu, S_inv)
@@ -638,7 +638,7 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
                 # (this rank's latents only, under a mesh)
                 view = new_params if comm is None else comm.view(new_params)
                 if state.iLuu is None:
-                    Luu = elbo_mod.prior_cholesky(view, config)
+                    Luu = elbo_mod.prior_cholesky(view, config, blocked=True)
                 else:
                     Luu, iLuu_next = elbo_mod.prior_cholesky_inverse(
                         view, config)

@@ -9,8 +9,10 @@ counters of every route, the autograd.Functions going through the router
 version of kernel 3's L pre-pass against the JAX package's bit-mask split
 (``tools/probe_pallas_proj.py:pallas_proj2``), kernel 5's router, and what
 kernel 5's TMA-fed launcher hands its entry (no pre-pass scratch: it
-splits L in shared memory), through a stand-in library; kernel 8's
-(tril(A^T B)) router, launchers and what they hand their entries; and
+splits L in shared memory), through a stand-in library; the row-strided
+views kernels A's and 4's TMA-fed launchers take in place, and the
+strides they hand their entries; kernel 8's (tril(A^T B)) router,
+launchers and what they hand their entries; and
 the ``hetmogp::`` operators a VE and a VM step reach on the CPU, what each
 launches on the card.
 """
@@ -154,7 +156,7 @@ LAUNCHERS = ("rbf_K_batched_vec", "rbf_K_batched_scalar",
              "tril_right3_generic", "tril_out_tma", "tril_out_generic",
              "tril_out3_tma", "tril_out3_generic", "gh_sweep",
              "gh_sweep_value", "task_var_exp", "task_var_exp_value",
-             "task_var_exp_backward", "adam_update")
+             "task_var_exp_backward", "adam_update", "chol_panel")
 
 
 # the vector kernel is what ``rbf_K_batched`` reaches on the main path, and
@@ -278,6 +280,98 @@ def test_kernel5_launch_takes_no_split_scratch(monkeypatch, partials):
     cuda_kernels.zero_launch_counts()
 
 
+# ---- kernels A and 4 read row-strided views where TMA can address them ------
+
+def _views(width, seed=0):
+    """float32 (A, L) of (2, 40, 64) and (2, 64, 64) as views of arrays
+    ``width`` columns wide, starting at column 4 (16 bytes in): TMA can
+    address them in place when ``width`` % 4 == 0."""
+    rng = np.random.RandomState(seed)
+    bigA = torch.from_numpy(rng.randn(2, 41, width).astype(np.float32))
+    bigL = torch.from_numpy((rng.randn(2, 65, width) / 8).astype(np.float32))
+    return bigA[:, 1:, 4:68], bigL[:, 1:, 4:68]
+
+
+@pytest.mark.parametrize("t,want", [
+    (torch.zeros(2, 40, 64), (64, 40 * 64)),           # contiguous
+    (torch.zeros(2, 41, 100)[:, 1:, 4:68], (100, 41 * 100)),  # a view
+    (torch.zeros(1, 40, 100)[:, :, 4:68], (100, 40 * 100)),   # batch 1
+    (torch.zeros(2, 40, 99)[:, :, 4:68], None),         # rows 396 B apart
+    (torch.zeros(2, 40, 100)[:, :, 1:65], None),        # base 4 B in
+    (torch.zeros(2, 40, 64).mT, None),                  # columns strided
+    (torch.zeros(1, 40, 64).expand(2, 40, 64), None),   # planes overlap
+])
+def test_tma_strides_of_what_tma_can_address(t, want):
+    assert cuda_kernels._tma_strides(t) == want
+
+
+@pytest.mark.parametrize("width,in_place", [(100, True), (99, False)],
+                         ids=["aligned-rows", "unaligned-rows"])
+@pytest.mark.parametrize("router,tma,other,plain", [
+    ("tril_projection", "tril_projection_tma", "tril_projection_staged",
+     cuda_kernels.tril_projection_plain),
+    ("tril_right", "tril_right_tma", "tril_right_generic",
+     cuda_kernels.matmul_tril_plain)], ids=["kernel-A", "kernel-4"])
+def test_strided_routers_hand_views_to_the_tma_launcher(
+        monkeypatch, width, in_place, router, tma, other, plain):
+    """Kernels A's and 4's routers hand row-strided views to the TMA-fed
+    launcher as they are where TMA can address them, and contiguous
+    copies where it cannot (rows not a multiple of 16 bytes apart), which
+    still take the TMA-fed route at M % 4 == 0."""
+    A, L = _views(width)
+    seen = []
+
+    def launcher(a, l, *extra):
+        seen.append((a, l))
+        return plain(a, l)
+    launcher.__name__ = tma
+    monkeypatch.setattr(cuda_kernels, tma, launcher)
+    monkeypatch.setattr(cuda_kernels, other, None)
+    got = getattr(cuda_kernels, router)(A, L)
+    (a, l), = seen
+    for t, v in ((a, A), (l, L)):
+        assert (t.data_ptr() == v.data_ptr()
+                and t.stride() == v.stride()) == in_place
+        assert torch.equal(t, v)
+    assert torch.equal(got, plain(A, L))
+
+
+@pytest.mark.parametrize("width,in_place", [(100, True), (99, False)],
+                         ids=["aligned-rows", "unaligned-rows"])
+def test_tma_launchers_hand_their_strided_entries_the_views(
+        monkeypatch, width, in_place):
+    """Kernels A's and 4's TMA-fed launchers run their strided entries
+    with each operand's pointer followed by its row and plane strides:
+    the view's own where TMA can address it, else a contiguous copy's.
+    Each launch counts once."""
+    lib = _Library(0)
+    monkeypatch.setattr(cuda_kernels, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    A, L = (t.as_subclass(_OnCard) for t in _views(width))
+    cuda_kernels.zero_launch_counts()
+    for name, entry in (("tril_projection_tma",
+                         "hetmogp_tril_proj_strided_f32"),
+                        ("tril_right_tma", "hetmogp_tril_right_strided_f32")):
+        lib.calls = []
+        out = getattr(cuda_kernels, name)(A, L)
+        assert out.shape == A.shape and out.is_contiguous()
+        (called, args), = lib.calls
+        assert called == entry
+        if in_place:
+            assert args[:6] == (A.data_ptr(), width, 41 * width,
+                                L.data_ptr(), width, 65 * width)
+        else:
+            assert A.data_ptr() not in args and L.data_ptr() not in args
+            assert args[1:3] == (64, 40 * 64) and args[4:6] == (64, 64 * 64)
+        assert args[6] == out.data_ptr()
+        assert args[-4:] == (2, 40, 64, 0)
+        assert cuda_kernels.launch_counts()[name] == 1
+    cuda_kernels.zero_launch_counts()
+
+
 # ---- kernel 8: tril(A^T B) ----------------------------------------------------
 
 @pytest.mark.parametrize("M,aligned,route", [
@@ -397,15 +491,18 @@ class _OpCounts(TorchDispatchMode):
 
 @pytest.mark.parametrize("precision", ["highest", "high"])
 def test_operator_counts_of_a_ve_and_a_vm_step(precision):
-    """The flagship's steps on the CPU at M = 256 (one level of the
-    recursive inverse), every ``hetmogp::`` operator counted: what a
+    """The flagship's steps on the CPU at M = 256 (two panels of the
+    blocked factorization), every ``hetmogp::`` operator counted: what a
     launch each is on the card.  A VE step: the RBF, the projection at
     ``precision``, quad_diag's forward and its gL (kernel 8 at
     ``precision``).  The VM step: the RBF, the solve's float32 projection
     and quad_diag's gA (kernel A; q(u) is frozen, so no gL), the four
     adjoint products at ``precision``, the solve's Lbar (kernel 8), and
-    the refresh of (Luu, iLuu): one level of kernels 4 and A in float32,
-    as the state's first factorization has."""
+    the refresh of (Luu, iLuu), in float32 as the state's first
+    factorization has: kernel A twice on the rows below the first panel
+    (the product and its refinement), kernel 4 on the second panel's
+    strip of the inverse (kernel 9 factors each panel: a launcher, not an
+    operator)."""
     import hetmogp_tpu_torch as tp
     from hetmogp_tpu_torch import train as ttrain
 
@@ -434,14 +531,14 @@ def test_operator_counts_of_a_ve_and_a_vm_step(precision):
         sizes)
     step = ttrain.make_step(cfg, tc)
     scales = ttrain.batch_scales(sizes, batches, torch.float32, "cpu")
-    refresh = {"matmul_tril": 1, "tril_projection": 1}
+    refresh = {"matmul_tril": 1, "tril_projection": 2}
     with _OpCounts() as ops:
         state = tp.init_train_state(params, cfg)
     assert ops.seen == refresh
     p3 = "_3pass" if precision == "high" else ""
     ve = {"rbf_K_batched": 1, f"tril_projection{p3}": 1,
           "quad_diag_product": 1, f"t_matmul_tril_out{p3}": 1}
-    vm = {"rbf_K_batched": 1, "tril_projection": 2 + 1,
+    vm = {"rbf_K_batched": 1, "tril_projection": 2 + 2,
           "quad_diag_product": 1, f"t_matmul_tril_out{p3}": 1}
     vm[f"matmul_tril{p3}"] = 4
     vm["matmul_tril"] = vm.get("matmul_tril", 0) + 1
