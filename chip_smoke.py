@@ -321,20 +321,6 @@ def device_phase() -> str:
     return smi
 
 
-def kernel_symbol(line: str) -> str:
-    """The ``*_kernel`` identifier in a mangled name on a ptxas line (each
-    identifier is preceded by its length)."""
-    name = line.strip()
-    for digits in re.finditer(r"\d+", line):
-        for i in range(len(digits.group())):
-            n = int(digits.group()[i:])
-            cand = line[digits.end():digits.end() + n]
-            if cand.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
-                                                          cand):
-                name = cand
-    return name
-
-
 def build_phase(smi: str):
     from hetmogp_tpu_torch.ops import _build, cuda_kernels
 
@@ -343,15 +329,12 @@ def build_phase(smi: str):
     cuda_kernels.load()
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s"
           f" [card: {smi}]")
-    # ptxas -v: each kernel's entry line, then its spills, registers and
-    # shared memory (the dynamic shared memory of the TMA kernels is set at
-    # launch: csrc/*.cu SMEM_BYTES)
-    kernel = None
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "entry function" in line:
-            kernel = kernel_symbol(line)
-        elif "registers" in line or "spill" in line:
-            print(f"  ptxas, {kernel}: {line.strip()} [card: {smi}]")
+    # ptxas -v: each kernel's spills, registers and shared memory (the
+    # dynamic shared memory of the TMA kernels is set at launch: csrc/*.cu
+    # SMEM_BYTES)
+    for kernel, line in _build.ptxas_lines(
+            path.with_suffix(".log").read_text()):
+        print(f"  ptxas, {kernel}: {line} [card: {smi}]")
 
 
 # the RBF kernel's timed shapes: the VE step's Kfu (6 x 512 rows), the VM
@@ -959,14 +942,10 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
     from hetmogp_tpu_torch.ops import _build
 
     # ptxas -v of kernel 8's TMA designs (the build's log): their spills
-    kernel = None
-    for line in _build.library_path().with_suffix(".log").read_text() \
-            .splitlines():
-        if "entry function" in line:
-            kernel = kernel_symbol(line)
-        elif kernel in ("tril_out_tma_kernel", "tril_out3_tma_kernel") and (
-                "spill" in line or "registers" in line):
-            print(f"kernel 8, ptxas, {kernel}: {line.strip()} [card: {smi}]")
+    for kernel, line in _build.ptxas_lines(
+            _build.library_path().with_suffix(".log").read_text()):
+        if kernel in ("tril_out_tma_kernel", "tril_out3_tma_kernel"):
+            print(f"kernel 8, ptxas, {kernel}: {line} [card: {smi}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
     errs, times = {}, {}
     for name, shape in OUT_SHAPES.items():
@@ -1205,8 +1184,22 @@ def factor_phase(smi: str) -> list:
     entry of the kernel table.  (The library's own factorization, potrf's
     kernels at the port's batch shapes, is measured by
     ``hetmogp_tpu_torch/probes/ab_phases.py --phases factor``.)"""
+    from hetmogp_tpu_torch.ops import _build
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
     from hetmogp_tpu_torch.ops import linalg
+
+    # ptxas's registers and spills of both instantiations, and the dynamic
+    # shared memory a launch asks for (sized to its width)
+    for kernel, line in _build.ptxas_lines(
+            _build.library_path().with_suffix(".log").read_text()):
+        if kernel.startswith("chol_panel_kernel"):
+            print(f"kernel 9, ptxas, {kernel}: {line} [card: {smi}]")
+    print("kernel 9 dynamic shared memory, bytes at n = 1, 9, 33, 128: "
+          + "; ".join(f"{str(dt).split('.')[-1]} "
+                      + ", ".join(str(ck.chol_panel_smem(dt, w))
+                                  for w in (1, 9, 33, PANEL))
+                      for dt in (torch.float32, torch.float64))
+          + f" [card: {smi}]")
 
     K = flagship_kuu()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
@@ -1347,6 +1340,7 @@ def factor_phase(smi: str) -> list:
 
     # timed in turns: kernel 9 at the panel shape, and a refresh both ways
     panel = K[:, :PANEL, :PANEL].contiguous()
+    panel64 = panel.double()
     eye = torch.eye(PANEL, device="cuda").expand_as(panel)
     t, n = time_in_turns({
         "kernel 9": lambda: ck.chol_panel(panel),
@@ -1354,6 +1348,8 @@ def factor_phase(smi: str) -> list:
         "cholesky_ex and trsm against I": lambda: torch.linalg
         .solve_triangular(torch.linalg.cholesky_ex(panel)[0], eye,
                           upper=False),
+        "kernel 9, float64": lambda: ck.chol_panel(panel64),
+        "plain, float64": lambda: ck.chol_panel_plain(panel64),
         "empty kernel": ck.empty_launch})
     # bytes: A's lower triangle read, L and iL written whole (their zeros
     # above the diagonal are part of the output); operations: n^3 / 3 each
@@ -1367,9 +1363,19 @@ def factor_phase(smi: str) -> list:
           f"{t['empty kernel']:.4f} (median of {n}); bound {bound[0]:.6f} "
           f"ms, {bound[1]} ({bound[0] / t['kernel 9'] * 100:.2f}%) "
           f"[card: {smi}]")
-    # the chain's length: kernel 9 at a panel of 32, 64, 96 and 128 columns
+    bound64 = bound_ms(8 * q * (m * (m + 1) // 2 + 2 * m * m),
+                       2 * q * m ** 3 / 3, F32_PEAK / 2)
+    print(f"kernel 9 time (4, 128, 128) float64: kernel "
+          f"{t['kernel 9, float64']:.4f} ms, plain "
+          f"{t['plain, float64']:.4f} (median of {n}); bound "
+          f"{bound64[0]:.6f} ms, {bound64[1]} "
+          f"({bound64[0] / t['kernel 9, float64'] * 100:.2f}%; float64 "
+          f"operations at half the float32 rate) [card: {smi}]")
+    # the chain's length: kernel 9 at each width, on and just past the
+    # sub-panel edges
     widths = {f"kernel 9, n = {w}": (lambda w=w: ck.chol_panel(
-        panel[:, :w, :w])) for w in (1, 8, 16, 32, 64, 96, PANEL)}
+        panel[:, :w, :w])) for w in (1, 8, 16, 32, 33, 64, 65, 96, 97,
+                                     PANEL)}
     tw, n = time_in_turns(widths)
     print("kernel 9 by panel width, (4, n, n), device ms (median of "
           f"{n}, in turns): "

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -97,4 +98,35 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
                            + "".join(log))
     os.replace(tmp, out)
+    return out
+
+
+def kernel_symbol(line: str) -> str:
+    """The ``*_kernel`` identifier in a mangled name on a ptxas line (each
+    identifier is preceded by its length), with ``<float>`` or
+    ``<double>`` after it where it is a template instantiated on that
+    type alone; the line itself where it names no kernel."""
+    name = line.strip()
+    for digits in re.finditer(r"\d+", line):
+        for i in range(len(digits.group())):
+            n = int(digits.group()[i:])
+            end = digits.end() + n
+            cand = line[digits.end():end]
+            if cand.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
+                                                          cand):
+                name = cand + {"IfE": "<float>", "IdE": "<double>"}.get(
+                    line[end:end + 3], "")
+    return name
+
+
+def ptxas_lines(log: str) -> list:
+    """(kernel, line) for each line of a ``ptxas -v`` log (``build()``'s
+    ``<name>.log``) that gives a kernel's registers or spills, the kernel
+    named by ``kernel_symbol``."""
+    out, kernel = [], None
+    for line in log.splitlines():
+        if "entry function" in line:
+            kernel = kernel_symbol(line)
+        elif kernel and ("registers" in line or "spill" in line):
+            out.append((kernel, line.strip()))
     return out

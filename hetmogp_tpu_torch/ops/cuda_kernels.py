@@ -181,6 +181,8 @@ def _library() -> ctypes.CDLL:
     lib.hetmogp_tril_out_schedule.argtypes = ([ctypes.c_int] * 5
                                               + [ctypes.c_void_p])
     lib.hetmogp_tril_out_schedule.restype = ctypes.c_int
+    lib.hetmogp_chol_panel_smem.argtypes = [ctypes.c_int] * 2
+    lib.hetmogp_chol_panel_smem.restype = ctypes.c_int
     return lib
 
 
@@ -1610,6 +1612,12 @@ def chol_panel(A: torch.Tensor, L=None, iL=None):
 
 
 chol_panel.launches = 0
+
+
+def chol_panel_smem(dtype: torch.dtype, n: int) -> int:
+    """The dynamic shared memory, in bytes, that kernel 9 asks for at
+    width n (sized to n: ``csrc/chol_panel_kernel.cu::smem_bytes``)."""
+    return _library().hetmogp_chol_panel_smem(int(dtype == torch.float64), n)
 
 
 # ---- the kernels as operators -----------------------------------------------

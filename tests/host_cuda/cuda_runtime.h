@@ -7,6 +7,12 @@
 // its launch `K<<<grid, block, bytes, stream>>>(args);` rewritten as
 // `host_launch(grid, block, bytes, [&] { K(args); });` and its dynamic
 // shared memory (`extern __shared__ ... name[];`) as `host_dynamic_smem`.
+// That source keeps its Hopper primitives behind small functions, defined
+// there only under nvcc (`__CUDACC__`); this header supplies the host's:
+// mbarriers (`mbar_init`, `mbar_arrive`, `mbar_wait` on a phase parity,
+// `fence_barrier_init`), per-element asynchronous copies (`cp_async_elem`,
+// done at once, and `cp_async_arrive`, an arrival), named barriers with a
+// thread count (`named_barrier_sync`), `__shfl_sync` and `rsqrtf`.
 //
 // A launch runs its blocks one at a time, last block first, each as one
 // std::thread a CUDA thread: threadIdx and blockIdx are thread-local, a
@@ -14,17 +20,26 @@
 // dynamic shared memory one buffer of the launch's size, __syncthreads a
 // std::barrier of the block's threads and __syncwarp one of its warp's.
 // Atomics are std::atomic_ref, __threadfence a sequentially consistent
-// fence.  So a kernel's barriers, shared-memory trees and ticket counters
-// run as they are written; its arithmetic is the host compiler's.
+// fence.  An mbarrier is its 64-bit word in shared memory, updated by
+// compare-and-swap (pending arrivals, the count, the phase bit); a wait
+// blocks until the phase of the other parity is reached, as the card's
+// does.  A named barrier blocks until its count of threads has arrived; a
+// shuffle goes through a slot a lane in the warp's buffer between two
+// warp barriers.  So a kernel's barriers, roles, shared-memory trees and
+// ticket counters run as they are written; its arithmetic is the host
+// compiler's.
 #pragma once
 
 #include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
+#include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -79,6 +94,75 @@ template <typename T>
 T __ldcg(const T* p) {
   return *p;
 }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+
+// __shfl_sync: each lane puts its value in its slot of the warp's buffer
+inline thread_local double* host_warp_slots = nullptr;
+template <typename T>
+T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) <= sizeof(double), "a slot holds 8 bytes");
+  double* slots = host_warp_slots;
+  *reinterpret_cast<T*>(slots + threadIdx.x % 32) = v;
+  __syncwarp();
+  const T out = *reinterpret_cast<const T*>(slots + src % 32);
+  __syncwarp();
+  return out;
+}
+
+// An mbarrier's word: bits 0-31 the arrivals pending, 32-62 the count, 63
+// the phase.  Every change notifies the waiters.
+inline void mbar_init(std::uint64_t* bar, std::uint32_t count) {
+  std::atomic_ref<std::uint64_t>(*bar).store(
+      (std::uint64_t(count) << 32) | count);
+}
+inline void mbar_arrive(std::uint64_t* bar) {
+  std::atomic_ref<std::uint64_t> word(*bar);
+  std::uint64_t v = word.load(), next;
+  do {
+    const std::uint32_t pending = std::uint32_t(v) - 1;
+    const std::uint64_t count = (v >> 32) & 0x7fffffffu, phase = v >> 63;
+    next = pending ? (v & ~0xffffffffull) | pending
+                   : ((phase ^ 1) << 63) | (count << 32) | count;
+  } while (!word.compare_exchange_weak(v, next));
+  word.notify_all();
+}
+inline void mbar_wait(std::uint64_t* bar, std::uint32_t parity) {
+  std::atomic_ref<std::uint64_t> word(*bar);
+  for (std::uint64_t v = word.load();; v = word.load()) {
+    if ((v >> 63) != parity) return;
+    word.wait(v);
+  }
+}
+inline void fence_barrier_init() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+// the copy is done at once; its arrival follows it
+template <typename T>
+void cp_async_elem(T* dst, const T* src) {
+  *dst = *src;
+}
+inline void cp_async_arrive(std::uint64_t* bar) { mbar_arrive(bar); }
+
+// bar.sync id, count: 16 barriers, each a generation counter
+struct host_named_barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int arrived = 0;
+  unsigned long generation = 0;
+};
+inline host_named_barrier host_named[16];
+inline void named_barrier_sync(int id, int threads) {
+  host_named_barrier& b = host_named[id];
+  std::unique_lock<std::mutex> lock(b.m);
+  const unsigned long g = b.generation;
+  if (++b.arrived == threads) {
+    b.arrived = 0;
+    ++b.generation;
+    b.cv.notify_all();
+  } else {
+    b.cv.wait(lock, [&] { return b.generation != g; });
+  }
+}
 
 template <typename F>
 void host_launch(dim3 grid, dim3 block, std::size_t smem_bytes, F kernel) {
@@ -93,12 +177,14 @@ void host_launch(dim3 grid, dim3 block, std::size_t smem_bytes, F kernel) {
       warps.emplace_back(std::make_unique<std::barrier<>>(
           (std::ptrdiff_t)std::min(32u, block.x - 32 * w)));
     }
+    std::vector<double> slots(32 * warps.size());
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < block.x; ++t) {
-      threads.emplace_back([&kernel, &warps, t, b]() {
+      threads.emplace_back([&kernel, &warps, &slots, t, b]() {
         threadIdx.x = t;
         blockIdx.x = (unsigned)b;
         host_warp_barrier = warps[t / 32].get();
+        host_warp_slots = slots.data() + 32 * (t / 32);
         kernel();
       });
     }

@@ -439,7 +439,8 @@ def on_host(monkeypatch, host_kernel):
                             cuda_stream=None))
 
 
-@pytest.mark.parametrize("n", [1, 9, 32, 33, 100, 128])
+@pytest.mark.parametrize("n", [1, 9, 31, 32, 33, 64, 65, 96, 97, 100,
+                               127, 128])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 def test_kernel_source_on_host_matches_plain(on_host, n, dtype):
@@ -473,9 +474,15 @@ def test_kernel_source_on_host_matches_plain(on_host, n, dtype):
                     <= 4 * _normwise(p, r.numpy()) + 1e-6)
 
 
-def test_kernel_source_on_host_gives_nan_for_a_failed_panel(on_host):
-    A = torch.from_numpy(_spd(3, 70, seed=5))
-    A[1, 40, 40] = -1.0
+@pytest.mark.parametrize("n,pivot", [(70, 40), (128, 0), (128, 40),
+                                     (128, 127)])
+def test_kernel_source_on_host_gives_nan_for_a_failed_panel(on_host, n,
+                                                             pivot):
+    """A pivot that fails in the first, a middle or the last sub-panel:
+    that matrix's L NaN on and below the diagonal and zero above, all of
+    its iL NaN, the other matrices finite."""
+    A = torch.from_numpy(_spd(3, n, seed=5))
+    A[1, pivot, pivot] = -1.0
     L, iL = (t.as_subclass(torch.Tensor)
              for t in cuda_kernels.chol_panel(A.as_subclass(_OnCard)))
     assert _nan_below(L[1]) and torch.isnan(iL[1]).all()
