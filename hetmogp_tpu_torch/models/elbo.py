@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from hetmogp_tpu_torch import profiling
 from hetmogp_tpu_torch.config import ModelConfig
 from hetmogp_tpu_torch.models.params import SVMOGPParams
 from hetmogp_tpu_torch.ops import kernels, linalg, quadrature
@@ -405,6 +406,14 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
     ``params.lik_theta`` where that is not None.
     Returns:
       (elbo, aux) with aux = {'ve': (T,), 'kl': scalar}.
+
+    Spans (``profiling``): ``elbo.projections`` (the prior factor, the KL
+    and the moments), ``elbo.likelihood`` (``likelihood_term``); the
+    moments' gradients end the backward's first span.  The KL is formed
+    ahead of the moments: autograd runs the nodes it may run in the
+    reverse order of their making, so the KL's backward waits until the
+    moments' gradients have been taken on, and falls in the backward's
+    second span.
     """
     if comm is not None:
         params = comm.view(params)
@@ -413,22 +422,28 @@ def elbo_fn(params: SVMOGPParams, data: Sequence[TaskData],
             raise ValueError("cache_grad=True needs both Luu and iLuu")
         if not config.whiten:
             raise ValueError("cache_grad fast path requires config.whiten")
-        Luu = prior_cholesky(params, config, cached=(Luu, iLuu),
-                             use_kernel=use_kernel)
-    elif Luu is None:
-        Luu = prior_cholesky(params, config)
-    if config.fuse_task_rows and iLuu is not None:
-        moments = fused_task_moments(params, config, Luu, data, iLuu,
-                                     cache_grad=cache_grad,
-                                     use_kernel=use_kernel, comm=comm)
-    else:
-        moments = _mix_tasks(
-            [latent_projections(params, config, Luu, td.X, iLuu,
-                                cache_grad=cache_grad, use_kernel=use_kernel)
-             for td in data], params, config, range(len(data)), comm=comm)
-    ve_sums = likelihood_term(params, config, data, moments, scales,
-                              use_kernel=use_kernel)
-    kl = kl_divergence(params, config, Luu)
+    with profiling.annotate("elbo.projections"):
+        if cache_grad:
+            Luu = prior_cholesky(params, config, cached=(Luu, iLuu),
+                                 use_kernel=use_kernel)
+        elif Luu is None:
+            Luu = prior_cholesky(params, config)
+        kl = kl_divergence(params, config, Luu)
+        if config.fuse_task_rows and iLuu is not None:
+            moments = fused_task_moments(params, config, Luu, data, iLuu,
+                                         cache_grad=cache_grad,
+                                         use_kernel=use_kernel, comm=comm)
+        else:
+            moments = _mix_tasks(
+                [latent_projections(params, config, Luu, td.X, iLuu,
+                                    cache_grad=cache_grad,
+                                    use_kernel=use_kernel)
+                 for td in data], params, config, range(len(data)),
+                comm=comm)
+    moments = profiling.split_backward(moments)
+    with profiling.annotate("elbo.likelihood"):
+        ve_sums = likelihood_term(params, config, data, moments, scales,
+                                  use_kernel=use_kernel)
     if comm is not None:
         ve_sums, kl = comm.reduce_metrics(ve_sums, kl)
     return torch.sum(ve_sums) - kl, {"ve": ve_sums, "kl": kl}

@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from hetmogp_tpu_torch import profiling
 from hetmogp_tpu_torch.config import ModelConfig
 from hetmogp_tpu_torch.models import elbo as elbo_mod
 from hetmogp_tpu_torch.models.params import SVMOGPParams
@@ -77,7 +78,9 @@ def make_serving_predictive(params: SVMOGPParams, config: ModelConfig,
     (``ModelConfig.jitter``), and use ``predictive`` when the solve path's
     exactness matters more than latency.  ``use_kernel=False`` takes the
     plain PyTorch versions in place of the CUDA kernels (the reference they
-    are checked against).
+    are checked against).  Each call is the span ``serve.request``, with
+    ``predict.moments`` and ``predict.likelihood`` inside it
+    (``profiling``).
     """
     with torch.inference_mode():
         Luu, iLuu = elbo_mod.prior_cholesky_inverse(params, config)
@@ -85,12 +88,14 @@ def make_serving_predictive(params: SVMOGPParams, config: ModelConfig,
     device = params.Z.device
 
     def serve(Xnew):
-        with torch.inference_mode():
+        with torch.inference_mode(), profiling.annotate("serve.request"):
             X = _as_inputs(Xnew, config, device)
-            m_F, v_F = elbo_mod.task_qf_moments(
-                params, config, Luu, X, task, iLuu=iLuu,
-                use_kernel=use_kernel)
-            return lik.predictive(m_F, v_F)
+            with profiling.annotate("predict.moments"):
+                m_F, v_F = elbo_mod.task_qf_moments(
+                    params, config, Luu, X, task, iLuu=iLuu,
+                    use_kernel=use_kernel)
+            with profiling.annotate("predict.likelihood"):
+                return lik.predictive(m_F, v_F)
 
     return serve
 

@@ -46,7 +46,11 @@ program trains); and ``csrc/chol_panel_kernel.cu`` (kernel 9: the
 Cholesky factor of a (n, n) diagonal panel, n <= 128, and its inverse, in
 float32 and float64; ``chol_panel``), launched by ``ops/linalg.py``'s
 blocked factorization (no operator: no exported program factorizes through
-it).
+it); and ``csrc/span_stamp_kernel.cu``, not the port's work but its
+spans' (``profiling.py``): the stamp of the device's clock
+(``stamper``), the marks and census of a graph under capture
+(``GraphMarks``), its stamped clone (``StampedGraph``) and the clocks'
+offset (``clock_samples``), which no launch counter counts.
 ``ops/_build.py`` builds them when a CUDA tensor first reaches one, and
 they are bound with ``ctypes``.  Importing this module builds and loads
 nothing.
@@ -183,12 +187,40 @@ def _library() -> ctypes.CDLL:
     lib.hetmogp_tril_out_schedule.restype = ctypes.c_int
     lib.hetmogp_chol_panel_smem.argtypes = [ctypes.c_int] * 2
     lib.hetmogp_chol_panel_smem.restype = ctypes.c_int
+    # ring, slot, the ring's slots, stream
+    lib.hetmogp_span_stamp.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_longlong, ctypes.c_void_p]
+    lib.hetmogp_span_stamp.restype = ctypes.c_int
+    lib.hetmogp_marks_new.argtypes = []
+    lib.hetmogp_marks_new.restype = ctypes.c_void_p
+    lib.hetmogp_marks_free.argtypes = [ctypes.c_void_p]
+    lib.hetmogp_marks_free.restype = None
+    # marks, stream, counts
+    lib.hetmogp_graph_mark.argtypes = [ctypes.c_void_p] * 3
+    lib.hetmogp_graph_mark.restype = ctypes.c_int
+    # marks, graph, ring, pos, stride, slots, clone out, executable out
+    lib.hetmogp_graph_stamped.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+    lib.hetmogp_graph_stamped.restype = ctypes.c_int
+    lib.hetmogp_graph_launch.argtypes = [ctypes.c_void_p] * 2
+    lib.hetmogp_graph_launch.restype = ctypes.c_int
+    lib.hetmogp_graph_free.argtypes = [ctypes.c_void_p] * 2
+    lib.hetmogp_graph_free.restype = None
+    # n, host before, device, host after, stream
+    lib.hetmogp_clock_samples.argtypes = [ctypes.c_int] + [
+        ctypes.c_void_p] * 4
+    lib.hetmogp_clock_samples.restype = ctypes.c_int
     return lib
 
 
 def load() -> None:
     """Build (if needed) and load the kernel library now, not at first use."""
     _library()
+
+
+def loaded() -> bool:
+    """Whether the kernel library is loaded (nothing is built or loaded)."""
+    return _library.cache_info().currsize > 0
 
 
 def _check_launch_inputs(name: str, tensors) -> None:
@@ -324,6 +356,95 @@ def empty_launch() -> None:
     small shapes)."""
     _raise_on(_library().hetmogp_empty_launch(
         torch.cuda.current_stream().cuda_stream), "empty_launch")
+
+
+# ---- span stamps (csrc/span_stamp_kernel.cu) ---------------------------------
+#
+# Not a launcher of the port's work: profiling.py's spans launch the stamp,
+# and no launch counter counts it.
+
+#: the classes of a graph's census, in the order of its counts
+NODE_CLASSES = ("hand", "stamps", "library", "memory", "other")
+
+
+def stamper(ring: torch.Tensor):
+    """The stamps of one ring (int64 on the card, contiguous), checked
+    once: returns ``stamp(slot)``, which writes the device's
+    ``%globaltimer`` (ns) into slot ``slot`` of ``ring`` on the current
+    stream of its device."""
+    if ring.dtype != torch.int64 or not ring.is_cuda \
+            or not ring.is_contiguous():
+        raise ValueError("span_stamp writes a contiguous int64 CUDA ring")
+    fn, ptr, n = _library().hetmogp_span_stamp, ring.data_ptr(), ring.numel()
+    index, raw_stream = ring.device.index, torch._C._cuda_getCurrentRawStream
+
+    def stamp(slot: int) -> None:
+        _raise_on(fn(ptr, slot, n, raw_stream(index)), "span_stamp")
+
+    stamp.ring = ring  # the pointer stays valid while the stamper lives
+    return stamp
+
+
+class GraphMarks:
+    """The span boundaries of one graph while it is captured: each ``mark``
+    notes where a stamp goes and returns the graph's census so far
+    ({class: nodes}, ``NODE_CLASSES``: the port's hand kernels, stamps,
+    library kernels, memset and memcpy nodes, other nodes)."""
+
+    def __init__(self):
+        self.lib = _library()
+        self.handle = self.lib.hetmogp_marks_new()
+        self.count = 0
+
+    def mark(self, stream: torch.cuda.Stream) -> dict:
+        counts = (ctypes.c_longlong * len(NODE_CLASSES))()
+        _raise_on(self.lib.hetmogp_graph_mark(self.handle, stream.cuda_stream,
+                                              counts), "graph_mark")
+        self.count += 1
+        return dict(zip(NODE_CLASSES, counts))
+
+    def __del__(self):
+        self.lib.hetmogp_marks_free(self.handle)
+
+
+class StampedGraph:
+    """A clone of a captured ``graph`` (``keep_graph=True``) with a stamp
+    node at each of the first ``stride`` marks (mark b writes slot b of row
+    ``pos[0]`` of ``ring``), instantiated on its own: ``launch()`` runs it
+    on the current stream in the graph's place."""
+
+    def __init__(self, marks: GraphMarks, graph: "torch.cuda.CUDAGraph",
+                 ring: torch.Tensor, pos: torch.Tensor, stride: int):
+        self.lib = _library()
+        self.clone = self.exec = None  # what __del__ frees if this raises
+        clone, execu = ctypes.c_void_p(), ctypes.c_void_p()
+        _raise_on(self.lib.hetmogp_graph_stamped(
+            marks.handle, graph.raw_cuda_graph(), ring.data_ptr(),
+            pos.data_ptr(), stride, ring.numel(), ctypes.byref(clone),
+            ctypes.byref(execu)), "graph_stamped")
+        self.clone, self.exec, self.device = clone, execu, ring.device
+        self.keep = (ring, pos)  # the clone's stamps write and read them
+
+    def launch(self) -> None:
+        _raise_on(self.lib.hetmogp_graph_launch(
+            self.exec, torch.cuda.current_stream(self.device).cuda_stream),
+            "graph_launch")
+
+    def __del__(self):
+        self.lib.hetmogp_graph_free(self.clone, self.exec)
+
+
+def clock_samples(n: int, device) -> list:
+    """(host before, device, host after) of n samples of the clocks: the
+    device's ``%globaltimer`` stamped between the host's two readings of
+    ``time.perf_counter_ns``'s clock, a PCIe round trip apart.  Synchronizes
+    the device first."""
+    torch.cuda.synchronize(device)
+    rows = [(ctypes.c_longlong * n)() for _ in range(3)]
+    _raise_on(_library().hetmogp_clock_samples(
+        n, *rows, torch.cuda.current_stream(device).cuda_stream),
+        "clock_samples")
+    return [r for r in zip(*rows) if r[1] >= 0]
 
 
 def rbf_K_batched_bwd(X, Z, lengthscale, variance, K, g):

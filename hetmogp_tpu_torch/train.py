@@ -57,6 +57,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from hetmogp_tpu_torch import profiling
 from hetmogp_tpu_torch.config import ModelConfig, TrainConfig
 from hetmogp_tpu_torch.data import full_batch
 from hetmogp_tpu_torch.models import elbo as elbo_mod
@@ -524,8 +525,11 @@ def _gradients(params: SVMOGPParams, free: Sequence[str], loss_fn,
         free_at = [i for i, name in enumerate(names) if name in free]
         grads = [None] * len(names)
         if free_at:
-            for i, gi in zip(free_at, torch.autograd.grad(
-                    -elbo, [tensors[i] for i in free_at], allow_unused=True)):
+            with profiling.backward("backward.likelihood",
+                                    "backward.projections"):
+                got = torch.autograd.grad(
+                    -elbo, [tensors[i] for i in free_at], allow_unused=True)
+            for i, gi in zip(free_at, got):
                 grads[i] = torch.zeros_like(tensors[i]) if gi is None else gi
     if comm is not None:
         comm.data_sum_([g for g in grads if g is not None])
@@ -553,6 +557,11 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
     metrics: ``elbo`` (before the update), ``kl``, ``ve`` (T,);
     ``ng_backoff`` (0/1/2, 0 on VM steps) under natgrad_adam; ``skipped``
     (0/1) under ``skip_nonfinite_steps``; all on the device.
+
+    The step is the span ``step`` (``profiling.annotate``); ``step.body``
+    is the same step without it, for a caller whose own ``step`` span
+    covers more (``ScanTrainer``'s covers the sampler and the copies into
+    its static buffers).
     """
     update = make_optimizer(train_config, comm, use_kernel)
     use_natgrad = train_config.optimizer == "natgrad_adam"
@@ -583,7 +592,7 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
         return elbo_mod.elbo_fn(p, rows(data), scales, config,
                                 use_kernel=use_kernel, comm=comm, **kw)
 
-    def step(state: TrainState, data, scales):
+    def body(state: TrainState, data, scales):
         params = state.params
         is_ve = vem and state.step % cycle < nve
         free = ((ve_mask() if is_ve else vm_mask(tc)) if vem
@@ -637,11 +646,13 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
             if use_cache and not is_ve:  # hypers and Z moved: refresh
                 # (this rank's latents only, under a mesh)
                 view = new_params if comm is None else comm.view(new_params)
-                if state.iLuu is None:
-                    Luu = elbo_mod.prior_cholesky(view, config, blocked=True)
-                else:
-                    Luu, iLuu_next = elbo_mod.prior_cholesky_inverse(
-                        view, config)
+                with profiling.annotate("refresh"):
+                    if state.iLuu is None:
+                        Luu = elbo_mod.prior_cholesky(view, config,
+                                                      blocked=True)
+                    else:
+                        Luu, iLuu_next = elbo_mod.prior_cholesky_inverse(
+                            view, config)
             metrics = {"elbo": value, "kl": aux["kl"].detach(),
                        "ve": aux["ve"].detach()}
             if use_natgrad:
@@ -657,6 +668,11 @@ def make_step(config: ModelConfig, train_config: TrainConfig, *,
                     None if q_new is None else q_new[:2], comm)
         return new, metrics
 
+    def step(state: TrainState, data, scales):
+        with profiling.annotate("step"):
+            return body(state, data, scales)
+
+    step.body = body
     return step
 
 
@@ -1185,11 +1201,12 @@ def make_trainer(config: ModelConfig, train_config: TrainConfig,
                               state.params.Z.device, train_config.minibatch)
         prepared = sampler.prepare(dataset)
         elbos = []
-        for _ in range(steps_per_call):
-            row = sampler.draw(generator, 1)[0]
-            state, metrics = step(state, sampler.on_host(prepared, row),
-                                  scales)
-            elbos.append(metrics["elbo"])
+        with profiling.trainer_call():
+            for _ in range(steps_per_call):
+                row = sampler.draw(generator, 1)[0]
+                state, metrics = step(state, sampler.on_host(prepared, row),
+                                      scales)
+                elbos.append(metrics["elbo"])
         return state, torch.stack(elbos)
 
     return run
@@ -1237,6 +1254,14 @@ class ScanTrainer:
     ``captured`` says whether the call replayed captured graphs (True) or
     ran the step body eagerly (False: the CPU, or a mesh whose collectives
     go through the host).
+
+    Spans (``profiling``): each step is the span ``step``.  The graphs are
+    captured without stamps, their span boundaries marked; beside each, a
+    clone with a stamp kernel at each boundary (``cuda_kernels.
+    StampedGraph``: row ``pos`` of ``stamp_ring``,
+    ``profiling.STAMPS_PER_STEP`` slots a step) is what a call made while
+    spans are on replays, so an untraced call replays the plain graphs.
+    ``span_plans[kind]`` is each graph's structure.
     """
 
     def __init__(self, config: ModelConfig, train_config: TrainConfig,
@@ -1260,7 +1285,7 @@ class ScanTrainer:
             batch_sizes)
         self.steps_per_call = steps_per_call
         self.step_fn = make_step(config, train_config, vem=vem,
-                                 comm=self.comm)
+                                 comm=self.comm).body
         self.sampler = _Sampler(train_config.minibatch, self.task_sizes,
                                 self.batch_sizes, self.comm)
         self.captured: Optional[bool] = None
@@ -1280,6 +1305,9 @@ class ScanTrainer:
         self.capture_seconds = None
         self.ng_backoff: Optional[torch.Tensor] = None
         self.step_kinds: list = []
+        self.stamp_ring: Optional[torch.Tensor] = None
+        self.span_plans: dict = {}
+        self.stamped: dict = {}
 
     def _graphs_on(self, device: torch.device) -> bool:
         """Whether steps on ``device`` replay captured graphs: on the card,
@@ -1300,19 +1328,22 @@ class ScanTrainer:
         ``pos`` of the stream buffer, the step, the new state copied into
         the static one, the ELBO (and the backoff code) into row ``pos``
         of their buffers, then pos += 1."""
-        st = self.state
-        row = self.row_buf.index_select(0, self.pos)[0]
-        batch = self.sample(row, self.ext)
-        new, metrics = self.step_fn(
-            dataclasses.replace(st, step=self.kinds[kind]), batch,
-            self.scales)
+        with profiling.annotate("step"):
+            st = self.state
+            row = self.row_buf.index_select(0, self.pos)[0]
+            batch = self.sample(row, self.ext)
+            new, metrics = self.step_fn(
+                dataclasses.replace(st, step=self.kinds[kind]), batch,
+                self.scales)
+            with torch.no_grad():
+                _assign(st, new)
+                self.elbo_buf.index_copy_(0, self.pos,
+                                          metrics["elbo"].reshape(1))
+                if self.natgrad:
+                    self.ng_buf.index_copy_(0, self.pos,
+                                            metrics["ng_backoff"].reshape(1))
+        # after the span: its exit stamp finds the step's row by pos
         with torch.no_grad():
-            _assign(st, new)
-            self.elbo_buf.index_copy_(0, self.pos,
-                                      metrics["elbo"].reshape(1))
-            if self.natgrad:
-                self.ng_buf.index_copy_(0, self.pos,
-                                        metrics["ng_backoff"].reshape(1))
             self.pos.add_(1)
 
     # ---- binding a call's state and dataset to the static buffers ------
@@ -1370,9 +1401,27 @@ class ScanTrainer:
     def _capture(self) -> None:
         """Warm each step kind up once on a side stream (cuBLAS, cuSOLVER
         and GH-table set-up), capture one graph per kind on that stream in
-        one memory pool, and restore the state the warm-up moved."""
+        one memory pool, and restore the state the warm-up moved.  The
+        spans record each graph's structure and mark its boundaries, where
+        the graph's stamped clone puts its stamps."""
         t0 = time.perf_counter()
         saved = _clone_state(self.state)
+        self.stamp_ring = torch.full(
+            (self.steps_per_call * profiling.STAMPS_PER_STEP,), -1,
+            dtype=torch.int64, device=self.device)
+        with profiling.capturing() as spans:
+            self._capture_graphs(spans)
+        self.span_plans = spans.plans
+        self.stamped = {kind: cuda_kernels.StampedGraph(
+            spans.marks[kind], graph, self.stamp_ring, self.pos,
+            profiling.STAMPS_PER_STEP) for kind, graph in self.graphs.items()}
+        with torch.no_grad():
+            _assign(self.state, saved)
+            self.pos.zero_()
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _capture_graphs(self, spans) -> None:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -1388,8 +1437,11 @@ class ScanTrainer:
             torch.cuda.synchronize(self.device)
             mode = dict(capture_error_mode="thread_local")
         for kind in self.kinds:
+            spans.start(kind)
             before = cuda_kernels.launch_counts()
-            graph = torch.cuda.CUDAGraph()
+            # the graph it was instantiated from is kept: the stamped clone
+            # is made from it
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
                 with torch.cuda.graph(graph, pool=pool, stream=side, **mode):
                     self._body(kind)
@@ -1399,12 +1451,8 @@ class ScanTrainer:
             after = cuda_kernels.launch_counts()
             self.capture_launches[kind] = {k: after[k] - before[k]
                                            for k in after}
+            graph.instantiate()
             self.graphs[kind] = graph
-        with torch.no_grad():
-            _assign(self.state, saved)
-            self.pos.zero_()
-        torch.cuda.synchronize(self.device)
-        self.capture_seconds = time.perf_counter() - t0
 
     # ---- a call --------------------------------------------------------
     def __call__(self, state: TrainState, dataset,
@@ -1429,21 +1477,33 @@ class ScanTrainer:
         self.captured = graphed
         elbos, ngs, kinds = [], [], []
         cap = self.steps_per_call
-        for start in range(0, stream.shape[0], cap):
-            block = stream[start:start + cap]
-            self.row_buf[:block.shape[0]].copy_(block)
-            self.pos.zero_()
-            for _ in range(block.shape[0]):
-                kind = self.kind(self.state.step)
-                kinds.append(kind)
-                if graphed:
-                    self.graphs[kind].replay()
-                    self.replays[kind] += 1
-                else:
-                    self._body(kind)
-                self.state.step += 1
-            elbos.append(self.elbo_buf[:block.shape[0]].clone())
-            ngs.append(self.ng_buf[:block.shape[0]].clone())
+        with profiling.trainer_call() as call:
+            run = None
+            if graphed and call is not None:
+                run = call.replays(self.span_plans, self.stamp_ring)
+            for start in range(0, stream.shape[0], cap):
+                block = stream[start:start + cap]
+                self.row_buf[:block.shape[0]].copy_(block)
+                self.pos.zero_()
+                if run is not None:
+                    self.stamp_ring.fill_(-1)
+                for _ in range(block.shape[0]):
+                    kind = self.kind(self.state.step)
+                    kinds.append(kind)
+                    if run is not None:
+                        run.launch(kind)
+                        self.stamped[kind].launch()
+                        self.replays[kind] += 1
+                    elif graphed:
+                        self.graphs[kind].replay()
+                        self.replays[kind] += 1
+                    else:
+                        self._body(kind)
+                    self.state.step += 1
+                if run is not None:
+                    run.block(block.shape[0])
+                elbos.append(self.elbo_buf[:block.shape[0]].clone())
+                ngs.append(self.ng_buf[:block.shape[0]].clone())
         if not elbos:
             elbos.append(self.elbo_buf[:0].clone())
             ngs.append(self.ng_buf[:0].clone())
