@@ -101,8 +101,9 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    profile, and every learned theta finite and moved; then serves the
    trained model (``with_trained_likelihoods``) and scores its NLPD,
    against the plain route and float64, and evaluates its ELBO on a
-   minibatch without a gradient (kernel 6's per-engine value-alone
-   sweeps: none of the ten families is in the task table);
+   minibatch without a gradient (kernel 6's value-alone launch of the
+   task table: Beta, Binomial, Dirichlet and the ZIP are in it, and the
+   likelihood term's program counters read 4 table and 6 engine tasks);
 10. trains with the other optimizers and loops at the flagship's width
    (``optimizers_phase``): ``examples/large_scale.py --natgrad`` (natural
    gradients, both retractions) through the graphed trainer, against
@@ -154,8 +155,11 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    6 x 128, 6 x 3,072 and a ragged, padded table in float32 and float64,
    random and extreme rows, the value alone bitwise the derivative
    launch's and two launches bitwise equal, and times it in turns with
-   the per-engine path and the plain term, eager and graphed
-   (``task_check_phase``, ``task_time_phase``); kernel 7, the masked adam
+   the per-engine path and the plain term, eager and graphed; the same
+   for the ten-family model's table (Beta, Binomial n = 10, Dirichlet
+   K = 3, the ZIP: several sweeps a row, the instantiations that compile
+   them in) at 4 x 512 and 4 x 128 (``task_check_phase``,
+   ``task_time_phase``); kernel 7, the masked adam
    update of every leaf in one launch, bitwise against ``train._adam`` in
    a VE and a VM step with a float and a schedule's tensor rate, in
    float32 and float64, timed beside ``_adam`` and ``torch._fused_adam_``
@@ -176,7 +180,9 @@ that lost records is taken again (``profile_replays``).  Phases 2, 3 and
 
 Every phase raises on failure, so any failure exits non-zero; so does a
 machine without CUDA.  The line before the last is the kernel table as
-JSON (every kernel launcher, each route included); the last line is
+JSON (every kernel launcher, each route included, and the ten-family
+table's instantiations of kernel 6; the per-engine sweeps, on no main
+path, with 0 launches and ``"main_path": false``); the last line is
 ``{"ok": true, "device": {...}}``.  About eight minutes on one H100.
 """
 
@@ -2540,6 +2546,7 @@ def families_phase(smi: str, device="cuda") -> dict:
     after it, and again around 5.  Returns both."""
     import hetmogp_tpu_torch as tp
     from hetmogp_tpu_torch import train as ttrain
+    from hetmogp_tpu_torch import profiling
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
     t_phase = time.perf_counter()
@@ -2588,15 +2595,27 @@ def families_phase(smi: str, device="cuda") -> dict:
             "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
             "tril_right_generic": 0, "tril_right3_generic": 0,
             "tril_out_generic": 0, "tril_out3_generic": 0,
-            # Beta's two lngamma sweeps and Dirichlet's one (kernel 6's
-            # per-engine "lngamma"), and kernel 7, every step; no family
-            # of the ten is in kernel 6's task table
-            "gh_sweep": 15, "task_var_exp": 0, "task_var_exp_backward": 0,
+            # Beta, Binomial, Dirichlet and the ZIP on kernel 6's task
+            # table (a forward and a backward launch a step; no per-engine
+            # sweep), the six theta families on their engines, and kernel
+            # 7, every step
+            "gh_sweep": 0, "task_var_exp": 5, "task_var_exp_backward": 5,
             "adam_update": 5}
     if ({k: cycle[k] for k in want} != want
             or any(counts[k] < 1 for k in want if want[k])):
         raise AssertionError(f"the ten-family graphs did not run the "
                              f"kernels: {cycle} a cycle, {want} expected")
+    # the likelihood term's tasks, counted at the capture of each graph
+    routed = {kind: c["elbo.likelihood"]["counts"]
+              for kind, c in profiling.graph_counters().items()
+              if "elbo.likelihood" in c}
+    print(f"{what}: likelihood term's tasks by graph (table / own engine) "
+          f"{routed} [card: {smi}]")
+    if any(c != {"likelihood.table_tasks": 4, "likelihood.engine_tasks": 6}
+           for c in routed.values()) or not routed:
+        raise AssertionError(f"the ten-family likelihood term did not send "
+                             f"4 tasks to the table and 6 to their engines: "
+                             f"{routed}")
     ext = ttrain.extend_for_wraparound(dataset, batches, sizes)
     cfg64 = dataclasses.replace(cfg, dtype="float64")
     ext64 = tuple(tp.TaskData(*(a.double() for a in td)) for td in ext)
@@ -2778,8 +2797,9 @@ def families_phase(smi: str, device="cuda") -> dict:
         raise AssertionError("ten-family NLPD disagrees with float64")
 
     # 5. the trained model's ELBO on a minibatch without a gradient
-    # (predict.elbo_evaluator): Beta's and Dirichlet's sweeps take kernel
-    # 6's value-alone launcher, the launch counts from 0 around it
+    # (predict.elbo_evaluator): the four table families take kernel 6's
+    # value-alone launch of the task table, the launch counts from 0 around
+    # it
     from hetmogp_tpu_torch.models import elbo as telbo, predict
 
     batch = ttrain.slice_batch(
@@ -2799,10 +2819,11 @@ def families_phase(smi: str, device="cuda") -> dict:
           f"{float(want):.6f}, relative {r:.3e} (bound "
           f"{GRAPH_PLAIN_F32_VE:g}); launches "
           f"{ {k: v for k, v in evaluated.items() if v} } [card: {smi}]")
-    if not (r <= GRAPH_PLAIN_F32_VE and evaluated["gh_sweep_value"] == 3
+    if not (r <= GRAPH_PLAIN_F32_VE and evaluated["task_var_exp_value"] == 1
+            and evaluated["gh_sweep_value"] == 0
             and evaluated["gh_sweep"] == 0):
         raise AssertionError("the ten-family ELBO without a gradient did "
-                             "not take kernel 6's value-alone sweeps")
+                             "not take kernel 6's value-alone table")
     del run, state, serve, out, eps
     torch.cuda.empty_cache()
     return counts, evaluated
@@ -4069,7 +4090,9 @@ def sweep_phase(smi: str) -> list:
                  plain_ms=t["plain value"], bound_ms=bound_value[0],
                  bound_by=bound_value[1],
                  max_abs_err=abs_err["categorical", "VE", "value"])
-    table = task_time_phase(smi, task_check_phase(smi))
+    table = [entry for name in TASK_TABLES
+             for entry in task_time_phase(smi, task_check_phase(smi, name),
+                                          name)]
     return [sweep, value, *table, *adam_phase(smi)]
 
 
@@ -4081,22 +4104,57 @@ def sweep_phase(smi: str) -> list:
 TASK_ROWS = {"VE": (TRAIN_B,) * 6, "VM": (TRAIN_B // 4,) * 6,
              "fused": (6 * TRAIN_B,) * 6,
              "ragged": (TRAIN_B, 300, 77, TRAIN_B // 4, 1, 1000)}
+# and of the ten-family model's table (its four families without theta,
+# the multi-term ones, which take instantiations of their own): its VE and
+# VM steps' batches
+TERM_TASK_ROWS = {"VE": (TRAIN_B,) * 4, "VM": (TRAIN_B // 4,) * 4}
 # the task table against the plain term: float32 within SWEEP_VS_PLAIN
 # times the plain float32 term's own error against float64 plus SWEEP_ABS,
-# float64 within SWEEP_F64, normwise per task and output; Gamma's c_v (and
-# so its dV) holds torch's float64 trigamma in the plain engine
-TASK_F64_GAMMA_CV = SWEEP_F64_LNGAMMA
-# the extreme rows' observations, at and past the closed forms' clips
-# (HetGaussian's squares, Gamma's and Exponential's 1e-9 and 1e9), by task
-TASK_EXTREME_Y = ((1e5, -1e5, 0.0, 3.0, 0.5, -0.5), (0, 1, 1, 0, 1, 0),
-                  (1, 3, 2, 1, 3, 2), (0, 1e4, 0, 7, 1, 0),
-                  (1e-9, 1e9, 1e-3, 5.0, 1e-9, 1e9),
-                  (1e-9, 1e9, 1e-3, 5.0, 1e-9, 1e9))
+# float64 within SWEEP_F64, normwise per task and output; c_v (and so dV)
+# of the families with an lngamma sweep holds torch's float64 trigamma in
+# the plain engine
+TASK_F64_TRIGAMMA = SWEEP_F64_LNGAMMA
+TASK_TRIGAMMA = ("gamma", "beta", "dirichlet")
+# the observations of each family's support, and the extreme rows',
+# at and past the closed forms' clips (HetGaussian's squares, Gamma's and
+# Exponential's 1e-9 and 1e9) and at the edges of the support (Beta's and
+# Dirichlet's near 0 and 1, Binomial's 0 and n, the ZIP's zeros)
+TASK_DRAWS = {
+    "hetgaussian": lambda rng, n: rng.randn(n, 1),
+    "bernoulli": lambda rng, n: (rng.rand(n, 1) > 0.5) * 1.0,
+    "categorical": lambda rng, n: rng.randint(1, 4, (n, 1)) * 1.0,
+    "poisson": lambda rng, n: rng.poisson(3.0, (n, 1)) * 1.0,
+    "gamma": lambda rng, n: rng.gamma(2.0, 1.0, (n, 1)) + 1e-3,
+    "exponential": lambda rng, n: rng.exponential(1.0, (n, 1)) + 1e-3,
+    "beta": lambda rng, n: 0.02 + 0.96 * rng.rand(n, 1),
+    "binomial": lambda rng, n: rng.randint(0, 11, (n, 1)) * 1.0,
+    "dirichlet": lambda rng, n: rng.dirichlet([2.0, 3.0, 1.5], n),
+    "zipoisson": lambda rng, n: rng.poisson(1.0, (n, 1)) * 1.0}
+TASK_EXTREME_Y = {
+    "hetgaussian": (1e5, -1e5, 0.0, 3.0, 0.5, -0.5),
+    "bernoulli": (0, 1, 1, 0, 1, 0), "categorical": (1, 3, 2, 1, 3, 2),
+    "poisson": (0, 1e4, 0, 7, 1, 0),
+    "gamma": (1e-9, 1e9, 1e-3, 5.0, 1e-9, 1e9),
+    "exponential": (1e-9, 1e9, 1e-3, 5.0, 1e-9, 1e9),
+    "beta": (1e-3, 0.999, 0.5, 0.02, 0.98, 0.3),
+    "binomial": (0, 10, 0, 10, 5, 1),
+    "dirichlet": ((1e-3, 1e-3, 0.998), (0.998, 1e-3, 1e-3),
+                  (1 / 3, 1 / 3, 1 / 3), (0.6, 0.2, 0.2), (0.05, 0.05, 0.9),
+                  (0.2, 0.5, 0.3)),
+    "zipoisson": (0, 0, 30, 0, 7, 3)}
 # operations a row of a closed form does (the value and its 2J first
 # derivatives; the value alone), counted in gh_sweep.cuh as for
-# SWEEP_NODE_OPS: lower bounds on the work, for the bound column
+# SWEEP_NODE_OPS: lower bounds on the work, for the bound column (Beta's
+# and Dirichlet's at least Gamma's; Binomial's and the ZIP's are their
+# sweep alone)
 TASK_CLOSED_OPS = {"hetgaussian": (60, 20), "poisson": (20, 8),
-                   "gamma": (60, 20), "exponential": (20, 8)}
+                   "gamma": (60, 20), "exponential": (20, 8),
+                   "beta": (60, 20), "dirichlet": (60, 20)}
+# and a node of each term of a multi-term family, in its terms' order
+# (lngamma's for an lngamma sum's, Bernoulli's for Binomial's and the
+# ZIP's: lower bounds as well)
+TASK_TERM_NODE_OPS = {"beta": ((80, 25),) * 3, "binomial": ((60, 20),),
+                      "dirichlet": ((80, 25),) * 4, "zipoisson": ((60, 20),)}
 
 
 def task_liks():
@@ -4104,37 +4162,52 @@ def task_liks():
     return training_arrays()[0].likelihoods
 
 
-def task_inputs(rows, seed: int, extreme: bool, ragged: bool):
-    """(Y, M, V, masks, scales) of the six tasks, float64 on the card:
-    random moments (the last len(SWEEP_EXTREME_MV) rows of each task the
-    extreme ones, with TASK_EXTREME_Y, when ``extreme``), observations of
-    each family's support, masks of ones (or, ``ragged``, random ones
+def term_task_liks():
+    """The ten-family model's likelihoods that take the task table
+    (``families_model``'s without theta)."""
+    import hetmogp_tpu_torch as tp
+
+    return (tp.Beta(), tp.Binomial(n=10), tp.Dirichlet(K=3),
+            tp.ZeroInflatedPoisson())
+
+
+# the task tables checked and timed: their likelihoods and rows a task
+TASK_TABLES = {"flagship": (task_liks, TASK_ROWS),
+               "ten-family": (term_task_liks, TERM_TASK_ROWS)}
+
+
+def task_inputs(rows, seed: int, extreme: bool, ragged: bool, liks=None):
+    """(Y, M, V, masks, scales) of the tasks of ``liks`` (the flagship's
+    six by default), float64 on the card: random moments (the last
+    len(SWEEP_EXTREME_MV) rows of each task the extreme ones, with
+    TASK_EXTREME_Y, when ``extreme``), observations of each family's
+    support (TASK_DRAWS), masks of ones (or, ``ragged``, random ones
     and zeros ending in zeros), and the bench's scales N_t / rows.  The
     extreme rows follow random ones: a task of fewer than twice as many
     rows keeps random rows alone, since a task's normwise error is then
     the relative error of its extreme rows alone, and there the value is
     a cancellation (Gamma at m = -200, y = 1e-9: -E[ln Gamma(a)] and
     (E[a] - 1) log y, two terms of 20.7 that meet at 1e-7)."""
+    from hetmogp_tpu_torch.ops import quadrature
+
     rng = np.random.RandomState(seed)
     out = ([], [], [], [])
-    for t, (lik, n) in enumerate(zip(task_liks(), rows)):
+    for lik, n in zip(task_liks() if liks is None else liks, rows):
         J = lik.dim_f
+        name = quadrature.task_family(lik)
         m = 1.5 * rng.randn(n, J)
         v = 0.01 + 2.0 * rng.rand(n, J)
-        y = [rng.randn(n), (rng.rand(n) > 0.5) * 1.0,
-             rng.randint(1, 4, n) * 1.0, rng.poisson(3.0, n) * 1.0,
-             rng.gamma(2.0, 1.0, n) + 1e-3,
-             rng.exponential(1.0, n) + 1e-3][t]
+        y = TASK_DRAWS[name](rng, n)
         ext = len(SWEEP_EXTREME_MV)
         if extreme and n >= 2 * ext:
             m[-ext:] = np.array([a for a, _ in SWEEP_EXTREME_MV])[:ext, None]
             v[-ext:] = np.array([b for _, b in SWEEP_EXTREME_MV])[:ext, None]
-            y[-ext:] = TASK_EXTREME_Y[t][:ext]
+            y[-ext:] = np.reshape(TASK_EXTREME_Y[name], (ext, -1))
         mask = np.ones(n)
         if ragged:
             mask = (rng.rand(n) > 0.3) * 1.0
             mask[n - n // 5:] = 0.0
-        for a, x in zip(out, (y[:, None], m, v, mask)):
+        for a, x in zip(out, (y, m, v, mask)):
             a.append(torch.tensor(x, dtype=torch.float64, device="cuda"))
     scales = torch.tensor([TRAIN_N_PER / max(n, 1) for n in rows],
                           dtype=torch.float64, device="cuda")
@@ -4171,9 +4244,9 @@ def task_kernel(liks, Y, M, V, masks, scales):
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
     from hetmogp_tpu_torch.ops import quadrature
 
-    tasks = [(code, y, m, v, mask, nodes, w) for (code, nodes, w), y, m, v,
-             mask in zip(quadrature._task_table(liks, M[0]), Y, M, V, masks)]
-    sums0, values, coefs = ck.task_var_exp(tasks, list(scales))
+    tasks, sc = quadrature._task_launch_args(liks, Y, M, V, masks,
+                                             list(scales))
+    sums0, values, coefs = ck.task_var_exp(tasks, sc)
     J = [m.shape[1] for m in M]
     Ms = [m.clone().requires_grad_() for m in M]
     Vs = [v.clone().requires_grad_() for v in V]
@@ -4217,21 +4290,26 @@ def _fmt(errs) -> str:
                      for k, v in errs.items())
 
 
-def task_check_phase(smi: str) -> dict:
-    """The task table against the plain term at TASK_ROWS in float32 and
-    float64, with random rows and with the extreme ones, the value alone
-    bitwise the derivative launch's, two launches bitwise equal.  Returns
-    the largest |kernel - plain| of the float32 VE case, by launcher."""
+def task_check_phase(smi: str, table: str = "flagship") -> dict:
+    """The task table of TASK_TABLES[table] against the plain term at its
+    rows in float32 and float64, with random rows and with the extreme
+    ones, the value alone bitwise the derivative launch's, two launches
+    bitwise equal.  Returns the largest |kernel - plain| of the float32 VE
+    case, by launcher."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
     from hetmogp_tpu_torch.ops import quadrature
 
-    liks = task_liks()
+    make_liks, table_rows = TASK_TABLES[table]
+    liks = make_liks()
+    trigamma = [quadrature.task_family(lik) in TASK_TRIGAMMA for lik in liks]
     abs_err = {}
-    for i, (label, rows) in enumerate(TASK_ROWS.items()):
+    for i, (label, rows) in enumerate(table_rows.items()):
         for extreme in (False, True):
-            what = f"{label} {rows} rows, {'extreme' if extreme else 'random'}"
+            what = (f"{table}, {label} {rows} rows, "
+                    f"{'extreme' if extreme else 'random'}")
+            seed = SEED + 70 + 2 * i + extreme + (table != "flagship") * 20
             Y, M, V, masks, scales = task_inputs(
-                rows, SEED + 70 + 2 * i + extreme, extreme, label == "ragged")
+                rows, seed, extreme, label == "ragged", liks)
             # float32: inputs rounded once, the references on those values
             Y32, M32, V32, k32, s32 = (
                 [a.float() for a in x] if isinstance(x, list) else x.float()
@@ -4263,9 +4341,9 @@ def task_check_phase(smi: str) -> dict:
                     raise AssertionError(f"the task table ({what}, {part}, "
                                          "f32) disagrees with plain")
             # the value alone: bitwise the derivative launch's
-            tasks = [(c, y, m, v, k, n, w) for (c, n, w), y, m, v, k in zip(
-                quadrature._task_table(liks, M32[0]), Y32, M32, V32, k32)]
-            v_sums, v_rows = ck.task_var_exp_value(tasks, list(s32))
+            tasks, sc = quadrature._task_launch_args(liks, Y32, M32, V32,
+                                                     k32, list(s32))
+            v_sums, v_rows = ck.task_var_exp_value(tasks, sc)
             alone = torch.equal(v_sums, got[0]) and all(
                 torch.equal(a, b) for a, b in zip(v_rows, got[1]))
             print(f"kernel 6, task table ({what}, float32), the value "
@@ -4285,36 +4363,41 @@ def task_check_phase(smi: str) -> dict:
             got64 = task_kernel(liks, Y, M, V, masks, scales)
             e64, same64 = task_errors(got64, want64)
             bad = [(k, t) for k, v in e64.items() for t, e in enumerate(v)
-                   if not e <= (TASK_F64_GAMMA_CV if t == 4
+                   if not e <= (TASK_F64_TRIGAMMA if trigamma[t]
                                 and k in ("c_v", "dV") else SWEEP_F64)]
             print(f"kernel 6, task table ({what}, float64) vs plain f64, "
                   f"normwise by task: {_fmt(e64)} (bound {SWEEP_F64:g}, "
-                  f"Gamma's c_v and dV {TASK_F64_GAMMA_CV:g}); non-finite "
-                  f"where plain's are {same64} [card: {smi}]")
+                  f"c_v and dV of {', '.join(TASK_TRIGAMMA)} "
+                  f"{TASK_F64_TRIGAMMA:g}); non-finite where plain's are "
+                  f"{same64} [card: {smi}]")
             if bad or not same64:
                 raise AssertionError(f"the task table ({what}, f64) "
                                      f"disagrees with plain: {bad}")
     return abs_err
 
 
-def task_time_phase(smi: str, abs_err: dict) -> list:
-    """The task table's times in float32 at VE, VM and fused, in turns:
-    the whole term (forward and backward) on the table, on the
+def task_time_phase(smi: str, abs_err: dict, table: str = "flagship") -> list:
+    """The times of the task table of TASK_TABLES[table] in float32 at its
+    rows but the ragged ones (VE, VM and, for the flagship, fused), in
+    turns: the whole term (forward and backward) on the table, on the
     per-engine path (each task's var_exp, kernel 6 per engine for the
     swept ones, torch ops for the closed forms and the sums) and on the
     plain versions, each also as a captured CUDA graph; the three launches
     alone beside the plain term's forward, backward and value; the empty
-    kernel.  Returns the kernel entries at VE."""
+    kernel.  Returns the kernel entries at VE: the flagship's three
+    launchers, the ten-family table's forward and value alone (the
+    instantiations that compile the multi-term families in)."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
     from hetmogp_tpu_torch.ops import quadrature
 
-    liks = task_liks()
+    make_liks, table_rows = TASK_TABLES[table]
+    liks = make_liks()
     entries = []
-    for label in ("VE", "VM", "fused"):
-        rows = TASK_ROWS[label]
+    for label in [k for k in table_rows if k != "ragged"]:
+        rows = table_rows[label]
         Y, M, V, masks, scales = (
             [a.float() for a in x] if isinstance(x, list) else x.float()
-            for x in task_inputs(rows, SEED + 80, False, False))
+            for x in task_inputs(rows, SEED + 80, False, False, liks))
         Ms = [m.clone().requires_grad_() for m in M]
         Vs = [v.clone().requires_grad_() for v in V]
         sc = list(scales)
@@ -4340,8 +4423,7 @@ def task_time_phase(smi: str, abs_err: dict) -> list:
                     return fn(liks, Y, M, V, masks, sc, use_kernel=use_kernel)
             return f
 
-        tasks = [(c, y, m, v, k, n, w) for (c, n, w), y, m, v, k in zip(
-            quadrature._task_table(liks, M[0]), Y, M, V, masks)]
+        tasks, _ = quadrature._task_launch_args(liks, Y, M, V, masks, sc)
         _, _, coefs = ck.task_var_exp(tasks, sc)
         recorded = quadrature.task_var_exp_plain(liks, Y, Ms, Vs, masks, sc,
                                                  use_kernel=False)
@@ -4390,7 +4472,12 @@ def task_time_phase(smi: str, abs_err: dict) -> list:
         for lik, r in zip(liks, rows):
             name = quadrature.task_family(lik)
             sweep = quadrature.TASK_FAMILIES[name][2]
-            if sweep is not None:
+            if sweep == quadrature.TERMS:
+                sizes = quadrature._task_extras(lik)[0]
+                for S, (o, o_value) in zip(sizes, TASK_TERM_NODE_OPS[name]):
+                    ops += r * S * o
+                    ops_value += r * S * o_value
+            elif sweep is not None:
                 S = quadrature._task_table([lik], M[0])[0][1].shape[0]
                 ops += r * S * SWEEP_NODE_OPS[sweep]
                 ops_value += r * S * SWEEP_NODE_OPS_VALUE[sweep]
@@ -4400,7 +4487,8 @@ def task_time_phase(smi: str, abs_err: dict) -> list:
         bound = bound_ms(fwd_bytes, ops, F32_PEAK)
         bound_value = bound_ms(fwd_bytes - 4 * 2 * NJ, ops_value, F32_PEAK)
         bound_bwd = bound_ms(4 * (4 * NJ + N), 2 * NJ + N, F32_PEAK)
-        print(f"kernel 6, task table times ({label}, {N} rows, float32), "
+        print(f"kernel 6, task table times ({table}, {label}, {N} rows, "
+              f"float32), "
               f"median of {n} calls each in turns: the term forward and "
               f"backward on the table {t['table']:.4f} ms (graphed "
               f"{t['table, graphed']:.4f}), on the per-engine path "
@@ -4418,9 +4506,23 @@ def task_time_phase(smi: str, abs_err: dict) -> list:
               f"value {t['value launch']:.4f} (bound {bound_value[0]:.6f}, "
               f"{bound_value[1]}); empty kernel {t['empty kernel']:.4f} ms"
               f" [card: {smi}]")
-        if label == "VE":
-            source = "hetmogp_tpu_torch/csrc/ve_tasks_kernel.cu"
-            base = {"route": "cuda", "source": source, "library_ms": None}
+        source = "hetmogp_tpu_torch/csrc/ve_tasks_kernel.cu"
+        base = {"route": "cuda", "source": source, "library_ms": None}
+        if label == "VE" and table != "flagship":
+            # the ten-family model's table: the instantiations that compile
+            # the multi-term families in
+            entries = [
+                dict(base, name="task_var_exp_terms",
+                     replaces="hetmogp_tpu/ops/quadrature.py:129",
+                     max_abs_err=abs_err["forward"],
+                     ms=t["forward launch"], plain_ms=t["plain forward"],
+                     bound_ms=bound[0], bound_by=bound[1]),
+                dict(base, name="task_var_exp_value_terms",
+                     replaces="hetmogp_tpu/ops/quadrature.py:121",
+                     max_abs_err=abs_err["value"], ms=t["value launch"],
+                     plain_ms=t["plain value"], bound_ms=bound_value[0],
+                     bound_by=bound_value[1])]
+        elif label == "VE":
             entries = [
                 dict(base, name="task_var_exp",
                      replaces="hetmogp_tpu/ops/quadrature.py:129",
@@ -4806,18 +4908,27 @@ def main():
     # serving path and the ragged VM step, their own
     # the task table's value alone runs where an ELBO is evaluated
     # without a gradient: its launches are the lifecycle's (the full-data
-    # ELBOs of save and load); the per-engine sweeps run for the families
-    # outside the task table: theirs are the ten-family trainer's first
-    # call and its ELBO without a gradient
+    # ELBOs of save and load); the ten-family table's instantiations,
+    # those of the ten-family trainer's first call and of its ELBO without
+    # a gradient.  The per-engine sweeps run on no main path (every family
+    # that sweeps in the flagship and the ten-family models is in the task
+    # table): their entries read 0 launches and are off the check below
     kernels = [*rbf, *proj, *proj3, *right, *out8, *sweep, *factor]
     own_path = ("_staged", "_scalar", "_generic")
-    source = {"task_var_exp_value": life, "gh_sweep": families,
-              "gh_sweep_value": families_elbo, "tril_out_tma": highest}
+    off_path = ("gh_sweep", "gh_sweep_value")
+    source = {"task_var_exp_value": life, "tril_out_tma": highest,
+              "task_var_exp_terms": families,
+              "task_var_exp_value_terms": families_elbo}
     for entry in kernels:
         name = entry["name"]
-        entry["launches"] = (ragged if name.endswith(own_path)
-                             else source.get(name, counts))[name]
-    if not all(entry["launches"] > 0 for entry in kernels):
+        if name in off_path:
+            entry["launches"], entry["main_path"] = 0, False
+            continue
+        launches = (ragged if name.endswith(own_path)
+                    else source.get(name, counts))
+        entry["launches"] = launches[name.removesuffix("_terms")]
+    if not all(entry["launches"] > 0 for entry in kernels
+               if entry.get("main_path", True)):
         raise AssertionError(f"a kernel was not launched on its path: "
                              f"{[(e['name'], e['launches']) for e in kernels]}")
     print(smi)

@@ -76,8 +76,8 @@ int dispatch(int family, int J, const T* m, const T* v, const T* y,
 
 template <typename Task, typename T>
 void task_rows(const T* m, const T* v, const T* y, long long sm, long long sv,
-               long long sy, const T* nodes, const T* w, int S, int L, int N,
-               int deriv, T* out) {
+               long long sy, const T* c, const T* nodes, const T* w, int S,
+               const int* sizes, int L, int N, int deriv, T* out) {
   constexpr int J = Task::J;
   constexpr int A = 1 + 2 * J;
   for (int n = 0; n < N; ++n) {
@@ -87,9 +87,9 @@ void task_rows(const T* m, const T* v, const T* y, long long sm, long long sv,
     const T* vn = v + n * sv;
     const T* yn = y + n * sy;
     if (deriv) {
-      gh::task_row<Task, T, true>(mn, vn, yn, nodes, w, S, L, o);
+      gh::task_row<Task, T, true>(mn, vn, yn, c, nodes, w, S, sizes, L, o);
     } else {
-      gh::task_row<Task, T, false>(mn, vn, yn, nodes, w, S, L, o);
+      gh::task_row<Task, T, false>(mn, vn, yn, c, nodes, w, S, sizes, L, o);
     }
   }
 }
@@ -100,11 +100,14 @@ void task_rows(const T* m, const T* v, const T* y, long long sm, long long sv,
 template <typename T>
 int task_dispatch(int family, int J, int L, const T* m, const T* v,
                   const T* y, long long sm, long long sv, long long sy,
-                  const T* nodes, const T* w, int S, int N, int deriv,
-                  T* out) {
+                  const T* nodes, const T* w, int S, const int* sizes,
+                  const double* consts, int N, int deriv, T* out) {
   if (L < 1) return 1;
-#define GH_TASK(...) \
-  task_rows<__VA_ARGS__>(m, v, y, sm, sv, sy, nodes, w, S, L, N, deriv, out); \
+  // the kernel's constants: the table's float64 ones in the task's type
+  const T c[2] = {T(consts[0]), T(consts[1])};
+#define GH_TASK(...)                                                      \
+  task_rows<__VA_ARGS__>(m, v, y, sm, sv, sy, c, nodes, w, S, sizes, L, N, \
+                         deriv, out);                                      \
   return 0
   switch (family * 8 + J) {
     case 0 * 8 + 1: GH_TASK(gh::BernoulliTask<T>);
@@ -117,6 +120,11 @@ int task_dispatch(int family, int J, int L, const T* m, const T* v,
     case 3 * 8 + 1: GH_TASK(gh::PoissonTask<T>);
     case 4 * 8 + 2: GH_TASK(gh::GammaTask<T>);
     case 5 * 8 + 1: GH_TASK(gh::ExponentialTask<T>);
+    case 6 * 8 + 2: GH_TASK(gh::BetaTask<T>);
+    case 7 * 8 + 1: GH_TASK(gh::BinomialTask<T>);
+    case 8 * 8 + 2: GH_TASK(gh::DirichletTask<T, 2>);
+    case 8 * 8 + 3: GH_TASK(gh::DirichletTask<T, 3>);
+    case 9 * 8 + 2: GH_TASK(gh::ZipTask<T>);
     default: return 1;
   }
 #undef GH_TASK
@@ -125,23 +133,27 @@ int task_dispatch(int family, int J, int L, const T* m, const T* v,
 }  // namespace
 
 // L: the lanes a row of a swept family (the kernel's, for its order of
-// additions); the closed forms ignore it and the nodes.
+// additions); the closed forms ignore it and the nodes.  S: the nodes of
+// the table; sizes: each term's node count (a multi-term family's; the
+// others ignore it); consts: the task's two float64 constants.
 extern "C" int gh_task_rows_f32(int family, int J, int L, const float* m,
                                 const float* v, const float* y, long long sm,
                                 long long sv, long long sy,
                                 const float* nodes, const float* w, int S,
+                                const int* sizes, const double* consts,
                                 int N, int deriv, float* out) {
   return task_dispatch<float>(family, J, L, m, v, y, sm, sv, sy, nodes, w, S,
-                              N, deriv, out);
+                              sizes, consts, N, deriv, out);
 }
 
 extern "C" int gh_task_rows_f64(int family, int J, int L, const double* m,
                                 const double* v, const double* y,
                                 long long sm, long long sv, long long sy,
                                 const double* nodes, const double* w, int S,
+                                const int* sizes, const double* consts,
                                 int N, int deriv, double* out) {
   return task_dispatch<double>(family, J, L, m, v, y, sm, sv, sy, nodes, w,
-                               S, N, deriv, out);
+                               S, sizes, consts, N, deriv, out);
 }
 
 extern "C" int gh_sweep_rows_f32(int family, int J, const float* m,

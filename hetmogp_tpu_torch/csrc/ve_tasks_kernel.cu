@@ -11,7 +11,11 @@
 //   dM_t[n] = (g_t scale_t) mask_n c_m[n],  dV_t[n] = (g_t scale_t) mask_n c_v[n].
 // The families are gh_sweep.cuh's task table: Bernoulli and Categorical
 // (a GH sweep alone), HetGaussian, Poisson and Exponential (a closed form
-// alone) and Gamma (a closed form around LnGamma's sweep).
+// alone), Gamma (a closed form around LnGamma's sweep), and the multi-term
+// families Beta and Dirichlet (a closed form around several sweeps, each
+// on its own node table), Binomial (n a constant of the task) and the
+// zero-inflated Poisson: a row's lanes take its terms' nodes one after
+// another, each node adding into its own term's accumulators.
 //
 // Replaces no Pallas kernel: it is the JAX package's likelihood term,
 // hetmogp_tpu/models/elbo.py:442-454 (each task's var_exp and its masked,
@@ -46,6 +50,7 @@
 // no fast-math.
 
 #include <cuda_runtime.h>
+#include <string.h>
 
 #include "gh_sweep.cuh"
 
@@ -53,8 +58,12 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_TASKS = 16;
-// the table's integers a task: sy, sm, sv, smask, family, J, lanes, S, N
-constexpr int INTS = 9;
+// a multi-term family's terms, and a task's constants, at most
+constexpr int MAX_TERMS = 4;
+constexpr int MAX_CONSTS = 2;
+// the table's integers a task: sy, sm, sv, smask, family, J, lanes, S, N,
+// the terms' node counts, the constants' float64 bits
+constexpr int INTS = 9 + MAX_TERMS + MAX_CONSTS;
 // its pointers: y, m, v, mask, scale, nodes, w, val, coef, sum
 constexpr int PTRS = 10;
 
@@ -73,6 +82,8 @@ struct Task {
   int family, J, lanes, S, N;
   int rows;  // rows a block: THREADS / lanes
   int first_block, blocks;
+  int sizes[MAX_TERMS];  // a multi-term family's node counts, in its order
+  double c[MAX_CONSTS];  // the constants
 };
 
 struct Table {
@@ -106,7 +117,6 @@ __device__ __forceinline__ void shared_tree(T (*x)[THREADS], int lane,
 // block's masked sum of them, returned to thread 0.
 template <typename Fam, typename T, bool DERIV, int A>
 __device__ __forceinline__ T task_block(const Task& e, T (*part)[THREADS]) {
-  using Sweep = typename Fam::Sweep;
   constexpr int J = Fam::J;
   constexpr int FA = gh::task_acc_size<Fam, DERIV>();
   static_assert(FA <= A, "the shared accumulators are too narrow");
@@ -121,14 +131,17 @@ __device__ __forceinline__ T task_block(const Task& e, T (*part)[THREADS]) {
   const T* m = static_cast<const T*>(e.m) + row * e.sm;
   const T* v = static_cast<const T*>(e.v) + row * e.sv;
   const T* y = static_cast<const T*>(e.y) + row * e.sy;
+  T c[MAX_CONSTS];
+#pragma unroll
+  for (int i = 0; i < MAX_CONSTS; ++i) c[i] = T(e.c[i]);
   T acc[FA];
 #pragma unroll
   for (int a = 0; a < FA; ++a) acc[a] = T(0);
-  if constexpr (Sweep::J > 0) {
+  if constexpr (gh::task_sweeps<Fam>()) {
     if (active) {
-      gh::sweep_nodes<Sweep, T, DERIV>(m, v, y, static_cast<const T*>(e.nodes),
-                                       static_cast<const T*>(e.w), e.S, lane,
-                                       L, acc);
+      gh::task_nodes<Fam, T, DERIV>(m, v, y, c, static_cast<const T*>(e.nodes),
+                                    static_cast<const T*>(e.w), e.S, e.sizes,
+                                    lane, L, acc);
     }
     if (L > 1) {
 #pragma unroll
@@ -142,12 +155,12 @@ __device__ __forceinline__ T task_block(const Task& e, T (*part)[THREADS]) {
   }
   if (active && lane == 0) {
     T coef[DERIV ? 2 * J : 1];
-    const T val = gh::finish_row<Fam, T, DERIV>(m, v, y, acc, coef);
+    const T val = gh::finish_row<Fam, T, DERIV>(m, v, y, c, acc, coef);
     static_cast<T*>(e.val)[row] = val;
     if constexpr (DERIV) {
-      T* c = static_cast<T*>(e.coef) + row * (2 * J);
+      T* out = static_cast<T*>(e.coef) + row * (2 * J);
 #pragma unroll
-      for (int k = 0; k < 2 * J; ++k) c[k] = coef[k];
+      for (int k = 0; k < 2 * J; ++k) out[k] = coef[k];
     }
     part[0][local] = static_cast<const T*>(e.mask)[row * e.smask] * val;
   }
@@ -156,7 +169,9 @@ __device__ __forceinline__ T task_block(const Task& e, T (*part)[THREADS]) {
   return part[0][0];
 }
 
-template <typename T, bool DERIV, int A>
+// TERMS: the multi-term families too (codes 6 to 9), compiled only into the
+// instantiations that a table holding one of them selects
+template <typename T, bool DERIV, int A, bool TERMS>
 __device__ __forceinline__ T dispatch_block(const Task& e, T (*part)[THREADS]) {
   switch (e.family) {
     case 0: return task_block<gh::BernoulliTask<T>, T, DERIV, A>(e, part);
@@ -175,6 +190,18 @@ __device__ __forceinline__ T dispatch_block(const Task& e, T (*part)[THREADS]) {
     case 3: return task_block<gh::PoissonTask<T>, T, DERIV, A>(e, part);
     case 4: return task_block<gh::GammaTask<T>, T, DERIV, A>(e, part);
     case 5: return task_block<gh::ExponentialTask<T>, T, DERIV, A>(e, part);
+    case 6: if constexpr (TERMS) return task_block<gh::BetaTask<T>, T, DERIV, A>(e, part); break;
+    case 7: if constexpr (TERMS) return task_block<gh::BinomialTask<T>, T, DERIV, A>(e, part); break;
+    case 8:
+      if constexpr (TERMS) {
+        switch (e.J) {
+          case 2: return task_block<gh::DirichletTask<T, 2>, T, DERIV, A>(e, part);
+          case 3: return task_block<gh::DirichletTask<T, 3>, T, DERIV, A>(e, part);
+          default: break;
+        }
+      }
+      break;
+    case 9: if constexpr (TERMS) return task_block<gh::ZipTask<T>, T, DERIV, A>(e, part); break;
     default: break;
   }
   __trap();  // the host checks the table
@@ -183,10 +210,12 @@ __device__ __forceinline__ T dispatch_block(const Task& e, T (*part)[THREADS]) {
 
 // A = the widest sweep accumulator the launch may meet: 1 + 2 J of its
 // widest Categorical (3 for the other sweeps) with the derivatives, 1
-// without.  The shared accumulators, and the registers of the widest
-// Categorical's jets, size the whole kernel, so the flagship's K = 3 does
-// not pay for K = 6.
-template <typename T, bool DERIV, int A>
+// without; with TERMS, a multi-term family's, all its terms' (Dirichlet
+// K = 3: 16 with the derivatives, 4 without).  The shared accumulators,
+// and the registers of the widest family's jets, size the whole kernel, so
+// the flagship's K = 3 does not pay for K = 6, nor a table without a
+// multi-term family for them.
+template <typename T, bool DERIV, int A, bool TERMS>
 __global__ void __launch_bounds__(THREADS)
     ve_tasks_kernel(const __grid_constant__ Table table) {
   __shared__ T part[A][THREADS];
@@ -197,7 +226,7 @@ __global__ void __launch_bounds__(THREADS)
     ++t;
   }
   const Task& e = table.task[t];
-  const T block_sum = dispatch_block<T, DERIV, A>(e, part);
+  const T block_sum = dispatch_block<T, DERIV, A, TERMS>(e, part);
   T* partials = static_cast<T*>(table.partials);
   if (threadIdx.x == 0) {
     partials[blockIdx.x] = block_sum;
@@ -281,19 +310,38 @@ int family_ok(int family, int J) {
     case 3: return J == 1;
     case 4: return J == 2;
     case 5: return J == 1;
+    case 6: return J == 2;
+    case 7: return J == 1;
+    case 8: return J == 2 || J == 3;
+    case 9: return J == 2;
     default: return 0;
   }
 }
 
-bool has_sweep(int family) { return family == 0 || family == 1 || family == 4; }
+// The terms of a multi-term family at J (codes 6 to 9), 0 for the others
+int terms_of(int family, int J) {
+  switch (family) {
+    case 6: return 3;
+    case 7: return 1;
+    case 8: return J + 1;
+    case 9: return 1;
+    default: return 0;
+  }
+}
+
+bool has_sweep(int family) {
+  return family == 0 || family == 1 || family == 4 ||
+         (family >= 6 && family <= 9);
+}
 
 // The table from the packed pointers and integers, its blocks planned;
 // the number of blocks, or -1 for a table the kernel does not take.
 long long plan(const void* const* ptrs, const long long* ints, int tasks,
-               bool deriv, Table& table, int& widest) {
+               bool deriv, Table& table, int& widest, bool& terms) {
   if (tasks <= 0 || tasks > MAX_TASKS) return -1;
   long long blocks = 0;
   widest = 0;
+  terms = false;
   table.count = tasks;
   for (int t = 0; t < tasks; ++t) {
     const void* const* p = ptrs + PTRS * t;
@@ -307,6 +355,10 @@ long long plan(const void* const* ptrs, const long long* ints, int tasks,
     e.sy = q[0]; e.sm = q[1]; e.sv = q[2]; e.smask = q[3];
     e.family = (int)q[4]; e.J = (int)q[5]; e.lanes = (int)q[6];
     e.S = (int)q[7];
+    for (int k = 0; k < MAX_TERMS; ++k) e.sizes[k] = (int)q[9 + k];
+    for (int i = 0; i < MAX_CONSTS; ++i) {
+      memcpy(&e.c[i], q + 9 + MAX_TERMS + i, sizeof(double));
+    }
     if (!family_ok(e.family, e.J) || q[8] <= 0 || q[8] >= (1LL << 30) ||
         e.lanes < 1 || e.lanes > THREADS || e.y == nullptr ||
         e.m == nullptr || e.v == nullptr || e.mask == nullptr ||
@@ -316,6 +368,16 @@ long long plan(const void* const* ptrs, const long long* ints, int tasks,
     }
     if (has_sweep(e.family)) {
       if (e.S <= 0 || e.nodes == nullptr || e.w == nullptr) return -1;
+      const int count = terms_of(e.family, e.J);
+      if (count > 0) {  // the terms' node counts make up the table
+        long long total = 0;
+        for (int k = 0; k < MAX_TERMS; ++k) {
+          if ((k < count) != (e.sizes[k] > 0)) return -1;
+          total += e.sizes[k];
+        }
+        if (total != e.S) return -1;
+        terms = true;
+      }
     } else {
       e.lanes = 1;  // one thread a row
     }
@@ -336,18 +398,26 @@ int launch(const void* const* ptrs, const long long* ints, int tasks,
            cudaStream_t stream) {
   Table table;
   int widest;
-  const long long blocks = plan(ptrs, ints, tasks, deriv != 0, table, widest);
+  bool terms;
+  const long long blocks =
+      plan(ptrs, ints, tasks, deriv != 0, table, widest, terms);
   if (blocks <= 0 || partials == nullptr || partial_count < blocks) {
     return (int)cudaErrorInvalidValue;
   }
   table.partials = partials;
   const dim3 grid((unsigned)blocks), block(THREADS);
-  if (!deriv) {
-    ve_tasks_kernel<T, false, 1><<<grid, block, 0, stream>>>(table);
+  // a table holding a multi-term family takes the instantiations that
+  // compile them in, any other the ones it took before they were
+  if (terms && !deriv) {
+    ve_tasks_kernel<T, false, 4, true><<<grid, block, 0, stream>>>(table);
+  } else if (terms) {
+    ve_tasks_kernel<T, true, 16, true><<<grid, block, 0, stream>>>(table);
+  } else if (!deriv) {
+    ve_tasks_kernel<T, false, 1, false><<<grid, block, 0, stream>>>(table);
   } else if (widest <= 2) {
-    ve_tasks_kernel<T, true, 5><<<grid, block, 0, stream>>>(table);
+    ve_tasks_kernel<T, true, 5, false><<<grid, block, 0, stream>>>(table);
   } else {
-    ve_tasks_kernel<T, true, 11><<<grid, block, 0, stream>>>(table);
+    ve_tasks_kernel<T, true, 11, false><<<grid, block, 0, stream>>>(table);
   }
   return (int)cudaGetLastError();
 }
@@ -389,7 +459,9 @@ int launch_grad(const void* const* ptrs, const long long* ints, int tasks,
 // table the kernel does not take.  ptrs: PTRS pointers a task (y, m, v,
 // mask, scale, nodes, w, val, coef or null for the value alone, sum);
 // ints: INTS integers a task (the row strides of y, m, v and mask, the
-// family code, J, lanes a row, nodes S, rows N).
+// family code, J, lanes a row, nodes S, rows N, then MAX_TERMS node counts
+// of a multi-term family's terms, in its order, 0 past its last, and
+// MAX_CONSTS constants as the bits of float64).
 extern "C" int hetmogp_ve_tasks_max() { return MAX_TASKS; }
 
 extern "C" long long hetmogp_ve_tasks_blocks(const void* const* ptrs,
@@ -397,7 +469,8 @@ extern "C" long long hetmogp_ve_tasks_blocks(const void* const* ptrs,
                                              int deriv) {
   Table table;
   int widest;
-  return plan(ptrs, ints, tasks, deriv != 0, table, widest);
+  bool terms;
+  return plan(ptrs, ints, tasks, deriv != 0, table, widest, terms);
 }
 
 extern "C" int hetmogp_ve_tasks_f32(const void* const* ptrs,

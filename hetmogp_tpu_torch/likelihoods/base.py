@@ -181,8 +181,15 @@ class Likelihood:
 
     def task_grid(self):
         """(T, J, mc_samples) of the GH nodes the task table sweeps for
-        ``var_exp`` (a family whose ``task`` holds a sweep): its engine's."""
+        ``var_exp`` (a family whose ``task`` holds a sweep): its engine's.
+        A multi-term family (``quadrature.TERMS``) gives a list, one grid a
+        term, in the order its device function takes them."""
         return self.T_var_exp, self.dim_f, getattr(self, "mc_samples", 0)
+
+    def task_consts(self) -> tuple:
+        """The constants of the family that the task table's device
+        function reads (at most two floats; none by default)."""
+        return ()
 
     def var_exp_derivatives(self, Y: torch.Tensor, M: torch.Tensor,
                             V: torch.Tensor):

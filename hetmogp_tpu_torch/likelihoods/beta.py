@@ -48,6 +48,18 @@ class Beta(Likelihood):
 
     analytic: bool = True
 
+    @property
+    def task(self):  # type: ignore[override]
+        """Kernel 6's task table takes the closed form."""
+        return "beta" if self.analytic else None
+
+    def task_grid(self):
+        """The closed form's three sweeps, one grid a term: E[ln Gamma(a)]
+        and E[ln Gamma(b)] on the 1-D T=20 grid, E[ln Gamma(a + b)] on the
+        2-D T=10 grid."""
+        return [(quadrature.DEFAULT_T, 1, 0), (quadrature.DEFAULT_T, 1, 0),
+                (quadrature.MULTI_T, 2, 0)]
+
     def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
             return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)

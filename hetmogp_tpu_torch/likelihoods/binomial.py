@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import ClassVar, Optional
 
 import torch
 
@@ -20,10 +21,21 @@ from hetmogp_tpu_torch.likelihoods.bernoulli import _log_probs, _prob
 @dataclasses.dataclass(frozen=True)
 class Binomial(Likelihood):
     n: int = 1  # trials per observation; y counts successes
+    # kernel 6's task table takes var_exp: its log-density's one sweep
+    task: ClassVar[Optional[str]] = "binomial"
 
     def __post_init__(self):
         if int(self.n) < 1 or int(self.n) != self.n:
             raise ValueError(f"n must be a positive integer, got {self.n}")
+
+    def task_grid(self):
+        """The one term: the log-density on the engine's 1-D T=20 grid."""
+        return [(self.T_var_exp, 1, 0)]
+
+    def task_consts(self):
+        """n and lgamma(n + 1), as ``logpdf`` forms them."""
+        n = float(self.n)
+        return n, math.lgamma(n + 1.0)
 
     def logpdf(self, F, Y):
         log_p, log_1mp = _log_probs(F[..., 0])

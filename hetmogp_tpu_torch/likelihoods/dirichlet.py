@@ -76,6 +76,22 @@ class Dirichlet(Likelihood):
     def ismulti(self) -> bool:
         return True
 
+    @property
+    def task(self):  # type: ignore[override]
+        """Kernel 6's task table takes the closed form on the tensor grids
+        of K = 2 and 3; quasi-MC nodes, another K or ``analytic=False``
+        keep the engines."""
+        if self.analytic and not self.mc_samples and self.K in (2, 3):
+            return "dirichlet"
+        return None
+
+    def task_grid(self):
+        """The closed form's K + 1 sweeps, one grid a term: E[ln Gamma(a_k)]
+        on the 1-D T=20 grid for each k, then E[ln Gamma(sum a)] on the
+        K-D grid."""
+        return ([(quadrature.DEFAULT_T, 1, 0)] * self.K
+                + [(self.T_var_exp, self.K, 0)])
+
     def var_exp(self, Y, M, V, use_kernel=True):
         if not self.analytic:
             return Likelihood.var_exp(self, Y, M, V, use_kernel=use_kernel)

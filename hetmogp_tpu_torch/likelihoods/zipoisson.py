@@ -11,7 +11,7 @@ tensor GH grid (100 nodes a row).
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar
+from typing import ClassVar, Optional
 
 import torch
 
@@ -30,6 +30,12 @@ class ZeroInflatedPoisson(Likelihood):
     dim_f: ClassVar[int] = 2
     T_var_exp: ClassVar[int] = quadrature.MULTI_T
     T_pred: ClassVar[int] = quadrature.MULTI_T
+    # kernel 6's task table takes var_exp: its log-density's one sweep
+    task: ClassVar[Optional[str]] = "zipoisson"
+
+    def task_grid(self):
+        """The one term: the log-density on the engine's 2-D T=10 grid."""
+        return [(self.T_var_exp, 2, 0)]
 
     def logpdf(self, F, Y):
         f1, y = F[..., 0], Y[..., 0]

@@ -349,12 +349,16 @@ def likelihood_term(params: SVMOGPParams, config: ModelConfig,
     ``quadrature.task_var_exp`` together (on the card, one launch of
     kernel 6's task table, and one for the gradient); every other task
     calls its own ``var_exp`` (with ``params.lik_theta[t]`` where its
-    family has theta) and takes its masked, scaled sum.
+    family has theta) and takes its masked, scaled sum.  The program
+    counters ``likelihood.table_tasks`` and ``likelihood.engine_tasks``
+    (``profiling.count``) count the two kinds of task of each call.
     """
     theta = params.lik_theta
     table = [t for t, lik in enumerate(config.likelihoods)
              if quadrature.task_family(lik) is not None
              and not (theta is not None and lik.n_theta)]
+    profiling.count("likelihood.table_tasks", len(table))
+    profiling.count("likelihood.engine_tasks", len(data) - len(table))
     sums = {}
     if table:
         routed = quadrature.task_var_exp(

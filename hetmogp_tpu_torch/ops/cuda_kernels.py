@@ -92,6 +92,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
@@ -1437,9 +1438,19 @@ _TASK_ENTRIES = {torch.float32: ("hetmogp_ve_tasks_f32",
                  torch.float64: ("hetmogp_ve_tasks_f64",
                                  "hetmogp_ve_tasks_grad_f64")}
 TASK_THREADS = 256  # csrc/ve_tasks_kernel.cu: THREADS
-# the family codes whose var_exp holds a sweep (the kernel's has_sweep)
+TASK_MAX_TERMS, TASK_MAX_CONSTS = 4, 2  # csrc/ve_tasks_kernel.cu
+# the family codes whose var_exp holds a sweep (the kernel's has_sweep),
+# and the multi-term ones among them
 _SWEPT_TASKS = {code for code, _, sweep in quadrature.TASK_FAMILIES.values()
                 if sweep is not None}
+_TERM_TASKS = {code for code, _, sweep in quadrature.TASK_FAMILIES.values()
+               if sweep == quadrature.TERMS}
+
+
+def _float_bits(x: float) -> int:
+    """A float64's bits as a signed 64-bit integer (the kernel's table
+    carries the constants so)."""
+    return struct.unpack("<q", struct.pack("<d", float(x)))[0]
 
 
 def task_lanes(S: int) -> int:
@@ -1457,7 +1468,8 @@ def _task_check(name, tasks, scales):
     dtype, dev = tasks[0][2].dtype, tasks[0][2].device
     if dtype not in _TASK_ENTRIES:
         raise TypeError(f"{name} takes float32 or float64, got {dtype}")
-    for (family, y, m, v, mask, nodes, w), scale in zip(tasks, scales):
+    for (family, y, m, v, mask, nodes, w, sizes, consts), scale in zip(
+            tasks, scales):
         tensors = [y, m, v, mask, scale]
         if family in _SWEPT_TASKS:
             if nodes is None or w is None:
@@ -1489,6 +1501,15 @@ def _task_check(name, tasks, scales):
             raise ValueError(f"{name}: family {family}'s node table must be "
                              f"(S, J) and (S,); got {tuple(nodes.shape)}, "
                              f"{tuple(w.shape)}")
+        if family in _TERM_TASKS and (
+                not 1 <= len(sizes) <= TASK_MAX_TERMS
+                or min(sizes) < 1 or sum(sizes) != nodes.shape[0]):
+            raise ValueError(f"{name}: family {family}'s terms' node counts "
+                             f"{tuple(sizes)} must make up its table of "
+                             f"{nodes.shape[0]} nodes")
+        if len(consts) > TASK_MAX_CONSTS:
+            raise ValueError(f"{name}: at most {TASK_MAX_CONSTS} constants "
+                             f"a task; got {tuple(consts)}")
     return dtype, dev
 
 
@@ -1511,8 +1532,8 @@ def _task_launch(wrapper, tasks, scales, deriv: bool, lanes=None):
     coef = new(sum(n * 2 * J for n, J in zip(rows, Js))) if deriv else None
     values, coefs, entries = [], [], []
     v_off = c_off = 0
-    for i, ((family, y, m, v, mask, nodes, w), scale) in enumerate(
-            zip(tasks, scales)):
+    for i, ((family, y, m, v, mask, nodes, w, sizes, consts), scale) in (
+            enumerate(zip(tasks, scales))):
         N, J = rows[i], Js[i]
         values.append(val[v_off:v_off + N])
         if deriv:
@@ -1529,7 +1550,11 @@ def _task_launch(wrapper, tasks, scales, deriv: bool, lanes=None):
                     coefs[i].data_ptr() if deriv else None,
                     sums[i:i + 1].data_ptr()]
             ints = [y.stride(0), m.stride(0), v.stride(0), mask.stride(0),
-                    family, J, lanes[i], nodes.shape[0] if swept else 0, N]
+                    family, J, lanes[i], nodes.shape[0] if swept else 0, N,
+                    *(tuple(sizes) + (0,) * TASK_MAX_TERMS)[:TASK_MAX_TERMS],
+                    *(_float_bits(c) for c in (
+                        tuple(consts) + (0.0,) * TASK_MAX_CONSTS)[
+                            :TASK_MAX_CONSTS])]
             # the views keep the (possibly copied) inputs alive to the launch
             entries.append((ptrs, ints, (y, m, v, nodes, w, scale)))
         v_off += N
@@ -1550,7 +1575,7 @@ def _task_launch(wrapper, tasks, scales, deriv: bool, lanes=None):
             if blocks <= 0:
                 raise ValueError(f"{name}: the kernel refused the table "
                                  f"(families, J, lanes, rows): "
-                                 f"{[e[1][4:] for e in chunk]}")
+                                 f"{[e[1][4:9] for e in chunk]}")
             partials = new(blocks)
             err = entry(ptr_arr, int_arr, len(chunk), int(deriv),
                         partials.data_ptr(), blocks, stream)
@@ -1567,8 +1592,10 @@ def task_var_exp(tasks, scales, lanes=None):
     launch.  ``tasks``: a sequence of (family code of
     ``quadrature.TASK_FAMILIES``, y (N, dim_y), m (N, J), v (N, J), mask
     (N,), nodes (S, J_sweep) and w (S,) of the family's GH sweep, or None
-    for a closed form); ``scales``: one () tensor a task, read on the
-    device; float32 or float64 on one CUDA device.  ``lanes``: the lanes
+    for a closed form, sizes, a multi-term family's node count a term (its
+    terms' nodes make up its (S, J) table one after another; () for the
+    others), and consts, the family's constants (at most two floats; ()
+    for none)); ``scales``: one () tensor a task, read on the device; float32 or float64 on one CUDA device.  ``lanes``: the lanes
     a row of each task (``task_lanes`` by default; a closed form takes
     one).  Returns (sums (T,), [ve_t (N_t,)], [coef_t (N_t, 2 J_t)], c_m
     then c_v); launches on the current stream and does not synchronise.

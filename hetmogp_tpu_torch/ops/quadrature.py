@@ -38,7 +38,9 @@ sweep above is its plain version, what CPU tensors and
 ``task_var_exp`` is the ELBO's whole likelihood term, each task's var_exp
 and its masked, scaled sum, for the tasks whose likelihood has a device
 function in ``TASK_FAMILIES`` (Bernoulli, Categorical, HetGaussian,
-Poisson, Gamma and Exponential with their closed forms): on the card one
+Poisson, Gamma and Exponential with their closed forms; Beta, Binomial,
+Dirichlet and the zero-inflated Poisson, whose var_exp takes several
+sweeps or a constant of the family): on the card one
 launch of kernel 6's task table (``csrc/ve_tasks_kernel.cu``) gives every
 task's sum and the rows' gradient coefficients, and one more launch every
 task's (dM, dV) (``TaskVarExp``); ``task_var_exp_plain``, the per-task
@@ -249,17 +251,26 @@ def make_var_exp(logpdf, J: int, T: int, mc_samples: int = 0,
 # whose whole var_exp has a device function (``gh_sweep.cuh``'s task
 # families), by the name a likelihood gives as its ``task``: the family
 # code the kernel switches on, the J it is built for, and the sweep it runs
-# over its first latent dimensions (a name of SWEEP_FAMILIES), or None for
-# a closed form alone.  ``models/elbo.py::likelihood_term`` sends the tasks
-# of a CUDA model whose likelihood names one of these, and has no trainable
-# theta, to ``task_var_exp``; every other task keeps its own var_exp.  A
-# route by family, not a fallback: a build or launch failure raises.
+# over its first latent dimensions (a name of SWEEP_FAMILIES), None for
+# a closed form alone, or TERMS for a multi-term family: several sweeps,
+# each an integrand over some of the latent dimensions on a grid of its own
+# (the likelihood's ``task_grid()`` lists them, one a term), with the
+# family's constants (``task_consts()``).  ``models/elbo.py::
+# likelihood_term`` sends the tasks of a CUDA model whose likelihood names
+# one of these, and has no trainable theta, to ``task_var_exp``; every
+# other task keeps its own var_exp.  A route by family, not a fallback: a
+# build or launch failure raises.
+TERMS = "terms"
 TASK_FAMILIES = {"bernoulli": (0, (1,), "bernoulli"),
                  "categorical": (1, (1, 2, 3, 4, 5), "categorical"),
                  "hetgaussian": (2, (2,), None),
                  "poisson": (3, (1,), None),
                  "gamma": (4, (2,), "lngamma"),
-                 "exponential": (5, (1,), None)}
+                 "exponential": (5, (1,), None),
+                 "beta": (6, (2,), TERMS),
+                 "binomial": (7, (1,), TERMS),
+                 "dirichlet": (8, (2, 3), TERMS),
+                 "zipoisson": (9, (2,), TERMS)}
 
 
 def task_family(lik) -> Optional[str]:
@@ -274,24 +285,62 @@ def task_family(lik) -> Optional[str]:
     return name
 
 
+def _grid(T: int, J: int, mc_samples: int):
+    """The float64 numpy nodes and weights of ``_nodes``."""
+    return mc_nodes(mc_samples, J) if mc_samples else tensor_grid(T, J)
+
+
+@functools.lru_cache(maxsize=None)
+def _terms_tensors(grids, J: int, dtype: torch.dtype, device: torch.device):
+    """A multi-term family's node table on ``device``, made once: its
+    terms' grids (``grids``, (T, J_k, mc_samples) each) one after another,
+    (S, J) nodes with each term's coordinates in its first J_k columns and
+    zeros past them, and (S,) weights, each value the one a term's own
+    table holds."""
+    tables = [_grid(*g) for g in grids]
+    nodes = np.zeros((sum(len(w) for _, w in tables), J))
+    start = 0
+    for f, w in tables:
+        nodes[start:start + len(w), :f.shape[1]] = f
+        start += len(w)
+    return _as_tensors(nodes, np.concatenate([w for _, w in tables]), dtype,
+                       device)
+
+
 def _task_table(liks, like):
     """(family code, nodes, w) of each likelihood of the table, the node
-    table on ``like``'s dtype and device (None for a closed form)."""
+    table on ``like``'s dtype and device (None for a closed form; a
+    multi-term family's terms one after another, ``_terms_tensors``)."""
     out = []
     for lik in liks:
         code, _, sweep = TASK_FAMILIES[task_family(lik)]
-        nodes, w = (_nodes(*lik.task_grid(), like) if sweep is not None
-                    else (None, None))
+        if sweep == TERMS:
+            nodes, w = _terms_tensors(tuple(lik.task_grid()), lik.dim_f,
+                                      like.dtype, like.device)
+        elif sweep is not None:
+            nodes, w = _nodes(*lik.task_grid(), like)
+        else:
+            nodes, w = None, None
         out.append((code, nodes, w))
     return out
+
+
+def _task_extras(lik):
+    """(sizes, consts) of a task: each term's node count, a multi-term
+    family's (() for the others), and the family's constants as floats."""
+    sizes = ()
+    if TASK_FAMILIES[task_family(lik)][2] == TERMS:
+        sizes = tuple(len(_grid(*g)[1]) for g in lik.task_grid())
+    return sizes, tuple(float(c) for c in lik.task_consts())
 
 
 def _task_launch_args(liks, Y, M, V, masks, scales):
     """The task table's launcher arguments: (tasks, scales)."""
     table = _task_table(liks, M[0])
     return ([(code, y.detach(), m.detach(), v.detach(), mask.detach(), nodes,
-              w) for (code, nodes, w), y, m, v, mask in zip(table, Y, M, V,
-                                                            masks)],
+              w, *_task_extras(lik))
+             for lik, (code, nodes, w), y, m, v, mask in zip(
+                 liks, table, Y, M, V, masks)],
             [s.detach() for s in scales])
 
 

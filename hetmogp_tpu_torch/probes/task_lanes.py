@@ -54,9 +54,8 @@ def main() -> int:
         Y, M, V, masks, scales = (
             [a.float() for a in x] if isinstance(x, list) else x.float()
             for x in c.task_inputs(rows, c.SEED + 90, False, False))
-        tasks = [(code, y, m, v, k, n, w) for (code, n, w), y, m, v, k in
-                 zip(quadrature._task_table(liks, M[0]), Y, M, V, masks)]
-        sc = list(scales)
+        tasks, sc = quadrature._task_launch_args(liks, Y, M, V, masks,
+                                                 list(scales))
         lanes = {}
         for name, per in VARIANTS.items():
             full = [1] * len(liks)

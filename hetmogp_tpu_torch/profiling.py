@@ -19,7 +19,11 @@ Counterpart of ``hetmogp_tpu/profiling.py``:
   ``span_report()`` gives each span's device time and self time, the
   device's idle gaps between steps or requests with the host span that
   held them, and ``graph_counters()``, the kernel nodes each span adds to
-  a captured graph, by class;
+  a captured graph, by class; ``count(name, n)`` adds to a program
+  counter of the innermost open span (``likelihood.table_tasks`` and
+  ``likelihood.engine_tasks``: the tasks of a likelihood term on kernel
+  6's task table and on their own engines), counted where the Python runs,
+  never in a replayed graph;
 * ``debug_nans(True)``: autograd's anomaly mode, which raises at the
   backward op that produced a NaN and names its forward;
 * ``assert_finite(params, name)``: a host-side check of a params (or any
@@ -187,15 +191,27 @@ def capturing():
     _counters.update({kind: _tally(plan) for kind, plan in cap.plans.items()})
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the program counter ``name`` of the innermost open
+    span: at a graph's capture (``graph_counters()``, by graph kind) or in
+    an eager span (``span_report()``, by span name).  Nothing is added to a
+    replayed graph; spans off, or outside a span, nothing is counted."""
+    rec = _active
+    if rec is not None:
+        rec.count(name, n)
+
+
 def graph_counters() -> dict:
     """{graph kind: {span: counts}} of the latest capture of each kind: the
     kernel nodes each span added to its graph by class (``hand``: the
     port's hand kernels; ``stamps``, none in a replayed graph: its stamped
     clone adds two a span; ``library``; ``memory``: memset and memcpy
-    nodes; ``other``) and ``launches``, the launch counters' increments
+    nodes; ``other``), ``launches``, the launch counters' increments
     ({launcher: launches}, which agree with the trainer's
-    ``capture_launches``)."""
-    return {k: {n: dict(c, launches=dict(c["launches"])) for n, c in v.items()}
+    ``capture_launches``) and ``counts``, the program counters of
+    ``count`` ({name: n})."""
+    return {k: {n: dict(c, launches=dict(c["launches"]),
+                        counts=dict(c["counts"])) for n, c in v.items()}
             for k, v in _counters.items()}
 
 
@@ -219,6 +235,11 @@ class _Spans:
     split."""
 
     pending = None  # the tensors split_backward marked
+
+    def count(self, name: str, n: int) -> None:
+        span = self.stack[-1] if self.stack else None
+        if span is not None:
+            span.counts[name] = span.counts.get(name, 0) + n
 
     @contextlib.contextmanager
     def backward(self, first: str, rest: str):
@@ -250,12 +271,13 @@ class _Occurrence:
     """An eager span as it was recorded."""
 
     __slots__ = ("name", "parent", "group", "host_start", "host_end",
-                 "start_slot", "end_slot", "range")
+                 "start_slot", "end_slot", "range", "counts")
 
     def __init__(self, name, parent, group):
         self.name, self.parent, self.group = name, parent, group
         self.host_start = self.host_end = None
         self.start_slot = self.end_slot = self.range = None
+        self.counts = {}
 
 
 class _Record(_Spans):
@@ -340,12 +362,14 @@ class _PlanSpan:
     """A span of a captured graph: its slots in the step's row, and the
     graph's node census and the launch counters at its boundaries."""
 
-    __slots__ = ("name", "parent", "start", "end", "at", "nodes", "launches")
+    __slots__ = ("name", "parent", "start", "end", "at", "nodes", "launches",
+                 "counts")
 
     def __init__(self, name, parent):
         self.name, self.parent = name, parent
         self.start = self.end = self.at = None
         self.nodes, self.launches = None, None  # set at the span's exit
+        self.counts = {}
 
 
 class _Capture(_Spans):
@@ -401,11 +425,12 @@ def _tally(plan) -> dict:
     for s in plan:
         if s.nodes is None:
             continue
-        c = out.setdefault(s.name, {"launches": {}})
+        c = out.setdefault(s.name, {"launches": {}, "counts": {}})
         for k, v in s.nodes.items():
             c[k] = c.get(k, 0) + v
-        for k, v in s.launches.items():
-            c["launches"][k] = c["launches"].get(k, 0) + v
+        for part in ("launches", "counts"):
+            for k, v in getattr(s, part).items():
+                c[part][k] = c[part].get(k, 0) + v
     return out
 
 
@@ -530,7 +555,8 @@ def span_report() -> dict:
     the graph ``kind`` of a replayed step) or a request.  ``spans``: by
     name, ``count``, ``timed`` (with both stamps), ``wall_ms`` and
     ``self_ms`` (wall minus the part of it its children cover), summed
-    and per occurrence (``_mean``).  ``gaps``: the device's idle time
+    and per occurrence (``_mean``), and ``counts``, the program counters of
+    its occurrences summed (a replayed step's: its graph's, as captured).  ``gaps``: the device's idle time
     between consecutive top-level spans (``us``), each put down (``to``)
     to the host span that was open when the host launched the work that
     ended it, "caller" where none was; ``host_late_us`` is how long after
@@ -557,8 +583,11 @@ def span_report() -> dict:
     summary = {}
     for i, o in enumerate(occ):
         row = summary.setdefault(o["name"], {"count": 0, "timed": 0,
-                                             "wall_ms": 0.0, "self_ms": 0.0})
+                                             "wall_ms": 0.0, "self_ms": 0.0,
+                                             "counts": {}})
         row["count"] += 1
+        for k, v in o["counts"].items():
+            row["counts"][k] = row["counts"].get(k, 0) + v
         t0, t1 = o[key[0]], o[key[1]]
         if t0 is None or t1 is None:
             continue
@@ -602,7 +631,8 @@ def _occurrences(rec: _Record):
     occ = [{"name": s.name, "group": s.group,
             "parent": None if s.parent is None else index[id(s.parent)],
             "start_ns": stamp(s.start_slot), "end_ns": stamp(s.end_slot),
-            "host_start_ns": s.host_start, "host_end_ns": s.host_end}
+            "host_start_ns": s.host_start, "host_end_ns": s.host_end,
+            "counts": dict(s.counts)}
            for s in rec.spans]
     launched = {i: o["host_start_ns"] for i, o in enumerate(occ)
                 if o["parent"] is None}
@@ -622,7 +652,8 @@ def _occurrences(rec: _Record):
                             "parent": None if s.parent is None
                             else base + s.parent,
                             "start_ns": got[0], "end_ns": got[1],
-                            "host_start_ns": None, "host_end_ns": None})
+                            "host_start_ns": None, "host_end_ns": None,
+                            "counts": dict(s.counts)})
                 if s.parent is None:
                     launched[len(occ) - 1] = run.launched[j]
     return occ, groups, launched

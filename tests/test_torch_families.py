@@ -281,6 +281,14 @@ EXTREME = [("Ordinal", {"K": 4}, 2.0), ("StudentT", {}, 0.5),
            ("Gamma", {}, 1.5), ("HetGaussian", {}, 0.4)]
 EXTREME_IDS = [name + ("-grid" if name == "Gamma" and kw else "")
                for name, kw, _ in EXTREME]
+# kernel 6's multi-term families as its task table takes them: Beta's
+# closed form, Binomial at the ten-family model's n, Dirichlet at K = 2, the
+# ZIP at y = 0
+EXTREME_TABLE = [("Beta", {}, 0.3), ("Binomial", {"n": 10}, 4.0),
+                 ("Dirichlet", {"K": 2}, None),
+                 ("ZeroInflatedPoisson", {}, 0.0)]
+EXTREME += EXTREME_TABLE
+EXTREME_IDS += [name + "-table" for name, _, _ in EXTREME_TABLE]
 EXTREME_MV = ((-200.0, 50.0), (200.0, 50.0), (-20.0, 5.0), (20.0, 5.0))
 # (family, m, output): where float32 itself is off against float64, by the
 # formula the two packages share, so that neither package is right there

@@ -131,8 +131,13 @@ def test_engine_value_alone_builds_no_derivatives():
     torch.testing.assert_close(got, want, rtol=1e-14, atol=0)
 
 
+# kernel 6's multi-term families too (a y inside each support; the ZIP at
+# y = 0 and y > 0)
 @pytest.mark.parametrize("name,yval", [("Poisson", 7.0), ("Exponential", 3.0),
-                                       ("Gamma", 4.0)])
+                                       ("Gamma", 4.0), ("Beta", 0.3),
+                                       ("Binomial", 1.0), ("Dirichlet", 0.25),
+                                       ("ZeroInflatedPoisson", 0.0),
+                                       ("ZeroInflatedPoisson", 3.0)])
 def test_analytic_finite_at_extreme_f32_moments(name, yval):
     """Mirror of the JAX package's regression: at m = +-200, v = 50 in
     float32 the closed forms and their moment-gradients stay finite (the
@@ -141,14 +146,17 @@ def test_analytic_finite_at_extreme_f32_moments(name, yval):
     for mval in (-200.0, 200.0):
         m = np.full((4, lik.dim_f), mval, np.float32)
         v = np.full((4, lik.dim_f), 50.0, np.float32)
-        Y = np.full((4, 1), yval, np.float32)
+        Y = np.full((4, lik.dim_y), yval, np.float32)
         for arr in _port_var_exp(lik, Y, m, v):
             assert arr.dtype == np.float32
             assert np.isfinite(arr).all(), (name, mval, arr)
 
 
 @pytest.mark.parametrize("name,yval", [("Gamma", 2.0), ("Poisson", 3.0),
-                                       ("Exponential", 1.0)])
+                                       ("Exponential", 1.0), ("Beta", 0.3),
+                                       ("Binomial", 1.0), ("Dirichlet", 0.25),
+                                       ("ZeroInflatedPoisson", 0.0),
+                                       ("ZeroInflatedPoisson", 3.0)])
 def test_analytic_gradients_finite_at_v_zero(name, yval):
     """Mirror of the JAX package's regression: at v == 0 in float32 the
     values and both moment-gradients are finite (Gamma's gammaln sweep goes
@@ -157,7 +165,7 @@ def test_analytic_gradients_finite_at_v_zero(name, yval):
     lik = getattr(tliks, name)()
     m = np.full((3, lik.dim_f), 0.3, np.float32)
     v = np.zeros((3, lik.dim_f), np.float32)
-    Y = np.full((3, 1), yval, np.float32)
+    Y = np.full((3, lik.dim_y), yval, np.float32)
     for arr in _port_var_exp(lik, Y, m, v):
         assert np.isfinite(arr).all(), (name, arr)
 

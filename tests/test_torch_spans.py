@@ -264,6 +264,31 @@ def test_a_replayed_call_expands_to_its_steps(monkeypatch):
                for g in rep["gaps"])
 
 
+def test_program_counters_go_to_the_open_span_and_to_its_replays(
+        monkeypatch):
+    """``profiling.count``: spans off or outside a span, nothing; at a
+    capture, into the open span of the graph's plan (``_tally``, so
+    ``graph_counters()``, by graph kind and span); a replayed step's
+    occurrences carry their plan's, which ``span_report`` sums by span."""
+    profiling.count("likelihood.table_tasks", 4)  # spans off: nothing
+    cap = profiling._Capture()
+    cap.count("likelihood.table_tasks", 4)  # no open span: nothing
+    rec = _replayed(monkeypatch)
+    for plan in rec.runs[0].plans.values():
+        cap.stack = [plan[0], plan[2]]  # step, then elbo.likelihood
+        cap.count("likelihood.table_tasks", 4)
+        cap.count("likelihood.engine_tasks", 6)
+    want = {"likelihood.table_tasks": 4, "likelihood.engine_tasks": 6}
+    for plan in rec.runs[0].plans.values():
+        tally = profiling._tally(plan)
+        assert tally["elbo.likelihood"]["counts"] == want
+        assert tally["step"]["counts"] == {}
+    rep = profiling.span_report()
+    assert rep["spans"]["elbo.likelihood"]["counts"] == {
+        k: 4 * v for k, v in want.items()}  # four replayed steps
+    assert rep["spans"]["step"]["counts"] == {}
+
+
 def _reader(name):
     path = ROOT / "hmbench" / "layer_metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
