@@ -115,18 +115,21 @@ def prior_cholesky_inverse(params: SVMOGPParams, config: ModelConfig):
 
 def latent_projection_P(params: SVMOGPParams, config: ModelConfig,
                         Luu: torch.Tensor, X: torch.Tensor, iLuu=None, *,
+                        precision: Optional[str] = None,
                         use_kernel: bool = True):
     """(P, kdiag) with P = (Luu^{-1} K_uf)^T, (Q, N, M), and the prior
     diagonal (Q, N): the whitened projection itself, for the
     natural-gradient step, which contracts P directly.  With ``iLuu`` P is
-    the triangular projection at the config's ``ve_fwd_precision`` (kernel
-    3 at ``"high"``, kernel A at ``"highest"`` on CUDA float32), else a
-    triangular solve against Luu."""
+    the triangular projection at ``precision`` (by default the config's
+    ``ve_fwd_precision``: kernel 3 at ``"high"``, kernel A at
+    ``"highest"`` on CUDA float32), else a triangular solve against
+    Luu."""
     Kfu = kernels.K_batched(config.kernel, X, params.Z, params.lengthscale,
                             params.variance, use_kernel=use_kernel)
     kdiag = kernels.Kdiag_batched(config.kernel, X, params.variance)
     if iLuu is not None:
-        P = linalg.matmul_tril_t(Kfu, iLuu, precision=config.projection_precision,
+        P = linalg.matmul_tril_t(Kfu, iLuu,
+                                 precision=precision or config.projection_precision,
                                  use_kernel=use_kernel)
     else:
         P = linalg.solve_tri(Luu, Kfu.mT).mT

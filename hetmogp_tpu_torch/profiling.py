@@ -7,8 +7,11 @@ Counterpart of ``hetmogp_tpu/profiling.py``:
   ``logdir``, and the block's spans beside it;
 * spans: ``annotate(name)`` marks a layer of the program's work (the
   trainer's ``step``, ``elbo.projections``, ``elbo.likelihood``,
-  ``backward.likelihood``, ``backward.projections``, ``refresh``; the
-  server's ``serve.request``, ``predict.moments``, ``predict.likelihood``).
+  ``backward.likelihood``, ``backward.projections``, ``refresh``; a
+  natural-gradient VE step's ``natgrad.moments``, ``natgrad.likelihood``,
+  ``natgrad.contractions``, ``natgrad.retraction`` and ``natgrad.factor``;
+  the server's ``serve.request``, ``predict.moments``,
+  ``predict.likelihood``).
   Spans are on while a ``torch.profiler`` session records (where they are
   also ``record_function`` ranges) or inside ``spans()``, which records
   them without the profiler; off, ``annotate`` checks one flag.  On the
@@ -22,8 +25,10 @@ Counterpart of ``hetmogp_tpu/profiling.py``:
   a captured graph, by class; ``count(name, n)`` adds to a program
   counter of the innermost open span (``likelihood.table_tasks`` and
   ``likelihood.engine_tasks``: the tasks of a likelihood term on kernel
-  6's task table and on their own engines), counted where the Python runs,
-  never in a replayed graph;
+  6's task table and on their own engines; ``natgrad.attempts`` and
+  ``natgrad.factorizations``: a natural-gradient step's attempts and
+  factorizations), counted where the Python runs, never in a replayed
+  graph;
 * ``debug_nans(True)``: autograd's anomaly mode, which raises at the
   backward op that produced a NaN and names its forward;
 * ``assert_finite(params, name)``: a host-side check of a params (or any

@@ -758,6 +758,15 @@ def _select(ok, new, old):
     return tuple(torch.where(ok, a, b) for a, b in zip(new, old))
 
 
+def natgrad_precision(config: ModelConfig, retraction: str) -> str:
+    """The precision ``natgrad_ve_step`` forms P at, with the retraction
+    ``retraction``: "highest" under "exact", whose A is a value (the
+    products' error in g_S reaches q through A's condition number), the
+    config's ``projection_precision`` under "cholesky", whose products
+    shape a direction."""
+    return "highest" if retraction == "exact" else config.projection_precision
+
+
 def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
                     lr: float, Luu=None, iLuu=None, S_inv=None,
                     retraction: str = "cholesky", trust: float = 0.3, *,
@@ -789,6 +798,12 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
         Cholesky of A (+ the fixed jitter); A + jitter I is the exact next
         S^{-1}, returned for the caller to carry.  Exact CAVI at lr=1 for
         a conjugate likelihood.  ``S_inv=None`` recomputes S^{-1} from Lq.
+        A is a value, not a direction: the products' error in g_S reaches
+        q through the new factor, times A's condition number, so P is
+        formed at "highest" here whatever ``ve_fwd_precision`` says
+        (``natgrad_precision``; at "high", three bf16 passes, the
+        flagship's step read an ELBO 10x to 100x further from float64
+        arithmetic's than at "highest"; PERF.md).
     A step whose result is not finite, not a valid factor, or (exact)
     moves the whitened mean by ``_NG_STEP_MAX`` or more or gives a
     posterior variance of ``_NG_SANE_VAR`` or more, is retried at lr/4,
@@ -799,6 +814,15 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
     latents, data its rows) g_m and g_S, sums over rows, are all-reduced
     over the data axis, the ELBO and aux are the global ones, and a step is
     accepted where every latent rank accepts it.
+
+    Spans (``profiling.annotate``): ``natgrad.moments`` (P, the means and
+    the variances), ``natgrad.likelihood`` (the likelihood term and its
+    gradient to the moments), ``natgrad.contractions`` (g_m and g_S),
+    ``natgrad.retraction`` (both attempts and the select) and, inside it,
+    ``natgrad.factor`` once an attempt of the exact retraction (its
+    factorization and inverse); the program counters
+    ``natgrad.attempts`` (2) and ``natgrad.factorizations`` (2 under
+    "exact", 0 under "cholesky") go to ``natgrad.retraction``.
     """
     if not config.whiten:
         raise ValueError("natural gradients require the whitened "
@@ -808,7 +832,7 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
                          "use 'exact' or 'cholesky'")
     params = from_leaves(params, [t.detach() for _, t in leaves(params)])
     view = params if comm is None else comm.view(params)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.annotate("natgrad.moments"):
         Lq, m = torch.tril(params.q_sqrt), params.q_mu
         eye = torch.eye(config.num_inducing, dtype=Lq.dtype, device=Lq.device)
         if Luu is None:
@@ -818,9 +842,10 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
         fuse_rows = config.fuse_task_rows and iLuu is not None
         X_parts = ([torch.cat([td.X for td in data])] if fuse_rows
                    else [td.X for td in data])
+        precision = natgrad_precision(config, retraction)
         Ps, kds = zip(*(elbo_mod.latent_projection_P(
-            view, config, Luu, X_, iLuu=iLuu, use_kernel=use_kernel)
-            for X_ in X_parts))
+            view, config, Luu, X_, iLuu=iLuu, precision=precision,
+            use_kernel=use_kernel) for X_ in X_parts))
         mean_parts = [(P @ m[..., None])[..., 0] for P in Ps]
         gamma_parts = [kd + linalg.quad_diag(P, Lq, use_kernel=use_kernel)
                        - torch.sum(torch.square(P), dim=-1)
@@ -837,7 +862,7 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
 
     means = [t.requires_grad_() for t in mean_parts]
     gammas = [t.requires_grad_() for t in gamma_parts]
-    with torch.enable_grad():
+    with torch.enable_grad(), profiling.annotate("natgrad.likelihood"):
         ve_total, ve_sums = _ve_terms(params, data, scales, config,
                                       task_views(means), task_views(gammas),
                                       task_views(kds), comm, use_kernel)
@@ -845,95 +870,111 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
     with torch.no_grad():
         ve_total, ve_sums = ve_total.detach(), ve_sums.detach()
         g_means, cs = grads[:len(means)], grads[len(means):]
-        g_m_ve = sum((P.mT @ g[..., None])[..., 0]
-                     for P, g in zip(Ps, g_means))
-        g_S_ve = sum((P * c[..., None]).mT @ P for P, c in zip(Ps, cs))
+        with profiling.annotate("natgrad.contractions"):
+            g_m_ve = sum((P.mT @ g[..., None])[..., 0]
+                         for P, g in zip(Ps, g_means))
+            g_S_ve = sum((P * c[..., None]).mT @ P for P, c in zip(Ps, cs))
+            if comm is not None:
+                # g_m and g_S sum over rows: the data axis completes them
+                comm.data_sum_([g_m_ve, g_S_ve])
         kl = torch.sum(0.5 * (torch.sum(torch.square(Lq), dim=(-2, -1))
                               + torch.sum(torch.square(m), dim=-1)
                               - config.num_inducing
                               - linalg.logdet_from_chol(Lq)))
         if comm is not None:
-            # g_m and g_S sum over rows: the data axis completes them
-            comm.data_sum_([g_m_ve, g_S_ve])
             ve_sums, kl = comm.reduce_metrics(ve_sums, kl)
             ve_total = ve_sums[0]
             for v in ve_sums[1:]:
                 ve_total = ve_total + v
-        g_m = g_m_ve - m
-        g_S_ve_sym = 0.5 * (g_S_ve + g_S_ve.mT)
+        with profiling.annotate("natgrad.retraction"):
+            profiling.count("natgrad.attempts", 2)
+            profiling.count("natgrad.factorizations",
+                            2 if retraction == "exact" else 0)
+            g_m = g_m_ve - m
+            g_S_ve_sym = 0.5 * (g_S_ve + g_S_ve.mT)
 
-        if retraction == "cholesky":
-            # H = L^T dS L with dS = g_S_ve + 0.5 (S^{-1} - I): the S^{-1}
-            # term is 0.5 I under the congruence
-            H = linalg.matmul_tril(
-                linalg.tril_t_matmul(Lq, g_S_ve_sym - 0.5 * eye,
-                                     use_kernel=use_kernel),
-                Lq, use_kernel=use_kernel)
-            H = 0.5 * (H + H.mT) + 0.5 * eye
-            Lt_gm = (Lq.mT @ g_m[..., None])[..., 0]
+            if retraction == "cholesky":
+                # H = L^T dS L with dS = g_S_ve + 0.5 (S^{-1} - I): the
+                # S^{-1} term is 0.5 I under the congruence
+                H = linalg.matmul_tril(
+                    linalg.tril_t_matmul(Lq, g_S_ve_sym - 0.5 * eye,
+                                         use_kernel=use_kernel),
+                    Lq, use_kernel=use_kernel)
+                H = 0.5 * (H + H.mT) + 0.5 * eye
+                Lt_gm = (Lq.mT @ g_m[..., None])[..., 0]
 
-            def attempt(lr_):
-                X = 2.0 * lr_ * linalg._phi(H)
-                mx = torch.amax(torch.abs(X), dim=(-2, -1), keepdim=True)
-                X = X * torch.clamp(trust / torch.clamp(mx, min=1e-30),
-                                    max=1.0)
-                L_new = Lq + linalg.matmul_tril(Lq, X,
-                                                use_kernel=use_kernel)
-                d = lr_ * Lt_gm
-                rms = torch.sqrt(torch.mean(torch.square(d), dim=-1,
-                                            keepdim=True))
-                d = d * torch.clamp(trust / torch.clamp(rms, min=1e-30),
-                                    max=1.0)
-                return m + (Lq @ d[..., None])[..., 0], L_new
+                def attempt(lr_):
+                    X = 2.0 * lr_ * linalg._phi(H)
+                    mx = torch.amax(torch.abs(X), dim=(-2, -1),
+                                    keepdim=True)
+                    X = X * torch.clamp(trust / torch.clamp(mx, min=1e-30),
+                                        max=1.0)
+                    L_new = Lq + linalg.matmul_tril(Lq, X,
+                                                    use_kernel=use_kernel)
+                    d = lr_ * Lt_gm
+                    rms = torch.sqrt(torch.mean(torch.square(d), dim=-1,
+                                                keepdim=True))
+                    d = d * torch.clamp(
+                        trust / torch.clamp(rms, min=1e-30), max=1.0)
+                    return m + (Lq @ d[..., None])[..., 0], L_new
 
-            def ok_(out):
-                diag = torch.diagonal(out[1], dim1=-2, dim2=-1)
-                return (torch.isfinite(out[0]).all()
-                        & torch.isfinite(out[1]).all() & (diag > 0).all())
+                def ok_(out):
+                    diag = torch.diagonal(out[1], dim1=-2, dim2=-1)
+                    return (torch.isfinite(out[0]).all()
+                            & torch.isfinite(out[1]).all()
+                            & (diag > 0).all())
 
-            kept = (m, Lq)
-        else:
-            g_S = g_S_ve_sym + 0.5 * (S_inv - eye)
-            theta1 = (S_inv @ m[..., None])[..., 0]
-            d_eta1 = g_m - 2.0 * (g_S @ m[..., None])[..., 0]
+                kept = (m, Lq)
+            else:
+                g_S = g_S_ve_sym + 0.5 * (S_inv - eye)
+                theta1 = (S_inv @ m[..., None])[..., 0]
+                d_eta1 = g_m - 2.0 * (g_S @ m[..., None])[..., 0]
 
-            def attempt(lr_):
-                theta1_new = theta1 + lr_ * d_eta1
-                A = S_inv - 2.0 * lr_ * g_S  # must stay positive definite
-                # L_new L_new^T = A^{-1} from one reversed (UL) Cholesky:
-                # chol(J A J) = L_r gives L_new = (J L_r^{-1} J)^T
-                A_rev = torch.flip(A, dims=(-2, -1))
-                if config.adaptive_jitter:
-                    L_r = linalg.jitchol(A_rev)
-                    iL_r = linalg.tri_inverse(L_r)
-                    S_inv_n = torch.flip(L_r @ L_r.mT, dims=(-2, -1))
-                else:
-                    j_eye = config.jitter * eye
-                    _, iL_r = linalg.blocked_cholesky_inverse(A_rev + j_eye)
-                    S_inv_n = A + j_eye  # exactly (L_new L_new^T)^{-1}
-                L_new = torch.flip(iL_r, dims=(-2, -1)).mT
-                m_new = (L_new @ (L_new.mT @ theta1_new[..., None]))[..., 0]
-                return m_new, L_new, S_inv_n
+                def attempt(lr_):
+                    theta1_new = theta1 + lr_ * d_eta1
+                    A = S_inv - 2.0 * lr_ * g_S  # must stay pos. definite
+                    # L_new L_new^T = A^{-1} from one reversed (UL)
+                    # Cholesky: chol(J A J) = L_r gives
+                    # L_new = (J L_r^{-1} J)^T
+                    A_rev = torch.flip(A, dims=(-2, -1))
+                    with profiling.annotate("natgrad.factor"):
+                        if config.adaptive_jitter:
+                            L_r = linalg.jitchol(A_rev)
+                            iL_r = linalg.tri_inverse(L_r)
+                        else:
+                            j_eye = config.jitter * eye
+                            _, iL_r = linalg.blocked_cholesky_inverse(
+                                A_rev + j_eye)
+                    if config.adaptive_jitter:
+                        S_inv_n = torch.flip(L_r @ L_r.mT, dims=(-2, -1))
+                    else:
+                        S_inv_n = A + j_eye  # exactly (L_new L_new^T)^{-1}
+                    L_new = torch.flip(iL_r, dims=(-2, -1)).mT
+                    m_new = (L_new @ (L_new.mT
+                                      @ theta1_new[..., None]))[..., 0]
+                    return m_new, L_new, S_inv_n
 
-            def ok_(out):
-                # a finite step may still blow up where A is nearly
-                # singular: bound the mean's move and the variances
-                var = torch.sum(torch.square(out[1]), dim=-1)
-                return (torch.isfinite(out[0]).all()
-                        & torch.isfinite(out[1]).all()
-                        & (torch.amax(torch.abs(out[0] - m)) < _NG_STEP_MAX)
-                        & (torch.amax(var) < _NG_SANE_VAR))
+                def ok_(out):
+                    # a finite step may still blow up where A is nearly
+                    # singular: bound the mean's move and the variances
+                    var = torch.sum(torch.square(out[1]), dim=-1)
+                    return (torch.isfinite(out[0]).all()
+                            & torch.isfinite(out[1]).all()
+                            & (torch.amax(torch.abs(out[0] - m))
+                               < _NG_STEP_MAX)
+                            & (torch.amax(var) < _NG_SANE_VAR))
 
-            kept = (m, Lq, S_inv)
+                kept = (m, Lq, S_inv)
 
-        out1, out2 = attempt(lr), attempt(lr * 0.25)
-        ok1, ok2 = ok_(out1), ok_(out2)
-        if comm is not None:  # accepted where every latent rank accepts
-            bad = comm.latent_values((~torch.stack([ok1, ok2])).to(m.dtype))
-            ok1, ok2 = bad[0] == 0, bad[1] == 0
-        outs = _select(ok1, out1, _select(ok2, out2, kept))
-        zero = torch.zeros((), dtype=torch.int32, device=Lq.device)
-        nb = torch.where(ok1, zero, torch.where(ok2, zero + 1, zero + 2))
+            out1, out2 = attempt(lr), attempt(lr * 0.25)
+            ok1, ok2 = ok_(out1), ok_(out2)
+            if comm is not None:  # accepted where every latent rank does
+                bad = comm.latent_values(
+                    (~torch.stack([ok1, ok2])).to(m.dtype))
+                ok1, ok2 = bad[0] == 0, bad[1] == 0
+            outs = _select(ok1, out1, _select(ok2, out2, kept))
+            zero = torch.zeros((), dtype=torch.int32, device=Lq.device)
+            nb = torch.where(ok1, zero, torch.where(ok2, zero + 1, zero + 2))
         S_inv_new = S_inv if retraction == "cholesky" else outs[2]
         new_params = dataclasses.replace(params, q_mu=outs[0],
                                          q_sqrt=outs[1])

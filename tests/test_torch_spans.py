@@ -131,6 +131,47 @@ def test_a_served_request_records_its_spans():
         assert [o["parent"] for _, o in spans[1:]] == [spans[0][0]] * 2
 
 
+NATGRAD = ["step", "natgrad.moments", "natgrad.likelihood",
+           "natgrad.contractions", "natgrad.retraction"]
+
+
+@pytest.mark.parametrize("retraction, factors", [("exact", 2),
+                                                 ("cholesky", 0)])
+def test_a_natgrad_ve_step_records_its_spans_and_counters(retraction,
+                                                          factors):
+    """A natural-gradient VE step's layers nest under ``step``, the exact
+    retraction's two ``natgrad.factor`` under ``natgrad.retraction``, and
+    the counters of its attempts and factorizations go to the retraction;
+    the VM step after it records the adam trainer's layers."""
+    cfg, params, ds = _model()
+    tc = tp.TrainConfig(optimizer="natgrad_adam", ve_steps_per_vm=1,
+                        natgrad_retraction=retraction)
+    step = ttrain.make_step(cfg, tc)
+    state = tp.init_train_state(params, cfg, tc)
+    scales = torch.ones(2, dtype=torch.float64)
+    with profiling.spans():
+        state, _ = step(state, ds, scales)  # step 0: VE
+        state, _ = step(state, ds, scales)  # step 1: VM
+    rep = profiling.span_report()
+    ve, vm = (spans for _, spans in sorted(_by_group(rep).items()))
+    assert [o["name"] for _, o in ve] == NATGRAD + ["natgrad.factor"] * factors
+    (top, _), *inner = ve
+    at = {o["name"]: i for i, o in ve}
+    for _, o in inner:
+        want = (at["natgrad.retraction"] if o["name"] == "natgrad.factor"
+                else top)
+        assert o["parent"] == want, o["name"]
+    for (_, a), (_, b) in zip(inner[:4], inner[1:4]):
+        assert a["host_end_ns"] <= b["host_start_ns"]
+    assert [o["name"] for _, o in vm] == STEP + ["refresh"]
+    assert rep["spans"]["natgrad.retraction"]["counts"] == {
+        "natgrad.attempts": 2, "natgrad.factorizations": factors}
+    assert rep["spans"]["step"]["counts"] == {}
+    # the likelihood term's own counters open inside natgrad.likelihood
+    assert set(rep["spans"]["natgrad.likelihood"]["counts"]) == {
+        "likelihood.table_tasks", "likelihood.engine_tasks"}
+
+
 MS = 1_000_000  # ns
 
 
@@ -207,26 +248,36 @@ def test_a_gap_goes_to_the_open_span_or_to_the_device(monkeypatch):
     assert gap["held_by"] == "device"
 
 
-def _replayed(monkeypatch, steps=4, vm_every=2, gap_ns=7000):
-    """A record of one trainer call of ``steps`` replays: VE steps of 1 ms
-    with children projections [0.1, 0.5], likelihood [0.5, 0.6], and VM
-    steps with a refresh [0.6, 0.9] too; ``gap_ns`` between steps."""
-    S = profiling.STAMPS_PER_STEP
+ROWS = {"ve": [("step", None, 0, 1000), ("elbo.projections", 0, 100, 500),
+               ("elbo.likelihood", 0, 500, 600)]}
+ROWS["vm"] = ROWS["ve"] + [("refresh", 0, 600, 900)]
 
-    def plan(vm):
-        names = [("step", None), ("elbo.projections", 0),
-                 ("elbo.likelihood", 0)] + ([("refresh", 0)] if vm else [])
+
+def _replayed(monkeypatch, steps=4, vm_every=2, gap_ns=7000, rows=None,
+              counts=None):
+    """A record of one trainer call of ``steps`` replays: ``rows`` {kind:
+    [(span, parent, start us, end us)]}, by default VE steps of 1 ms with
+    children projections [0.1, 0.5], likelihood [0.5, 0.6], and VM steps
+    with a refresh [0.6, 0.9] too; ``gap_ns`` between steps; ``counts``
+    {(kind, span): program counters} of the plans' spans."""
+    S = profiling.STAMPS_PER_STEP
+    rows = rows or ROWS
+    counts = counts or {}
+
+    def plan(kind):
         out = []
-        for k, (name, parent) in enumerate(names):
+        for k, (name, parent, _, _) in enumerate(rows[kind]):
             s = profiling._PlanSpan(name, parent)
             s.start, s.end = 2 * k, 2 * k + 1
-            s.nodes = {"hand": 2, "stamps": 0, "library": 10 + k + 5 * vm,
+            s.nodes = {"hand": 2, "stamps": 0,
+                       "library": 10 + k + 5 * (kind == "vm"),
                        "memory": 1, "other": 0}
             s.launches = {}
+            s.counts = dict(counts.get((kind, name), {}))
             out.append(s)
         return out
 
-    plans = {"ve": plan(False), "vm": plan(True)}
+    plans = {"ve": plan("ve"), "vm": plan("vm")}
     ring = torch.full((steps * S,), -1, dtype=torch.int64)
     run = profiling._Run(1, plans, ring)
     t, host = 0, 0
@@ -234,9 +285,7 @@ def _replayed(monkeypatch, steps=4, vm_every=2, gap_ns=7000):
         kind = "vm" if j % vm_every == vm_every - 1 else "ve"
         run.kinds.append(kind)
         run.launched.append(host)
-        row = [(0, 1000), (100, 500), (500, 600)] + (
-            [(600, 900)] if kind == "vm" else [])
-        for k, (a, b) in enumerate(row):
+        for k, (_, _, a, b) in enumerate(rows[kind]):
             ring[j * S + 2 * k] = t + a * 1000
             ring[j * S + 2 * k + 1] = t + b * 1000
         t += 1000 * 1000 + gap_ns
@@ -324,6 +373,40 @@ def test_each_train_reader_reads_the_spans(monkeypatch, name, want):
     assert read(dict(TRAIN_LAYER)) is None
 
 
+NATGRAD_ROWS = {
+    "ve": [("step", None, 0, 1000), ("natgrad.moments", 0, 0, 100),
+           ("natgrad.likelihood", 0, 100, 200),
+           ("natgrad.contractions", 0, 200, 400),
+           ("natgrad.retraction", 0, 400, 1000),
+           ("natgrad.factor", 4, 450, 600), ("natgrad.factor", 4, 700, 850)],
+    "vm": ROWS["vm"]}
+
+
+@pytest.mark.parametrize("name, want", [
+    ("natgrad.contractions_ms.train", 0.2),  # a VE step's
+    ("natgrad.factor_ms.train", 0.15),  # a factorization's
+])
+def test_each_natgrad_reader_reads_the_spans(monkeypatch, name, want):
+    counted = {("ve", "natgrad.retraction"): {"natgrad.attempts": 2,
+                                              "natgrad.factorizations": 2}}
+    read = _reader(name)
+    _replayed(monkeypatch, rows=NATGRAD_ROWS, counts=counted)
+    assert read(dict(TRAIN_LAYER)) == pytest.approx(want)
+    assert read(dict(TRAIN_LAYER, replayed={"ve": 3, "vm": 2})) is None
+    assert read(dict(TRAIN_LAYER, kind="serve")) is None
+    # the adam trainer's call, or a program whose step opens no natgrad
+    # span (an earlier one's): nothing to read
+    _replayed(monkeypatch)
+    assert read(dict(TRAIN_LAYER)) is None
+    monkeypatch.setattr(profiling, "span_report", lambda: {})
+    assert read(dict(TRAIN_LAYER)) is None
+
+
+def test_the_factor_reader_needs_the_factorizations_counted(monkeypatch):
+    _replayed(monkeypatch, rows=NATGRAD_ROWS)
+    assert _reader("natgrad.factor_ms.train")(dict(TRAIN_LAYER)) is None
+
+
 def test_the_serving_reader_takes_the_median_gap(monkeypatch):
     # three requests of 1 ms, 2 ms and 5 ms apart on the device
     spans, stamps, t = [], {}, 0
@@ -374,3 +457,40 @@ def test_graphed_stamps_are_off_until_spans_are_on():
         assert step["hand"] >= sum(v for k, v in launched.items()
                                    if k != "rbf_backward")
         assert step["stamps"] == 0  # the replayed graphs hold none
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("retraction, factors", [("exact", 2),
+                                                 ("cholesky", 0)])
+def test_graphed_natgrad_steps_count_their_spans(retraction, factors):
+    """The natural-gradient VE graph's capture counts its attempts and
+    factorizations in ``natgrad.retraction`` (``graph_counters()``), and a
+    call under ``spans()`` stamps every natgrad span of every VE step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; this machine has none")
+    cfg, params, ds = _model("cuda", m=16, dtype="float32")
+    tc = tp.TrainConfig(optimizer="natgrad_adam", ve_steps_per_vm=2,
+                        natgrad_retraction=retraction, minibatch="slice")
+    run = tp.make_scan_trainer(cfg, tc, (40, 30), (16, 16), steps_per_call=6)
+    state = tp.init_train_state(params, cfg, tc)
+    offsets = torch.zeros((6, 2), dtype=torch.int64)
+    state, _ = run(state, ds, offsets=offsets)  # captures, spans off
+    counters = profiling.graph_counters()
+    want = {"natgrad.attempts": 2, "natgrad.factorizations": factors}
+    assert counters["ve"]["natgrad.retraction"]["counts"] == want
+    assert ("natgrad.factor" in counters["ve"]) == (factors > 0)
+    assert not any(k.startswith("natgrad.") for k in counters["vm"])
+    if factors:
+        assert counters["ve"]["natgrad.factor"]["launches"]["chol_panel"] \
+            == factors
+    with profiling.spans():
+        state, _ = run(state, ds, offsets=offsets)
+    rep = profiling.span_report()
+    n_ve = run.step_kinds.count("ve")
+    assert rep["source"] == "device" and n_ve == 4
+    assert rep["spans"]["natgrad.retraction"]["counts"] == {
+        k: n_ve * v for k, v in want.items()}
+    for name in NATGRAD[1:]:
+        assert rep["spans"][name]["timed"] == n_ve, name
+    assert rep["spans"].get("natgrad.factor", {}).get("timed", 0) \
+        == factors * n_ve
