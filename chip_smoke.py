@@ -2971,23 +2971,26 @@ def backoff_counts(run) -> tuple:
     return int((codes == 1).sum()), int((codes == 2).sum())
 
 
-def attempt_ms(S_inv, Lq, m, jitter: float, lr: float) -> dict:
-    """Device time of one attempt of each retraction at the step's shapes,
-    by CUDA events: what computing the lr/4 attempt beside the first costs
-    a VE step (the backoff is selected on the device, so both attempts
-    always run).  The operations are natgrad_ve_step's, on a trained
-    S^-1 and q."""
+def attempt_ms(S_inv, Lq, m, config, lr: float) -> dict:
+    """Device time of the retractions' attempts at the step's shapes, by
+    CUDA events: what computing the lr/4 attempt beside the first costs a
+    VE step (the backoff is selected on the device, so both attempts
+    always run).  "exact" is train._exact_attempts at the rate lr alone,
+    its (Q, M, M) A, and at both rates, the (2 Q, M, M) stack the step
+    factors in one call; "cholesky" one attempt, the step runs two.  The
+    operations are natgrad_ve_step's, on a trained S^-1 and q (g_S = 0:
+    A = S^-1)."""
+    from hetmogp_tpu_torch import train as ttrain
     from hetmogp_tpu_torch.ops import linalg
 
     eye = torch.eye(Lq.shape[-1], dtype=Lq.dtype, device=Lq.device)
     theta1 = (S_inv @ m[..., None])[..., 0]
+    g_S, d_eta1 = torch.zeros_like(S_inv), torch.zeros_like(theta1)
     H = 0.5 * (S_inv + S_inv.mT)
 
-    def exact():
-        _, iL_r = linalg.blocked_cholesky_inverse(
-            torch.flip(S_inv, dims=(-2, -1)) + jitter * eye)
-        L_new = torch.flip(iL_r, dims=(-2, -1)).mT
-        return (L_new @ (L_new.mT @ theta1[..., None]))[..., 0]
+    def exact(lrs):
+        return lambda: ttrain._exact_attempts(S_inv, g_S, theta1, d_eta1,
+                                              lrs, config, eye)
 
     def cholesky():
         X = 2.0 * lr * linalg._phi(H)
@@ -2995,8 +2998,25 @@ def attempt_ms(S_inv, Lq, m, jitter: float, lr: float) -> dict:
         X = X * torch.clamp(0.3 / torch.clamp(mx, min=1e-30), max=1.0)
         return Lq + linalg.matmul_tril(Lq, X)
 
-    return {name: statistics.median(device_times_ms(fn))
-            for name, fn in (("exact", exact), ("cholesky", cholesky))}
+    def graphed(fn):  # the trainer replays its steps as CUDA graphs
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return graph.replay
+
+    times = {}
+    for name, fn in (("exact", exact((lr,))),
+                     ("exact_pair", exact((lr, lr * 0.25))),
+                     ("cholesky", cholesky)):
+        times[name] = statistics.median(device_times_ms(fn))
+        times[name + ", graphed"] = statistics.median(
+            device_times_ms(graphed(fn)))
+    return times
 
 
 def optimizers_phase(smi: str, device="cuda") -> dict:
@@ -3084,12 +3104,17 @@ def optimizers_phase(smi: str, device="cuda") -> dict:
                              f"{counts}")
     if profiled:
         p, S_inv = trained["exact"]
-        cost = attempt_ms(S_inv, torch.tril(p.q_sqrt), p.q_mu, cfg.jitter,
+        cost = attempt_ms(S_inv, torch.tril(p.q_sqrt), p.q_mu, cfg,
                           NATGRAD_TC["natgrad_lr"])
-        print(f"natgrad backoff, both attempts computed and selected on the "
-              f"device: one attempt takes {cost['exact']:.4f} ms (exact) and "
-              f"{cost['cholesky']:.4f} ms (cholesky) of device time at "
-              f"(Q, M, M) = ({Q}, {M}, {M}), median of 20 [card: {smi}]")
+        for how in ("", ", graphed"):
+            one, pair = cost["exact" + how], cost["exact_pair" + how]
+            print(f"natgrad backoff, both attempts computed and selected on "
+                  f"the device{how or ', eager'}: exact, one attempt "
+                  f"{one:.4f} ms and both attempts factored in one call "
+                  f"{pair:.4f} ms, so the second costs {pair - one:.4f} ms; "
+                  f"cholesky, one attempt {cost['cholesky' + how]:.4f} ms; "
+                  f"device time at (Q, M, M) = ({Q}, {M}, {M}), median of "
+                  f"20 [card: {smi}]")
     del trained
 
     # 2. the rest of the optimizers

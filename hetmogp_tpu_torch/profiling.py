@@ -26,8 +26,9 @@ Counterpart of ``hetmogp_tpu/profiling.py``:
   counter of the innermost open span (``likelihood.table_tasks`` and
   ``likelihood.engine_tasks``: the tasks of a likelihood term on kernel
   6's task table and on their own engines; ``natgrad.attempts`` and
-  ``natgrad.factorizations``: a natural-gradient step's attempts and
-  factorizations), counted where the Python runs, never in a replayed
+  ``natgrad.factorizations``: a natural-gradient step's attempts and its
+  factorization calls, the spans ``natgrad.factor``, one of which factors
+  both attempts' A), counted where the Python runs, never in a replayed
   graph;
 * ``debug_nans(True)``: autograd's anomaly mode, which raises at the
   backward op that produced a NaN and names its forward;

@@ -758,6 +758,44 @@ def _select(ok, new, old):
     return tuple(torch.where(ok, a, b) for a, b in zip(new, old))
 
 
+def _exact_attempts(S_inv, g_S, theta1, d_eta1, lrs, config, eye):
+    """The exact retraction's attempts at the rates ``lrs``, stacked on a
+    leading axis: theta1 + lr d_eta1 and A = S^{-1} - 2 lr g_S, and
+    L_new L_new^T = A^{-1} from one reversed (UL) Cholesky, chol(J A J) =
+    L_r giving L_new = (J L_r^{-1} J)^T, of every rate's A in one call.
+    Each matrix of the stack is factored alone (kernel 9 a block a matrix,
+    kernels A and 4 tiled a matrix at a time), so an attempt's result is
+    the one it has by itself, while the chain of panels runs once for all.
+
+    Under ``config.adaptive_jitter`` the stack goes through one ``jitchol``
+    and ``tri_inverse``, whose jitter escalates a matrix at a time, so
+    each attempt again gets the factor it has by itself.
+
+    Returns a (m_new, L_new, S_inv_new) a rate; S_inv_new is A + the fixed
+    jitter, exactly (L_new L_new^T)^{-1}, or under
+    ``config.adaptive_jitter`` the jittered A that ``jitchol`` factored."""
+    lr_ = torch.empty((len(lrs), 1, 1), dtype=g_S.dtype, device=g_S.device)
+    for i, r in enumerate(lrs):
+        lr_[i].fill_(r)  # a fill, not a copy from the host: graph-capturable
+    theta1_new = theta1 + lr_ * d_eta1
+    A = S_inv - 2.0 * lr_[..., None] * g_S  # must stay pos. definite
+    A_rev = torch.flip(A, dims=(-2, -1))
+    with profiling.annotate("natgrad.factor"):
+        if config.adaptive_jitter:
+            L_r = linalg.jitchol(A_rev)
+            iL_r = linalg.tri_inverse(L_r)
+        else:
+            j_eye = config.jitter * eye
+            _, iL_r = linalg.blocked_cholesky_inverse(A_rev + j_eye)
+    if config.adaptive_jitter:
+        S_inv_n = torch.flip(L_r @ L_r.mT, dims=(-2, -1))
+    else:
+        S_inv_n = A + j_eye
+    L_new = torch.flip(iL_r, dims=(-2, -1)).mT
+    m_new = (L_new @ (L_new.mT @ theta1_new[..., None]))[..., 0]
+    return tuple(zip(m_new, L_new, S_inv_n))
+
+
 def natgrad_precision(config: ModelConfig, retraction: str) -> str:
     """The precision ``natgrad_ve_step`` forms P at, with the retraction
     ``retraction``: "highest" under "exact", whose A is a value (the
@@ -810,6 +848,10 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
     then skipped.  Both attempts are computed and the result selected on
     the device, so the step reads nothing on the host (except the exact
     retraction under ``config.adaptive_jitter``, whose ``jitchol`` does).
+    The exact retraction factors both attempts' A in one call of
+    ``blocked_cholesky_inverse`` (``jitchol`` under
+    ``config.adaptive_jitter``) on their (2 Q, M, M) stack, which factors
+    each matrix alone (``_exact_attempts``).
     Under ``comm`` (a mesh: params, Luu, iLuu and S_inv this rank's
     latents, data its rows) g_m and g_S, sums over rows, are all-reduced
     over the data axis, the ELBO and aux are the global ones, and a step is
@@ -819,10 +861,11 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
     the variances), ``natgrad.likelihood`` (the likelihood term and its
     gradient to the moments), ``natgrad.contractions`` (g_m and g_S),
     ``natgrad.retraction`` (both attempts and the select) and, inside it,
-    ``natgrad.factor`` once an attempt of the exact retraction (its
-    factorization and inverse); the program counters
-    ``natgrad.attempts`` (2) and ``natgrad.factorizations`` (2 under
-    "exact", 0 under "cholesky") go to ``natgrad.retraction``.
+    ``natgrad.factor`` once a step of the exact retraction (the one call
+    that factors and inverts both attempts' A); the program counters
+    ``natgrad.attempts`` (2) and ``natgrad.factorizations`` (the calls
+    ``natgrad.factor`` wraps: 1 under "exact", 0 under "cholesky") go to
+    ``natgrad.retraction``.
     """
     if not config.whiten:
         raise ValueError("natural gradients require the whitened "
@@ -889,7 +932,7 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
         with profiling.annotate("natgrad.retraction"):
             profiling.count("natgrad.attempts", 2)
             profiling.count("natgrad.factorizations",
-                            2 if retraction == "exact" else 0)
+                            1 if retraction == "exact" else 0)
             g_m = g_m_ve - m
             g_S_ve_sym = 0.5 * (g_S_ve + g_S_ve.mT)
 
@@ -924,35 +967,15 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
                             & torch.isfinite(out[1]).all()
                             & (diag > 0).all())
 
+                out1, out2 = attempt(lr), attempt(lr * 0.25)
                 kept = (m, Lq)
             else:
                 g_S = g_S_ve_sym + 0.5 * (S_inv - eye)
                 theta1 = (S_inv @ m[..., None])[..., 0]
                 d_eta1 = g_m - 2.0 * (g_S @ m[..., None])[..., 0]
 
-                def attempt(lr_):
-                    theta1_new = theta1 + lr_ * d_eta1
-                    A = S_inv - 2.0 * lr_ * g_S  # must stay pos. definite
-                    # L_new L_new^T = A^{-1} from one reversed (UL)
-                    # Cholesky: chol(J A J) = L_r gives
-                    # L_new = (J L_r^{-1} J)^T
-                    A_rev = torch.flip(A, dims=(-2, -1))
-                    with profiling.annotate("natgrad.factor"):
-                        if config.adaptive_jitter:
-                            L_r = linalg.jitchol(A_rev)
-                            iL_r = linalg.tri_inverse(L_r)
-                        else:
-                            j_eye = config.jitter * eye
-                            _, iL_r = linalg.blocked_cholesky_inverse(
-                                A_rev + j_eye)
-                    if config.adaptive_jitter:
-                        S_inv_n = torch.flip(L_r @ L_r.mT, dims=(-2, -1))
-                    else:
-                        S_inv_n = A + j_eye  # exactly (L_new L_new^T)^{-1}
-                    L_new = torch.flip(iL_r, dims=(-2, -1)).mT
-                    m_new = (L_new @ (L_new.mT
-                                      @ theta1_new[..., None]))[..., 0]
-                    return m_new, L_new, S_inv_n
+                out1, out2 = _exact_attempts(S_inv, g_S, theta1, d_eta1,
+                                             (lr, lr * 0.25), config, eye)
 
                 def ok_(out):
                     # a finite step may still blow up where A is nearly
@@ -966,7 +989,6 @@ def natgrad_ve_step(params: SVMOGPParams, data, scales, config: ModelConfig,
 
                 kept = (m, Lq, S_inv)
 
-            out1, out2 = attempt(lr), attempt(lr * 0.25)
             ok1, ok2 = ok_(out1), ok_(out2)
             if comm is not None:  # accepted where every latent rank does
                 bad = comm.latent_values(

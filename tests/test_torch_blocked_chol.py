@@ -130,6 +130,45 @@ def test_blocked_pair_matches_jax_in_float32(case):
     assert _normwise(iL, want_iL) < F32
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_blocked_pair_of_a_stack_is_each_part_alone(dtype):
+    """The exact natural-gradient retraction factors its two attempts' A
+    as one (2 Q, M, M) stack: each part of the stack comes back bitwise as
+    a call of its own gives it (kernel 9 a block a matrix, kernels A and 4
+    a matrix at a time, the float64 updates a product a matrix)."""
+    K = torch.from_numpy(_spd(8, 256, seed=7)).to(dtype)
+    L, iL = linalg.blocked_cholesky_inverse(K, 64)
+    for part in (slice(0, 4), slice(4, 8)):
+        L_p, iL_p = linalg.blocked_cholesky_inverse(K[part], 64)
+        assert torch.equal(L[part], L_p)
+        assert torch.equal(iL[part], iL_p)
+
+
+def test_jitchol_of_a_stack_is_each_part_alone():
+    """Under adaptive jitter the exact retraction's stack goes through one
+    ``jitchol`` and ``tri_inverse``: the jitter escalates a matrix at a
+    time, so a part of the stack whose matrix needs it (an eigenvalue of
+    -3e-5 times the mean diagonal: the level 1e-4 times it) and one whose
+    matrices need none come back bitwise as calls of their own give them."""
+    rng = np.random.default_rng(11)
+    K = _spd(8, 32, seed=11)
+    Qm, _ = np.linalg.qr(rng.standard_normal((32, 32)))
+    e = np.linspace(1.0, 2.0, 32)
+    e[0] = -3e-5 * e.mean()
+    K[5] = (Qm * e) @ Qm.T
+    K = torch.from_numpy(K)
+    assert torch.linalg.cholesky_ex(K[5])[1] != 0
+    L = linalg.jitchol(K)
+    iL = linalg.tri_inverse(L)
+    assert torch.isfinite(L).all()
+    for part in (slice(0, 4), slice(4, 8)):
+        L_p = linalg.jitchol(K[part])
+        assert torch.equal(L[part], L_p)
+        assert torch.equal(iL[part], linalg.tri_inverse(L_p))
+    assert torch.equal(L[:5], torch.linalg.cholesky(K[:5]))
+
+
 def test_blocked_pair_takes_a_batch_of_any_rank():
     K = _spd(6, 96, seed=1).reshape(2, 3, 96, 96)
     L, iL = linalg.blocked_cholesky_inverse(torch.from_numpy(K), 32)
@@ -318,12 +357,12 @@ def test_init_and_refresh_take_the_blocked_path(recorded, fast):
 
 def test_natgrad_exact_attempt_takes_the_blocked_pair(recorded):
     """natural gradients' "exact" retraction (JAX train.py:1499): both
-    attempts (lr and lr/4) factor A through the blocked pair, without a
-    gradient."""
+    attempts (lr and lr/4) factor A through the blocked pair, in one call
+    on their stack, without a gradient."""
     cfg, params, data, scales = _small()
     ttrain.natgrad_ve_step(params, data, scales, cfg, 0.1,
                            retraction="exact")
-    assert recorded == [("blocked_cholesky_inverse", False)] * 2
+    assert recorded == [("blocked_cholesky_inverse", False)]
 
 
 # ---- kernel 9: its plain version, its launcher ---------------------------------

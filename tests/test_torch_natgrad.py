@@ -6,6 +6,9 @@ The same numpy-made inputs go through ``hetmogp_tpu.train`` and
 * one ``natgrad_ve_step`` of each retraction from a cold and a carried
   S^{-1}, fused rows and per task, the lr/4 backoff on an indefinite A,
   and the exact retraction's rejection of a finite but divergent step;
+* the exact retraction's two attempts, factored in one call on their
+  stack, against the attempts formed one at a time (on the port alone,
+  bitwise);
 * the ports of ``tests/test_natgrad.py``'s conjugate-exactness and
   trust-ball tests, on the port alone;
 * ten ``natgrad_adam`` steps of ``make_step`` against ``make_svi_step``
@@ -40,6 +43,7 @@ import hetmogp_tpu_torch as tp
 from hetmogp_tpu_torch import train as ttrain
 from hetmogp_tpu_torch.models import elbo as telbo
 from hetmogp_tpu_torch.models.params import FIELDS
+from hetmogp_tpu_torch.ops import linalg as tlinalg
 
 torch.set_num_threads(1)
 
@@ -202,6 +206,80 @@ def test_backoff_on_an_indefinite_A_matches_jax(lr, code):
     else:
         assert (tout[0].q_mu - tparams.q_mu).abs().max() > 1e-6
     assert torch.isfinite(tout[3]).all()
+
+
+def _one_attempt(S_inv, g_S, theta1, d_eta1, lr, config):
+    """One attempt of the exact retraction by itself, (Q, M, M) alone:
+    (m_new, L_new, S_inv_new)."""
+    theta1_new = theta1 + lr * d_eta1
+    A = S_inv - 2.0 * lr * g_S
+    A_rev = torch.flip(A, dims=(-2, -1))
+    if config.adaptive_jitter:
+        L_r = tlinalg.jitchol(A_rev)
+        iL_r = tlinalg.tri_inverse(L_r)
+        S_inv_n = torch.flip(L_r @ L_r.mT, dims=(-2, -1))
+    else:
+        j_eye = config.jitter * torch.eye(S_inv.shape[-1],
+                                          dtype=S_inv.dtype)
+        _, iL_r = tlinalg.blocked_cholesky_inverse(A_rev + j_eye)
+        S_inv_n = A + j_eye
+    L_new = torch.flip(iL_r, dims=(-2, -1)).mT
+    return ((L_new @ (L_new.mT @ theta1_new[..., None]))[..., 0], L_new,
+            S_inv_n)
+
+
+def _accepted(out, m):
+    """The step's rule for an attempt of the exact retraction."""
+    m_new, L_new, _ = out
+    return bool(torch.isfinite(m_new).all() and torch.isfinite(L_new).all()
+                and (m_new - m).abs().max() < ttrain._NG_STEP_MAX
+                and L_new.square().sum(-1).max() < ttrain._NG_SANE_VAR)
+
+
+def _bitwise(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("adaptive", [False, True],
+                         ids=["fixed-jitter", "adaptive-jitter"])
+@pytest.mark.parametrize("lr,code", [(0.5, 0), (4.0, 1), (4000.0, 2)])
+def test_stacked_attempts_equal_the_attempts_one_at_a_time(monkeypatch, lr,
+                                                            code, adaptive):
+    """Under "exact" the step factors both attempts' A in one call on
+    their stack (``blocked_cholesky_inverse`` with a fixed jitter,
+    ``jitchol`` with an adaptive one, whose jitter escalates a matrix at a
+    time); q_mu, q_sqrt, S^{-1} and ng_backoff are bitwise those of the two
+    attempts formed one at a time: the first accepted (lr = 0.5); the
+    first rejected, A indefinite, and the second accepted (lr = 4); both
+    rejected (lr = 4000)."""
+    cfg, jparams, _, jscales, X, Y = _indefinite_case()
+    tcfg, tparams, tdata = _port(cfg, jparams, X, Y)
+    tcfg = dataclasses.replace(tcfg, adaptive_jitter=adaptive, jitter=1e-6)
+    seen = []
+    real = ttrain._exact_attempts
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+    monkeypatch.setattr(ttrain, "_exact_attempts", record)
+    new, _, aux, s_inv = ttrain.natgrad_ve_step(
+        tparams, tdata, torch.from_numpy(np.array(jscales)), tcfg, lr,
+        retraction="exact")
+    [(S_inv, g_S, theta1, d_eta1, lrs, _, _)] = seen
+    assert lrs == (lr, lr * 0.25)
+    outs = [_one_attempt(S_inv, g_S, theta1, d_eta1, r, tcfg) for r in lrs]
+    eye = torch.eye(S_inv.shape[-1], dtype=S_inv.dtype)
+    for got, want in zip(real(S_inv, g_S, theta1, d_eta1, lrs, tcfg, eye),
+                         outs):
+        for a, b in zip(got, want):
+            _bitwise(a, b)
+    m, Lq = tparams.q_mu, torch.tril(tparams.q_sqrt)
+    ok = [_accepted(o, m) for o in outs]
+    assert (0 if ok[0] else 1 if ok[1] else 2) == code
+    assert aux["ng_backoff"].item() == code
+    want = outs[code] if code < 2 else (m, Lq, S_inv)
+    for got, w in zip((new.q_mu, new.q_sqrt, s_inv), want):
+        assert torch.equal(got, w)
 
 
 def test_exact_retraction_rejects_a_finite_divergent_step():

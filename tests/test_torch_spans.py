@@ -135,14 +135,15 @@ NATGRAD = ["step", "natgrad.moments", "natgrad.likelihood",
            "natgrad.contractions", "natgrad.retraction"]
 
 
-@pytest.mark.parametrize("retraction, factors", [("exact", 2),
-                                                 ("cholesky", 0)])
+@pytest.mark.parametrize("retraction, factored", [("exact", 2),
+                                                  ("cholesky", 0)])
 def test_a_natgrad_ve_step_records_its_spans_and_counters(retraction,
-                                                          factors):
+                                                          factored):
     """A natural-gradient VE step's layers nest under ``step``, the exact
-    retraction's two ``natgrad.factor`` under ``natgrad.retraction``, and
-    the counters of its attempts and factorizations go to the retraction;
-    the VM step after it records the adam trainer's layers."""
+    retraction's one ``natgrad.factor`` (both attempts' A in one call)
+    under ``natgrad.retraction``, and the counters of its attempts and its
+    factorization calls go to the retraction; the VM step after it
+    records the adam trainer's layers."""
     cfg, params, ds = _model()
     tc = tp.TrainConfig(optimizer="natgrad_adam", ve_steps_per_vm=1,
                         natgrad_retraction=retraction)
@@ -153,8 +154,9 @@ def test_a_natgrad_ve_step_records_its_spans_and_counters(retraction,
         state, _ = step(state, ds, scales)  # step 0: VE
         state, _ = step(state, ds, scales)  # step 1: VM
     rep = profiling.span_report()
+    calls = min(factored, 1)
     ve, vm = (spans for _, spans in sorted(_by_group(rep).items()))
-    assert [o["name"] for _, o in ve] == NATGRAD + ["natgrad.factor"] * factors
+    assert [o["name"] for _, o in ve] == NATGRAD + ["natgrad.factor"] * calls
     (top, _), *inner = ve
     at = {o["name"]: i for i, o in ve}
     for _, o in inner:
@@ -165,7 +167,7 @@ def test_a_natgrad_ve_step_records_its_spans_and_counters(retraction,
         assert a["host_end_ns"] <= b["host_start_ns"]
     assert [o["name"] for _, o in vm] == STEP + ["refresh"]
     assert rep["spans"]["natgrad.retraction"]["counts"] == {
-        "natgrad.attempts": 2, "natgrad.factorizations": factors}
+        "natgrad.attempts": 2, "natgrad.factorizations": calls}
     assert rep["spans"]["step"]["counts"] == {}
     # the likelihood term's own counters open inside natgrad.likelihood
     assert set(rep["spans"]["natgrad.likelihood"]["counts"]) == {
@@ -407,6 +409,20 @@ def test_the_factor_reader_needs_the_factorizations_counted(monkeypatch):
     assert _reader("natgrad.factor_ms.train")(dict(TRAIN_LAYER)) is None
 
 
+def test_one_call_factoring_both_attempts_reads_per_call(monkeypatch):
+    """The exact step's one ``natgrad.factor`` a VE step over both
+    attempts' A: ``natgrad.factor_ms.train`` reads the call; a count that
+    disagrees with the spans timed leaves it unread."""
+    rows = dict(NATGRAD_ROWS, ve=NATGRAD_ROWS["ve"][:-1])
+    read = _reader("natgrad.factor_ms.train")
+    for calls, want in ((1, 0.15), (2, None)):
+        counts = {"natgrad.attempts": 2, "natgrad.factorizations": calls}
+        _replayed(monkeypatch, rows=rows,
+                  counts={("ve", "natgrad.retraction"): counts})
+        got = read(dict(TRAIN_LAYER))
+        assert got == (pytest.approx(want) if want else None)
+
+
 def test_the_serving_reader_takes_the_median_gap(monkeypatch):
     # three requests of 1 ms, 2 ms and 5 ms apart on the device
     spans, stamps, t = [], {}, 0
@@ -460,11 +476,12 @@ def test_graphed_stamps_are_off_until_spans_are_on():
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("retraction, factors", [("exact", 2),
-                                                 ("cholesky", 0)])
-def test_graphed_natgrad_steps_count_their_spans(retraction, factors):
-    """The natural-gradient VE graph's capture counts its attempts and
-    factorizations in ``natgrad.retraction`` (``graph_counters()``), and a
+@pytest.mark.parametrize("retraction, factored", [("exact", 2),
+                                                  ("cholesky", 0)])
+def test_graphed_natgrad_steps_count_their_spans(retraction, factored):
+    """The natural-gradient VE graph's capture counts its attempts and its
+    factorization calls (one for both attempts' A: one launch of kernel 9
+    at M = 16) in ``natgrad.retraction`` (``graph_counters()``), and a
     call under ``spans()`` stamps every natgrad span of every VE step."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; this machine has none")
@@ -476,13 +493,14 @@ def test_graphed_natgrad_steps_count_their_spans(retraction, factors):
     offsets = torch.zeros((6, 2), dtype=torch.int64)
     state, _ = run(state, ds, offsets=offsets)  # captures, spans off
     counters = profiling.graph_counters()
-    want = {"natgrad.attempts": 2, "natgrad.factorizations": factors}
+    calls = min(factored, 1)
+    want = {"natgrad.attempts": 2, "natgrad.factorizations": calls}
     assert counters["ve"]["natgrad.retraction"]["counts"] == want
-    assert ("natgrad.factor" in counters["ve"]) == (factors > 0)
+    assert ("natgrad.factor" in counters["ve"]) == (calls > 0)
     assert not any(k.startswith("natgrad.") for k in counters["vm"])
-    if factors:
+    if calls:
         assert counters["ve"]["natgrad.factor"]["launches"]["chol_panel"] \
-            == factors
+            == calls
     with profiling.spans():
         state, _ = run(state, ds, offsets=offsets)
     rep = profiling.span_report()
@@ -493,4 +511,4 @@ def test_graphed_natgrad_steps_count_their_spans(retraction, factors):
     for name in NATGRAD[1:]:
         assert rep["spans"][name]["timed"] == n_ve, name
     assert rep["spans"].get("natgrad.factor", {}).get("timed", 0) \
-        == factors * n_ve
+        == calls * n_ve
