@@ -13,32 +13,31 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    the main path's shapes, the projected path's and a ragged one, and times
    both in turns with the plain version and an empty kernel at the
    trainer's VE and VM shapes and the serving chunk's;
-2. checks the triangular projection kernel (kernel A, float32), the
-   TMA-fed design and the register-staged one it replaced, against float64
-   next to cuBLAS (bitwise equal to cuBLAS where the TMA route takes the
-   shape), on random and on the trainer's real (Kfu, iLuu), and times both
-   in turns with cuBLAS and the plain version at the VE, VM and serving
-   shapes;
-3. checks the 3-pass bf16 projection kernel (kernel 3), the wgmma and TMA
-   design and the mma.sync one it replaced, against its plain version and
-   float64 (of the split and of the unsplit operands, next to a 1-pass bf16
-   product) on the same cases, and times both in turns with kernel A,
-   cuBLAS and the plain version at the same three shapes;
+2. checks the triangular projection kernel (kernel A, float32, TMA-fed)
+   against float64 next to cuBLAS (bitwise equal to cuBLAS at M % 4 == 0;
+   a ragged M reaches it padded), on random and on the trainer's real
+   (Kfu, iLuu), and times it in turns with cuBLAS and the plain version at
+   the VE, VM and serving shapes;
+3. checks the 3-pass bf16 projection kernel (kernel 3, wgmma and TMA)
+   against its plain version and float64 (of the split and of the
+   unsplit operands, next to a 1-pass bf16 product) on the same cases,
+   and times it in turns with kernel A, cuBLAS and the plain version at
+   the same three shapes;
 3b. checks kernel 4 (A tril(L) in float32, the mirror of kernel A, with
    quad_diag's square and row sum fused: three epilogues) and kernel 5
-   (A tril(L) in three bf16 passes, the mirror of kernel 3), the TMA-fed
-   designs and the generic ones, against float64 next to cuBLAS and their
-   plain versions, two launches of each epilogue bitwise equal, at the
-   VE, VM, serving and adjoint (4, 1024, 1024) shapes, a ragged one and
-   the model's (Kfu, iLuu); times them in turns with cuBLAS (and its
-   square and row sum for quad_diag), kernel 3 and the plain versions,
-   with bounds; and prints the "high" cached adjoints' errors (Lbar,
-   Kbar) against float64 beside the JAX package's own;
+   (A tril(L) in three bf16 passes, the mirror of kernel 3) against
+   float64 next to cuBLAS and their plain versions, two launches of each
+   epilogue bitwise equal, at the VE, VM, serving and adjoint
+   (4, 1024, 1024) shapes, a ragged one (padded) and the model's
+   (Kfu, iLuu); times them in turns with cuBLAS (and its square and row
+   sum for quad_diag), kernel 3 and the plain versions, with bounds; and
+   prints the "high" cached adjoints' errors (Lbar, Kbar) against float64
+   beside the JAX package's own;
 3c. checks kernel 8 (tril(A^T B) with only the lower tiles formed: the
    L gradients of quad_diag and of the cached solve), its float32 FFMA and
-   3-pass wgmma designs and their generic routes, against float64 next to
-   their plain versions, with exact zeros above the diagonal and two
-   launches bitwise equal, at the VE, VM and ragged VM shapes; times them
+   3-pass wgmma designs, against float64 next to their plain versions,
+   with exact zeros above the diagonal and two launches bitwise equal, at
+   the VE, VM and ragged VM (padded) shapes; times them
    in turns with cuBLAS's dense A^T B and mask, with bounds and the
    schedule's balance; and holds the recursive inverse of the flagship's
    Luu (rec_tri_inverse, on kernels 4 and A) against float64 beside a
@@ -87,10 +86,11 @@ It builds the CUDA kernels from ``hetmogp_tpu_torch/csrc/`` (into
    ``negative_log_predictive`` with 1,000 samples on 6 x 4,096 rows, each
    against float64 and the plain route, with the launches counted from
    zero around it;
-8. serves the same model at 777 inducing points, which only the staged,
-   scalar and generic kernels take, at both precisions, against the
-   plain versions, and differentiates its VM-step loss at "high" (kernel
-   5's generic route);
+8. serves the same model at 777 inducing points, which the triangular
+   products' routers pad to 780 for their TMA designs (and the RBF takes
+   its scalar kernel), at both precisions, against the plain versions,
+   and differentiates its VM-step loss at "high" and "highest" (kernels 5,
+   4 and 8 on padded operands);
 9. trains the other ten likelihood families at the flagship's width
    (``families_phase``: Gaussian, Beta, Binomial, Dirichlet, LogNormal,
    Ordinal, NegativeBinomial, StudentT, Weibull, ZeroInflatedPoisson, one
@@ -300,8 +300,9 @@ GRAPH_F64 = 5e-3
 # one offset stream: per-100-step mean ELBOs within 2e-3 relative, the
 # JAX package's adoption criterion (docs/DESIGN.md:387-393).
 AB_STEPS, AB_EVERY, AB_TOL = 1500, 100, 2e-3
-# The staged kernels' path: serving a model of 777 inducing points, a depth
-# whose rows TMA cannot address (M % 4 != 0).  At "high" its moments
+# The padded path: serving a model of 777 inducing points, a depth whose
+# rows TMA cannot address (M % 4 != 0), so the triangular products' routers
+# pad it to 780 (ops/cuda_kernels.py::_tma_operands).  At "high" its moments
 # against the plain 3-pass path differ by kernel 3's summation order, which
 # moves P by ~3e-4 of max|P| on a model's own (Kfu, iLuu) (phase 3), and
 # the variance's cancellation kdiag + quad - |P|^2 loses about a digit
@@ -483,8 +484,9 @@ def proj_entry(name, source, replaces, err, t, yardstick, plain, bound):
 
 def projection_phase(smi: str, Kfu: torch.Tensor,
                      iLuu: torch.Tensor) -> list:
-    """Kernel A, both routes, against a float64 product next to cuBLAS,
-    and their times in turns with cuBLAS and the plain version."""
+    """Kernel A (a ragged M padded by its router) against a float64
+    product next to cuBLAS, and its times in turns with cuBLAS and the
+    plain version."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -501,31 +503,29 @@ def projection_phase(smi: str, Kfu: torch.Tensor,
         ref = A.double() @ torch.tril(L).double().mT
         scale = ref.abs().max()
         ec = float((cub.double() - ref).abs().max() / scale)
-        routed = ck.tril_route(A.shape[-1], True)
-        # the routed kernel; at the aligned shapes the previous design too
-        kernels = {routed: ck.tril_projection}
-        if routed == "tma":
-            kernels["staged"] = ck.tril_projection_staged
-        for route, kern in kernels.items():
-            got = kern(A, L)
-            ek = float((got.double() - ref).abs().max() / scale)
-            bitwise = bool(torch.equal(got, cub))
-            errs[name, route] = float((got - cub).abs().max())
-            print(f"projection kernel ({route}), {name}: normwise error vs "
-                  f"f64 {ek:.3e}, plain version (cuBLAS) {ec:.3e} (bound "
-                  f"{PROJ_VS_CUBLAS:g}x plain); max abs difference from "
-                  f"plain {errs[name, route]:.3e}, bitwise equal {bitwise}"
-                  f"{' (required: aligned shape)' if routed == 'tma' else ''}"
-                  f" [card: {smi}]")
-            if not ek <= PROJ_VS_CUBLAS * ec:
-                raise AssertionError(f"projection kernel error {ek} > "
-                                     f"{PROJ_VS_CUBLAS} x cuBLAS {ec}: {name}")
-            # one float32 FMA chain per output in increasing m, as cuBLAS
-            # sums: the host loop's TRAIN_PLAIN_F32_VE rests on it
-            if routed == "tma" and not bitwise:
-                raise AssertionError(f"projection kernel ({route}) not "
-                                     f"bitwise equal to cuBLAS: {name}")
-            del got
+        aligned = A.shape[-1] % 4 == 0
+        before = ck.tril_projection_tma.launches
+        got = ck.tril_projection(A, L)
+        ek = float((got.double() - ref).abs().max() / scale)
+        bitwise = bool(torch.equal(got, cub))
+        errs[name] = float((got - cub).abs().max())
+        print(f"projection kernel, {name}: normwise error vs f64 {ek:.3e}, "
+              f"plain version (cuBLAS) {ec:.3e} (bound {PROJ_VS_CUBLAS:g}x "
+              f"plain); max abs difference from plain {errs[name]:.3e}, "
+              f"bitwise equal {bitwise}"
+              f"{' (required: aligned shape)' if aligned else ' (padded)'}"
+              f" [card: {smi}]")
+        if not (ek <= PROJ_VS_CUBLAS * ec
+                and ck.tril_projection_tma.launches == before + 1):
+            raise AssertionError(f"projection kernel error {ek} > "
+                                 f"{PROJ_VS_CUBLAS} x cuBLAS {ec}, or not "
+                                 f"one launch of its TMA design: {name}")
+        # one float32 FMA chain per output in increasing m, as cuBLAS
+        # sums: the host loop's TRAIN_PLAIN_F32_VE rests on it
+        if aligned and not bitwise:
+            raise AssertionError(f"projection kernel not bitwise equal to "
+                                 f"cuBLAS: {name}")
+        del got
         del cub, ref
     del cases
     times = {}
@@ -534,18 +534,15 @@ def projection_phase(smi: str, Kfu: torch.Tensor,
         Lt = torch.tril(L)
         t, n = time_in_turns({"plain": ck.tril_projection_plain,
                               "kernel A (tma)": ck.tril_projection_tma,
-                              "kernel A (staged)": ck.tril_projection_staged,
                               "cuBLAS": lambda a, _: a @ Lt.mT}, A, L)
         bound = proj_bound(A, L, 1, F32_PEAK)
         times[name] = t, bound
         q, n_, m = A.shape
         flop = q * n_ * m * (m + 1)  # the triangular FLOPs
-        new, old = t["kernel A (tma)"], t["kernel A (staged)"]
+        new = t["kernel A (tma)"]
         print(f"projection time, {name}: kernel A (tma) {new:.4f} ms "
               f"({flop / new / 1e9:.2f} TFLOP/s, {bound[0] / new * 100:.1f}% "
-              f"of the bound), previous design (staged) {old:.4f} ms "
-              f"({bound[0] / old * 100:.1f}%), cuBLAS "
-              f"{t['cuBLAS']:.4f} ms, plain version {t['plain']:.4f} ms; "
+              f"of the bound), cuBLAS {t['cuBLAS']:.4f} ms, plain version {t['plain']:.4f} ms; "
               f"bound {bound[0]:.4f} ms ({bound[1]}, float32 at "
               f"{F32_PEAK / 1e12:g} TFLOP/s); TFLOP/s on Q*N*M*(M+1) = "
               f"{flop:.3e}; median of {n} calls each [card: {smi}]")
@@ -553,13 +550,8 @@ def projection_phase(smi: str, Kfu: torch.Tensor,
     t, bound = times["training (4, 3072, 1024)"]
     model = "training Kfu, iLuu of the model"
     return [dict(proj_entry("tril_projection_tma", "tril_proj_kernel.cu",
-                            "tools/probe_pallas_proj.py:20",
-                            errs[model, "tma"], t, "kernel A (tma)", "plain",
-                            bound), library_ms=t["cuBLAS"]),
-            dict(proj_entry("tril_projection_staged", "tril_proj_kernel.cu",
-                            "tools/probe_pallas_proj.py:20",
-                            errs["ragged (3, 1000, 777)", "staged"], t,
-                            "kernel A (staged)", "plain", bound),
+                            "tools/probe_pallas_proj.py:20", errs[model], t,
+                            "kernel A (tma)", "plain", bound),
                  library_ms=t["cuBLAS"])]
 
 
@@ -573,9 +565,10 @@ def proj_bound(A, L, passes: int, peak: float):
 
 def projection3_phase(smi: str, Kfu: torch.Tensor,
                       iLuu: torch.Tensor) -> list:
-    """Kernel 3, both routes, against its plain version and float64 (of
-    the split and of the unsplit operands), and their times in turns with
-    kernel A, cuBLAS float32 and the plain version."""
+    """Kernel 3 (a ragged M padded by its router) against its plain
+    version and float64 (of the split and of the unsplit operands), and
+    its times in turns with kernel A, cuBLAS float32 and the plain
+    version."""
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
     plain = ck.tril_projection_3pass_plain
@@ -600,26 +593,22 @@ def projection3_phase(smi: str, Kfu: torch.Tensor,
                @ torch.tril(L).to(torch.bfloat16).float().mT)
         e_p, f_p, f_1 = (normwise(want, ref_split), normwise(want, ref),
                          normwise(one, ref))
-        routed = ck.tril_route(A.shape[-1], True)
-        kernels = {routed: ck.tril_projection_3pass}
-        if routed == "tma":
-            kernels["staged"] = ck.tril_projection_3pass_staged
-        for route, kern in kernels.items():
-            got = kern(A, L)
-            e_k, f_k = normwise(got, ref_split), normwise(got, ref)
-            errs[name, route] = float((got - want).abs().max())
-            print(f"3-pass kernel ({route}), {name}: normwise error vs f64 "
-                  f"of the split operands {e_k:.3e}, plain version "
-                  f"{e_p:.3e} (bound {PROJ3_VS_PLAIN:g}x plain); vs f64 of "
-                  f"the unsplit operands {f_k:.3e}, plain {f_p:.3e}, 1-pass "
-                  f"bf16 {f_1:.3e} (bound {PROJ3_VS_ONE_PASS:g}x 1-pass); max "
-                  f"abs difference from plain {errs[name, route]:.3e} "
-                  f"[card: {smi}]")
-            if not (e_k <= PROJ3_VS_PLAIN * e_p
-                    and f_k <= PROJ3_VS_ONE_PASS * f_1):
-                raise AssertionError(f"3-pass kernel ({route}) out of bounds:"
-                                     f" {name}")
-            del got
+        before = ck.tril_projection_3pass_tma.launches
+        got = ck.tril_projection_3pass(A, L)
+        e_k, f_k = normwise(got, ref_split), normwise(got, ref)
+        errs[name] = float((got - want).abs().max())
+        print(f"3-pass kernel, {name}: normwise error vs f64 of the split "
+              f"operands {e_k:.3e}, plain version {e_p:.3e} (bound "
+              f"{PROJ3_VS_PLAIN:g}x plain); vs f64 of the unsplit operands "
+              f"{f_k:.3e}, plain {f_p:.3e}, 1-pass bf16 {f_1:.3e} (bound "
+              f"{PROJ3_VS_ONE_PASS:g}x 1-pass); max abs difference from "
+              f"plain {errs[name]:.3e} [card: {smi}]")
+        if not (e_k <= PROJ3_VS_PLAIN * e_p
+                and f_k <= PROJ3_VS_ONE_PASS * f_1
+                and ck.tril_projection_3pass_tma.launches == before + 1):
+            raise AssertionError(f"3-pass kernel out of bounds, or not one "
+                                 f"launch of its TMA design: {name}")
+        del got
         del want, ref_split, ref, one
     del cases
     times = {}
@@ -628,17 +617,14 @@ def projection3_phase(smi: str, Kfu: torch.Tensor,
         Lt = torch.tril(L)
         t, n = time_in_turns({"plain": plain,
                               "kernel 3 (tma)": ck.tril_projection_3pass_tma,
-                              "kernel 3 (staged)":
-                                  ck.tril_projection_3pass_staged,
                               "kernel A (tma)": ck.tril_projection_tma,
                               "cuBLAS f32": lambda a, _: a @ Lt.mT}, A, L)
         bound = proj_bound(A, L, 3, BF16_PEAK)
         times[name] = t, bound
-        new, old = t["kernel 3 (tma)"], t["kernel 3 (staged)"]
+        new = t["kernel 3 (tma)"]
         print(f"3-pass projection time, {name}: kernel 3 (tma) {new:.4f} ms "
-              f"({bound[0] / new * 100:.1f}% of the bound), previous design "
-              f"(staged) {old:.4f} ms ({bound[0] / old * 100:.1f}%), kernel "
-              f"A (tma) {t['kernel A (tma)']:.4f} ms, cuBLAS f32 "
+              f"({bound[0] / new * 100:.1f}% of the bound), kernel A (tma) "
+              f"{t['kernel A (tma)']:.4f} ms, cuBLAS f32 "
               f"{t['cuBLAS f32']:.4f} ms, plain version {t['plain']:.4f} ms; "
               f"bound {bound[0]:.4f} ms ({bound[1]}, bf16); no PyTorch call "
               f"computes the 3-pass product; median of {n} calls each "
@@ -648,14 +634,8 @@ def projection3_phase(smi: str, Kfu: torch.Tensor,
     model = "training Kfu, iLuu of the model"
     return [dict(proj_entry("tril_projection_3pass_tma",
                             "tril_proj3_kernel.cu",
-                            "tools/probe_pallas_proj.py:110",
-                            errs[model, "tma"], t, "kernel 3 (tma)", "plain",
-                            bound), library_ms=None),
-            dict(proj_entry("tril_projection_3pass_staged",
-                            "tril_proj3_kernel.cu",
-                            "tools/probe_pallas_proj.py:110",
-                            errs["ragged (3, 1000, 777)", "staged"], t,
-                            "kernel 3 (staged)", "plain", bound),
+                            "tools/probe_pallas_proj.py:110", errs[model], t,
+                            "kernel 3 (tma)", "plain", bound),
                  library_ms=None)]
 
 
@@ -687,9 +667,10 @@ def right_bound(A, L, passes: int, peak: float, epilogue="product"):
 def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
                          iLuu: torch.Tensor) -> list:
     """Kernel 4 (A tril(L) in float32, with quad_diag's row sum fused) and
-    kernel 5 (the same product in three bf16 passes), both routes each:
-    every epilogue against its plain version and float64, kernel 4's
-    product bitwise cuBLAS's on the TMA route, two launches bitwise equal,
+    kernel 5 (the same product in three bf16 passes), through their
+    routers (a ragged M padded): every epilogue against its plain version
+    and float64, kernel 4's product bitwise cuBLAS's at M % 4 == 0, two
+    launches bitwise equal, each call one launch of its TMA design,
     times of the three epilogues in turns with cuBLAS and the plain
     versions at the VE, VM, serving and adjoint shapes (TFLOP/s, share of
     the bound, clocks.sm sampled beside); then the "high" cached adjoints'
@@ -718,55 +699,54 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
         one = A.to(torch.bfloat16).float() @ Lt.to(torch.bfloat16).float()
         e_p, f_1 = normwise(plain3, ref_split), normwise(one, ref)
         del one
-        routes = (("tma", "generic") if ck.tril_route(A.shape[-1], True)
-                  == "tma" else ("generic",))
-        for route in routes:
-            k4 = getattr(ck, f"tril_right_{route}")
-            k5 = getattr(ck, f"tril_right3_{route}")
-            out, again = k4(A, L), k4(A, L)
-            both, r = k4(A, L, "both")
-            rs, rs_again = k4(A, L, "rowsum"), k4(A, L, "rowsum")
-            ek, er = normwise(out, ref), normwise(rs, ref_r)
-            same = (torch.equal(out, again) and torch.equal(rs, rs_again)
-                    and torch.equal(both, out) and torch.equal(r, rs))
-            errs["k4", name, route] = float((out - cub).abs().max())
-            print(f"kernel 4 ({route}), {name}: normwise error vs f64 "
-                  f"{ek:.3e}, cuBLAS {ec:.3e} (bound {PROJ_VS_CUBLAS:g}x "
-                  f"cuBLAS); row sums of squares vs f64 {er:.3e} (bound "
-                  f"{QUAD_VS_CUBLAS:g}x cuBLAS); max abs difference from "
-                  f"cuBLAS {errs['k4', name, route]:.3e}, bitwise equal to "
-                  f"cuBLAS {torch.equal(out, cub)}; two launches of each "
-                  f"epilogue bitwise equal, and \"both\" bitwise the other "
-                  f"two: {same} [card: {smi}]")
-            if not (ek <= PROJ_VS_CUBLAS * ec and er <= QUAD_VS_CUBLAS * ec
-                    and same):
-                raise AssertionError(f"kernel 4 ({route}) out of bounds or "
-                                     f"not deterministic: {name}")
-            # each output one float32 FMA chain over increasing m, as
-            # cuBLAS's: on the TMA route (every shape here but the ragged
-            # one) the product is cuBLAS's to the bit, as it was before
-            # this design
-            if route == "tma" and not torch.equal(out, cub):
-                raise AssertionError(f"kernel 4 (tma) is not bitwise "
-                                     f"cuBLAS's A @ tril(L): {name}")
-            del out, again, both, r, rs, rs_again
-            got, again = k5(A, L), k5(A, L)
-            e_k, f_k = normwise(got, ref_split), normwise(got, ref)
-            errs["k5", name, route] = float((got - plain3).abs().max())
-            print(f"kernel 5 ({route}), {name}: normwise error vs f64 of "
-                  f"the split operands {e_k:.3e}, plain version {e_p:.3e} "
-                  f"(bound {PROJ3_VS_PLAIN:g}x plain); vs f64 of the "
-                  f"unsplit operands {f_k:.3e}, 1-pass bf16 {f_1:.3e} "
-                  f"(bound {PROJ3_VS_ONE_PASS:g}x 1-pass); max abs "
-                  f"difference from plain {errs['k5', name, route]:.3e}; "
-                  f"two launches bitwise equal {torch.equal(got, again)} "
-                  f"[card: {smi}]")
-            if not (e_k <= PROJ3_VS_PLAIN * e_p
-                    and f_k <= PROJ3_VS_ONE_PASS * f_1
-                    and torch.equal(got, again)):
-                raise AssertionError(f"kernel 5 ({route}) out of bounds or "
-                                     f"not deterministic: {name}")
-            del got, again
+        aligned = A.shape[-1] % 4 == 0
+        ck.zero_launch_counts()
+        out, again = ck.tril_right(A, L), ck.tril_right(A, L)
+        both, r = ck.tril_right(A, L, "both")
+        rs, rs_again = ck.tril_right(A, L, "rowsum"), ck.tril_right(A, L,
+                                                                    "rowsum")
+        ek, er = normwise(out, ref), normwise(rs, ref_r)
+        same = (torch.equal(out, again) and torch.equal(rs, rs_again)
+                and torch.equal(both, out) and torch.equal(r, rs))
+        errs["k4", name] = float((out - cub).abs().max())
+        print(f"kernel 4{'' if aligned else ' (padded)'}, {name}: normwise "
+              f"error vs f64 {ek:.3e}, cuBLAS {ec:.3e} (bound "
+              f"{PROJ_VS_CUBLAS:g}x cuBLAS); row sums of squares vs f64 "
+              f"{er:.3e} (bound {QUAD_VS_CUBLAS:g}x cuBLAS); max abs "
+              f"difference from cuBLAS {errs['k4', name]:.3e}, bitwise "
+              f"equal to cuBLAS {torch.equal(out, cub)}; two launches of "
+              f"each epilogue bitwise equal, and \"both\" bitwise the other "
+              f"two: {same} [card: {smi}]")
+        if not (ek <= PROJ_VS_CUBLAS * ec and er <= QUAD_VS_CUBLAS * ec
+                and same and ck.tril_right_tma.launches == 5):
+            raise AssertionError(f"kernel 4 out of bounds, not "
+                                 f"deterministic, or not five launches of "
+                                 f"its TMA design: {name}")
+        # each output one float32 FMA chain over increasing m, as
+        # cuBLAS's: at M % 4 == 0 (every shape here but the ragged one)
+        # the product is cuBLAS's to the bit, as it was before this design
+        if aligned and not torch.equal(out, cub):
+            raise AssertionError(f"kernel 4 is not bitwise cuBLAS's "
+                                 f"A @ tril(L): {name}")
+        del out, again, both, r, rs, rs_again
+        got, again = ck.tril_right3(A, L), ck.tril_right3(A, L)
+        e_k, f_k = normwise(got, ref_split), normwise(got, ref)
+        errs["k5", name] = float((got - plain3).abs().max())
+        print(f"kernel 5{'' if aligned else ' (padded)'}, {name}: normwise "
+              f"error vs f64 of the split operands {e_k:.3e}, plain version "
+              f"{e_p:.3e} (bound {PROJ3_VS_PLAIN:g}x plain); vs f64 of the "
+              f"unsplit operands {f_k:.3e}, 1-pass bf16 {f_1:.3e} (bound "
+              f"{PROJ3_VS_ONE_PASS:g}x 1-pass); max abs difference from "
+              f"plain {errs['k5', name]:.3e}; two launches bitwise equal "
+              f"{torch.equal(got, again)} [card: {smi}]")
+        if not (e_k <= PROJ3_VS_PLAIN * e_p
+                and f_k <= PROJ3_VS_ONE_PASS * f_1
+                and torch.equal(got, again)
+                and ck.tril_right3_tma.launches == 2):
+            raise AssertionError(f"kernel 5 out of bounds, not "
+                                 f"deterministic, or not two launches of "
+                                 f"its TMA design: {name}")
+        del got, again
         del cub, ref, ref_r, ref_split, plain3
     del cases
     torch.cuda.empty_cache()
@@ -778,7 +758,6 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
         t, n = time_in_turns({
             "plain": ck.matmul_tril_plain,
             "kernel 4 (tma)": ck.tril_right_tma,
-            "kernel 4 (generic)": ck.tril_right_generic,
             "cuBLAS": lambda a, _: a @ Lt}, A, L)
         tq, _ = time_in_turns({
             "plain": ck.quad_diag_plain,
@@ -786,14 +765,11 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
                 a, l, "rowsum"),
             "kernel 4 (tma, both)": lambda a, l: ck.tril_right_tma(a, l,
                                                                    "both"),
-            "kernel 4 (generic, rowsum)": lambda a, l: ck.tril_right_generic(
-                a, l, "rowsum"),
             "cuBLAS, square, sum": lambda a, _: torch.sum(
                 torch.square(a @ Lt), dim=-1)}, A, L)
         t3, _ = time_in_turns({
             "plain": ck.matmul_tril_3pass_plain,
             "kernel 5 (tma)": ck.tril_right3_tma,
-            "kernel 5 (generic)": ck.tril_right3_generic,
             "kernel 3 (tma)": ck.tril_projection_3pass_tma}, A, L)
         bounds = {"product": right_bound(A, L, 1, F32_PEAK),
                   "rowsum": right_bound(A, L, 1, F32_PEAK, "rowsum"),
@@ -809,7 +785,7 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
         clocks = sampled_clocks(lambda: ck.tril_right_tma(A, L))
         b, k = bounds["product"], t["kernel 4 (tma)"]
         print(f"kernel 4 time, {name}: A tril(L) {k:.4f} ms ({rate(k, b)}), "
-              f"generic route {t['kernel 4 (generic)']:.4f} ms, cuBLAS "
+              f"cuBLAS "
               f"{t['cuBLAS']:.4f} ms ({rate(t['cuBLAS'], b)}), plain version "
               f"{t['plain']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}, float32 at "
               f"{F32_PEAK / 1e12:g} TFLOP/s); median of {n} calls each; "
@@ -818,15 +794,14 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
         k, kb = tq["kernel 4 (tma, rowsum)"], tq["kernel 4 (tma, both)"]
         print(f"quad_diag time, {name}: kernel 4 row sums alone {k:.4f} ms "
               f"({rate(k, b)}), with the product stored {kb:.4f} ms "
-              f"({rate(kb, bounds['product'])}), generic route "
-              f"{tq['kernel 4 (generic, rowsum)']:.4f} ms, cuBLAS then "
+              f"({rate(kb, bounds['product'])}), cuBLAS then "
               f"square and sum {tq['cuBLAS, square, sum']:.4f} ms, plain "
               f"version {tq['plain']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) "
               f"[card: {smi}]")
         b, k = bounds["3pass"], t3["kernel 5 (tma)"]
         print(f"kernel 5 time, {name}: {k:.4f} ms ({b[0] / k * 100:.1f}% of "
-              f"the bound), generic route {t3['kernel 5 (generic)']:.4f} "
-              f"ms, kernel 3 (the mirror) {t3['kernel 3 (tma)']:.4f} ms, "
+              f"the bound), kernel 3 (the mirror) "
+              f"{t3['kernel 3 (tma)']:.4f} ms, "
               f"plain version {t3['plain']:.4f} ms; bound {b[0]:.4f} ms "
               f"({b[1]}, bf16); no PyTorch call computes the 3-pass product"
               f" [card: {smi}]")
@@ -879,26 +854,15 @@ def right_products_phase(smi: str, Kfu: torch.Tensor, Luu: torch.Tensor,
 
     t, tq, t3, bounds = times["training (4, 3072, 1024)"]
     model = "training Kfu, iLuu of the model"
-    ragged = "ragged (3, 1000, 777)"
     return [
         dict(proj_entry("tril_right_tma", "tril_right_kernel.cu",
                         "hetmogp_tpu/ops/linalg.py:561",
-                        errs["k4", model, "tma"], t, "kernel 4 (tma)",
+                        errs["k4", model], t, "kernel 4 (tma)",
                         "plain", bounds["product"]), library_ms=t["cuBLAS"]),
-        dict(proj_entry("tril_right_generic", "tril_right_kernel.cu",
-                        "hetmogp_tpu/ops/linalg.py:561",
-                        errs["k4", ragged, "generic"], t,
-                        "kernel 4 (generic)", "plain", bounds["product"]),
-             library_ms=t["cuBLAS"]),
         dict(proj_entry("tril_right3_tma", "tril_right3_kernel.cu",
                         "hetmogp_tpu/ops/linalg.py:189",
-                        errs["k5", model, "tma"], t3, "kernel 5 (tma)",
-                        "plain", bounds["3pass"]), library_ms=None),
-        dict(proj_entry("tril_right3_generic", "tril_proj3_kernel.cu",
-                        "hetmogp_tpu/ops/linalg.py:189",
-                        errs["k5", ragged, "generic"], t3,
-                        "kernel 5 (generic)", "plain", bounds["3pass"]),
-             library_ms=None)]
+                        errs["k5", model], t3, "kernel 5 (tma)",
+                        "plain", bounds["3pass"]), library_ms=None)]
 
 
 # Kernel 8 (tril(A^T B), tril_out_phase) against float64, normwise: the
@@ -933,11 +897,12 @@ def out_bound(A, passes: int, peak: float):
 
 
 def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
-    """Kernel 8 (tril(A^T B), only the lower tiles formed), its four
-    launchers: the float32 FFMA and the 3-pass wgmma TMA designs and their
-    generic routes, each against its plain version and float64 with exact
-    zeros above the diagonal and two launches bitwise equal, at the VE and
-    VM shapes and the ragged VM step's; timed in turns with cuBLAS's dense
+    """Kernel 8 (tril(A^T B), only the lower tiles formed): the float32
+    FFMA and the 3-pass wgmma TMA designs through their routers (the
+    ragged VM step's M padded), each against its plain version and float64
+    with exact zeros above the diagonal and two launches bitwise equal, at
+    the VE and VM shapes and the ragged VM step's; timed in turns with
+    cuBLAS's dense
     A^T B and mask and the plain versions, with bounds, TFLOP/s and the
     schedule's balance.  Then the recursive inverse (rec_tri_inverse, on
     kernels 4 and A) of the flagship's Luu against float64 beside trsm's,
@@ -972,57 +937,53 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
         m = shape[-1]
         upper = torch.triu(torch.ones(m, m, dtype=torch.bool,
                                       device="cuda"), 1)
-        routes = (("tma", "generic") if ck.tril_out_route(m, True) == "tma"
-                  else ("generic",))
-        for route in routes:
-            for three in (False, True):
-                launcher = getattr(ck, f"tril_out{'3' if three else ''}_"
-                                       f"{route}")
-                got, again = launcher(A, B), launcher(A, B)
-                zeros = not bool(got[:, upper].any())
-                same = torch.equal(got, again)
-                what = f"kernel 8 ({launcher.__name__}), {name}"
-                if three:
-                    e_k, f_k = normwise(got, ref_split), normwise(got, ref)
-                    errs[launcher.__name__, name] = float(
-                        (got - plain3).abs().max())
-                    ok = (e_k <= PROJ3_VS_PLAIN * e_p3
-                          and f_k <= PROJ3_VS_ONE_PASS * f_1)
-                    print(f"{what}: normwise error vs f64 of the split "
-                          f"operands {e_k:.3e}, plain 3-pass {e_p3:.3e} "
-                          f"(bound {PROJ3_VS_PLAIN:g}x plain); vs f64 of "
-                          f"the unsplit operands {f_k:.3e}, 1-pass bf16 "
-                          f"{f_1:.3e} (bound {PROJ3_VS_ONE_PASS:g}x "
-                          f"1-pass); max abs difference from plain "
-                          f"{errs[launcher.__name__, name]:.3e}; zeros "
-                          f"above the diagonal {zeros}; two launches "
-                          f"bitwise equal {same} [card: {smi}]")
-                else:
-                    e_k = normwise(got, ref)
-                    errs[launcher.__name__, name] = float(
-                        (got - plain).abs().max())
-                    ok = e_k <= OUT_VS_PLAIN * e_p + OUT_ABS
-                    print(f"{what}: normwise error vs f64 {e_k:.3e}, plain "
-                          f"f32 (cuBLAS A^T B, tril) {e_p:.3e} (bound "
-                          f"{OUT_VS_PLAIN:g}x plain + {OUT_ABS:g}); max "
-                          f"abs difference from plain "
-                          f"{errs[launcher.__name__, name]:.3e}; zeros "
-                          f"above the diagonal {zeros}; two launches "
-                          f"bitwise equal {same} [card: {smi}]")
-                if not (ok and zeros and same):
-                    raise AssertionError(f"{what}: out of bounds, not zero "
-                                         "above the diagonal, or not "
-                                         "deterministic")
-                del got, again
+        for three in (False, True):
+            router = ck.tril_out3 if three else ck.tril_out
+            launcher = ck.tril_out3_tma if three else ck.tril_out_tma
+            before = launcher.launches
+            got, again = router(A, B), router(A, B)
+            zeros = not bool(got[:, upper].any())
+            same = torch.equal(got, again)
+            what = f"kernel 8 ({launcher.__name__}), {name}"
+            if three:
+                e_k, f_k = normwise(got, ref_split), normwise(got, ref)
+                errs[launcher.__name__, name] = float(
+                    (got - plain3).abs().max())
+                ok = (e_k <= PROJ3_VS_PLAIN * e_p3
+                      and f_k <= PROJ3_VS_ONE_PASS * f_1)
+                print(f"{what}: normwise error vs f64 of the split operands "
+                      f"{e_k:.3e}, plain 3-pass {e_p3:.3e} (bound "
+                      f"{PROJ3_VS_PLAIN:g}x plain); vs f64 of the unsplit "
+                      f"operands {f_k:.3e}, 1-pass bf16 {f_1:.3e} (bound "
+                      f"{PROJ3_VS_ONE_PASS:g}x 1-pass); max abs difference "
+                      f"from plain {errs[launcher.__name__, name]:.3e}; "
+                      f"zeros above the diagonal {zeros}; two launches "
+                      f"bitwise equal {same} [card: {smi}]")
+            else:
+                e_k = normwise(got, ref)
+                errs[launcher.__name__, name] = float(
+                    (got - plain).abs().max())
+                ok = e_k <= OUT_VS_PLAIN * e_p + OUT_ABS
+                print(f"{what}: normwise error vs f64 {e_k:.3e}, plain f32 "
+                      f"(cuBLAS A^T B, tril) {e_p:.3e} (bound "
+                      f"{OUT_VS_PLAIN:g}x plain + {OUT_ABS:g}); max abs "
+                      f"difference from plain "
+                      f"{errs[launcher.__name__, name]:.3e}; zeros above "
+                      f"the diagonal {zeros}; two launches bitwise equal "
+                      f"{same} [card: {smi}]")
+            if not (ok and zeros and same
+                    and launcher.launches == before + 2):
+                raise AssertionError(f"{what}: out of bounds, not zero "
+                                     "above the diagonal, not deterministic,"
+                                     " or not two launches of the design")
+            del got, again
         del ref, ref_split, plain, plain3, upper
 
-        fns = {"plain": ck.t_matmul_tril_out_plain,
-               "plain 3-pass": ck.t_matmul_tril_out_3pass_plain}
-        for route in routes:
-            fns[f"kernel 8 ({route})"] = getattr(ck, f"tril_out_{route}")
-            fns[f"kernel 8 3-pass ({route})"] = getattr(ck,
-                                                        f"tril_out3_{route}")
-        t, n = time_in_turns(fns, A, B)
+        # through the routers: at the ragged shape the padding's copies too
+        t, n = time_in_turns({"plain": ck.t_matmul_tril_out_plain,
+                              "plain 3-pass": ck.t_matmul_tril_out_3pass_plain,
+                              "kernel 8": ck.tril_out,
+                              "kernel 8 3-pass": ck.tril_out3}, A, B)
         bounds = {"f32": out_bound(A, 1, F32_PEAK),
                   "3pass": out_bound(A, 3, BF16_PEAK)}
         times[name] = t, bounds
@@ -1034,28 +995,27 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
                     f"{bound[0] / ms * 100:.1f}% of the bound")
 
         balance = ""
-        if "tma" in routes:
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
-            sched = (ctypes.c_longlong * 7)()
-            for three in (0, 1):
-                ck._library().hetmogp_tril_out_schedule(q, n_, m, three, sms,
-                                                        sched)
-                G, F, rem, P, busy, total, reads = list(sched)
-                # the units: whole tiles, and the parts of the split ones
-                balance += (f"; {'3-pass' if three else 'f32'} schedule: "
-                            f"{G} blocks, {F} whole turns ({F * G} whole "
-                            f"tiles), {rem} tiles cut into {P} parts "
-                            f"({rem * P} parts, the last turn), balance "
-                            f"{total / G / busy:.3f}, the fix-up's reads "
-                            f"a block {reads} float4s ({reads * 16 / 1024:.1f}"
-                            f" KB: {P} partials of 1/{P} of a tile)")
-        for route in routes:
-            b, k = bounds["f32"], t[f"kernel 8 ({route})"]
-            b3, k3 = bounds["3pass"], t[f"kernel 8 3-pass ({route})"]
-            print(f"kernel 8 time, {name}, {route} route: f32 {k:.4f} ms "
-                  f"({rate(k, b)}; bound {b[0]:.4f} ms, {b[1]}), 3-pass "
-                  f"{k3:.4f} ms ({rate(k3, b3)}; bound {b3[0]:.4f} ms, "
-                  f"{b3[1]}) [card: {smi}]")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        sched = (ctypes.c_longlong * 7)()
+        for three in (0, 1):
+            # the schedule of the padded width the routers launch
+            ck._library().hetmogp_tril_out_schedule(q, n_, -(-m // 4) * 4,
+                                                    three, sms, sched)
+            G, F, rem, P, busy, total, reads = list(sched)
+            # the units: whole tiles, and the parts of the split ones
+            balance += (f"; {'3-pass' if three else 'f32'} schedule: "
+                        f"{G} blocks, {F} whole turns ({F * G} whole "
+                        f"tiles), {rem} tiles cut into {P} parts "
+                        f"({rem * P} parts, the last turn), balance "
+                        f"{total / G / busy:.3f}, the fix-up's reads "
+                        f"a block {reads} float4s ({reads * 16 / 1024:.1f}"
+                        f" KB: {P} partials of 1/{P} of a tile)")
+        b, k = bounds["f32"], t["kernel 8"]
+        b3, k3 = bounds["3pass"], t["kernel 8 3-pass"]
+        print(f"kernel 8 time, {name}: f32 {k:.4f} ms ({rate(k, b)}; bound "
+              f"{b[0]:.4f} ms, {b[1]}), 3-pass {k3:.4f} ms "
+              f"({rate(k3, b3)}; bound {b3[0]:.4f} ms, {b3[1]}) "
+              f"[card: {smi}]")
         print(f"kernel 8 time, {name}: cuBLAS's dense A^T B and mask (the "
               f"plain version, what the port ran before) {t['plain']:.4f} "
               f"ms ({rate(t['plain'], bounds['f32'])}), plain 3-pass "
@@ -1096,16 +1056,12 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
                              "on kernels 4 and A")
     del ref, rec, trsm
 
-    ve, ragged = "VE (4, 3072, 1024)", "ragged VM (4, 768, 777)"
+    ve = "VE (4, 3072, 1024)"
     entries = []
     for launcher, shape, passes in (("tril_out_tma", ve, "f32"),
-                                    ("tril_out3_tma", ve, "3pass"),
-                                    ("tril_out_generic", ragged, "f32"),
-                                    ("tril_out3_generic", ragged, "3pass")):
+                                    ("tril_out3_tma", ve, "3pass")):
         t, bounds = times[shape]
-        route = "generic" if launcher.endswith("generic") else "tma"
-        key = (f"kernel 8 3-pass ({route})" if passes == "3pass"
-               else f"kernel 8 ({route})")
+        key = "kernel 8 3-pass" if passes == "3pass" else "kernel 8"
         entries.append(dict(
             proj_entry(launcher, "tril_out_kernel.cu",
                        "hetmogp_tpu/ops/linalg.py:636",
@@ -1432,7 +1388,7 @@ RAGGED_GRAD_VS_PLAIN = 4.0
 
 
 def ragged_adjoint_phase(smi: str) -> dict:
-    """Kernels 5's and 8's generic routes on their own path: the VM step's
+    """Kernels 4, 5 and 8 on padded operands: the VM step's
     loss of the serving model at RAGGED_M inducing points (``elbo_fn``
     with the cached inverse and ``cache_grad``) at "high" and at
     "highest", differentiated in its hypers, with the counts from 0,
@@ -1476,10 +1432,11 @@ def ragged_adjoint_phase(smi: str) -> dict:
     total = {}
     # at "high": kernel 5's four adjoint products and kernel 8's Lbar in
     # three passes; at "highest": kernel 4's and kernel 8's float32 ones;
-    # quad_diag's forward on kernel 4 (q(u) is frozen: no gL)
-    want = {"high": {"tril_right3_generic": 4, "tril_right_generic": 1,
-                     "tril_out3_generic": 1},
-            "highest": {"tril_right_generic": 5, "tril_out_generic": 1}}
+    # quad_diag's forward on kernel 4 (q(u) is frozen: no gL); each on its
+    # TMA design, M padded to 780
+    want = {"high": {"tril_right3_tma": 4, "tril_right_tma": 1,
+                     "tril_out3_tma": 1},
+            "highest": {"tril_right_tma": 5, "tril_out_tma": 1}}
     for prec in ("high", "highest"):
         got, counts = grads("float32", True, prec)
         plain, _ = grads("float32", False, prec)
@@ -1495,7 +1452,7 @@ def ragged_adjoint_phase(smi: str) -> dict:
               f"{RAGGED_GRAD_VS_PLAIN:g}x plain) [card: {smi}]")
         if not (mine == want[prec] and e_k <= RAGGED_GRAD_VS_PLAIN * e_p):
             raise AssertionError(f"the ragged VM step at {prec!r} did not "
-                                 f"run the generic routes {want[prec]}, or "
+                                 f"run the TMA designs {want[prec]}, or "
                                  "disagrees")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
@@ -1584,13 +1541,10 @@ def _counts():
     from hetmogp_tpu_torch.ops import cuda_kernels as ck
 
     c = ck.launch_counts()
-    return (c["tril_projection_tma"] + c["tril_projection_staged"],
+    return (c["tril_projection_tma"],
             c["rbf_K_batched_vec"] + c["rbf_K_batched_scalar"],
-            c["rbf_backward"],
-            sum(c[k] for k in ("tril_right_tma", "tril_right_generic",
-                               "tril_right3_tma", "tril_right3_generic")),
-            sum(c[k] for k in ("tril_out_tma", "tril_out_generic",
-                               "tril_out3_tma", "tril_out3_generic")))
+            c["rbf_backward"], c["tril_right_tma"] + c["tril_right3_tma"],
+            c["tril_out_tma"] + c["tril_out3_tma"])
 
 
 def _zero_counts():
@@ -1923,18 +1877,12 @@ def trajectory_ab_phase(smi: str):
 _SYMBOLS = {"rbf_cross_vec_kernel": ("rbf_K_batched_vec",),
             "rbf_cross_kernel": ("rbf_K_batched_scalar",),
             "tril_proj_tma_kernel": ("tril_projection_tma",),
-            "tril_proj_kernel": ("tril_projection_staged",),
             "tril_proj3_tma_kernel": ("tril_projection_3pass_tma",),
             "tril_split_bf16_kernel": ("tril_projection_3pass_tma",),
-            "tril_proj3_kernel": ("tril_projection_3pass_staged",),
             "tril_right_tma_kernel": ("tril_right_tma",),
-            "tril_right_generic_kernel": ("tril_right_generic",),
             "tril_right3_tma_kernel": ("tril_right3_tma",),
-            "tril_right3_generic_kernel": ("tril_right3_generic",),
             "tril_out_tma_kernel": ("tril_out_tma",),
             "tril_out3_tma_kernel": ("tril_out3_tma",),
-            "tril_out_generic_kernel": ("tril_out_generic",
-                                        "tril_out3_generic"),
             "gh_sweep_kernel": ("gh_sweep", "gh_sweep_value"),
             "ve_tasks_kernel": ("task_var_exp", "task_var_exp_value"),
             "ve_tasks_grad_kernel": ("task_var_exp_backward",),
@@ -2009,11 +1957,6 @@ def graphed_trainer_phase(smi: str, precision: str,
             "tril_right3_tma": 4 * n_vm if high else 0,
             "tril_out3_tma": GRAPH_CALL_STEPS if high else 0,
             "tril_out_tma": 0 if high else GRAPH_CALL_STEPS,
-            # M = 1024 is aligned: the staged, scalar and generic kernels
-            # never run here
-            "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
-            "tril_right_generic": 0, "tril_right3_generic": 0,
-            "tril_out_generic": 0, "tril_out3_generic": 0,
             # kernel 6's task table for the six tasks' likelihood term,
             # forward and backward, and kernel 7 once, every step; no
             # per-engine sweep
@@ -2388,10 +2331,10 @@ def prediction_phase(smi: str):
 
 
 def ragged_serving_phase(smi: str) -> dict:
-    """The staged kernels' own path: the serving model at RAGGED_M inducing
-    points, which TMA cannot address (tril_route sends them to the staged
-    kernels, and quad_diag to kernel 4's generic one), at "highest"
-    (kernel A) and "high" (kernel 3): an
+    """The padded path: the serving model at RAGGED_M inducing points,
+    which the triangular products' routers pad to M % 4 == 0 for their TMA
+    designs (quad_diag's kernel 4 too), at "highest" (kernel A) and "high"
+    (kernel 3): an
     ACC_ROWS-row chunk of each task with the counts from 0, checked
     against the same path with the plain versions.  Returns the launch
     counts of both passes together."""
@@ -2401,9 +2344,11 @@ def ragged_serving_phase(smi: str) -> dict:
     cfg, params, X = serving_model(m=RAGGED_M)
     Xs = X[:ACC_ROWS]
     total = {}
-    for prec, staged, bound in (
-            ("highest", "tril_projection_staged", PLAIN_F32_BOUND),
-            ("high", "tril_projection_3pass_staged", RAGGED_HIGH_BOUND)):
+    for prec, proj, other, bound in (
+            ("highest", "tril_projection_tma", "tril_projection_3pass_tma",
+             PLAIN_F32_BOUND),
+            ("high", "tril_projection_3pass_tma", "tril_projection_tma",
+             RAGGED_HIGH_BOUND)):
         c = dataclasses.replace(cfg, ve_fwd_precision=prec)
         # the serving functions first: their cache's blocked factorization
         # runs kernels 9, A and 4 on its 128-wide panels (aligned), which
@@ -2426,16 +2371,14 @@ def ragged_serving_phase(smi: str) -> dict:
               f"chunks of {ACC_ROWS} rows: launches {counts}; worst normwise "
               f"error of the moments vs plain f32 {worst:.3e} (bound "
               f"{bound:g}) [card: {smi}]")
-        tma = (counts["tril_projection_tma"]
-               + counts["tril_projection_3pass_tma"]
-               + counts["tril_right_tma"])
-        # quad_diag: kernel 4's generic route, a request
-        if (counts[staged] < c.num_tasks or tma or not worst <= bound
-                or counts["tril_right_generic"] != c.num_tasks
+        # quad_diag: kernel 4, a request
+        if (counts[proj] < c.num_tasks or counts[other]
+                or not worst <= bound
+                or counts["tril_right_tma"] != c.num_tasks
                 or counts["rbf_K_batched_scalar"] < c.num_tasks
                 or counts["rbf_K_batched_vec"]):
             raise AssertionError(f"ragged serving at {prec!r} did not go "
-                                 "through the staged kernel, or disagrees")
+                                 f"through {proj} padded, or disagrees")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     return total
@@ -2592,9 +2535,6 @@ def families_phase(smi: str, device="cuda") -> dict:
             "chol_panel": REFRESH_PANELS,
             "tril_out3_tma": 5, "tril_out_tma": 0,
             "rbf_K_batched_scalar": 0,
-            "tril_projection_staged": 0, "tril_projection_3pass_staged": 0,
-            "tril_right_generic": 0, "tril_right3_generic": 0,
-            "tril_out_generic": 0, "tril_out3_generic": 0,
             # Beta, Binomial, Dirichlet and the ZIP on kernel 6's task
             # table (a forward and a backward launch a step; no per-engine
             # sweep), the six theta families on their engines, and kernel
@@ -3718,11 +3658,7 @@ def parallel_gloo_phase(smi: str) -> None:
                    "tril_projection_3pass_tma": PAR_STEPS - n_vm,
                    "tril_right_tma": PAR_STEPS + REFRESH_STRIPS * n_vm,
                    "tril_right3_tma": 4 * n_vm, "tril_out3_tma": PAR_STEPS,
-                   "rbf_K_batched_scalar": 0, "tril_projection_staged": 0,
-                   "tril_projection_3pass_staged": 0,
-                   "tril_right_generic": 0, "tril_right3_generic": 0,
-                   "tril_out_tma": 0, "tril_out_generic": 0,
-                   "tril_out3_generic": 0,
+                   "rbf_K_batched_scalar": 0, "tril_out_tma": 0,
                    "chol_panel": REFRESH_PANELS * n_vm}
     rows = 6 * TRAIN_B // 2  # a data rank's rows of the VE batch
     rs = refresh_shapes(2)
@@ -4928,9 +4864,9 @@ def main():
     parallel_phase(smi)
     # launches: the main path's for the vector RBF kernel and the TMA
     # routes (kernel 8's float32 one from the graphed flagship at
-    # "highest", the only precision that runs it); the staged, scalar and
-    # generic routes never run at M = 1024, so theirs are from the ragged
-    # serving path and the ragged VM step, their own
+    # "highest", the only precision that runs it); the RBF's scalar
+    # kernel never runs at M = 1024, so its are from the ragged serving
+    # path and the ragged VM step, its own
     # the task table's value alone runs where an ELBO is evaluated
     # without a gradient: its launches are the lifecycle's (the full-data
     # ELBOs of save and load); the ten-family table's instantiations,
@@ -4939,7 +4875,7 @@ def main():
     # that sweeps in the flagship and the ten-family models is in the task
     # table): their entries read 0 launches and are off the check below
     kernels = [*rbf, *proj, *proj3, *right, *out8, *sweep, *factor]
-    own_path = ("_staged", "_scalar", "_generic")
+    own_path = ("_scalar",)
     off_path = ("gh_sweep", "gh_sweep_value")
     source = {"task_var_exp_value": life, "tril_out_tma": highest,
               "task_var_exp_terms": families,

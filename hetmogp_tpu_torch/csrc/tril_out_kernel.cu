@@ -21,7 +21,9 @@
 // What bounds it on an H100, at the VE step's (4, 3072, 1024): Q N M (M+1)
 // = 12.9 GFLOP a pass, 0.193 ms in float32 at 67 TFLOP/s and 0.039 ms for
 // three bf16 passes at 989 TFLOP/s; 101 MB of operands read and 16.8 MB
-// written, 0.035 ms at 3.35 TB/s.  Three designs:
+// written, 0.035 ms at 3.35 TB/s.  Two designs, for M % 4 == 0 and
+// 16-byte-aligned operands (TMA's stride rule; the caller pads a ragged M
+// with zeros, ops/cuda_kernels.py::_tma_operands):
 //
 // 1. tril_out_tma_kernel (entry hetmogp_tril_out_f32, "highest"): full
 //    float32 FFMA, no TF32.  tril_tma.cuh's pipeline: one producer thread
@@ -56,14 +58,8 @@
 //    memory (landing 32, B's split read and written 32, the consumers' A
 //    16, wgmma's B 48), where splitting A in shared memory as well would
 //    move 168 KB.
-// 3. tril_out_generic_kernel<THREE> (entries hetmogp_tril_out_generic_f32
-//    and hetmogp_tril_out3_generic_f32): every other shape (M % 4 != 0 or
-//    unaligned bases): one 256-thread block a lower 64 x 64 tile, both
-//    operands staged 16 rows deep through shared memory (split while
-//    staged for THREE, the three products as float32 FMAs of bf16-exact
-//    values), two block-wide barriers a stage.
 //
-// The TMA designs are persistent and walk tril_out_plan.cuh's schedule:
+// Both designs are persistent and walk tril_out_plan.cuh's schedule:
 // whole tiles for the full waves, and the last wave's tiles cut into P
 // parts of their reduction.  Every part writes its sum to its own slot of
 // a float32 scratch, raises its flag and waits for the tile's P flags;
@@ -75,8 +71,8 @@
 // is computed: the block of a lower tile writes its mirror's zeros, and a
 // diagonal tile's epilogue zeroes m1 < m2.
 //
-// On the card, chip_smoke.py's tril_out_phase holds every route to its
-// plain version and float64, two launches bitwise equal, and times it
+// On the card, chip_smoke.py's tril_out_phase holds both designs to their
+// plain versions and float64, two launches bitwise equal, and times it
 // beside cuBLAS's dense A^T B and mask; probes/tril_out.py times the TMA
 // designs against another checkout's, with per-role clock stamps.
 
@@ -90,14 +86,6 @@
 namespace {
 
 using tril_out_plan::keep;
-using tril_out_plan::lower_tile;
-
-// The bit-mask split of one float32: hi, and lo = bf16_rn(x - hi), both
-// as float32 holding bf16 values.
-__device__ __forceinline__ void split1(float x, float& hi, float& lo) {
-  hi = __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
-  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
-}
 
 // The bit-mask split of two float32 (x.x in the low half): hi's and lo's
 // bf16 pairs.
@@ -269,97 +257,6 @@ __device__ __forceinline__ void zero_mirrors(const tril_out_plan::Plan& plan,
       if (r < M && c < M) {  // M % 4 == 0: c + 3 < M too
         *reinterpret_cast<float4*>(outq + (size_t)r * M + c) = zero;
       }
-    }
-  }
-}
-
-// ---- the generic design ----------------------------------------------------
-
-constexpr int GT = 64;  // rows m1 and columns m2 of a block's tile
-constexpr int GD = 16;  // rows n a stage
-constexpr int GTHREADS = 256;
-
-template <bool THREE>
-__global__ void __launch_bounds__(GTHREADS)
-tril_out_generic_kernel(const float* __restrict__ A,
-                        const float* __restrict__ B, float* __restrict__ out,
-                        int N, int M) {
-  __shared__ float Ah[GD][GT], Bh[GD][GT];
-  __shared__ float Al[THREE ? GD : 1][GT], Bl[THREE ? GD : 1][GT];
-  const int q = blockIdx.y;
-  int ti, tj;
-  lower_tile(blockIdx.x, ti, tj);
-  const int m1_0 = ti * GT, m2_0 = tj * GT;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns m2: tx + 16 j
-  const int ty = tid / 16;  // rows m1: ty + 16 i
-  const float* Aq = A + (size_t)q * N * M;
-  const float* Bq = B + (size_t)q * N * M;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int n0 = 0; n0 < N; n0 += GD) {
-#pragma unroll
-    for (int p = 0; p < GD * GT / GTHREADS; ++p) {
-      const int idx = tid + GTHREADS * p;
-      const int r = idx / GT, c = idx % GT;
-      const int n = n0 + r;
-      const float a = (n < N && m1_0 + c < M) ? Aq[(size_t)n * M + m1_0 + c]
-                                              : 0.0f;
-      const float b = (n < N && m2_0 + c < M) ? Bq[(size_t)n * M + m2_0 + c]
-                                              : 0.0f;
-      if constexpr (THREE) {
-        split1(a, Ah[r][c], Al[r][c]);
-        split1(b, Bh[r][c], Bl[r][c]);
-      } else {
-        Ah[r][c] = a;
-        Bh[r][c] = b;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < GD; ++r) {
-      float a[4], b[4], al[4], bl[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Ah[r][ty + 16 * i];
-        b[i] = Bh[r][tx + 16 * i];
-        if constexpr (THREE) {
-          al[i] = Al[r][ty + 16 * i];
-          bl[i] = Bl[r][tx + 16 * i];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if constexpr (THREE) {  // the small terms first, as on wgmma
-            acc[i][j] = fmaf(al[i], b[j], acc[i][j]);
-            acc[i][j] = fmaf(a[i], bl[j], acc[i][j]);
-          }
-          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-  float* outq = out + (size_t)q * M * M;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m1 = m1_0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m2 = m2_0 + tx + 16 * j;
-      if (m1 < M && m2 < M) {
-        outq[(size_t)m1 * M + m2] = keep(m1, m2) ? acc[i][j] : 0.0f;
-      }
-      // the mirror tile above the diagonal
-      const int r = m2_0 + ty + 16 * i, c = m1_0 + tx + 16 * j;
-      if (ti > tj && r < M && c < M) outq[(size_t)r * M + c] = 0.0f;
     }
   }
 }
@@ -945,17 +842,6 @@ int launch_tma(Kernel kernel, int smem_bytes, int threads, int regs_handed,
   return (int)cudaGetLastError();
 }
 
-template <bool THREE>
-int launch_generic(const float* A, const float* B, float* out, int Q, int N,
-                   int M, cudaStream_t stream) {
-  if (bad_shape(Q, N, M) || Q > 65535) return (int)cudaErrorInvalidValue;
-  const long long C = (M + GT - 1) / GT;
-  const dim3 grid((unsigned)(C * (C + 1) / 2), Q);
-  tril_out_generic_kernel<THREE><<<grid, GTHREADS, 0, stream>>>(A, B, out, N,
-                                                                M);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Floats of partial-sum scratch a TMA launch at (Q, N, M) needs (`three`:
@@ -1018,17 +904,4 @@ extern "C" int hetmogp_tril_out3_f32(const float* A, const float* B,
   return launch_tma(tril_out3_tma_kernel, k8w::SMEM_BYTES, k8w::THREADS,
                     k8w::REGS_HANDED, attr_set, A, B, out, partials, Q, N,
                     M, 1, stream);
-}
-
-// The generic designs, for any shape.
-extern "C" int hetmogp_tril_out_generic_f32(const float* A, const float* B,
-                                            float* out, int Q, int N, int M,
-                                            cudaStream_t stream) {
-  return launch_generic<false>(A, B, out, Q, N, M, stream);
-}
-
-extern "C" int hetmogp_tril_out3_generic_f32(const float* A, const float* B,
-                                             float* out, int Q, int N, int M,
-                                             cudaStream_t stream) {
-  return launch_generic<true>(A, B, out, Q, N, M, stream);
 }

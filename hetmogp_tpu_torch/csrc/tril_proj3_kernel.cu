@@ -26,11 +26,12 @@
 // What bounds it on an H100: at the trainer's shape (Q=4, N=3072, M=1024)
 // the three passes are 3 x 1.29e10 triangular FLOP, 0.039 ms at the card's
 // 989 TFLOP/s of dense bf16, against 117 MB of operands and output, 0.035 ms
-// at 3.35 TB/s: about balanced, so the main design has both wgmma and a TMA
+// at 3.35 TB/s: about balanced, so the design has both wgmma and a TMA
 // pipeline.
 //
-// 1. tril_proj3_tma_kernel (entry hetmogp_tril_proj3_f32), for M % 4 == 0
-//    and 16-byte-aligned A (TMA's stride rule); the main path's M = 1024:
+// tril_proj3_tma_kernel (entry hetmogp_tril_proj3_f32), for M % 4 == 0 and
+// 16-byte-aligned A (TMA's stride rule; the caller pads a ragged M with
+// zeros, ops/cuda_kernels.py::_tma_operands):
 //    * a pre-pass, tril_split_bf16_kernel in the same launch, reads L once
 //      and writes tril(L)'s hi and lo as two bf16 (Q, M, Mp) arrays (Mp = M
 //      rounded up to 8, so rows are 16-byte multiples), the upper triangle
@@ -58,317 +59,15 @@
 //      [k0, k0 + 128) runs its reduction to min(M, k0 + 128) and never
 //      loads L's zero blocks; ragged N, and m or k past M, arrive as TMA's
 //      zero fill and are clipped in the stores.
-// 2. tril_proj3_kernel (entry hetmogp_tril_proj3_staged_f32), the previous
-//    design, for every other shape: one 256-thread block per 128 x 128
-//    tile, float32 loaded into registers one stage ahead, split there and
-//    stored to padded shared tiles (two block-wide barriers a 32-deep
-//    stage), three mma.sync m16n8k16 products per 16-deep step; L's upper
-//    entries and the ragged edges are masked while staging.
 // Summation order: per output, a float32 sum over 16-deep steps, each
 // step's products summed inside the tensor core.  It is not the plain
 // version's order: check both against a float64 product.
-//
-// Kernel 5, the mirror
-//
-//   out[q, n, k] = sum_{m >= k} A[q, n, m] * L[q, m, k]      (A tril(L))
-//
-// in the same three passes, keeps its generic design here:
-// 3. tril_right3_generic_kernel (entry hetmogp_tril_right3_generic_f32),
-//    for the shapes its TMA design (tril_right3_kernel.cu) cannot take: a
-//    64 x 128 tile a 256-thread block, the operands split while staged,
-//    the three products as float32 FMAs of bf16-exact values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tril_tma.cuh"
-
-namespace {
-
-constexpr int BR = 128;     // rows n per block
-constexpr int BC = 128;     // columns k per block
-constexpr int BK = 32;      // reduction depth m per stage
-constexpr int LDS = BK + 8; // shared-memory row stride in bf16 (80 bytes)
-constexpr int THREADS = 256;
-// float4 groups each thread stages per operand and stage (4)
-constexpr int LOADS = BR * BK / 4 / THREADS;
-
-// Four consecutive elements row[c], ..., row[c + 3], zero at and past `lim`;
-// one float4 load when the row is 16-byte aligned and all four are in range.
-__device__ __forceinline__ float4 load4(const float* row, int c, int lim,
-                                        bool vec) {
-  if (vec && c + 3 < lim) return *reinterpret_cast<const float4*>(row + c);
-  float4 v;
-  v.x = (c + 0 < lim) ? row[c + 0] : 0.0f;
-  v.y = (c + 1 < lim) ? row[c + 1] : 0.0f;
-  v.z = (c + 2 < lim) ? row[c + 2] : 0.0f;
-  v.w = (c + 3 < lim) ? row[c + 3] : 0.0f;
-  return v;
-}
-
-// The bit-mask split of one float32: hi's bf16 bits and lo's bf16 bits.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const uint32_t bits = __float_as_uint(x);
-  const float h = __uint_as_float(bits & 0xFFFF0000u);
-  hi = bits >> 16;
-  lo = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x - h));
-}
-
-// Split four floats and store them as bf16 at hi[0..3] and lo[0..3]
-// (8-byte aligned): element j sits in the low half for even j.
-__device__ __forceinline__ void stage4(float4 v, __nv_bfloat16* hi,
-                                       __nv_bfloat16* lo) {
-  uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
-  split(v.x, h0, l0);
-  split(v.y, h1, l1);
-  split(v.z, h2, l2);
-  split(v.w, h3, l3);
-  *reinterpret_cast<uint2*>(hi) = make_uint2(h0 | (h1 << 16), h2 | (h3 << 16));
-  *reinterpret_cast<uint2*>(lo) = make_uint2(l0 | (l1 << 16), l2 | (l3 << 16));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a b for one m16n8k16 tile: bf16 operands, float32 accumulator.
-__device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(THREADS)
-tril_proj3_kernel(const float* __restrict__ A, const float* __restrict__ L,
-                  float* __restrict__ out, int N, int M, int col_tiles,
-                  bool vec) {
-  __shared__ __align__(16) __nv_bfloat16 Ahi[BR][LDS];
-  __shared__ __align__(16) __nv_bfloat16 Alo[BR][LDS];
-  __shared__ __align__(16) __nv_bfloat16 Lhi[BC][LDS];
-  __shared__ __align__(16) __nv_bfloat16 Llo[BC][LDS];
-
-  const int q = blockIdx.y;
-  const int bid = blockIdx.x;
-  const int ct = col_tiles - 1 - bid % col_tiles;  // heaviest tiles first
-  const int n0 = (bid / col_tiles) * BR;
-  const int k0 = ct * BC;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wr = (warp / 4) * 64;  // the warp's first row in the tile
-  const int wc = (warp % 4) * 32;  // the warp's first column in the tile
-  const int g = lane / 4;          // mma fragment row group
-  const int t = lane % 4;          // mma fragment thread in group
-
-  const float* Aq = A + (size_t)q * N * M;
-  const float* Lq = L + (size_t)q * M * M;
-
-  // m stops at the column tile's end: L[k, m] = 0 for m > k, and k < k0 + BC
-  const int m_end = min(M, k0 + BC);
-  const int stages = (m_end + BK - 1) / BK;
-
-  // staging map: thread loads rows lr + 32 * i, columns lc .. lc + 3
-  const int lr = tid / 8;
-  const int lc = (tid % 8) * 4;
-
-  float4 ra[LOADS], rl[LOADS];
-  auto fetch = [&](int s) {
-    const int m0 = s * BK;
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int r = lr + 32 * i;
-      const int n = n0 + r;
-      const int k = k0 + r;
-      ra[i] = (n < N) ? load4(Aq + (size_t)n * M, m0 + lc, M, vec)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-      // L[k, m] for m <= k only: the limit is min(M, k + 1)
-      rl[i] = (k < M) ? load4(Lq + (size_t)k * M, m0 + lc, min(M, k + 1), vec)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int r = lr + 32 * i;
-      stage4(ra[i], &Ahi[r][lc], &Alo[r][lc]);
-      stage4(rl[i], &Lhi[r][lc], &Llo[r][lc]);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  fetch(0);
-  stage();
-  __syncthreads();
-  for (int s = 0; s < stages; ++s) {
-    if (s + 1 < stages) fetch(s + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // B fragments of the warp's four 8-column tiles: (k = 2t.., n = g)
-      uint32_t bhi[4][2], blo[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = wc + j * 8 + g;
-        bhi[j][0] = ld32(&Lhi[c][kk + 2 * t]);
-        bhi[j][1] = ld32(&Lhi[c][kk + 8 + 2 * t]);
-        blo[j][0] = ld32(&Llo[c][kk + 2 * t]);
-        blo[j][1] = ld32(&Llo[c][kk + 8 + 2 * t]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // A fragment of the 16-row tile i: rows g and g + 8
-        const int r = wr + i * 16 + g;
-        uint32_t ahi[4], alo[4];
-        ahi[0] = ld32(&Ahi[r][kk + 2 * t]);
-        ahi[1] = ld32(&Ahi[r + 8][kk + 2 * t]);
-        ahi[2] = ld32(&Ahi[r][kk + 8 + 2 * t]);
-        ahi[3] = ld32(&Ahi[r + 8][kk + 8 + 2 * t]);
-        alo[0] = ld32(&Alo[r][kk + 2 * t]);
-        alo[1] = ld32(&Alo[r + 8][kk + 2 * t]);
-        alo[2] = ld32(&Alo[r][kk + 8 + 2 * t]);
-        alo[3] = ld32(&Alo[r + 8][kk + 8 + 2 * t]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma(acc[i][j], alo, bhi[j]);  // the two small terms first
-          mma(acc[i][j], ahi, blo[j]);
-          mma(acc[i][j], ahi, bhi[j]);
-        }
-      }
-    }
-    __syncthreads();
-    if (s + 1 < stages) {
-      stage();
-      __syncthreads();
-    }
-  }
-
-  // accumulator (i, j): rows r and r + 8, columns c and c + 1
-  float* outq = out + (size_t)q * N * M;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + wr + i * 16 + g + h * 8;
-      if (n >= N) continue;
-      float* row = outq + (size_t)n * M;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + wc + j * 8 + 2 * t;
-        const float v0 = acc[i][j][2 * h];
-        const float v1 = acc[i][j][2 * h + 1];
-        if (vec && k + 1 < M) {
-          *reinterpret_cast<float2*>(row + k) = make_float2(v0, v1);
-        } else {
-          if (k < M) row[k] = v0;
-          if (k + 1 < M) row[k + 1] = v1;
-        }
-      }
-    }
-  }
-}
-
-// Kernel 5's generic design, for the shapes its TMA design cannot take:
-// out = A tril(L), one 256-thread block per 64 x 128 tile, the reduction
-// from m = k0 to M, 16 deep a stage.  Both operands are split while they
-// are staged (L's upper entries and the ragged edges as zeros), and each m
-// adds lo*hi, hi*lo, then hi*hi as float32 FMAs: the products of two bf16
-// values are exact in float32, so this is the tensor cores' sum of the
-// three passes, in another order.
-constexpr int GR = 64;  // rows n per block
-constexpr int GD = 16;  // reduction depth m per stage
-
-__device__ __forceinline__ void split_f32(float x, float& hi, float& lo) {
-  hi = __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
-  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
-}
-
-__global__ void __launch_bounds__(THREADS)
-tril_right3_generic_kernel(const float* __restrict__ A,
-                           const float* __restrict__ L,
-                           float* __restrict__ out, int N, int M, int C) {
-  __shared__ float Ahi[GD][GR + 1], Alo[GD][GR + 1];
-  __shared__ float Lhi[GD][BC], Llo[GD][BC];
-
-  const int q = blockIdx.y;
-  const int ct = blockIdx.x % C;  // the longest reductions first
-  const int n0 = (blockIdx.x / C) * GR;
-  const int k0 = ct * BC;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx + 16 j
-  const int ty = tid / 16;  // rows ty + 16 i
-  const float* Aq = A + (size_t)q * N * M;
-  const float* Lq = L + (size_t)q * M * M;
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int m0 = k0; m0 < M; m0 += GD) {
-#pragma unroll
-    for (int p = 0; p < GR * GD / THREADS; ++p) {
-      const int idx = tid + THREADS * p;
-      const int r = idx / GD, mm = idx % GD;
-      const int n = n0 + r, m = m0 + mm;
-      split_f32((n < N && m < M) ? Aq[(size_t)n * M + m] : 0.0f, Ahi[mm][r],
-                Alo[mm][r]);
-    }
-#pragma unroll
-    for (int p = 0; p < BC * GD / THREADS; ++p) {
-      const int idx = tid + THREADS * p;
-      const int mm = idx / BC, c = idx % BC;
-      const int m = m0 + mm, k = k0 + c;
-      split_f32((m < M && k <= m) ? Lq[(size_t)m * M + k] : 0.0f,
-                Lhi[mm][c], Llo[mm][c]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int mm = 0; mm < GD; ++mm) {
-      float lh[8], ll[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        lh[j] = Lhi[mm][tx + 16 * j];
-        ll[j] = Llo[mm][tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ah = Ahi[mm][ty + 16 * i], al = Alo[mm][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[i][j] = fmaf(al, lh[j], acc[i][j]);
-          acc[i][j] = fmaf(ah, ll[j], acc[i][j]);
-          acc[i][j] = fmaf(ah, lh[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= N) continue;
-    float* row = out + ((size_t)q * N + n) * M;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + tx + 16 * j;
-      if (k < M) row[k] = acc[i][j];
-    }
-  }
-}
-
-}  // namespace
 
 // ---- the wgmma and TMA design ----------------------------------------------
 
@@ -660,39 +359,4 @@ extern "C" int hetmogp_tril_proj3_f32(const float* A, const float* L,
                                       float* out, void* Lhi, void* Llo, int Q,
                                       int N, int M, cudaStream_t stream) {
   return tma3::launch(A, L, out, Lhi, Llo, Q, N, M, stream);
-}
-
-// The previous design, for any shape.  `aligned` != 0 promises that
-// M % 4 == 0 and that A, L and out start on 16-byte boundaries, which lets
-// rows move as float4 (loads) and float2 (stores).
-extern "C" int hetmogp_tril_proj3_staged_f32(const float* A, const float* L,
-                                             float* out, int aligned, int Q,
-                                             int N, int M,
-                                             cudaStream_t stream) {
-  if (Q <= 0 || N <= 0 || M <= 0 || Q > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const long long col_tiles = (M + BC - 1) / BC;
-  const long long row_tiles = (N + BR - 1) / BR;
-  if (row_tiles * col_tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(row_tiles * col_tiles), Q);
-  tril_proj3_kernel<<<grid, THREADS, 0, stream>>>(
-      A, L, out, N, M, (int)col_tiles, aligned != 0);
-  return (int)cudaGetLastError();
-}
-
-// Kernel 5's generic design, for any shape.
-extern "C" int hetmogp_tril_right3_generic_f32(const float* A, const float* L,
-                                               float* out, int Q, int N, int M,
-                                               cudaStream_t stream) {
-  if (Q <= 0 || N <= 0 || M <= 0 || Q > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const long long C = (M + BC - 1) / BC;
-  const long long R = (N + GR - 1) / GR;
-  if (R * C > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(R * C), Q);
-  tril_right3_generic_kernel<<<grid, THREADS, 0, stream>>>(A, L, out, N, M,
-                                                          (int)C);
-  return (int)cudaGetLastError();
 }

@@ -36,12 +36,13 @@
 // column order: a column tile's in order, then the tiles' sums in order.  Two runs are bitwise equal, as a graph replay
 // and the eager step it was captured from must be.
 //
-// 1. tril_right_tma_kernel (entries hetmogp_tril_right_f32 and, for A and
-//    L read through row and plane strides, hetmogp_tril_right_strided_f32),
-//    for M % 4 == 0, 16-byte-aligned operands and strides of a multiple of
-//    16 bytes (TMA's stride rule), the main path's M = 1024: tril_tma.cuh's
-//    pipeline (one producer thread issuing TMA
-//    loads into a ring of 4 stages of mbarriers, a producer warpgroup that
+// tril_right_tma_kernel (entry hetmogp_tril_right_strided_f32: A and L
+// read through their row and plane strides), for M % 4 == 0, 16-byte-
+// aligned operands and strides of a multiple of 16 bytes (TMA's stride
+// rule; the caller pads a ragged M with zeros,
+// ops/cuda_kernels.py::_tma_operands):
+//    tril_tma.cuh's pipeline (one producer thread issuing TMA loads into
+//    a ring of 4 stages of mbarriers, a producer warpgroup that
 //    hands its registers to the 8 FMA warps with setmaxnreg, persistent
 //    blocks on the paired snake schedule of tril_tiles.cuh, mirrored).  A
 //    stage holds A's 128 x 32 tile, 128-byte swizzled, and L's 32 x 128
@@ -67,15 +68,8 @@
 //    Ragged N, and m or k past M, arrive as TMA's zero fill.  On the card,
 //    chip_smoke.py's right_products_phase holds it to cuBLAS (bitwise) and
 //    to float64 and times it; probes/tril_right.py times it against
-//    another checkout's design (the generic route and kernels A, 3 and 5
-//    are held to be the same there).
-// 2. tril_right_generic_kernel (entry hetmogp_tril_right_generic_f32), for
-//    every other shape (M % 4 != 0 or unaligned bases): one 256-thread
-//    block per 64 x 128 tile, both operands staged through shared memory
-//    16 deep with L's upper entries and the ragged edges zeroed while
-//    staging, two block-wide barriers a stage.  The same FMA order; one
-//    partial a row per column tile (a shuffle tree over the 16 threads of a
-//    row).
+//    another checkout's design (kernels A, 3 and 5 are held to be the same
+//    there).
 
 #include <cuda_runtime.h>
 
@@ -84,24 +78,12 @@
 
 namespace {
 
-using tril_right_plan::BN;  // columns k per tile, both designs
+using tril_right_plan::BN;  // columns k per tile
 constexpr int SUM_THREADS = 256;
 constexpr int SUM_ROWS = 64;   // rows a block of the row sum
 constexpr int SUM_COLS = 32;   // partials a row it stages at a time
 static_assert(SUM_COLS == 32, "a warp stages a row's partials");
 static_assert(SUM_COLS % tril_right_plan::PARTS == 0, "whole runs a chunk");
-
-// Each thread's register tile is a row group of 16 threads (tx = 0..15, in
-// one half of a warp) times some rows; the sum over the group of each
-// row's per-thread sum of squares, by a fixed shuffle tree.  Every lane
-// takes part; lane tx == 0 holds the result.
-__device__ __forceinline__ float group_sum(float s) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  }
-  return s;
-}
 
 // r[row] = the sum of the row's C partials part[row * C + c], in
 // increasing c: each run of G partials (one column tile's) added in order,
@@ -145,89 +127,6 @@ int launch_row_sum(const float* part, float* r, long long rows, int C,
   row_sum_kernel<<<(unsigned)blocks, SUM_THREADS, 0, stream>>>(part, r, rows,
                                                               C, G);
   return (int)cudaGetLastError();
-}
-
-// ---- the generic design ----------------------------------------------------
-
-constexpr int GR = 64;  // rows n per block
-constexpr int GD = 16;  // reduction depth m per stage
-constexpr int GTHREADS = 256;
-
-__global__ void __launch_bounds__(GTHREADS)
-tril_right_generic_kernel(const float* __restrict__ A,
-                          const float* __restrict__ L, float* __restrict__ out,
-                          float* __restrict__ part, int N, int M, int C,
-                          int mode) {
-  __shared__ float As[GD][GR + 1];
-  __shared__ __align__(16) float Ls[GD][BN];
-
-  const int q = blockIdx.y;
-  const int ct = blockIdx.x % C;  // the longest reductions first
-  const int n0 = (blockIdx.x / C) * GR;
-  const int k0 = ct * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx + 16 j
-  const int ty = tid / 16;  // rows ty + 16 i
-  const float* Aq = A + (size_t)q * N * M;
-  const float* Lq = L + (size_t)q * M * M;
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int m0 = k0; m0 < M; m0 += GD) {
-#pragma unroll
-    for (int p = 0; p < GR * GD / GTHREADS; ++p) {
-      const int idx = tid + GTHREADS * p;
-      const int r = idx / GD, mm = idx % GD;
-      const int n = n0 + r, m = m0 + mm;
-      As[mm][r] = (n < N && m < M) ? Aq[(size_t)n * M + m] : 0.0f;
-    }
-#pragma unroll
-    for (int p = 0; p < BN * GD / GTHREADS; ++p) {
-      const int idx = tid + GTHREADS * p;
-      const int mm = idx / BN, c = idx % BN;
-      const int m = m0 + mm, k = k0 + c;
-      // tril(L)[m, k]: zero for k > m, and past the edges
-      Ls[mm][c] = (m < M && k <= m) ? Lq[(size_t)m * M + k] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < GD; ++mm) {
-      float l[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) l[j] = Ls[mm][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = As[mm][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, l[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (mode != 2 && n < N) {
-      float* row = out + ((size_t)q * N + n) * M;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int k = k0 + tx + 16 * j;
-        if (k < M) row[k] = acc[i][j];
-      }
-    }
-    if (mode != 0) {
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s = fmaf(acc[i][j], acc[i][j], s);
-      s = group_sum(s);
-      if (tx == 0 && n < N) part[((size_t)q * N + n) * C + ct] = s;
-    }
-  }
 }
 
 }  // namespace
@@ -445,13 +344,12 @@ tril_right_tma_kernel(const __grid_constant__ CUtensorMap mapA,
 // negative CUresult when a tensor map cannot be encoded.  The caller checks
 // shapes, dtype, contiguity and device; these check only what would make
 // the launch itself invalid.  `out` may be null for mode 2; `part` (Q, N,
-// hetmogp_tril_right_partials(M, tma) floats) and `r` (Q, N) may be null for
+// hetmogp_tril_right_partials(M) floats) and `r` (Q, N) may be null for
 // mode 0.
 
-// Row-sum partials a row: PARTS a column tile in the TMA-fed design
-// (`tma` != 0), one a column tile in the generic one.
-extern "C" int hetmogp_tril_right_partials(int M, int tma) {
-  return (M + BN - 1) / BN * (tma ? tril_right_plan::PARTS : 1);
+// Row-sum partials a row: PARTS a column tile.
+extern "C" int hetmogp_tril_right_partials(int M) {
+  return (M + BN - 1) / BN * tril_right_plan::PARTS;
 }
 
 static bool bad_args(const float* out, const float* part, const float* r,
@@ -512,35 +410,4 @@ extern "C" int hetmogp_tril_right_strided_f32(
   if (launch_err != cudaSuccess || mode == 0) return (int)launch_err;
   return launch_row_sum(part, r, (long long)Q * N, (int)C * PARTS, PARTS,
                         stream);
-}
-
-// The same on contiguous A and L (probes/tril_right.py compares this entry
-// across checkouts).
-extern "C" int hetmogp_tril_right_f32(const float* A, const float* L,
-                                      float* out, float* part, float* r,
-                                      int mode, int Q, int N, int M,
-                                      cudaStream_t stream) {
-  return hetmogp_tril_right_strided_f32(A, M, (long long)N * M, L, M,
-                                        (long long)M * M, out, part, r, mode,
-                                        Q, N, M, stream);
-}
-
-// The generic design, for any shape.
-extern "C" int hetmogp_tril_right_generic_f32(const float* A, const float* L,
-                                              float* out, float* part,
-                                              float* r, int mode, int Q,
-                                              int N, int M,
-                                              cudaStream_t stream) {
-  if (bad_args(out, part, r, mode, Q, N, M) || Q > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const long long C = (M + BN - 1) / BN;
-  const long long R = (N + GR - 1) / GR;
-  if (R * C > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(R * C), Q);
-  tril_right_generic_kernel<<<grid, GTHREADS, 0, stream>>>(
-      A, L, out, part, N, M, (int)C, mode);
-  const cudaError_t launch_err = cudaGetLastError();
-  if (launch_err != cudaSuccess || mode == 0) return (int)launch_err;
-  return launch_row_sum(part, r, (long long)Q * N, (int)C, 1, stream);
 }

@@ -9,8 +9,8 @@ cross-covariance, in two designs chosen by shape, ``rbf_route``: float4
 stores from blocks that walk rows, and the scalar one of the first port),
 ``csrc/tril_proj_kernel.cu`` (kernel A: the triangular projection
 A tril(L)^T in float32), ``csrc/tril_proj3_kernel.cu`` (kernel 3: the same
-projection as three bf16 tensor-core passes; and kernel 5's generic
-design), ``csrc/tril_right3_kernel.cu`` (kernel 5: the mirror A tril(L) in
+projection as three bf16 tensor-core passes), ``csrc/tril_right3_kernel.cu``
+(kernel 5: the mirror A tril(L) in
 three passes, L split in shared memory, no pre-pass; its schedule, in
 ``csrc/tril_right3_plan.cuh``, is walked on the CPU by
 ``tests/test_torch_tril_right3_plan.py``), ``csrc/tril_right_kernel.cu`` (kernel 4:
@@ -25,10 +25,9 @@ tiles alone, in float32 FFMA and in three bf16 wgmma passes, A split in
 registers and B in shared memory; its schedule, in
 ``csrc/tril_out_plan.cuh``, is
 walked on the CPU by ``tests/test_torch_tril_out_plan.py``), each
-triangular product in two designs, a TMA-fed one (sharing
-``csrc/tril_tma.cuh`` and the schedule of ``csrc/tril_tiles.cuh``) and a
-register-staged one (the first port's for A and 3, a generic one for 4,
-5 and 8), chosen by shape (``tril_route``, ``tril_out_route``); and,
+triangular product in one TMA-fed design (sharing ``csrc/tril_tma.cuh``
+and the schedule of ``csrc/tril_tiles.cuh``), which ``_tma_operands``
+brings every shape to; and,
 for the XLA fusions of the JAX package's trainer,
 ``csrc/ve_tasks_kernel.cu`` (kernel 6: the ELBO's likelihood term of every
 task in the task table, each row's variational expectation and
@@ -58,16 +57,14 @@ nothing.
 For each kernel:
 
 * the raw launcher (``rbf_K_batched_vec``, ``rbf_K_batched_scalar``,
-  ``tril_projection_tma``, ``tril_projection_staged``,
-  ``tril_projection_3pass_tma``, ``tril_projection_3pass_staged``,
-  ``tril_right_tma``, ``tril_right_generic``, ``tril_right3_tma``,
-  ``tril_right3_generic``, ``tril_out_tma``, ``tril_out_generic``,
-  ``tril_out3_tma``, ``tril_out3_generic``) runs it on float32 CUDA
-  tensors, counts its launches in ``<launcher>.launches``, and refuses
-  inputs that require grad: it records no graph; ``rbf_K_batched``,
-  ``tril_projection``, ``tril_projection_3pass``, ``tril_right``,
-  ``tril_right3``, ``tril_out`` and ``tril_out3`` route to the launcher
-  of the shape;
+  ``tril_projection_tma``, ``tril_projection_3pass_tma``,
+  ``tril_right_tma``, ``tril_right3_tma``, ``tril_out_tma``,
+  ``tril_out3_tma``) runs it on float32 CUDA tensors, counts its launches
+  in ``<launcher>.launches``, and refuses inputs that require grad: it
+  records no graph; ``rbf_K_batched`` routes to the RBF launcher of the
+  shape, and ``tril_projection``, ``tril_projection_3pass``,
+  ``tril_right``, ``tril_right3``, ``tril_out`` and ``tril_out3`` hand
+  their launcher the operands of ``_tma_operands`` and crop its result;
 * the plain version (``*_plain``) is what CPU tensors take and what the
   kernel is checked against on the card;
 * a custom operator (``hetmogp::rbf_K_batched``,
@@ -131,24 +128,15 @@ def _library() -> ctypes.CDLL:
         "hetmogp_empty_launch": [],
         # A, its row and plane strides, L, its strides, out; Q, N, M
         "hetmogp_tril_proj_strided_f32": strided + [ctypes.c_void_p] + shape,
-        "hetmogp_tril_proj_staged_f32": proj + [ctypes.c_int] + shape,
         "hetmogp_tril_proj3_f32": proj + [ctypes.c_void_p] * 2 + shape,
-        "hetmogp_tril_proj3_staged_f32": proj + [ctypes.c_int] + shape,
-        # A, L, out, partials, r; epilogue; Q, N, M
-        "hetmogp_tril_right_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int]
-        + shape,
+        # A, L, each with its strides; out, partials, r; epilogue; Q, N, M
         "hetmogp_tril_right_strided_f32": strided + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] + shape,
-        "hetmogp_tril_right_generic_f32": [ctypes.c_void_p] * 5
         + [ctypes.c_int] + shape,
         # A, L, out, partials; Q, N, M
         "hetmogp_tril_right3_f32": proj + [ctypes.c_void_p] + shape,
-        "hetmogp_tril_right3_generic_f32": proj + shape,
         # A, B, out, partials; Q, N, M
         "hetmogp_tril_out_f32": proj + [ctypes.c_void_p] + shape,
         "hetmogp_tril_out3_f32": proj + [ctypes.c_void_p] + shape,
-        "hetmogp_tril_out_generic_f32": proj + shape,
-        "hetmogp_tril_out3_generic_f32": proj + shape,
         # family, J; m, v, y; their row strides; nodes, w; S, N; value,
         # Ed1, Ed2
         "hetmogp_gh_sweep_f32": sweep,
@@ -177,7 +165,7 @@ def _library() -> ctypes.CDLL:
     lib.hetmogp_ve_tasks_blocks.argtypes = ([ctypes.c_void_p] * 2
                                             + [ctypes.c_int] * 2)
     lib.hetmogp_ve_tasks_blocks.restype = ctypes.c_longlong
-    lib.hetmogp_tril_right_partials.argtypes = [ctypes.c_int] * 2
+    lib.hetmogp_tril_right_partials.argtypes = [ctypes.c_int]
     lib.hetmogp_tril_right_partials.restype = ctypes.c_int
     lib.hetmogp_tril_right3_partials.argtypes = [ctypes.c_int] * 3
     lib.hetmogp_tril_right3_partials.restype = ctypes.c_longlong
@@ -504,23 +492,14 @@ class RBFCrossCovariance(torch.autograd.Function):
 
 # ---- triangular projection -------------------------------------------------
 #
-# Two kernels per precision, chosen by shape alone (``tril_route``): the
-# TMA-fed designs where TMA can address the operands (M % 4 == 0, rows of a
-# multiple of 16 bytes, and 16-byte-aligned bases: the main path's
-# M = 1024), the register-staged designs of the first port everywhere
-# else.  Each launcher counts its own launches; a failed launch raises, and
-# nothing falls back from one route to the other.  The TMA-fed float32
+# Each triangular product has one hand design per precision, fed by TMA,
+# which addresses rows of a multiple of 16 bytes from 16-byte-aligned bases.
+# Its router hands the launcher the operands of ``_tma_operands`` and crops
+# the result back to M; each launcher counts its own launches and refuses
+# operands TMA cannot address, and a failed launch raises.  The float32
 # designs of kernels A and 4 read A and L where they lie, through their row
 # and plane strides (the blocked factorization's panels and strips are
-# views of its (M, M) buffers); every other launcher, and a view TMA cannot
-# address, takes contiguous copies.
-
-def tril_route(M: int, aligned: bool) -> str:
-    """The kernel a float32 projection of depth ``M`` takes on the card:
-    ``"tma"`` when M % 4 == 0 and the operands start on 16-byte boundaries
-    (``aligned``), else ``"staged"``."""
-    return "tma" if aligned and M % 4 == 0 else "staged"
-
+# views of its (M, M) buffers); the others read contiguous operands.
 
 def _tma_strides(t: torch.Tensor):
     """(row, plane) strides, in elements, through which TMA reads the
@@ -537,58 +516,45 @@ def _tma_strides(t: torch.Tensor):
     return row, plane
 
 
-def _routed(A: torch.Tensor, L: torch.Tensor, tma, staged, *extra,
-            views: bool = False):
-    """Launch ``tma`` or ``staged`` by ``tril_route``.  With ``views`` (a
-    TMA launcher that takes strided operands) A and L reach it as they
-    are where TMA can address both; else both are copied to contiguous
-    tensors first."""
-    if (views and A.shape[-1] % 4 == 0 and _tma_strides(A) is not None
-            and _tma_strides(L) is not None):
-        return tma(A, L, *extra)
-    A, L = A.contiguous(), L.contiguous()
-    aligned = A.data_ptr() % 16 == 0 and L.data_ptr() % 16 == 0
-    launcher = tma if tril_route(A.shape[-1], aligned) == "tma" else staged
-    return launcher(A, L, *extra)
+def _tma_ready(t: torch.Tensor, views: bool) -> bool:
+    """Whether a TMA entry takes ``t`` as it is: a view TMA can address
+    (``_tma_strides``) for an entry that takes strides (``views``), else a
+    contiguous tensor on a 16-byte boundary."""
+    if views:
+        return _tma_strides(t) is not None
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def _tma_operands(A: torch.Tensor, X: torch.Tensor, square: bool,
+                  views: bool = False):
+    """(A, X) as a TMA entry takes them, for A (..., N, M) and X either L
+    (..., M, M; ``square``) or kernel 8's B (..., N, M).  With M % 4 == 0
+    each passes as it is where ``_tma_ready``, else as a contiguous copy
+    (a fresh allocation, 16-byte aligned).  Otherwise both are padded with
+    zeros to M' = 4 ceil(M / 4): zero columns of A and B, zero rows and
+    columns of L.  A zero operand adds +0 to every FMA chain, so the first
+    M columns of the padded product are the design's own arithmetic on the
+    unpadded operands; the router crops the rest (``_crop``)."""
+    pad = -A.shape[-1] % 4
+    if pad:
+        return (torch.nn.functional.pad(A, (0, pad)),
+                torch.nn.functional.pad(X, (0, pad, 0, pad if square else 0)))
+    return tuple(t if _tma_ready(t, views)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in (A, X))
+
+
+def _crop(out: torch.Tensor, M: int, square: bool = False) -> torch.Tensor:
+    """A padded product's first M columns (and rows, ``square``), as a
+    contiguous tensor; ``out`` itself where nothing was padded."""
+    if out.shape[-1] == M:
+        return out
+    return (out[..., :M, :M] if square else out[..., :M]).contiguous()
 
 
 def tril_projection_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel: A tril(L)^T, (..., N, M), (..., M, M)."""
     return A @ torch.tril(L).mT
-
-
-def _operands(A: torch.Tensor, L: torch.Tensor, views: bool):
-    """(A, L) as a launcher hands them on: with ``views`` each as it is
-    where TMA can address it (``_tma_strides``), else a contiguous copy;
-    and whether both then start on 16-byte boundaries with TMA-able
-    strides."""
-    if views:
-        A, L = (t if _tma_strides(t) is not None else t.contiguous()
-                for t in (A, L))
-        return A, L, all(_tma_strides(t) is not None for t in (A, L))
-    A, L = A.contiguous(), L.contiguous()
-    return A, L, all(t.data_ptr() % 16 == 0 for t in (A, L))
-
-
-def _tril_launch_args(wrapper, A: torch.Tensor, L: torch.Tensor,
-                      views: bool = False):
-    """Check (A, L) for the projection launcher ``wrapper``; return the
-    operands (``_operands``), the output, and whether the three are
-    16-byte aligned with M % 4 == 0."""
-    _check_tril_shapes(wrapper.__name__, A, L)
-    Q, N, M = A.shape
-    out = torch.empty((Q, N, M), dtype=torch.float32, device=A.device)
-    A, L, aligned = _operands(A, L, views)
-    aligned = aligned and M % 4 == 0 and out.data_ptr() % 16 == 0
-    return A, L, out, aligned
-
-
-def _pointers(A: torch.Tensor, L: torch.Tensor, strided: bool) -> tuple:
-    """A's and L's arguments to an entry: their pointers, each followed by
-    its row and plane strides for a strided entry."""
-    if not strided:
-        return A.data_ptr(), L.data_ptr()
-    return (A.data_ptr(), *_tma_strides(A), L.data_ptr(), *_tma_strides(L))
 
 
 def _check_tril_shapes(name: str, A: torch.Tensor, L: torch.Tensor) -> None:
@@ -601,6 +567,38 @@ def _check_tril_shapes(name: str, A: torch.Tensor, L: torch.Tensor) -> None:
     if Q > 65535 or N >= 2 ** 31 or M >= 2 ** 31:
         raise ValueError(f"shape out of the kernel's range: Q={Q}, N={N}, "
                          f"M={M} (Q <= 65535)")
+
+
+def _require_tma_operands(wrapper, tensors, views: bool = False) -> None:
+    """Refuse operands a TMA entry cannot take as they are: M % 4 != 0, or
+    one that is not ``_tma_ready``.  The routers bring every shape there
+    (``_tma_operands``)."""
+    M = tensors[0].shape[-1]
+    if M % 4 or not all(_tma_ready(t, views) for t in tensors):
+        raise ValueError(
+            f"{wrapper.__name__} takes M % 4 == 0 and operands TMA can "
+            f"address as they are (got M={M}, strides "
+            f"{[t.stride() for t in tensors]}); its router pads or copies "
+            "them there")
+
+
+def _product_output(wrapper, A: torch.Tensor, L: torch.Tensor,
+                     views: bool = False) -> torch.Tensor:
+    """Check (A, L) for the projection launcher ``wrapper`` and return its
+    (Q, N, M) output; an empty one needs no launch and takes any M."""
+    _check_tril_shapes(wrapper.__name__, A, L)
+    out = torch.empty(A.shape, dtype=torch.float32, device=A.device)
+    if out.numel():
+        _require_tma_operands(wrapper, (A, L), views)
+    return out
+
+
+def _pointers(A: torch.Tensor, L: torch.Tensor, strided: bool) -> tuple:
+    """A's and L's arguments to an entry: their pointers, each followed by
+    its row and plane strides for a strided entry."""
+    if not strided:
+        return A.data_ptr(), L.data_ptr()
+    return (A.data_ptr(), *_tma_strides(A), L.data_ptr(), *_tma_strides(L))
 
 
 def _launch(wrapper, entry: str, A, L, out, *extra,
@@ -619,26 +617,15 @@ def _launch(wrapper, entry: str, A, L, out, *extra,
     return out
 
 
-def _require_tma(wrapper, aligned: bool, M: int) -> None:
-    if tril_route(M, aligned) != "tma":
-        raise ValueError(
-            f"{wrapper.__name__} takes M % 4 == 0 and 16-byte-aligned "
-            f"operands (got M={M}); tril_route sends other shapes to the "
-            "staged kernel")
-
-
 def tril_projection_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """Kernel A's TMA-fed design (``hetmogp_tril_proj_strided_f32``):
-    A tril(L)^T in full float32 for M % 4 == 0 and 16-byte-aligned
-    operands, each read where it lies when TMA can address it
-    (``_tma_strides``: a row-strided view of a wider array), else from a
-    contiguous copy.  Counts its launches in
+    """Kernel A (``hetmogp_tril_proj_strided_f32``): A tril(L)^T in full
+    float32 for M % 4 == 0, A and L each read where it lies through its
+    row and plane strides (``_tma_strides``: a row-strided view of a wider
+    array passes).  Counts its launches in
     ``tril_projection_tma.launches``."""
-    A, L, out, aligned = _tril_launch_args(tril_projection_tma, A, L,
-                                           views=True)
+    out = _product_output(tril_projection_tma, A, L, views=True)
     if out.numel() == 0:
         return out
-    _require_tma(tril_projection_tma, aligned, A.shape[-1])
     return _launch(tril_projection_tma, "hetmogp_tril_proj_strided_f32", A,
                    L, out, strided=True)
 
@@ -646,31 +633,17 @@ def tril_projection_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
 tril_projection_tma.launches = 0
 
 
-def tril_projection_staged(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """Kernel A's register-staged design (``hetmogp_tril_proj_staged_f32``),
-    for any shape.  Counts its launches in
-    ``tril_projection_staged.launches``."""
-    A, L, out, aligned = _tril_launch_args(tril_projection_staged, A, L)
-    if out.numel() == 0:
-        return out
-    return _launch(tril_projection_staged, "hetmogp_tril_proj_staged_f32", A,
-                   L, out, int(aligned))
-
-
-tril_projection_staged.launches = 0
-
-
 def tril_projection(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] on the card.
 
     A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
     upper entries are not read.  Full float32 (no TF32): one FMA chain per
-    output in increasing m.  Routed by ``tril_route`` to
-    ``tril_projection_tma`` or ``tril_projection_staged``; launches on the
-    current stream and does not synchronise.
+    output in increasing m.  ``tril_projection_tma`` on the operands of
+    ``_tma_operands``, cropped to M; launches on the current stream and
+    does not synchronise.
     """
-    return _routed(A, L, tril_projection_tma, tril_projection_staged,
-                   views=True)
+    operands = _tma_operands(A, L, square=True, views=True)
+    return _crop(tril_projection_tma(*operands), A.shape[-1])
 
 
 def _backward_tril(ctx, g, precision="highest"):
@@ -749,14 +722,13 @@ def _bf16_scratch(A: torch.Tensor):
 def tril_projection_3pass_tma(A: torch.Tensor,
                               L: torch.Tensor) -> torch.Tensor:
     """Kernel 3's wgmma and TMA design (``hetmogp_tril_proj3_f32``) for
-    M % 4 == 0 and 16-byte-aligned operands.  Its pre-pass writes
-    ``tril_split_bf16_plain(L)`` into two scratch arrays taken with
+    M % 4 == 0 and contiguous, 16-byte-aligned operands.  Its pre-pass
+    writes ``tril_split_bf16_plain(L)`` into two scratch arrays taken with
     ``torch.empty`` (from the graph's pool under capture).  Counts its
     launches in ``tril_projection_3pass_tma.launches``."""
-    A, L, out, aligned = _tril_launch_args(tril_projection_3pass_tma, A, L)
+    out = _product_output(tril_projection_3pass_tma, A, L)
     if out.numel() == 0:
         return out
-    _require_tma(tril_projection_3pass_tma, aligned, A.shape[-1])
     lhi, llo = _bf16_scratch(A)
     return _launch(tril_projection_3pass_tma, "hetmogp_tril_proj3_f32", A, L,
                    out, lhi.data_ptr(), llo.data_ptr())
@@ -765,33 +737,18 @@ def tril_projection_3pass_tma(A: torch.Tensor,
 tril_projection_3pass_tma.launches = 0
 
 
-def tril_projection_3pass_staged(A: torch.Tensor,
-                                 L: torch.Tensor) -> torch.Tensor:
-    """Kernel 3's register-staged mma.sync design
-    (``hetmogp_tril_proj3_staged_f32``), for any shape.  Counts its
-    launches in ``tril_projection_3pass_staged.launches``."""
-    A, L, out, aligned = _tril_launch_args(tril_projection_3pass_staged, A, L)
-    if out.numel() == 0:
-        return out
-    return _launch(tril_projection_3pass_staged,
-                   "hetmogp_tril_proj3_staged_f32", A, L, out, int(aligned))
-
-
-tril_projection_3pass_staged.launches = 0
-
-
 def tril_projection_3pass(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """out[q, n, k] = sum_{m <= k} A[q, n, m] L[q, k, m] on the card's
     tensor cores, as lo*hi + hi*lo + hi*hi bf16 products of the bit-mask
     split with float32 accumulation (``ve_fwd_precision="high"``).
 
     A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
-    upper entries are not read.  Routed by ``tril_route`` to
-    ``tril_projection_3pass_tma`` or ``tril_projection_3pass_staged``;
-    launches on the current stream and does not synchronise.
+    upper entries are not read.  ``tril_projection_3pass_tma`` on the
+    operands of ``_tma_operands``, cropped to M; launches on the current
+    stream and does not synchronise.
     """
-    return _routed(A, L, tril_projection_3pass_tma,
-                   tril_projection_3pass_staged)
+    operands = _tma_operands(A, L, square=True)
+    return _crop(tril_projection_3pass_tma(*operands), A.shape[-1])
 
 
 class TrilProjection3Pass(torch.autograd.Function):
@@ -817,10 +774,8 @@ class TrilProjection3Pass(torch.autograd.Function):
 #
 # Kernel 4 (csrc/tril_right_kernel.cu) in float32, with three epilogues
 # (the product; the product and quad_diag's row sum of squares; the row
-# sum alone), and kernel 5 (csrc/tril_right3_kernel.cu, its generic route
-# in csrc/tril_proj3_kernel.cu) in three bf16 passes.  Each has a TMA-fed route
-# and a generic one, chosen by ``tril_route`` ("tma", else the generic
-# kernel); each launcher counts its own launches, and nothing falls back.
+# sum alone), and kernel 5 (csrc/tril_right3_kernel.cu) in three bf16
+# passes, each reached through ``_tma_operands`` as the projections are.
 
 EPILOGUES = {"product": 0, "both": 1, "rowsum": 2}
 
@@ -858,16 +813,15 @@ def matmul_tril_3pass_plain(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     return (alo @ lhi + ahi @ llo) + ahi @ lhi
 
 
-def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
-    """Check (A, L), launch kernel 4's ``entry`` with ``epilogue`` on the
-    current stream and count the launch on ``wrapper``.  Returns the
-    product, (product, row sums) or the row sums."""
+def _right_launch(wrapper, entry: str, A, L, epilogue: str):
+    """Check (A, L), launch kernel 4's strided ``entry`` with ``epilogue``
+    on the current stream and count the launch on ``wrapper``.  Returns
+    the product, (product, row sums) or the row sums."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {tuple(EPILOGUES)}, got "
                          f"{epilogue!r}")
     _check_tril_shapes(wrapper.__name__, A, L)
     Q, N, M = A.shape
-    A, L, aligned = _operands(A, L, views=tma)
     new = functools.partial(torch.empty, dtype=torch.float32,
                             device=A.device)
     out = new((Q, N, M)) if epilogue != "rowsum" else None
@@ -877,19 +831,16 @@ def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
         if r is not None:
             r.zero_()
         return result
-    aligned = aligned and M % 4 == 0 and (out is None
-                                          or out.data_ptr() % 16 == 0)
-    if tma:
-        _require_tma(wrapper, aligned, M)
+    _require_tma_operands(wrapper, (A, L), views=True)
     lib = _library()
     # the row sums' per-tile partials, added by the entry's second launch
     part = (None if r is None
-            else new((Q, N, lib.hetmogp_tril_right_partials(M, int(tma)))))
+            else new((Q, N, lib.hetmogp_tril_right_partials(M))))
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = getattr(lib, entry)(
-            *_pointers(A, L, tma), *(None if t is None else t.data_ptr()
-                                     for t in (out, part, r)),
+            *_pointers(A, L, True), *(None if t is None else t.data_ptr()
+                                      for t in (out, part, r)),
             EPILOGUES[epilogue], Q, N, M, stream)
     _raise_on(err, wrapper.__name__)
     wrapper.launches += 1
@@ -898,30 +849,18 @@ def _right_launch(wrapper, entry: str, A, L, epilogue: str, tma: bool):
 
 def tril_right_tma(A: torch.Tensor, L: torch.Tensor,
                    epilogue: str = "product"):
-    """Kernel 4's TMA-fed design (``hetmogp_tril_right_strided_f32``) for
-    M % 4 == 0 and 16-byte-aligned operands, each read where it lies when
-    TMA can address it (``_tma_strides``), else from a contiguous copy:
-    A tril(L) in full float32, and with ``epilogue="both"`` or
-    ``"rowsum"`` its row sums of squares (the second launch of the entry
-    adds the per-tile partials).  Counts its launches in
+    """Kernel 4 (``hetmogp_tril_right_strided_f32``) for M % 4 == 0, A and
+    L each read where it lies through its row and plane strides
+    (``_tma_strides``): A tril(L) in full float32, and with
+    ``epilogue="both"`` or ``"rowsum"`` its row sums of squares (the
+    second launch of the entry adds the per-tile partials).  Returns the
+    product, (product, row sums) or the row sums.  Counts its launches in
     ``tril_right_tma.launches``."""
     return _right_launch(tril_right_tma, "hetmogp_tril_right_strided_f32",
-                         A, L, epilogue, tma=True)
+                         A, L, epilogue)
 
 
 tril_right_tma.launches = 0
-
-
-def tril_right_generic(A: torch.Tensor, L: torch.Tensor,
-                       epilogue: str = "product"):
-    """Kernel 4's generic design (``hetmogp_tril_right_generic_f32``), for
-    any shape, with the same epilogues.  Counts its launches in
-    ``tril_right_generic.launches``."""
-    return _right_launch(tril_right_generic, "hetmogp_tril_right_generic_f32",
-                         A, L, epilogue, tma=False)
-
-
-tril_right_generic.launches = 0
 
 
 def tril_right(A: torch.Tensor, L: torch.Tensor, epilogue: str = "product"):
@@ -931,28 +870,32 @@ def tril_right(A: torch.Tensor, L: torch.Tensor, epilogue: str = "product"):
 
     A: (Q, N, M), L: (Q, M, M), float32 on one CUDA device; L's strictly
     upper entries are not read.  Full float32 (no TF32): one FMA chain per
-    output in increasing m.  Routed by ``tril_route`` to
-    ``tril_right_tma`` or ``tril_right_generic``; launches on the current
-    stream and does not synchronise.
+    output in increasing m.  ``tril_right_tma`` on the operands of
+    ``_tma_operands``, the product cropped to M (the padded columns add
+    exact zeros to the row sums); launches on the current stream and does
+    not synchronise.
     """
-    return _routed(A, L, tril_right_tma, tril_right_generic, epilogue,
-                   views=True)
+    M = A.shape[-1]
+    operands = _tma_operands(A, L, square=True, views=True)
+    result = tril_right_tma(*operands, epilogue)
+    if epilogue == "both":
+        return _crop(result[0], M), result[1]
+    return result if epilogue == "rowsum" else _crop(result, M)
 
 
 def tril_right3_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """Kernel 5's wgmma and TMA design (``hetmogp_tril_right3_f32``,
     ``csrc/tril_right3_kernel.cu``): A tril(L) in three bf16 passes for
-    M % 4 == 0 and 16-byte-aligned operands.  L arrives as float32 and is
-    split in shared memory: no pre-pass, no bf16 scratch.  Where its
-    schedule runs column tile 0's reduction as two parts on two blocks,
-    a float32 scratch of ``hetmogp_tril_right3_partials`` floats
+    M % 4 == 0 and contiguous, 16-byte-aligned operands.  L arrives as
+    float32 and is split in shared memory: no pre-pass, no bf16 scratch.
+    Where its schedule runs column tile 0's reduction as two parts on two
+    blocks, a float32 scratch of ``hetmogp_tril_right3_partials`` floats
     (``torch.empty``; the graph's pool under capture) carries one part's
     sum to the other.  Counts its launches in
     ``tril_right3_tma.launches``."""
-    A, L, out, aligned = _tril_launch_args(tril_right3_tma, A, L)
+    out = _product_output(tril_right3_tma, A, L)
     if out.numel() == 0:
         return out
-    _require_tma(tril_right3_tma, aligned, A.shape[-1])
     floats = _library().hetmogp_tril_right3_partials(*A.shape)
     part = (torch.empty(floats, dtype=torch.float32, device=A.device)
             if floats else None)
@@ -963,25 +906,14 @@ def tril_right3_tma(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
 tril_right3_tma.launches = 0
 
 
-def tril_right3_generic(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """Kernel 5's generic design (``hetmogp_tril_right3_generic_f32``), for
-    any shape.  Counts its launches in ``tril_right3_generic.launches``."""
-    A, L, out, _ = _tril_launch_args(tril_right3_generic, A, L)
-    if out.numel() == 0:
-        return out
-    return _launch(tril_right3_generic, "hetmogp_tril_right3_generic_f32", A,
-                   L, out)
-
-
-tril_right3_generic.launches = 0
-
-
 def tril_right3(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """A tril(L) on the card's tensor cores in three bf16 passes of the
     bit-mask split (lo*hi + hi*lo + hi*hi, float32 accumulation): the
-    VM step's adjoint products at ``ve_fwd_precision="high"``.  Routed by
-    ``tril_route`` to ``tril_right3_tma`` or ``tril_right3_generic``."""
-    return _routed(A, L, tril_right3_tma, tril_right3_generic)
+    VM step's adjoint products at ``ve_fwd_precision="high"``.
+    ``tril_right3_tma`` on the operands of ``_tma_operands``, cropped to
+    M."""
+    operands = _tma_operands(A, L, square=True)
+    return _crop(tril_right3_tma(*operands), A.shape[-1])
 
 
 def _backward_right(ctx, g, precision="highest"):
@@ -1057,16 +989,8 @@ class QuadDiag(torch.autograd.Function):
 # ---- kernel 8: tril(A^T B), the lower tiles only ---------------------------
 #
 # csrc/tril_out_kernel.cu in float32 FFMA ("highest") and in three bf16
-# wgmma passes ("high"), each with a TMA-fed route and a generic one,
-# chosen by ``tril_out_route``; each launcher counts its own launches, and
-# nothing falls back.
-
-def tril_out_route(M: int, aligned: bool) -> str:
-    """The kernel a tril(A^T B) of ``M`` columns takes on the card:
-    ``"tma"`` when M % 4 == 0 and the operands start on 16-byte
-    boundaries (``aligned``), else ``"generic"``: ``tril_route``'s rule,
-    which ``_routed`` applies."""
-    return "tma" if tril_route(M, aligned) == "tma" else "generic"
+# wgmma passes ("high"), each reached through ``_tma_operands`` as the
+# projections are.
 
 
 def t_matmul_tril_out_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -1100,11 +1024,9 @@ def _tril_out_op(A: torch.Tensor, B: torch.Tensor,
     return op(A, B)
 
 
-def _out_launch(wrapper, entry: str, A, B, tma: bool,
-                three: bool) -> torch.Tensor:
-    """Check (A, B), launch kernel 8's ``entry`` (TMA-fed or generic,
-    float32 or three passes) on the current stream and count the launch
-    on ``wrapper``."""
+def _out_launch(wrapper, entry: str, A, B, three: bool) -> torch.Tensor:
+    """Check (A, B), launch kernel 8's ``entry`` (float32 or three passes)
+    on the current stream and count the launch on ``wrapper``."""
     name = wrapper.__name__
     _check_launch_inputs(name, (A, B))
     if A.ndim != 3 or B.shape != A.shape:
@@ -1114,31 +1036,23 @@ def _out_launch(wrapper, entry: str, A, B, tma: bool,
     if Q > 65535 or N >= 2 ** 31 or M >= 2 ** 31:
         raise ValueError(f"shape out of the kernel's range: Q={Q}, N={N}, "
                          f"M={M} (Q <= 65535)")
-    A, B = A.contiguous(), B.contiguous()
     out = torch.empty((Q, M, M), dtype=torch.float32, device=A.device)
     if out.numel() == 0:
         return out
     if N == 0:  # a sum over no rows
         return out.zero_()
-    aligned = M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (A, B, out))
+    _require_tma_operands(wrapper, (A, B))
     lib = _library()
-    extra = ()
-    if tma:
-        if tril_out_route(M, aligned) != "tma":
-            raise ValueError(
-                f"{name} takes M % 4 == 0 and 16-byte-aligned operands (got "
-                f"M={M}); tril_out_route sends other shapes to the generic "
-                "kernel")
-        # the last turn's split partials (torch.empty: the graph's pool
-        # under capture)
-        floats = lib.hetmogp_tril_out_partials(Q, N, M, int(three))
-        part = (torch.empty(floats, dtype=torch.float32, device=A.device)
-                if floats else None)
-        extra = (None if part is None else part.data_ptr(),)
+    # the last turn's split partials (torch.empty: the graph's pool under
+    # capture)
+    floats = lib.hetmogp_tril_out_partials(Q, N, M, int(three))
+    part = (torch.empty(floats, dtype=torch.float32, device=A.device)
+            if floats else None)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = getattr(lib, entry)(A.data_ptr(), B.data_ptr(), out.data_ptr(),
-                                  *extra, Q, N, M, stream)
+                                  None if part is None else part.data_ptr(),
+                                  Q, N, M, stream)
     _raise_on(err, name)
     wrapper.launches += 1
     return out
@@ -1147,52 +1061,31 @@ def _out_launch(wrapper, entry: str, A, B, tma: bool,
 def tril_out_tma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Kernel 8's FFMA design (``hetmogp_tril_out_f32``,
     ``csrc/tril_out_kernel.cu``): tril(A^T B) in full float32 for
-    M % 4 == 0 and 16-byte-aligned operands, only the lower tiles formed.
-    Where its schedule cuts the last turn's tiles into parts, a float32
-    scratch of ``hetmogp_tril_out_partials`` floats, a tile for each
-    part, carries the parts' sums to the parts that reduce the tile, each
-    its own share.  Counts its launches in ``tril_out_tma.launches``."""
-    return _out_launch(tril_out_tma, "hetmogp_tril_out_f32", A, B, tma=True,
+    M % 4 == 0 and contiguous, 16-byte-aligned operands, only the lower
+    tiles formed.  Where its schedule cuts the last turn's tiles into
+    parts, a float32 scratch of ``hetmogp_tril_out_partials`` floats, a
+    tile for each part, carries the parts' sums to the parts that reduce
+    the tile, each its own share.  Counts its launches in
+    ``tril_out_tma.launches``."""
+    return _out_launch(tril_out_tma, "hetmogp_tril_out_f32", A, B,
                        three=False)
 
 
 tril_out_tma.launches = 0
 
 
-def tril_out_generic(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Kernel 8's generic design in float32
-    (``hetmogp_tril_out_generic_f32``), for any shape.  Counts its
-    launches in ``tril_out_generic.launches``."""
-    return _out_launch(tril_out_generic, "hetmogp_tril_out_generic_f32", A,
-                       B, tma=False, three=False)
-
-
-tril_out_generic.launches = 0
-
-
 def tril_out3_tma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Kernel 8's wgmma design (``hetmogp_tril_out3_f32``): tril(A^T B) in
-    three bf16 passes of the bit-mask split for M % 4 == 0 and
+    three bf16 passes of the bit-mask split for M % 4 == 0 and contiguous,
     16-byte-aligned operands; both operands arrive as float32, A is split
     in the consumers' registers and B in shared memory; the parts of split
     tiles meet as in ``tril_out_tma``.  Counts its launches in
     ``tril_out3_tma.launches``."""
     return _out_launch(tril_out3_tma, "hetmogp_tril_out3_f32", A, B,
-                       tma=True, three=True)
+                       three=True)
 
 
 tril_out3_tma.launches = 0
-
-
-def tril_out3_generic(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Kernel 8's generic design in three passes
-    (``hetmogp_tril_out3_generic_f32``), for any shape.  Counts its
-    launches in ``tril_out3_generic.launches``."""
-    return _out_launch(tril_out3_generic, "hetmogp_tril_out3_generic_f32",
-                       A, B, tma=False, three=True)
-
-
-tril_out3_generic.launches = 0
 
 
 def tril_out(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -1200,20 +1093,21 @@ def tril_out(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     zeros above the diagonal, on the card (deterministic: no atomics).
 
     A, B: (Q, N, M) float32 on one CUDA device.  Full float32 (no TF32).
-    Routed by ``tril_out_route`` to ``tril_out_tma`` or
-    ``tril_out_generic``; launches on the current stream and does not
-    synchronise.  The CUDA implementation of the operator
-    ``hetmogp::t_matmul_tril_out``.
+    ``tril_out_tma`` on the operands of ``_tma_operands``, cropped to
+    (M, M); launches on the current stream and does not synchronise.  The
+    CUDA implementation of the operator ``hetmogp::t_matmul_tril_out``.
     """
-    return _routed(A, B, tril_out_tma, tril_out_generic)
+    operands = _tma_operands(A, B, square=False)
+    return _crop(tril_out_tma(*operands), A.shape[-1], square=True)
 
 
 def tril_out3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """tril(A^T B) on the card's tensor cores in three bf16 passes of the
     bit-mask split (lo*hi + hi*lo + hi*hi, float32 accumulation): the
-    backward's L cotangents at ``"high"``.  Routed by ``tril_out_route``
-    to ``tril_out3_tma`` or ``tril_out3_generic``."""
-    return _routed(A, B, tril_out3_tma, tril_out3_generic)
+    backward's L cotangents at ``"high"``.  ``tril_out3_tma`` on the
+    operands of ``_tma_operands``, cropped to (M, M)."""
+    operands = _tma_operands(A, B, square=False)
+    return _crop(tril_out3_tma(*operands), A.shape[-1], square=True)
 
 
 # ---- kernel 6: the one-pass Gauss-Hermite sweep -----------------------------
@@ -1816,13 +1710,10 @@ _register("t_matmul_tril_out_3pass", t_matmul_tril_out_3pass_plain,
 
 
 _LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,
-              tril_projection_staged, tril_projection_3pass_tma,
-              tril_projection_3pass_staged, tril_right_tma,
-              tril_right_generic, tril_right3_tma, tril_right3_generic,
-              tril_out_tma, tril_out_generic, tril_out3_tma,
-              tril_out3_generic, gh_sweep, gh_sweep_value, task_var_exp,
-              task_var_exp_value, task_var_exp_backward, adam_update,
-              chol_panel)
+              tril_projection_3pass_tma, tril_right_tma, tril_right3_tma,
+              tril_out_tma, tril_out3_tma, gh_sweep, gh_sweep_value,
+              task_var_exp, task_var_exp_value, task_var_exp_backward,
+              adam_update, chol_panel)
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,7 @@
 """Probe of kernel 8 (tril(A^T B)) on one H100.
 
     python3 -m hetmogp_tpu_torch.probes.tril_out [--against DIR ...]
-        [--shapes VE,VM,ragged]
+        [--shapes VE,VM]
 
 Builds ``csrc/tril_out_kernel.cu`` of this checkout ("this") and of each
 checkout given with ``--against`` (another commit unpacked with ``git
@@ -20,14 +20,13 @@ source has them, a second library with the probe stamps compiled in
 * ``clocks.sm`` and the power draw that ``nvidia-smi`` samples while each
   design runs back to back at the VE shape.
 
-Then, at the VE (4, 3072, 1024) and VM (4, 768, 1024) shapes, and the
-ragged VM shape (4, 768, 777), which only the generic routes take
-(``--shapes``), it holds every build's routes to ``chip_smoke.py``'s
+Then, at the VE (4, 3072, 1024) and VM (4, 768, 1024) shapes
+(``--shapes``), it holds every build's designs to ``chip_smoke.py``'s
 bounds (float32: 4x the plain float32 product's error against float64
 plus 1e-6; three passes: 16x the plain 3-pass product's error against the
 float64 product of the split operands), exact zeros above the diagonal
 and REPEAT launches bitwise equal (a tile map of what is off where a
-check fails); times every build's routes, cuBLAS's
+check fails); times every build's designs, cuBLAS's
 dense A^T B and mask, in turns there and back behind a device sleep
 (median, min and max of the calls, TFLOP/s and the share of the bound),
 and says whether every call of this checkout's TMA design was faster
@@ -69,10 +68,7 @@ HERE = Path(__file__).resolve().parents[2]
 SOURCE = "tril_out_kernel.cu"
 KERNELS = {"f32": "tril_out_tma_kernel", "3pass": "tril_out3_tma_kernel"}
 ENTRIES = {"f32": "hetmogp_tril_out_f32", "3pass": "hetmogp_tril_out3_f32"}
-GENERIC = {"f32": "hetmogp_tril_out_generic_f32",
-           "3pass": "hetmogp_tril_out3_generic_f32"}
-SHAPES = {"VE": (4, 3072, 1024), "VM": (4, 768, 1024),
-          "ragged": (4, 768, 777)}
+SHAPES = {"VE": (4, 3072, 1024), "VM": (4, 768, 1024)}
 OUT_VS_PLAIN, OUT_ABS, PROJ3_VS_PLAIN = 4.0, 1e-6, 16.0  # chip_smoke.py
 REPEAT = 20  # launches of each design held bitwise equal
 # tril_out_kernel.cu's k8s::Stamp, in order (16 a block)
@@ -105,18 +101,13 @@ class Build:
     def __init__(self, lib: Path):
         so = ctypes.CDLL(str(lib))
         self.lib = so
-        self.tma, self.generic = {}, {}
+        self.tma = {}
         for design in ENTRIES:
             fn = getattr(so, ENTRIES[design])
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self.tma[design] = fn
-            fn = getattr(so, GENERIC[design])
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self.generic[design] = fn
         so.hetmogp_tril_out_partials.argtypes = [ctypes.c_int] * 4
         so.hetmogp_tril_out_partials.restype = ctypes.c_longlong
         so.hetmogp_tril_out_schedule.argtypes = ([ctypes.c_int] * 5
@@ -284,23 +275,17 @@ def main() -> int:
     mhz = {}
     for shape_name in args.shapes.split(","):
         Q, N, M = SHAPES[shape_name]
-        tma = M % 4 == 0
         A = torch.randn(Q, N, M, generator=gen, device="cuda")
         B = torch.randn(Q, N, M, generator=gen, device="cuda")
         out = torch.empty(Q, M, M, device="cuda")
         scratch = {(n, d): b.scratch(d, Q, N, M) for n, b in builds.items()
                    for d in ENTRIES}
 
-        def call(n, design, generic=not tma):
-            b = builds[n]
-            if generic:
-                err = b.generic[design](A.data_ptr(), B.data_ptr(),
-                                        out.data_ptr(), Q, N, M, stream())
-            else:
-                err = b.tma[design](A.data_ptr(), B.data_ptr(),
-                                    out.data_ptr(),
-                                    scratch[n, design].data_ptr(), Q, N, M,
-                                    stream())
+        def call(n, design):
+            err = builds[n].tma[design](A.data_ptr(), B.data_ptr(),
+                                        out.data_ptr(),
+                                        scratch[n, design].data_ptr(), Q, N,
+                                        M, stream())
             if err:
                 raise RuntimeError(f"{n}, {design}: CUDA error {err}")
 
@@ -336,11 +321,10 @@ def main() -> int:
                              f"{OUT_VS_PLAIN:g}x + {OUT_ABS:g})")
                 ok = ok and twice and zeros
                 failed |= not ok
-                print(f"{shape_name}, {n}, {design}"
-                      f"{'' if tma else ' (generic)'}: {bound}; zeros "
+                print(f"{shape_name}, {n}, {design}: {bound}; zeros "
                       f"above the diagonal {zeros}; {REPEAT} launches "
                       f"bitwise equal {twice}: {'ok' if ok else 'FAILED'}")
-                if not ok and tma:
+                if not ok:
                     want = plain3 if design == "3pass" else plain
                     tiles_off(got, out, want, builds[n], design, Q, N, M,
                               f"{shape_name}, {n}, {design}")
@@ -364,8 +348,7 @@ def main() -> int:
               f"[card: {smi}]")
         for (n, d), v in samples.items():
             ms = statistics.median(v)
-            print(f"  {n:>12s} {d:5s}{'' if tma or n == 'cuBLAS' else ' generic'}"
-                  f" {ms:.4f} ms (min {min(v):.4f}, max {max(v):.4f}, "
+            print(f"  {n:>12s} {d:5s} {ms:.4f} ms (min {min(v):.4f}, max {max(v):.4f}, "
                   f"{len(v)} calls), {flop / ms / 1e9:.2f} TFLOP/s a pass, "
                   f"{bounds[d][0] / ms * 100:.1f}% of the bound "
                   f"[card: {smi}]")
@@ -379,9 +362,6 @@ def main() -> int:
                       f"median {statistics.median(mine):.4f} against "
                       f"{statistics.median(theirs):.4f} ms "
                       f"({(statistics.median(mine) / statistics.median(theirs) - 1) * 100:+.1f}%)")
-        if not tma:
-            del A, B, out, scratch
-            continue
         if shape_name == "VE":
             for n in builds:
                 for d in ENTRIES:

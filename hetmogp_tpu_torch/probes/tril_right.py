@@ -20,16 +20,15 @@ Then, at the VE (4, 3072, 1024), VM (4, 768, 1024), serving
 (4, 65536, 1024) and adjoint (4, 1024, 1024) shapes (``--shapes``,
 comma-separated names) and in each epilogue, it holds every build's
 product bitwise against cuBLAS's ``A @ tril(L)`` and its row sums against
-float64, compares each build's generic route ("both") bitwise with this
-checkout's, and times the builds, cuBLAS (and cuBLAS then square and sum) in
+float64, and times the builds, cuBLAS (and cuBLAS then square and sum) in
 turns there and back behind a device sleep: median, min and max, TFLOP/s
 and each time's share of the float32 bound.  Last, the static schedule's
 balance at each shape: the work of the busiest block over the mean.
 
 ``--same-sass`` also builds ``csrc/tril_proj_kernel.cu`` and
 ``csrc/tril_proj3_kernel.cu`` (kernel A, kernel 3 and its split pre-pass,
-which share ``tril_tma.cuh`` and ``tril_tiles.cuh`` with kernel 4, and
-kernel 5's generic route) of every checkout and prints, function by
+which share ``tril_tma.cuh`` and ``tril_tiles.cuh`` with kernel 4) of
+every checkout and prints, function by
 function, whether each one's SASS is the same as this checkout's
 (``same_sass``).
 
@@ -86,14 +85,14 @@ def start_build(name: str, tree: Path, source: str):
 
 
 def load(lib: Path):
-    """The library's (TMA-fed, generic) entries."""
-    so = ctypes.CDLL(str(lib))
-    fns = (so.hetmogp_tril_right_f32, so.hetmogp_tril_right_generic_f32)
-    for fn in fns:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fns
+    """The library's entry: A and L, each with its row and plane strides;
+    out, partials, r; epilogue; Q, N, M; the stream."""
+    fn = ctypes.CDLL(str(lib)).hetmogp_tril_right_strided_f32
+    fn.argtypes = (([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 2
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def ptxas_lines(log: str) -> list:
@@ -103,9 +102,8 @@ def ptxas_lines(log: str) -> list:
         if "entry function" in line:
             kernel = re.search(r"'([^']+)'", line)
             kernel = kernel.group(1) if kernel else line.strip()
-            kernel = next((k for k in (KERNEL, "tril_right_generic_kernel",
-                                       "row_sum_kernel") if k in kernel),
-                          kernel)
+            kernel = next((k for k in (KERNEL, "row_sum_kernel")
+                           if k in kernel), kernel)
         elif kernel and ("registers" in line or "spill" in line):
             rows.append((kernel, line.strip()))
     return rows
@@ -276,7 +274,7 @@ def main() -> int:
     t0 = time.perf_counter()
     jobs = {(n, src): start_build(n, tree, src)
             for n, tree in trees.items() for src in sources}
-    fns, generic, listings, failed = {}, {}, {}, False
+    fns, listings, failed = {}, {}, False
     for (n, src), (lib, proc) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -286,7 +284,7 @@ def main() -> int:
         listings[n, src] = sass(lib)
         if src != SOURCE:
             continue
-        fns[n], generic[n] = load(lib)
+        fns[n] = load(lib)
         for kernel, line in ptxas_lines(log):
             print(f"{n}: ptxas, {kernel}: {line} [card: {smi}]")
         for i, mix in enumerate(sass_loops(listings[n, src], KERNEL)[:3]):
@@ -310,13 +308,14 @@ def main() -> int:
              / M ** 0.5 + 2.0 * torch.eye(M, device="cuda"))
         Lt = torch.tril(L)
         out = torch.empty(Q, N, M, device="cuda")
-        # partials: at most one per 32 columns in either design
+        # partials: one per 32 columns
         part = torch.empty(Q, N, -(-M // 32), device="cuda")
         r = torch.empty(Q, N, device="cuda")
 
         def call(fn, mode):
-            err = fn(A.data_ptr(), L.data_ptr(), out.data_ptr(),
-                     part.data_ptr(), r.data_ptr(), mode, Q, N, M, stream())
+            err = fn(A.data_ptr(), M, N * M, L.data_ptr(), M, M * M,
+                     out.data_ptr(), part.data_ptr(), r.data_ptr(), mode, Q,
+                     N, M, stream())
             if err:
                 raise RuntimeError(f"CUDA error {err}")
 
@@ -328,16 +327,6 @@ def main() -> int:
         e_cub = float((cub.double() - ref).abs().max()) / scale
         e_cub_r = float(((cub_r.double() - ref_r).abs().max())
                         / ref_r.abs().max())
-        first_g = None
-        for n, fn in generic.items():
-            call(fn, 1)
-            if first_g is None:
-                first_g = (n, out.clone(), r.clone())
-            print(f"{shape_name}, {n}: generic route \"both\" bitwise "
-                  f"{first_g[0]}'s: product {torch.equal(out, first_g[1])}, "
-                  f"row sums {torch.equal(r, first_g[2])}; product bitwise "
-                  f"cuBLAS {torch.equal(out, cub)}")
-        del first_g
         first_r = None
         for n, fn in fns.items():
             call(fn, 0)

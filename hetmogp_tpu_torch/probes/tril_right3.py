@@ -10,8 +10,7 @@ directory) into one shared library each, with ``nvcc`` at the package's
 flags: ``csrc/tril_right3_kernel.cu`` where the checkout has it (its entry
 takes a partial-sum scratch), else the TMA design that
 ``csrc/tril_proj3_kernel.cu`` held before it (its entry runs the split
-pre-pass into two bf16 scratch arrays first), and, for the generic route,
-``csrc/tril_proj3_kernel.cu``.  For each build it prints:
+pre-pass into two bf16 scratch arrays first).  For each build it prints:
 
 * ``ptxas -v``'s registers, spills and shared memory of every kernel, and
   any warning of ptxas about ``wgmma`` (serialized products);
@@ -27,15 +26,14 @@ holds every build against the plain 3-pass version and float64 (the
 bounds of ``chip_smoke.py``'s ``right_products_phase``: 16x the plain
 version's error against the float64 product of the split operands, 1/16
 of a 1-pass bf16 product's against the unsplit one), two launches bitwise
-equal, and every build's generic route bitwise this checkout's; and times
-the builds and the plain version in turns there and back behind a device
+equal; and times the builds and the plain version in turns there and back behind a device
 sleep: median, min and max of the calls, TFLOP/s and the share of the bf16
 bound.  Last, each build's static schedule at the shape on 132 SMs:
 blocks, the busiest block's stages over the mean.
 
 ``--same-sass`` also builds ``csrc/tril_proj_kernel.cu``,
 ``csrc/tril_proj3_kernel.cu`` and ``csrc/tril_right_kernel.cu`` (kernels
-A, 3 and 4, kernel 3's split pre-pass and kernel 5's generic route) of
+A, 3 and 4 and kernel 3's split pre-pass) of
 every checkout and prints, function by function, whether each one's SASS
 is the same as this checkout's.  Functions are matched by their demangled
 names without template arguments, so that a kernel that lost its template
@@ -82,7 +80,7 @@ SMS = 132
 class Build:
     """Kernel 5's entries of one checkout's libraries."""
 
-    def __init__(self, tma_lib: Path, generic_lib: Path, new: bool):
+    def __init__(self, tma_lib: Path, new: bool):
         so = ctypes.CDLL(str(tma_lib))
         self.new = new
         self.tma = so.hetmogp_tril_right3_f32
@@ -96,11 +94,6 @@ class Build:
             so.hetmogp_tril_right3_partials.restype = ctypes.c_longlong
             so.hetmogp_tril_right3_schedule.argtypes = (
                 [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        gen = ctypes.CDLL(str(generic_lib)).hetmogp_tril_right3_generic_f32
-        gen.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        gen.restype = ctypes.c_int
-        self.generic = gen
 
     def scratch(self, Q, N, M):
         """The entry's scratch for (Q, N, M): the partials, or hi and lo."""
@@ -147,8 +140,8 @@ def main() -> int:
     jobs = {}
     for n, tree in trees.items():
         new = (tree / "hetmogp_tpu_torch" / "csrc" / SOURCE).exists()
-        srcs = {SOURCE} if new else set()
-        srcs |= {OLD_SOURCE, *(SAME_SASS_SOURCES if args.same_sass else ())}
+        srcs = {SOURCE if new else OLD_SOURCE,
+                *(SAME_SASS_SOURCES if args.same_sass else ())}
         for src in sorted(srcs):
             jobs[n, src] = (new, *start_build(f"{n}-k5", tree, src))
     listings, logs, failed = {}, {}, False
@@ -164,11 +157,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s [card: {smi}]")
     builds = {}
     for n in trees:
-        new = jobs[n, OLD_SOURCE][0]
-        src = SOURCE if new else OLD_SOURCE
-        if (n, src) not in listings or (n, OLD_SOURCE) not in listings:
+        src = SOURCE if (n, SOURCE) in jobs else OLD_SOURCE
+        if (n, src) not in listings:
             continue
-        builds[n] = Build(jobs[n, src][1], jobs[n, OLD_SOURCE][1], new)
+        builds[n] = Build(jobs[n, src][1], jobs[n, src][0])
         kernel, entry = None, None
         for line in logs[n, src].splitlines():
             if "entry function" in line:
@@ -204,15 +196,10 @@ def main() -> int:
         out = torch.empty(Q, N, M, device="cuda")
         scratch = {n: b.scratch(Q, N, M) for n, b in builds.items()}
 
-        def call(n, generic=False):
-            b = builds[n]
-            if generic:
-                err = b.generic(A.data_ptr(), L.data_ptr(), out.data_ptr(),
-                                Q, N, M, stream())
-            else:
-                err = b.tma(A.data_ptr(), L.data_ptr(), out.data_ptr(),
-                            *(s.data_ptr() for s in scratch[n]), Q, N, M,
-                            stream())
+        def call(n):
+            err = builds[n].tma(A.data_ptr(), L.data_ptr(), out.data_ptr(),
+                                *(s.data_ptr() for s in scratch[n]), Q, N, M,
+                                stream())
             if err:
                 raise RuntimeError(f"{n}: CUDA error {err}")
 
@@ -226,15 +213,6 @@ def main() -> int:
         one = A.to(torch.bfloat16).float() @ Lt.to(torch.bfloat16).float()
         e_p, f_1 = normwise(plain, ref_split), normwise(one, ref)
         del one
-        first_g = None
-        for n in builds:
-            call(n, generic=True)
-            if first_g is None:
-                first_g = (n, out.clone())
-            print(f"{shape_name}, {n}: generic route bitwise "
-                  f"{first_g[0]}'s: {torch.equal(out, first_g[1])}")
-            failed |= not torch.equal(out, first_g[1])
-        del first_g
         for n in builds:
             call(n)
             got = out.clone()

@@ -312,8 +312,7 @@ def test_cpu_tensors_take_the_plain_projection():
 def test_projection_wrapper_refuses_cpu_and_non_f32(dtype, err):
     before = cuda_kernels.launch_counts()
     for launcher in (cuda_kernels.tril_projection,
-                     cuda_kernels.tril_projection_tma,
-                     cuda_kernels.tril_projection_staged):
+                     cuda_kernels.tril_projection_tma):
         with pytest.raises(err):
             launcher(*_tri(dtype))
     assert cuda_kernels.launch_counts() == before

@@ -162,8 +162,7 @@ def test_3pass_launcher_refuses_cpu_and_non_f32(dtype, err):
     A, L = (torch.from_numpy(a) for a in _tri_inputs(1, 8, 8, dtype=dtype))
     before = cuda_kernels.launch_counts()
     for launcher in (cuda_kernels.tril_projection_3pass,
-                     cuda_kernels.tril_projection_3pass_tma,
-                     cuda_kernels.tril_projection_3pass_staged):
+                     cuda_kernels.tril_projection_3pass_tma):
         with pytest.raises(err):
             launcher(A, L)
         with pytest.raises(NotImplementedError, match="no backward"):

@@ -1,17 +1,20 @@
-"""The triangular products' two routes per precision on the card: the
-TMA-fed kernels (``csrc/tril_proj_kernel.cu``, ``tril_proj3_kernel.cu`` and
-``tril_right3_kernel.cu``, sharing ``csrc/tril_tma.cuh``) where TMA can
-address the operands, the register-staged kernels elsewhere.
+"""The triangular products' one design per precision on the card: the
+TMA-fed kernels (``csrc/tril_proj_kernel.cu``, ``tril_proj3_kernel.cu``,
+``tril_right_kernel.cu``, ``tril_right3_kernel.cu`` and
+``tril_out_kernel.cu``, sharing ``csrc/tril_tma.cuh``), which every shape
+reaches through ``_tma_operands``: a ragged M padded with zeros, an
+unaligned base copied.
 
-The kernels run only on the card.  Here: the shape router, the launch
-counters of every route, the autograd.Functions going through the router
-(with the launchers swapped for recording plain versions), the plain
+The kernels run only on the card.  Here: the operands ``_tma_operands``
+hands on, each router against the plain version at a ragged M, the launch
+counters of every launcher, the autograd.Functions going through the
+routers (with the launchers swapped for recording plain versions), the plain
 version of kernel 3's L pre-pass against the JAX package's bit-mask split
 (``tools/probe_pallas_proj.py:pallas_proj2``), kernel 5's router, and what
 kernel 5's TMA-fed launcher hands its entry (no pre-pass scratch: it
 splits L in shared memory), through a stand-in library; the row-strided
 views kernels A's and 4's TMA-fed launchers take in place, and the
-strides they hand their entries; kernel 8's (tril(A^T B)) router,
+strides they hand their entries; kernel 8's (tril(A^T B)) routers,
 launchers and what they hand their entries; and
 the ``hetmogp::`` operators a VE and a VM step reach on the CPU, what each
 launches on the card.
@@ -42,19 +45,6 @@ def _launch_counts_down_after():
     cuda_kernels.zero_launch_counts()
 
 
-@pytest.mark.parametrize("M,aligned,route", [
-    (1024, True, "tma"),     # the main path: trainer, VM step and serving
-    (1000, True, "tma"),     # M % 4 == 0, not a multiple of the tile
-    (4, True, "tma"),
-    (777, True, "staged"),   # chip_smoke's ragged case
-    (1022, True, "staged"),  # rows not a multiple of 16 bytes
-    (7, True, "staged"),
-    (1024, False, "staged"),  # an unaligned base
-])
-def test_tril_route_picks_by_shape(M, aligned, route):
-    assert cuda_kernels.tril_route(M, aligned) == route
-
-
 def _inputs(Q, N, M, offset=0, seed=0):
     """float32 (A, L); ``offset`` floats into a buffer shifts A's base off
     16-byte alignment while keeping it contiguous."""
@@ -68,33 +58,88 @@ def _inputs(Q, N, M, offset=0, seed=0):
     return A, L
 
 
+@pytest.mark.parametrize("M,aligned,square", [
+    (1024, True, True),     # the main path: trainer, VM step and serving
+    (1000, True, True),     # M % 4 == 0, not a multiple of the tile
+    (4, True, True),
+    (777, True, True),      # chip_smoke's ragged case
+    (1022, True, True),     # rows not a multiple of 16 bytes
+    (7, True, True),
+    (1024, False, True),    # an unaligned base
+    (1024, True, False),    # kernel 8's: the VE and VM steps' gL
+    (772, True, False),     # M % 4 == 0, not a multiple of the tile
+    (777, True, False),     # chip_smoke's ragged VM step
+    (1022, True, False),    # rows not a multiple of 16 bytes
+    (1024, False, False),   # an unaligned base
+])
+def test_tma_operands_pad_or_copy_by_shape(M, aligned, square):
+    """``_tma_operands`` hands (A, L), or kernel 8's (A, B), on as they are
+    where M % 4 == 0 and both are contiguous on 16-byte boundaries; else
+    as copies, padded with zeros to M' = 4 ceil(M / 4) (A's and B's
+    columns, L's rows and columns) where M % 4 != 0.  What it hands on is
+    what a TMA entry takes, and holds the operands' values."""
+    A, L = _inputs(1, 3, M, offset=0 if aligned else 1)
+    X = L if square else _inputs(1, 3, M, seed=1)[0]
+    a, x = cuda_kernels._tma_operands(A, X, square)
+    Mp = -(-M // 4) * 4
+    assert a.shape == (1, 3, Mp)
+    assert x.shape == ((1, Mp, Mp) if square else (1, 3, Mp))
+    copied = not aligned or M % 4 != 0
+    assert (a.data_ptr() != A.data_ptr()) == copied
+    assert (x.data_ptr() != X.data_ptr()) == (M % 4 != 0)
+    for t, v in ((a, A), (x, X)):
+        assert cuda_kernels._tma_ready(t, views=False)
+        assert torch.equal(t[..., :v.shape[-2], :M], v)
+        assert not t[..., M:].any() and not t[..., v.shape[-2]:, :].any()
+
+
 def _recorders(monkeypatch, names, plain):
     """Swap the launchers ``names`` for the plain version, recording which
-    one each call reached."""
+    one each call reached and the operands it was handed."""
     calls = []
     for name in names:
         def launcher(A, L, name=name):
-            calls.append(name)
+            calls.append((name, A, L))
             return plain(A, L)
         launcher.__name__ = name
         monkeypatch.setattr(cuda_kernels, name, launcher)
     return calls
 
 
-ROUTE_CASES = [((2, 40, 64, 0), "tma"), ((2, 40, 77, 0), "staged"),
-               ((2, 40, 64, 1), "staged")]
+# how the TMA launcher gets each case's operands
+ROUTE_CASES = [((2, 40, 64, 0), "as-is"), ((2, 40, 77, 0), "padded"),
+               ((2, 40, 64, 1), "copied")]
+
+
+def _handed(calls, name, A, X, how, square=True):
+    """The one call in ``calls`` reached ``name`` with (A, X) as they are,
+    as 16-byte-aligned copies, or padded with zeros to M' = 80."""
+    (reached, a, x), = calls
+    assert reached == name
+    M = A.shape[-1]
+    Mp = 80 if how == "padded" else M
+    assert a.shape == (*A.shape[:-1], Mp)
+    assert x.shape == ((*X.shape[:-2], Mp, Mp) if square
+                       else (*X.shape[:-1], Mp))
+    assert (a.data_ptr() == A.data_ptr()) == (how == "as-is")
+    for t, v in ((a, A), (x, X)):
+        assert cuda_kernels._tma_ready(t, views=False)
+        assert torch.equal(t[..., :v.shape[-2], :M], v)
+        assert not t[..., M:].any() and not t[..., v.shape[-2]:, :].any()
 
 
 @pytest.mark.parametrize("case,route", ROUTE_CASES,
                          ids=["aligned", "ragged-M", "unaligned-base"])
 def test_projection_router_reaches_the_launcher_of_the_route(
         monkeypatch, case, route):
+    """Kernel A's router hands its TMA launcher the operands of
+    ``_tma_operands`` and crops the result to M."""
     A, L = _inputs(*case)
-    calls = _recorders(monkeypatch, ("tril_projection_tma",
-                                     "tril_projection_staged"),
+    calls = _recorders(monkeypatch, ("tril_projection_tma",),
                        cuda_kernels.tril_projection_plain)
     got = cuda_kernels.tril_projection(A, L)
-    assert calls == [f"tril_projection_{route}"]
+    _handed(calls, "tril_projection_tma", A, L, route)
+    assert got.shape == A.shape and got.is_contiguous()
     assert torch.equal(got, cuda_kernels.tril_projection_plain(A, L))
 
 
@@ -102,19 +147,19 @@ def test_projection_router_reaches_the_launcher_of_the_route(
                          ids=["aligned", "ragged-M", "unaligned-base"])
 def test_3pass_function_goes_through_the_router(monkeypatch, case, route):
     """TrilProjection3Pass with the kernel asked for: the CUDA
-    implementation of its operator is the routed launcher (called
-    directly: the dispatcher sends a CPU tensor to the plain version), its
-    dA the full float32 product's and its dL kernel 8's three-pass plain
-    version's (rtol 1e-6, as test_torch_proj3.py), and the dispatch of a
-    CPU tensor takes the plain version without reaching the router."""
+    implementation of its operator is the router (called directly: the
+    dispatcher sends a CPU tensor to the plain version), which hands the
+    TMA launcher the operands of ``_tma_operands``; its dA the full
+    float32 product's and its dL kernel 8's three-pass plain version's
+    (rtol 1e-6, as test_torch_proj3.py), and the dispatch of a CPU tensor
+    takes the plain version without reaching the router."""
     A, L = _inputs(*case)
-    calls = _recorders(monkeypatch, ("tril_projection_3pass_tma",
-                                     "tril_projection_3pass_staged"),
+    calls = _recorders(monkeypatch, ("tril_projection_3pass_tma",),
                        cuda_kernels.tril_projection_3pass_plain)
     # detach() keeps the storage, and so A's alignment
     routed = cuda_kernels.tril_projection_3pass(A.detach(),
                                                 L.detach())
-    assert calls == [f"tril_projection_3pass_{route}"]
+    _handed(calls, "tril_projection_3pass_tma", A, L, route)
     a, l = A.detach().requires_grad_(), L.detach().requires_grad_()
     out = cuda_kernels.TrilProjection3Pass.apply(a, l, True)
     assert torch.equal(out.detach(), routed)
@@ -135,28 +180,82 @@ def test_3pass_function_goes_through_the_router(monkeypatch, case, route):
 
 def test_projection_function_goes_through_the_router(monkeypatch):
     A, L = _inputs(2, 30, 64)
-    calls = _recorders(monkeypatch, ("tril_projection_tma",
-                                     "tril_projection_staged"),
+    calls = _recorders(monkeypatch, ("tril_projection_tma",),
                        cuda_kernels.tril_projection_plain)
     cuda_kernels.tril_projection(A, L)  # the operator's CUDA implementation
-    assert calls == ["tril_projection_tma"]
+    assert [c[0] for c in calls] == ["tril_projection_tma"]
     a = A.double().requires_grad_()
     out = cuda_kernels.TrilProjection.apply(a, L.double())
-    assert calls == ["tril_projection_tma"]  # a CPU tensor: the plain version
+    assert len(calls) == 1  # a CPU tensor: the plain version
     g = torch.ones_like(out)
     (da,) = torch.autograd.grad(out, (a,), g)
     torch.testing.assert_close(da, g @ torch.tril(L.double()), rtol=1e-12,
                                atol=1e-12)
 
 
+def _stand_in(name):
+    """A stand-in for the TMA launcher ``name``: the plain version on the
+    operands it is handed, which must be what TMA takes (M % 4 == 0)."""
+    plain = {"tril_projection_tma": cuda_kernels.tril_projection_plain,
+             "tril_projection_3pass_tma":
+                 cuda_kernels.tril_projection_3pass_plain,
+             "tril_right3_tma": cuda_kernels.matmul_tril_3pass_plain,
+             "tril_out_tma": cuda_kernels.t_matmul_tril_out_plain,
+             "tril_out3_tma": cuda_kernels.t_matmul_tril_out_3pass_plain}
+    right = {"product": cuda_kernels.matmul_tril_plain,
+             "both": cuda_kernels.quad_diag_product_plain,
+             "rowsum": cuda_kernels.quad_diag_plain}
+
+    def launcher(A, X, epilogue="product"):
+        assert A.shape[-1] % 4 == 0
+        if name == "tril_right_tma":
+            return right[epilogue](A, X)
+        return plain[name](A, X)
+    launcher.__name__ = name
+    return launcher
+
+
+@pytest.mark.parametrize("M", [7, 777])
+@pytest.mark.parametrize("router", ["tril_projection",
+                                    "tril_projection_3pass", "tril_right",
+                                    "tril_right3", "tril_out", "tril_out3"])
+def test_router_at_a_ragged_M_matches_the_plain_version(monkeypatch, router,
+                                                        M):
+    """Each router, its TMA launcher swapped for the plain version on the
+    operands it hands on (padded to M' = 4 ceil(M / 4)), matches the plain
+    version on the unpadded operands: the padding's zeros add nothing, and
+    the crop returns (Q, N, M) or (Q, M, M), contiguous; kernel 4's router
+    in each of its epilogues."""
+    monkeypatch.setattr(cuda_kernels, f"{router}_tma",
+                        _stand_in(f"{router}_tma"))
+    A, L = _inputs(2, 40, M)
+    plain = {"tril_projection": cuda_kernels.tril_projection_plain,
+             "tril_projection_3pass":
+                 cuda_kernels.tril_projection_3pass_plain,
+             "tril_right3": cuda_kernels.matmul_tril_3pass_plain,
+             "tril_out": cuda_kernels.t_matmul_tril_out_plain,
+             "tril_out3": cuda_kernels.t_matmul_tril_out_3pass_plain}
+    fn = getattr(cuda_kernels, router)
+    if router == "tril_right":
+        got = [fn(A, L), *fn(A, L, "both"), fn(A, L, "rowsum")]
+        want = [cuda_kernels.matmul_tril_plain(A, L),
+                *cuda_kernels.quad_diag_product_plain(A, L),
+                cuda_kernels.quad_diag_plain(A, L)]
+    else:
+        X = _inputs(2, 40, M, seed=1)[0] if router.startswith(
+            "tril_out") else L
+        got, want = [fn(A, X)], [plain[router](A, X)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
 LAUNCHERS = ("rbf_K_batched_vec", "rbf_K_batched_scalar",
-             "tril_projection_tma", "tril_projection_staged",
-             "tril_projection_3pass_tma", "tril_projection_3pass_staged",
-             "tril_right_tma", "tril_right_generic", "tril_right3_tma",
-             "tril_right3_generic", "tril_out_tma", "tril_out_generic",
-             "tril_out3_tma", "tril_out3_generic", "gh_sweep",
-             "gh_sweep_value", "task_var_exp", "task_var_exp_value",
-             "task_var_exp_backward", "adam_update", "chol_panel")
+             "tril_projection_tma", "tril_projection_3pass_tma",
+             "tril_right_tma", "tril_right3_tma", "tril_out_tma",
+             "tril_out3_tma", "gh_sweep", "gh_sweep_value", "task_var_exp",
+             "task_var_exp_value", "task_var_exp_backward", "adam_update",
+             "chol_panel")
 
 
 # the vector kernel is what ``rbf_K_batched`` reaches on the main path, and
@@ -212,15 +311,14 @@ def test_split_prepass_plain_matches_the_jax_split(M):
 def test_3pass_right_router_reaches_the_launcher_of_the_route(
         monkeypatch, case, route):
     """Kernel 5's router (``tril_right3``, the CUDA implementation of
-    ``hetmogp::matmul_tril_3pass``) reaches the TMA-fed launcher where TMA
-    can address the operands and the generic one elsewhere."""
+    ``hetmogp::matmul_tril_3pass``) hands the TMA-fed launcher the
+    operands of ``_tma_operands`` and crops the result to M."""
     A, L = _inputs(*case)
-    calls = _recorders(monkeypatch, ("tril_right3_tma",
-                                     "tril_right3_generic"),
+    calls = _recorders(monkeypatch, ("tril_right3_tma",),
                        cuda_kernels.matmul_tril_3pass_plain)
     got = cuda_kernels.tril_right3(A.detach(), L.detach())
-    assert calls == [{"tma": "tril_right3_tma",
-                      "staged": "tril_right3_generic"}[route]]
+    _handed(calls, "tril_right3_tma", A, L, route)
+    assert got.shape == A.shape and got.is_contiguous()
     assert torch.equal(got, cuda_kernels.matmul_tril_3pass_plain(A, L))
 
 
@@ -307,17 +405,16 @@ def test_tma_strides_of_what_tma_can_address(t, want):
 
 @pytest.mark.parametrize("width,in_place", [(100, True), (99, False)],
                          ids=["aligned-rows", "unaligned-rows"])
-@pytest.mark.parametrize("router,tma,other,plain", [
-    ("tril_projection", "tril_projection_tma", "tril_projection_staged",
+@pytest.mark.parametrize("router,tma,plain", [
+    ("tril_projection", "tril_projection_tma",
      cuda_kernels.tril_projection_plain),
-    ("tril_right", "tril_right_tma", "tril_right_generic",
-     cuda_kernels.matmul_tril_plain)], ids=["kernel-A", "kernel-4"])
+    ("tril_right", "tril_right_tma", cuda_kernels.matmul_tril_plain)],
+    ids=["kernel-A", "kernel-4"])
 def test_strided_routers_hand_views_to_the_tma_launcher(
-        monkeypatch, width, in_place, router, tma, other, plain):
+        monkeypatch, width, in_place, router, tma, plain):
     """Kernels A's and 4's routers hand row-strided views to the TMA-fed
     launcher as they are where TMA can address them, and contiguous
-    copies where it cannot (rows not a multiple of 16 bytes apart), which
-    still take the TMA-fed route at M % 4 == 0."""
+    copies where it cannot (rows not a multiple of 16 bytes apart)."""
     A, L = _views(width)
     seen = []
 
@@ -326,7 +423,6 @@ def test_strided_routers_hand_views_to_the_tma_launcher(
         return plain(a, l)
     launcher.__name__ = tma
     monkeypatch.setattr(cuda_kernels, tma, launcher)
-    monkeypatch.setattr(cuda_kernels, other, None)
     got = getattr(cuda_kernels, router)(A, L)
     (a, l), = seen
     for t, v in ((a, A), (l, L)):
@@ -340,10 +436,11 @@ def test_strided_routers_hand_views_to_the_tma_launcher(
                          ids=["aligned-rows", "unaligned-rows"])
 def test_tma_launchers_hand_their_strided_entries_the_views(
         monkeypatch, width, in_place):
-    """Kernels A's and 4's TMA-fed launchers run their strided entries
-    with each operand's pointer followed by its row and plane strides:
-    the view's own where TMA can address it, else a contiguous copy's.
-    Each launch counts once."""
+    """Kernels A's and 4's routers run their TMA-fed launchers' strided
+    entries with each operand's pointer followed by its row and plane
+    strides: the view's own where TMA can address it, else a contiguous
+    copy's, which the launcher alone refuses to make.  Each launch counts
+    once."""
     lib = _Library(0)
     monkeypatch.setattr(cuda_kernels, "_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device",
@@ -352,11 +449,14 @@ def test_tma_launchers_hand_their_strided_entries_the_views(
                         lambda dev: types.SimpleNamespace(cuda_stream=0))
     A, L = (t.as_subclass(_OnCard) for t in _views(width))
     cuda_kernels.zero_launch_counts()
-    for name, entry in (("tril_projection_tma",
-                         "hetmogp_tril_proj_strided_f32"),
-                        ("tril_right_tma", "hetmogp_tril_right_strided_f32")):
-        lib.calls = []
-        out = getattr(cuda_kernels, name)(A, L)
+    for router, entry in (("tril_projection",
+                           "hetmogp_tril_proj_strided_f32"),
+                          ("tril_right", "hetmogp_tril_right_strided_f32")):
+        name, lib.calls = f"{router}_tma", []
+        if not in_place:
+            with pytest.raises(ValueError, match="router pads or copies"):
+                getattr(cuda_kernels, name)(A, L)
+        out = getattr(cuda_kernels, router)(A, L)
         assert out.shape == A.shape and out.is_contiguous()
         (called, args), = lib.calls
         assert called == entry
@@ -374,17 +474,6 @@ def test_tma_launchers_hand_their_strided_entries_the_views(
 
 # ---- kernel 8: tril(A^T B) ----------------------------------------------------
 
-@pytest.mark.parametrize("M,aligned,route", [
-    (1024, True, "tma"),       # the main path: the VE and VM steps' gL
-    (772, True, "tma"),        # M % 4 == 0, not a multiple of the tile
-    (777, True, "generic"),    # chip_smoke's ragged VM step
-    (1022, True, "generic"),   # rows not a multiple of 16 bytes
-    (1024, False, "generic"),  # an unaligned base
-])
-def test_tril_out_route_picks_by_shape(M, aligned, route):
-    assert cuda_kernels.tril_out_route(M, aligned) == route
-
-
 @pytest.mark.parametrize("three", [False, True], ids=["f32", "3pass"])
 @pytest.mark.parametrize("case,route", ROUTE_CASES,
                          ids=["aligned", "ragged-M", "unaligned-base"])
@@ -392,18 +481,19 @@ def test_tril_out_router_reaches_the_launcher_of_the_route(
         monkeypatch, case, route, three):
     """Kernel 8's routers (``tril_out`` and ``tril_out3``, the CUDA
     implementations of ``hetmogp::t_matmul_tril_out`` and its 3-pass
-    twin) reach the TMA-fed launcher where TMA can address the operands
-    and the generic one elsewhere."""
+    twin) hand the TMA-fed launcher the operands of ``_tma_operands``
+    (A's and B's columns padded at a ragged M) and crop the result to
+    (M, M)."""
     A, _ = _inputs(*case)
     B, _ = _inputs(*case[:3], seed=1)
     name = "tril_out3" if three else "tril_out"
     plain = (cuda_kernels.t_matmul_tril_out_3pass_plain if three
              else cuda_kernels.t_matmul_tril_out_plain)
-    calls = _recorders(monkeypatch, (f"{name}_tma", f"{name}_generic"),
-                       plain)
+    calls = _recorders(monkeypatch, (f"{name}_tma",), plain)
     got = getattr(cuda_kernels, name)(A.detach(), B)
-    assert calls == [{"tma": f"{name}_tma",
-                      "staged": f"{name}_generic"}[route]]
+    _handed(calls, f"{name}_tma", A, B, route, square=False)
+    M = A.shape[-1]
+    assert got.shape == (2, M, M) and got.is_contiguous()
     assert torch.equal(got, plain(A, B))
 
 
@@ -424,11 +514,10 @@ class _OutLibrary(_Library):
                          ids=["no-split", "split"])
 def test_kernel8_launchers_hand_their_entries_what_they_take(monkeypatch,
                                                              partials):
-    """Kernel 8's launchers run one entry each, with A, B and out; the
-    TMA-fed ones the partial-sum scratch their schedule asks for (none
-    where it splits no tile), each asking for its own design's; the
-    generic ones no scratch.  Each launch counts once; the output is
-    (Q, M, M)."""
+    """Kernel 8's launchers run one entry each, with A, B, out and the
+    partial-sum scratch their schedule asks for (none where it splits no
+    tile), each asking for its own design's.  Each launch counts once; the
+    output is (Q, M, M)."""
     lib = _OutLibrary(partials)
     monkeypatch.setattr(cuda_kernels, "_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device",
@@ -440,31 +529,33 @@ def test_kernel8_launchers_hand_their_entries_what_they_take(monkeypatch,
     cuda_kernels.zero_launch_counts()
     for name, entry, three in (
             ("tril_out_tma", "hetmogp_tril_out_f32", 0),
-            ("tril_out3_tma", "hetmogp_tril_out3_f32", 1),
-            ("tril_out_generic", "hetmogp_tril_out_generic_f32", None),
-            ("tril_out3_generic", "hetmogp_tril_out3_generic_f32", None)):
+            ("tril_out3_tma", "hetmogp_tril_out3_f32", 1)):
         lib.calls, lib.asked = [], []
         out = getattr(cuda_kernels, name)(A, B)
         assert out.shape == (3, 64, 64)
         assert [e for e, _ in lib.calls] == [entry]
         args = lib.calls[0][1]
         assert args[:3] == (A.data_ptr(), B.data_ptr(), out.data_ptr())
-        if three is None:
-            assert lib.asked == [] and args[3:] == (3, 40, 64, 0)
-        else:
-            assert lib.asked == [three]
-            assert (args[3] is None) == (partials == 0)
-            assert args[4:] == (3, 40, 64, 0)
+        assert lib.asked == [three]
+        assert (args[3] is None) == (partials == 0)
+        assert args[4:] == (3, 40, 64, 0)
         assert cuda_kernels.launch_counts()[name] == 1
     cuda_kernels.zero_launch_counts()
 
 
 def test_kernel8_launchers_refuse_what_they_cannot_take():
+    """Off the card, in another dtype or with a gradient to record, and
+    on the card at a ragged M or an unaligned base, which their routers
+    pad or copy."""
     A, _ = _inputs(1, 8, 8)
+    ragged = _inputs(1, 8, 7)[0].as_subclass(_OnCard)
+    unaligned = _inputs(1, 8, 8, offset=1)[0].as_subclass(_OnCard)
     before = cuda_kernels.launch_counts()
-    for name in ("tril_out_tma", "tril_out_generic", "tril_out3_tma",
-                 "tril_out3_generic"):
+    for name in ("tril_out_tma", "tril_out3_tma"):
         launcher = getattr(cuda_kernels, name)
+        for a in (ragged, unaligned):
+            with pytest.raises(ValueError, match="router pads or copies"):
+                launcher(a, a)
         with pytest.raises(ValueError, match="CUDA"):
             launcher(A, A)
         with pytest.raises(TypeError, match="float32"):

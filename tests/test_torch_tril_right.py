@@ -337,7 +337,7 @@ def _recorders(monkeypatch, names):
              "rowsum": cuda_kernels.quad_diag_plain}
     for name in names:
         def launcher(A, L, epilogue="product", name=name):
-            calls.append((name, epilogue))
+            calls.append((name, epilogue, A.shape[-1]))
             if "3" in name:
                 return cuda_kernels.matmul_tril_3pass_plain(A, L)
             return plain[epilogue](A, L)
@@ -346,18 +346,22 @@ def _recorders(monkeypatch, names):
     return calls
 
 
-@pytest.mark.parametrize("M,route", [(64, "tma"), (77, "generic")])
-def test_routers_reach_the_launcher_of_the_route(monkeypatch, M, route):
-    names = ("tril_right_tma", "tril_right_generic", "tril_right3_tma",
-             "tril_right3_generic")
+@pytest.mark.parametrize("M,Mp", [(64, 64), (77, 80)])
+def test_routers_reach_the_launcher_of_the_route(monkeypatch, M, Mp):
+    """Kernels 4's and 5's routers reach their TMA launchers at every M,
+    a ragged one padded to M' = 4 ceil(M / 4), each epilogue's results
+    cropped back to M."""
+    names = ("tril_right_tma", "tril_right3_tma")
     calls = _recorders(monkeypatch, names)
     A, L = (_t(x, np.float32) for x in _inputs(M, seed=11)[:2])
-    for epilogue in ("product", "both", "rowsum"):
-        cuda_kernels.tril_right(A, L, epilogue)
-    cuda_kernels.tril_right3(A, L)
-    assert calls == [(f"tril_right_{route}", e)
+    got = [cuda_kernels.tril_right(A, L, epilogue)
+           for epilogue in ("product", "both", "rowsum")]
+    got.append(cuda_kernels.tril_right3(A, L))
+    assert calls == [("tril_right_tma", e, Mp)
                      for e in ("product", "both", "rowsum")] + [
-        (f"tril_right3_{route}", "product")]
+        ("tril_right3_tma", "product", Mp)]
+    assert got[0].shape == got[1][0].shape == got[3].shape == A.shape
+    assert got[1][1].shape == got[2].shape == A.shape[:-1]
 
 
 @pytest.mark.parametrize("dtype,err", [(np.float32, ValueError),
@@ -366,9 +370,7 @@ def test_launchers_refuse_cpu_and_non_f32(dtype, err):
     A, L = (_t(x, dtype) for x in _inputs(8, seed=12)[:2])
     before = cuda_kernels.launch_counts()
     for launcher in (cuda_kernels.tril_right, cuda_kernels.tril_right_tma,
-                     cuda_kernels.tril_right_generic,
-                     cuda_kernels.tril_right3, cuda_kernels.tril_right3_tma,
-                     cuda_kernels.tril_right3_generic):
+                     cuda_kernels.tril_right3, cuda_kernels.tril_right3_tma):
         with pytest.raises(err):
             launcher(A, L)
         with pytest.raises(NotImplementedError, match="no backward"):
