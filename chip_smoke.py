@@ -1080,34 +1080,24 @@ def tril_out_phase(smi: str, Luu: torch.Tensor) -> list:
 
 # The blocked pair (L, iL) of the flagship's Kuu against float64,
 # normwise, each at most this multiple of potrf's and trsm's (cuSOLVER's
-# factor and a triangular solve against I): INV_VS_TRSM's bound, which
-# tril_out_phase holds rec_tri_inverse to.
-FACTOR_VS_POTRF = INV_VS_TRSM
+# factor and a triangular solve against I).
+FACTOR_VS_POTRF = 1.5
 # Kernel 9 against float64, normwise, in float32: at most this multiple of
 # its plain version's error (cholesky_ex and a triangular solve against I)
 # plus an absolute term; the two sum in other orders.  Float64: within
 # PANEL_F64 of the plain float64 version on a well-conditioned panel.
 PANEL_VS_PLAIN, PANEL_ABS, PANEL_F64 = 4.0, 1e-6, 1e-12
-# One refresh of (Luu, iLuu) at M = 1024 in panels of 128: kernel 9 on
-# each of its 8 diagonal panels, kernel A twice on the rows below 7 of them
-# (the product and its refinement) and kernel 4 on the inverse's 7 row
-# strips.
+# One refresh of (Luu, iLuu) at M = 1024: one launch of kernel 10, the
+# whole pair's 128-wide tile tasks (kernel 9's panel routine inside it);
+# no launch of kernels 9, A or 4.
 PANEL = 128
-REFRESH_PANELS = M // PANEL
-REFRESH_STRIPS = REFRESH_PANELS - 1
-REFRESH_BELOW = 2 * REFRESH_STRIPS
+REFRESH_LAUNCHES = 1
 
 
 def refresh_shapes(q: int) -> dict:
     """{launcher: {(Q, N, M), ...}} of one refresh of q latents' (Luu,
-    iLuu) at M = 1024: kernel 9's panels, kernel A's rows below each panel
-    (N rows at the panel's depth, twice) and kernel 4's strips (a panel's rows
-    at the depth of the inverse above them)."""
-    return {"chol_panel": {(q, PANEL, PANEL)},
-            "tril_projection_tma": {(q, M - r1, PANEL)
-                                    for r1 in range(PANEL, M, PANEL)},
-            "tril_right_tma": {(q, PANEL, r0) for r0 in range(PANEL, M,
-                                                               PANEL)}}
+    iLuu) at M = 1024: kernel 10 on the whole stack."""
+    return {"chol_blocked": {(q, M, M)}}
 
 
 def flagship_kuu(m=M, q=Q) -> torch.Tensor:
@@ -1138,12 +1128,15 @@ def factor_phase(smi: str) -> list:
     flagship's Kuu, read through its strides, and random panels of 128,
     100 and 9, the ragged M = 777's last) and float64, with exact zeros
     above the diagonal, NaN for a non-SPD panel and two launches bitwise
-    equal; the blocked pair (L, iL) of the flagship's Kuu and of the
-    ragged M = 777's against float64 beside potrf's and trsm's errors, its
-    launches, NaN from the failing panel on, a CUDA graph of it replayed
-    bitwise equal to the eager call, and its profile; a refresh's time
-    both ways in turns, eager and as replayed graphs.  Returns kernel 9's
-    entry of the kernel table.  (The library's own factorization, potrf's
+    equal; the blocked pair (L, iL), one launch of kernel 10, of the
+    flagship's Kuu and of the ragged M = 777's against float64 beside
+    potrf's and trsm's errors, its launches, a stack of 8 whose halves
+    are bitwise the halves factored alone, NaN from the failing panel on,
+    a CUDA graph of it replayed bitwise equal to the eager call, and its
+    profile; a refresh's time both ways in turns, eager and as replayed
+    graphs; kernel 10's time at (4, 1024, 1024) and (8, 1024, 1024),
+    graphed, beside its plain version.  Returns kernel 9's and kernel 10's
+    entries of the kernel table.  (The library's own factorization, potrf's
     kernels at the port's batch shapes, is measured by
     ``hetmogp_tpu_torch/probes/ab_phases.py --phases factor``.)"""
     from hetmogp_tpu_torch.ops import _build
@@ -1156,6 +1149,8 @@ def factor_phase(smi: str) -> list:
             _build.library_path().with_suffix(".log").read_text()):
         if kernel.startswith("chol_panel_kernel"):
             print(f"kernel 9, ptxas, {kernel}: {line} [card: {smi}]")
+        elif kernel.startswith("chol_blocked_kernel"):
+            print(f"kernel 10, ptxas, {kernel}: {line} [card: {smi}]")
     print("kernel 9 dynamic shared memory, bytes at n = 1, 9, 33, 128: "
           + "; ".join(f"{str(dt).split('.')[-1]} "
                       + ", ".join(str(ck.chol_panel_smem(dt, w))
@@ -1231,8 +1226,8 @@ def factor_phase(smi: str) -> list:
         L, iL = linalg.blocked_cholesky_inverse(Kc)
         torch.cuda.synchronize()
         launched = {k: v for k, v in ck.launch_counts().items() if v}
-        # kernels A and 4 read the panels' views where TMA can address
-        # them (rows a multiple of 16 bytes apart), else copies
+        # kernel 10 reads K where it lies; a ragged M is padded (a new
+        # tensor, no clone)
         copies = operand_copies(lambda: linalg.blocked_cholesky_inverse(Kc))
         Lp = linalg.cholesky(Kc)
         iLp = torch.linalg.solve_triangular(
@@ -1240,23 +1235,32 @@ def factor_phase(smi: str) -> list:
         errs = [normwise(a, b) for a, b in ((L, L64), (iL, iL64),
                                             (Lp, L64), (iLp, iL64))]
         zeros = not (torch.triu(L, 1).any() or torch.triu(iL, 1).any())
-        panels = -(-m // PANEL)
-        want = {"chol_panel": panels,
-                "tril_projection_tma": 2 * (panels - 1),
-                "tril_right_tma": panels - 1}
-        print(f"blocked_cholesky_inverse, {what}: normwise error vs float64 "
-              f"L {errs[0]:.3e}, iL {errs[1]:.3e}; potrf {errs[2]:.3e}, trsm "
-              f"against I {errs[3]:.3e} (bound {FACTOR_VS_POTRF:g}x each); "
-              f"zeros above the diagonal {zeros}; launches {launched}; "
-              f"operands copied to reach kernels A and 4 {copies} "
-              f"[card: {smi}]")
+        if m == M:
+            err10 = max(float((a - b).abs().max())
+                        for a, b in ((L, Lp), (iL, iLp)))
+        print(f"blocked_cholesky_inverse (kernel 10), {what}: normwise "
+              f"error vs float64 L {errs[0]:.3e} ({errs[0] / errs[2]:.2f}x "
+              f"potrf's {errs[2]:.3e}), iL {errs[1]:.3e} "
+              f"({errs[1] / errs[3]:.2f}x trsm's against I {errs[3]:.3e}) "
+              f"(bound {FACTOR_VS_POTRF:g}x each); zeros above the diagonal "
+              f"{zeros}; launches {launched}; clones {copies} [card: {smi}]")
         if not (errs[0] <= FACTOR_VS_POTRF * errs[2]
                 and errs[1] <= FACTOR_VS_POTRF * errs[3] and zeros
-                and launched == want and (m % 4 or copies == 0)):
+                and launched == {"chol_blocked": 1} and copies == 0):
             raise AssertionError(f"the blocked pair at {what} is off, did "
-                                 "not run on kernels 9, A and 4, or copied "
-                                 "views TMA can read")
+                                 "not run on kernel 10 alone, or copied K")
         del L64, iL64, L, iL, Lp, iLp
+    # the exact natural-gradient step's stack: each part bitwise alone
+    K8 = torch.cat([K, K.flip(0)])
+    L8, iL8 = linalg.blocked_cholesky_inverse(K8)
+    parts = all(torch.equal(a, b) for part in (slice(0, Q), slice(Q, 2 * Q))
+                for a, b in zip(linalg.blocked_cholesky_inverse(K8[part]),
+                                (L8[part], iL8[part])))
+    print(f"blocked_cholesky_inverse (kernel 10), a stack of 8: each half "
+          f"bitwise the half factored alone {parts} [card: {smi}]")
+    if not parts:
+        raise AssertionError("kernel 10's stack differs from its parts")
+    del L8, iL8
 
     # NaN from the failing panel on; a graph replay bitwise the eager call
     Kbad = K.clone()
@@ -1345,15 +1349,14 @@ def factor_phase(smi: str) -> list:
           + f" [card: {smi}]")
     refresh = {"potrf and rec_tri_inverse":
                lambda: linalg.rec_tri_inverse(linalg.cholesky(K)),
-               "blocked_cholesky_inverse (kernel 9)":
+               "blocked_cholesky_inverse (kernel 10)":
                lambda: linalg.blocked_cholesky_inverse(K),
-               "blocked_cholesky (the panels alone)":
+               "blocked_cholesky (kernel 10, L alone)":
                lambda: linalg.blocked_cholesky(K),
                "potrf": lambda: linalg.cholesky(K)}
     tr, n = time_in_turns(refresh)
     print("a refresh of the flagship's (Luu, iLuu), eager, device ms (median "
-          f"of {n}, in turns; the blocked pair's ~80 launches outlast the "
-          "device sleep, so its number holds host time): "
+          f"of {n}, in turns): "
           + ", ".join(f"{k} {v:.4f}" for k, v in tr.items())
           + f" [card: {smi}]")
     # as the trainer runs it: each refresh captured in a CUDA graph, the
@@ -1371,11 +1374,45 @@ def factor_phase(smi: str) -> list:
           + ", ".join(f"{k} {v:.4f}" for k, v in tg.items())
           + f" [card: {smi}]")
     del graphs
+    # kernel 10 at a refresh's (4, 1024, 1024) and the exact natural-
+    # gradient step's (8, 1024, 1024), each a CUDA graph replayed (as the
+    # trainer runs it), beside its plain version (cholesky_ex, a NaN
+    # select, trsm against I); bytes: K's lower triangle read, L and iL
+    # written; operations: M^3 / 3 each for the factor and the inverse
+    K8 = torch.cat([K, K.flip(0)])
+    calls = {}
+    for q, Kq in ((Q, K), (2 * Q, K8)):
+        calls[f"kernel 10, ({q}, {M}, {M})"] = (
+            lambda Kq=Kq: linalg.blocked_cholesky_inverse(Kq))
+        calls[f"plain, ({q}, {M}, {M})"] = (
+            lambda Kq=Kq: ck.chol_blocked_plain(Kq))
+    graphs = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            fn()
+    t10, n = time_in_turns({k: g.replay for k, g in graphs.items()})
+    del graphs
+    bounds10 = {q: bound_ms(4 * q * (M * (M + 1) // 2 + 2 * M * M),
+                            2 * q * M ** 3 / 3, F32_PEAK) for q in (Q, 2 * Q)}
+    for q, (b, by) in bounds10.items():
+        k10 = t10[f"kernel 10, ({q}, {M}, {M})"]
+        print(f"kernel 10 time ({q}, {M}, {M}), graphed: kernel {k10:.4f} ms, "
+              f"plain {t10[f'plain, ({q}, {M}, {M})']:.4f} (median of {n}); "
+              f"bound {b:.4f} ms, {by} ({b / k10 * 100:.2f}%) [card: {smi}]")
+    t10q = {"kernel 10": t10[f"kernel 10, ({Q}, {M}, {M})"],
+            "plain": t10[f"plain, ({Q}, {M}, {M})"]}
     return [dict(proj_entry("chol_panel", "chol_panel_kernel.cu",
                             "hetmogp_tpu/ops/linalg.py:411", err, t,
                             "kernel 9", "plain (cholesky_ex, where, trsm)",
                             bound),
-                 library_ms=t["cholesky_ex and trsm against I"])]
+                 library_ms=t["cholesky_ex and trsm against I"]),
+            dict(proj_entry("chol_blocked", "chol_blocked_kernel.cu",
+                            "hetmogp_tpu/ops/linalg.py:390", err10, t10q,
+                            "kernel 10", "plain", bounds10[Q]),
+                 library_ms=t10q["plain"])]
 
 
 # The ragged VM step's hyper gradients (ragged_adjoint_phase) against
@@ -1585,7 +1622,7 @@ def training_phase(smi: str):
             before = _counts()
             before67 = (ck.task_var_exp.launches
                         + ck.task_var_exp_backward.launches,
-                        ck.adam_update.launches, ck.chol_panel.launches)
+                        ck.adam_update.launches, ck.chol_blocked.launches)
             state, metrics = step(
                 state, ttrain.slice_batch(data, off, sizes, batches), scales)
             out.append(metrics["elbo"])
@@ -1593,7 +1630,7 @@ def training_phase(smi: str):
                                      + ck.task_var_exp_backward.launches
                                      - before67[0],
                                      ck.adam_update.launches - before67[1],
-                                     ck.chol_panel.launches - before67[2])
+                                     ck.chol_blocked.launches - before67[2])
             if use_kernel:
                 tril, rbf, bwd, right, out8 = (
                     a - b for a, b in zip(_counts(), before))
@@ -1603,15 +1640,15 @@ def training_phase(smi: str):
                       f"rbf backward passes {bwd}, kernel 4 launches "
                       f"{right}, kernel 8 launches {out8}, kernel 6 (task "
                       f"table, forward and backward) {sweeps}, kernel 7 "
-                      f"{adams}, kernel 9 {panels} [card: {smi}]")
-                # quad_diag a step; the VM step's four adjoint products
-                # and the refresh's strips; quad_diag's gL (VE) or the
-                # solve's Lbar (VM); the task table's forward and backward
-                # and the adam update; the refresh's diagonal panels
+                      f"{adams}, kernel 10 {panels} [card: {smi}]")
+                # quad_diag a step; the VM step's four adjoint products;
+                # quad_diag's gL (VE) or the solve's Lbar (VM); the task
+                # table's forward and backward and the adam update; the
+                # refresh
                 if (tril < 1 or rbf < 1 or (vm and bwd < 1)
-                        or right != (5 + REFRESH_STRIPS if vm else 1)
+                        or right != (5 if vm else 1)
                         or out8 != 1 or sweeps != 2 or adams != 1
-                        or panels != (REFRESH_PANELS if vm else 0)):
+                        or panels != (REFRESH_LAUNCHES if vm else 0)):
                     raise AssertionError(f"step {i} did not run the kernels")
             elif sweeps or adams:
                 raise AssertionError(f"the plain step {i} launched kernel 6 "
@@ -1667,8 +1704,9 @@ def training_phase(smi: str):
           f"[card: {smi}]")
     if (counts[0] < HOST_CALL_STEPS or counts[1] < HOST_CALL_STEPS
             or counts[2] < n_vm
-            or counts[3] != HOST_CALL_STEPS + (4 + REFRESH_STRIPS) * n_vm
-            or ck.chol_panel.launches != REFRESH_PANELS * n_vm
+            or counts[3] != HOST_CALL_STEPS + 4 * n_vm
+            or ck.chol_blocked.launches != REFRESH_LAUNCHES * n_vm
+            or ck.chol_panel.launches
             or counts[4] != HOST_CALL_STEPS):
         raise AssertionError("the trainer did not go through the kernels")
 
@@ -1887,7 +1925,8 @@ _SYMBOLS = {"rbf_cross_vec_kernel": ("rbf_K_batched_vec",),
             "ve_tasks_kernel": ("task_var_exp", "task_var_exp_value"),
             "ve_tasks_grad_kernel": ("task_var_exp_backward",),
             "adam_kernel": ("adam_update",),
-            "chol_panel_kernel": ("chol_panel",)}
+            "chol_panel_kernel": ("chol_panel",),
+            "chol_blocked_kernel": ("chol_blocked",)}
 
 
 def own_kernel_rows(rows: dict) -> dict:
@@ -1943,17 +1982,15 @@ def graphed_trainer_phase(smi: str, precision: str,
     # VE step, the solve's Lbar in the VM step; 3-pass at "high"); the VM
     # step adds kernel A for quad_diag's gA, its four adjoint products
     # (kernel 5 at "high", kernel 4 at "highest") and the refresh of
-    # (Luu, iLuu): kernel 9 on each diagonal panel, kernel A on the rows
-    # below each panel and kernel 4 on each of the inverse's row strips
+    # (Luu, iLuu), one launch of kernel 10
     want = {"rbf_K_batched_vec": GRAPH_CALL_STEPS, "rbf_backward": n_vm,
             "rbf_K_batched_scalar": 0,
             "tril_projection_tma": (2 * n_vm if high
-                                    else GRAPH_CALL_STEPS + n_vm)
-            + REFRESH_BELOW * n_vm,
+                                    else GRAPH_CALL_STEPS + n_vm),
             "tril_projection_3pass_tma": (GRAPH_CALL_STEPS - n_vm
                                           if high else 0),
-            "tril_right_tma": (GRAPH_CALL_STEPS + (0 if high else 4 * n_vm)
-                               + REFRESH_STRIPS * n_vm),
+            "tril_right_tma": (GRAPH_CALL_STEPS
+                               + (0 if high else 4 * n_vm)),
             "tril_right3_tma": 4 * n_vm if high else 0,
             "tril_out3_tma": GRAPH_CALL_STEPS if high else 0,
             "tril_out_tma": 0 if high else GRAPH_CALL_STEPS,
@@ -1963,8 +2000,8 @@ def graphed_trainer_phase(smi: str, precision: str,
             "task_var_exp": GRAPH_CALL_STEPS,
             "task_var_exp_backward": GRAPH_CALL_STEPS,
             "task_var_exp_value": 0, "gh_sweep": 0, "gh_sweep_value": 0,
-            "adam_update": GRAPH_CALL_STEPS,
-            "chol_panel": REFRESH_PANELS * n_vm}
+            "adam_update": GRAPH_CALL_STEPS, "chol_panel": 0,
+            "chol_blocked": REFRESH_LAUNCHES * n_vm}
     if replayed != want or any(counts[k] < 1 for k in want if want[k]):
         raise AssertionError(f"the graphs did not run the kernels: {replayed}"
                              f" replayed, {want} expected")
@@ -2528,11 +2565,11 @@ def families_phase(smi: str, device="cuda") -> dict:
           f"{cycle['tril_right_tma']}, kernel 5 {cycle['tril_right3_tma']}"
           f" [card: {smi}]")
     # the flagship's cycle at "high" (graphed_trainer_phase), the refresh's
-    # launches of kernels 9, A and 4 included
+    # launch of kernel 10 included
     want = {"rbf_K_batched_vec": 5, "tril_projection_3pass_tma": 4,
-            "tril_projection_tma": 2 + REFRESH_BELOW,
-            "tril_right_tma": 5 + REFRESH_STRIPS, "tril_right3_tma": 4,
-            "chol_panel": REFRESH_PANELS,
+            "tril_projection_tma": 2,
+            "tril_right_tma": 5, "tril_right3_tma": 4,
+            "chol_panel": 0, "chol_blocked": REFRESH_LAUNCHES,
             "tril_out3_tma": 5, "tril_out_tma": 0,
             "rbf_K_batched_scalar": 0,
             # Beta, Binomial, Dirichlet and the ZIP on kernel 6's task
@@ -3377,7 +3414,9 @@ def launch_shapes():
                           ("_out_launch", lambda w, e, A, *a, **k:
                            tuple(A.shape)),
                           ("_panel_launch", lambda w, e, A, *a, **k:
-                           tuple(A.shape))):
+                           tuple(A.shape)),
+                          ("_blocked_launch", lambda w, e, K, *a, **k:
+                           tuple(K.shape))):
         originals[helper] = getattr(ck, helper)
 
         def record(wrapper, *a, _f=originals[helper], _s=shape, **k):
@@ -3406,11 +3445,11 @@ def rank_phase(smi: str) -> None:
             cfg, tc, params, dataset, sizes, batches, True, SEED + 8,
             "rank 2 (8 latent copies), \"high\"", smi,
             plain_bounds=(GRAPH_PLAIN_F32_VE, GRAPH_PLAIN_F32, GRAPH_F64))
-    # the model's own launches, at depth M; the refresh's levels apart
+    # every launch at depth M, the refresh's kernel 10 included
     seen = {k: {q for q, _, m in v if m == M} for k, v in shapes.items()}
     levels = {k: {s for s in v if s[-1] != M} for k, v in shapes.items()}
-    print(f"rank 2: batches the kernels were launched at {seen}; the "
-          f"refresh's launches (Q, N, M) {levels} [card: {smi}]")
+    print(f"rank 2: batches the kernels were launched at {seen}; launches "
+          f"at another depth (Q, N, M) {levels} [card: {smi}]")
     gen = torch.Generator().manual_seed(SEED + 10)
     rates = []
     for _ in range(RANK_CALLS):
@@ -3423,11 +3462,12 @@ def rank_phase(smi: str) -> None:
     report_rates("rank 2 graphed trainer (\"high\")", rates, RANK_STEPS,
                  smi)
     if not ({"rbf_K_batched_vec", "tril_projection_3pass_tma",
-             "tril_right_tma", "tril_right3_tma", "tril_out3_tma"}
-            <= set(seen)
+             "tril_right_tma", "tril_right3_tma", "tril_out3_tma",
+             "chol_blocked"} <= set(seen)
             and all(b == {Q * 2} for b in seen.values() if b)
-            and {k: v for k, v in levels.items() if v}
-            == refresh_shapes(Q * 2)):
+            and not any(levels.values())
+            and shapes["chol_blocked"] == refresh_shapes(Q * 2)[
+                "chol_blocked"]):
         raise AssertionError(f"rank 2 did not run the kernels at batch 8: "
                              f"{seen}")
 
@@ -3654,23 +3694,22 @@ def parallel_gloo_phase(smi: str) -> None:
     n_vm = sum(1 for i in range(PAR_STEPS) if i % first_vm == tc.ve_steps_per_vm)
     # a rank's latents' (Luu, iLuu)
     want_counts = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
-                   "tril_projection_tma": (2 + REFRESH_BELOW) * n_vm,
+                   "tril_projection_tma": 2 * n_vm,
                    "tril_projection_3pass_tma": PAR_STEPS - n_vm,
-                   "tril_right_tma": PAR_STEPS + REFRESH_STRIPS * n_vm,
+                   "tril_right_tma": PAR_STEPS,
                    "tril_right3_tma": 4 * n_vm, "tril_out3_tma": PAR_STEPS,
                    "rbf_K_batched_scalar": 0, "tril_out_tma": 0,
-                   "chol_panel": REFRESH_PANELS * n_vm}
+                   "chol_panel": 0,
+                   "chol_blocked": REFRESH_LAUNCHES * n_vm}
     rows = 6 * TRAIN_B // 2  # a data rank's rows of the VE batch
     rs = refresh_shapes(2)
     want_shapes = {"rbf_K_batched_vec": {(2, rows, M), (2, rows // 4, M)},
                    "tril_projection_3pass_tma": {(2, rows, M)},
-                   "tril_projection_tma": ({(2, rows // 4, M)}
-                                           | rs["tril_projection_tma"]),
+                   "tril_projection_tma": {(2, rows // 4, M)},
                    # quad_diag in both steps; the adjoints' (M, M) products
-                   # and the VM step's Kfubar; the refresh's strips
-                   "tril_right_tma": ({(2, rows, M), (2, rows // 4, M)}
-                                      | rs["tril_right_tma"]),
-                   "chol_panel": rs["chol_panel"],
+                   # and the VM step's Kfubar
+                   "tril_right_tma": {(2, rows, M), (2, rows // 4, M)},
+                   "chol_blocked": rs["chol_blocked"],
                    "tril_right3_tma": {(2, M, M), (2, rows // 4, M)},
                    # quad_diag's gL (VE), the solve's Lbar (VM)
                    "tril_out3_tma": {(2, rows, M), (2, rows // 4, M)}}
@@ -3679,9 +3718,7 @@ def parallel_gloo_phase(smi: str) -> None:
     serve_shapes = {k: {(2, PAR_SERVE_ROWS // 2, M)}
                     for k in ("rbf_K_batched_vec", "tril_projection_3pass_tma",
                               "tril_right_tma")}
-    serve_shapes["tril_right_tma"] |= rs["tril_right_tma"]
-    serve_shapes["tril_projection_tma"] = rs["tril_projection_tma"]
-    serve_shapes["chol_panel"] = rs["chol_panel"]
+    serve_shapes["chol_blocked"] = rs["chol_blocked"]
     bad = []
     for r, out in enumerate(outs):
         rel = np.abs(out["elbos"] - eager) / np.abs(eager)
@@ -3733,11 +3770,10 @@ def parallel_gloo_phase(smi: str) -> None:
               and out["serve_finite"]
               and out["serve_counts"]["rbf_K_batched_vec"] == 6
               and out["serve_counts"]["tril_projection_3pass_tma"] == 6
-              and out["serve_counts"]["tril_right_tma"]
-              == 6 + REFRESH_STRIPS
-              and out["serve_counts"]["tril_projection_tma"]
-              == REFRESH_BELOW
-              and out["serve_counts"]["chol_panel"] == REFRESH_PANELS
+              and out["serve_counts"]["tril_right_tma"] == 6
+              and out["serve_counts"]["tril_projection_tma"] == 0
+              and out["serve_counts"]["chol_panel"] == 0
+              and out["serve_counts"]["chol_blocked"] == REFRESH_LAUNCHES
               and out["serve_shapes"] == serve_shapes
               and out["serve_collectives"] == [("data", "all_gather"),
                                                ("latent", "all_reduce")])
@@ -3802,10 +3838,10 @@ def parallel_nccl_phase(smi: str) -> None:
               f"[card: {smi}]")
         n_vm = meshed.replays["vm"]
         want = {"rbf_K_batched_vec": PAR_STEPS, "rbf_backward": n_vm,
-                "tril_projection_tma": (2 + REFRESH_BELOW) * n_vm,
+                "tril_projection_tma": 2 * n_vm,
                 "tril_projection_3pass_tma": PAR_STEPS - n_vm,
-                "tril_right_tma": PAR_STEPS + REFRESH_STRIPS * n_vm,
-                "chol_panel": REFRESH_PANELS * n_vm,
+                "tril_right_tma": PAR_STEPS, "chol_panel": 0,
+                "chol_blocked": REFRESH_LAUNCHES * n_vm,
                 "tril_right3_tma": 4 * n_vm, "tril_out3_tma": PAR_STEPS,
                 "task_var_exp": PAR_STEPS,
                 "task_var_exp_backward": PAR_STEPS, "gh_sweep": 0,
@@ -4845,12 +4881,14 @@ def main():
           f"tril_out_tma (at \"highest\"); none per serving pass "
           f"{ {k: served[k] for k in ('tril_out_tma', 'tril_out3_tma')} }"
           f" [card: {smi}]")
-    print(f"kernel 9 on the main path: launches per 5-step cycle "
-          f"{replayed['chol_panel'] * 5 // GRAPH_CALL_STEPS} (the graphed "
-          f"flagship at \"high\": a refresh's {REFRESH_PANELS} diagonal "
-          f"panels), {counts['chol_panel']} in its first call (the init's "
-          f"refresh and the capture's); none per serving pass "
-          f"{served['chol_panel']} [card: {smi}]")
+    print(f"kernels 9 and 10 on the main path: launches per 5-step cycle "
+          f"{replayed['chol_panel'] * 5 // GRAPH_CALL_STEPS} and "
+          f"{replayed['chol_blocked'] * 5 // GRAPH_CALL_STEPS} (the graphed "
+          f"flagship at \"high\": a refresh, one launch of kernel 10), "
+          f"{counts['chol_blocked']} of kernel 10 in its first call (the "
+          f"init's refresh and the capture's); none per serving pass "
+          f"{ {k: served[k] for k in ('chol_panel', 'chol_blocked')} } "
+          f"[card: {smi}]")
     mine = ("task_var_exp", "task_var_exp_backward", "task_var_exp_value",
             "gh_sweep", "gh_sweep_value", "adam_update")
     print(f"kernels 6 and 7 on the main path: launches per 5-step cycle "

@@ -74,6 +74,14 @@
 // A probe build (nvcc -DK9_STAMPS; probes/chol_panel.py) stamps clock64()
 // by role and phase into `stamps` (hetmogp_chol_panel_stamps); the shipped
 // build compiles no stamp.
+//
+// The panel routine is factor_panel, one call a panel, which kernel 10
+// (chol_blocked_kernel.cu) also calls on each diagonal tile of its
+// persistent blocks: it includes this file with CHOL_PANEL_DEVICE_ONLY
+// defined, which leaves out the launcher and the C entries.  A block's
+// mbarriers are initialised at its first call and then used once a call,
+// so call c waits on phase parity c & 1; A may be L itself (every element
+// of A is in shared memory before the first store).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -456,14 +464,18 @@ __device__ __forceinline__ void solve_row(const Panel<T>& pn, const T* tbs,
   });
 }
 
+// The panel A (n x n, row stride a_r) of the calling block: L and iL
+// written through their row strides.  `call` counts the block's earlier
+// calls (0 in kernel 9); every thread of the block calls it.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-chol_panel_kernel(const T* __restrict__ A, long long a_b, long long a_r,
-                  T* __restrict__ L, long long l_b, long long l_r,
-                  T* __restrict__ iL, long long i_b, long long i_r, int n) {
+__device__ __forceinline__ void factor_panel(const T* A, long long a_r, T* L,
+                                             long long l_r, T* iL,
+                                             long long i_r, int n,
+                                             int call) {
   __shared__ uint64_t bars[3 * MAX_SUBS];  // LOAD, FACT, READY
   __shared__ T rdiag[NMAX];                // 1 / L[j][j]
   __shared__ int failed;
+  const uint32_t parity = (uint32_t)call & 1u;
   K9_STAMP(__shared__ long long inverse_cycles[MAX_SUBS];)
   uint64_t* const LOAD = bars;
   uint64_t* const FACT = bars + MAX_SUBS;
@@ -480,18 +492,16 @@ chol_panel_kernel(const T* __restrict__ A, long long a_b, long long a_r,
     pn.n = n;
     pn.ld_t = ltld(n);
   }
-  const long long b = blockIdx.x;
-  A += b * a_b;
-  L += b * l_b;
-  iL += b * i_b;
   K9_STAMP(long long k9[k9s::N_STAMPS] = {}; long long k9_t0 = clock64();
            long long k9_t = k9_t0;
            if (tid == 0) k9s::put(k9s::START_NS, k9s::global_ns());)
   if (tid == 0) {
-    for (int s = 0; s < subs; ++s) {
-      mbar_init(LOAD + s, UPDATERS);
-      mbar_init(FACT + s, 32);
-      mbar_init(READY + s, UPDATERS);
+    if (call == 0) {
+      for (int s = 0; s < subs; ++s) {
+        mbar_init(LOAD + s, UPDATERS);
+        mbar_init(FACT + s, 32);
+        mbar_init(READY + s, UPDATERS);
+      }
     }
     failed = 0;
     fence_barrier_init();
@@ -504,7 +514,7 @@ chol_panel_kernel(const T* __restrict__ A, long long a_b, long long a_r,
     for (int s = 0; s < subs; ++s) {
       const int k0 = s * SUB, w = min(SUB, n - k0);
       K9_STAMP(k9_t = clock64();)
-      mbar_wait(s == 0 ? LOAD : READY + s, 0);
+      mbar_wait(s == 0 ? LOAD : READY + s, parity);
       K9_STAMP(const long long k9_r = clock64();
                k9[s == 0 ? k9s::P_LOAD_WAIT : k9s::P_READY_WAIT] +=
                k9_r - k9_t;
@@ -532,7 +542,7 @@ chol_panel_kernel(const T* __restrict__ A, long long a_b, long long a_r,
       }
       cp_async_arrive(LOAD + s);
     }
-    for (int s = 0; s < subs; ++s) mbar_wait(LOAD + s, 0);
+    for (int s = 0; s < subs; ++s) mbar_wait(LOAD + s, parity);
   }
 
   if (warp > 0) {
@@ -544,7 +554,7 @@ chol_panel_kernel(const T* __restrict__ A, long long a_b, long long a_r,
       const int t0 = k0 + w, rows = n - t0, cols = t0;
       const T* rd = rdiag + k0;
       const T* tbs = pn.TB + s * SUB * SUB;
-      mbar_wait(FACT + s, 0);
+      mbar_wait(FACT + s, parity);
       K9_STAMP(k9[k9s::U_FACT_WAIT] += clock64() - k9_t; k9_t = clock64();)
       // the chain's part: the next block's rows, L21 = A21 L11^{-T}, by
       // substitution, a lane a row (in place, and transposed into LT),
@@ -703,6 +713,16 @@ chol_panel_kernel(const T* __restrict__ A, long long a_b, long long a_r,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(THREADS)
+chol_panel_kernel(const T* __restrict__ A, long long a_b, long long a_r,
+                  T* __restrict__ L, long long l_b, long long l_r,
+                  T* __restrict__ iL, long long i_b, long long i_r, int n) {
+  const long long b = blockIdx.x;
+  factor_panel(A + b * a_b, a_r, L + b * l_b, l_r, iL + b * i_b, i_r, n, 0);
+}
+
+#ifndef CHOL_PANEL_DEVICE_ONLY
+template <typename T>
 int launch(const T* A, long long a_b, long long a_r, T* L, long long l_b,
            long long l_r, T* iL, long long i_b, long long i_r, int batch,
            int n, cudaStream_t stream) {
@@ -724,8 +744,11 @@ int launch(const T* A, long long a_b, long long a_r, T* L, long long l_b,
   return (int)cudaGetLastError();
 }
 
+#endif  // CHOL_PANEL_DEVICE_ONLY
+
 }  // namespace chol_panel
 
+#ifndef CHOL_PANEL_DEVICE_ONLY
 // A (batch, n, n) through a_b (batch stride) and a_r (row stride), in
 // elements, its last stride 1; L and iL likewise.  Returns a CUDA error
 // code, 0 on success.
@@ -765,3 +788,4 @@ extern "C" int hetmogp_chol_panel_stamps(void* out, int blocks) {
       sizeof(long long) * blocks * chol_panel::k9s::N_STAMPS);
 }
 #endif
+#endif  // CHOL_PANEL_DEVICE_ONLY

@@ -73,9 +73,10 @@ def prior_cholesky(params: SVMOGPParams, config: ModelConfig,
     ``use_kernel=False`` takes their plain versions).
     ``config.chol_dtype="float64"`` on a float32 model factorizes in
     float64 (``linalg.chol_mixed``) at the fixed jitter.  blocked: the
-    factorization by ``linalg.blocked_cholesky`` (kernel 9 on its
-    diagonal panels; the trainer's init and its refresh without an
-    inverse), taken only at fixed jitter in the working dtype, as the JAX
+    factorization by ``linalg.blocked_cholesky`` (one launch of kernel 10
+    on a float32 model on the card; the trainer's init and its refresh
+    without an inverse), taken only at fixed jitter in the working dtype,
+    as the JAX
     package's ``blocked=True``.  Otherwise ``config.adaptive_jitter``
     escalates the jitter where the factorization fails
     (``linalg.jitchol``, which reads ``info`` on the host).
@@ -103,7 +104,8 @@ def _float64_island(params: SVMOGPParams, config: ModelConfig) -> bool:
 def prior_cholesky_inverse(params: SVMOGPParams, config: ModelConfig):
     """(Luu, Luu^{-1}) of Kuu + jitter I, each (Q, M, M): the fused,
     blocked factorization and inverse (``linalg.blocked_cholesky_inverse``:
-    kernel 9 on the diagonal panels) at fixed jitter in the working dtype,
+    one launch of kernel 10 on a float32 model on the card) at fixed
+    jitter in the working dtype,
     else ``prior_cholesky`` (the float64 island, or the adaptive
     ``jitchol``) and the recursive inverse.  No gradient: the VM step
     differentiates through ``chol_cached`` against this cache."""

@@ -35,7 +35,9 @@ lower tiles formed, is kernel 8 in float32 and in three bf16 passes at
 Kernel 9 (``chol_panel``), the Cholesky factor and inverse of one
 diagonal panel of the blocked factorization, takes float32 and float64;
 it writes into the views it is given, so it is a launcher, not an
-operator (no exported program reaches it).
+operator (no exported program reaches it).  Kernel 10
+(``chol_blocked``), the blocked factor and inverse of a float32 stack
+whose width is a multiple of 128 in one launch, is a launcher too.
 """
 
 from __future__ import annotations
@@ -143,3 +145,14 @@ def chol_panel(A, L=None, iL=None):
     Lp, iLp = cuda_kernels.chol_panel_plain(A)
     return (Lp if L is None else L.copy_(Lp),
             iLp if iL is None else iL.copy_(iLp))
+
+
+def chol_blocked(K):
+    """(L, L^{-1}) of the (batch, M, M) SPD ``K``, M a multiple of 128:
+    kernel 10 for a CUDA tensor (float32; another dtype raises), its plain
+    version for a CPU tensor."""
+    from hetmogp_tpu_torch.ops import cuda_kernels
+
+    if K.is_cuda:
+        return cuda_kernels.chol_blocked(K)
+    return cuda_kernels.chol_blocked_plain(K)

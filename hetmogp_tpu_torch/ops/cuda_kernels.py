@@ -43,9 +43,14 @@ in one launch; ``adam_update``), all in float32 and float64, launched by
 ``ops/quadrature.py`` and ``train.py`` directly (no operator: no exported
 program trains); and ``csrc/chol_panel_kernel.cu`` (kernel 9: the
 Cholesky factor of a (n, n) diagonal panel, n <= 128, and its inverse, in
-float32 and float64; ``chol_panel``), launched by ``ops/linalg.py``'s
-blocked factorization (no operator: no exported program factorizes through
-it); and ``csrc/span_stamp_kernel.cu``, not the port's work but its
+float32 and float64; ``chol_panel``) and ``csrc/chol_blocked_kernel.cu``
+(kernel 10: the blocked factor and inverse of a float32 stack wider than
+128 in one persistent launch, kernel 9's panel routine on its diagonal
+tiles; ``chol_blocked``; its schedule, in ``csrc/chol_blocked_plan.cuh``,
+is walked on the CPU by ``tests/test_torch_chol_blocked_plan.py``),
+launched by ``ops/linalg.py``'s blocked factorization (no operator: no
+exported program factorizes through them); and
+``csrc/span_stamp_kernel.cu``, not the port's work but its
 spans' (``profiling.py``): the stamp of the device's clock
 (``stamper``), the marks and census of a graph under capture
 (``GraphMarks``), its stamped clone (``StampedGraph``) and the clocks'
@@ -89,6 +94,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import struct
 
 import torch
@@ -122,6 +128,10 @@ def _library() -> ctypes.CDLL:
              + [ctypes.c_longlong])
     panel = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 3 + [
         ctypes.c_int] * 2
+    # K, its batch and row strides; L, iL, L's float64 copy, the float64
+    # updates, the counters; batch, tiles a side
+    blocked = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
+               + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2)
     signatures = {
         "hetmogp_rbf_cross_vec_f32": rbf,
         "hetmogp_rbf_cross_f32": rbf,
@@ -153,6 +163,7 @@ def _library() -> ctypes.CDLL:
         # A, L and iL, each with its batch and row strides; batch, n
         "hetmogp_chol_panel_f32": panel,
         "hetmogp_chol_panel_f64": panel,
+        "hetmogp_chol_blocked_f32": blocked,
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -176,6 +187,10 @@ def _library() -> ctypes.CDLL:
     lib.hetmogp_tril_out_schedule.restype = ctypes.c_int
     lib.hetmogp_chol_panel_smem.argtypes = [ctypes.c_int] * 2
     lib.hetmogp_chol_panel_smem.restype = ctypes.c_int
+    lib.hetmogp_chol_blocked_flags.argtypes = [ctypes.c_int] * 2
+    lib.hetmogp_chol_blocked_flags.restype = ctypes.c_int
+    lib.hetmogp_chol_blocked_grid.argtypes = []
+    lib.hetmogp_chol_blocked_grid.restype = ctypes.c_int
     # ring, slot, the ring's slots, stream
     lib.hetmogp_span_stamp.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_longlong, ctypes.c_void_p]
@@ -1662,6 +1677,103 @@ def chol_panel_smem(dtype: torch.dtype, n: int) -> int:
     return _library().hetmogp_chol_panel_smem(int(dtype == torch.float64), n)
 
 
+# ---- kernel 10: the blocked factor and inverse of a stack in one launch -----
+#
+# csrc/chol_blocked_kernel.cu, persistent blocks taking the 128 x 128 tile
+# tasks of every matrix of the batch (csrc/chol_blocked_plan.cuh) by a
+# ticket, float32.  ``ops/linalg.py``'s blocked factorization hands it a
+# (batch, M, M) stack whose M is a multiple of 128 (a ragged M padded with
+# an identity block); it allocates the outputs, the float64 scratch (L's
+# copy and the updates) and the zeroed counters (a memset node in a
+# captured graph).
+
+CHOL_TILE = 128  # csrc/chol_blocked_plan.cuh: TILE
+CHOL_PARTS, CHOL_BULK = 4, 2  # csrc/chol_blocked_plan.cuh: PARTS, BULK
+
+
+def chol_blocked_tasks(batch: int, nt: int) -> int:
+    """The tile tasks a launch over ``batch`` matrices of nt x nt tiles
+    hands out (``csrc/chol_blocked_plan.cuh::total_tasks``): a matrix's
+    nt POTRF, nt (nt - 1) / 2 INV and C(nt, 3) ACC, and its nt (nt - 1) /
+    2 TRSM and C(nt + 1, 3) UPD in row parts: ``CHOL_PARTS`` each for the
+    5 nt - 8 next to a panel (nt >= 2), ``CHOL_BULK`` for the rest."""
+    near = 5 * nt - 8 if nt >= 2 else 0
+    split = nt * (nt - 1) // 2 + math.comb(nt + 1, 3)
+    return batch * (nt + nt * (nt - 1) // 2 + math.comb(nt, 3)
+                    + CHOL_PARTS * near + CHOL_BULK * (split - near))
+
+
+def chol_blocked_plain(K: torch.Tensor):
+    """Plain version of kernel 10: (L, L^{-1}) of (..., M, M) SPD ``K``,
+    only its lower triangle read, NaN where a factorization fails:
+    ``chol_panel_plain``'s library calls, at any width."""
+    return chol_panel_plain(K)
+
+
+def _blocked_launch(wrapper, entry: str, K, L, iL, L64, C, flags) -> None:
+    """Launch kernel 10's ``entry`` on the current stream and count the
+    launch on ``wrapper``."""
+    lib = _library()
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        err = getattr(lib, entry)(
+            K.data_ptr(), K.stride(0), K.stride(1), L.data_ptr(),
+            iL.data_ptr(), L64.data_ptr(), C.data_ptr(), flags.data_ptr(),
+            K.shape[0], K.shape[-1] // CHOL_TILE, stream)
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
+
+
+def chol_blocked(K: torch.Tensor):
+    """Kernel 10 (``hetmogp_chol_blocked_f32``,
+    ``csrc/chol_blocked_kernel.cu``): the Cholesky factor L of each (M, M)
+    SPD matrix of ``K`` (batch, M, M), M a multiple of 128, its lower
+    triangle read, and L^{-1}, both with exact zeros above the diagonal,
+    in one launch; a pivot that fails fills L's columns from its panel on
+    (on and below the diagonal) and L^{-1}'s rows from that panel on with
+    NaN.  Float32 on one CUDA device, K's rows of unit stride and 16-byte
+    aligned.  Returns new (L, iL).  Launches on the current stream and
+    does not synchronise; counts its launches in
+    ``chol_blocked.launches``."""
+    name = "chol_blocked"
+    if K.requires_grad:
+        raise NotImplementedError(f"the raw CUDA {name} launcher records no "
+                                  "backward; call it under no_grad")
+    if K.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32, got {K.dtype}")
+    if not K.is_cuda:
+        raise ValueError(f"{name} takes CUDA tensors, got {K.device}")
+    if K.ndim != 3 or K.shape[-1] != K.shape[-2] or not K.shape[-1] or \
+            K.shape[-1] % CHOL_TILE:
+        raise ValueError(f"{name} takes (batch, M, M) with M a multiple of "
+                         f"{CHOL_TILE}, got {tuple(K.shape)}")
+    m = K.shape[-1]
+    if K.stride(-1) != 1 or K.stride(1) < m or K.stride(1) % 4 or \
+            K.stride(0) % 4 or K.data_ptr() % 16:
+        raise ValueError(f"{name}: K's rows must have unit stride, be at "
+                         "least M apart and 16-byte aligned, got strides "
+                         f"{K.stride()}")
+    batch, nt = K.shape[0], m // CHOL_TILE
+    L = torch.empty(K.shape, dtype=K.dtype, device=K.device)
+    iL = torch.empty_like(L)
+    if batch:
+        if chol_blocked_tasks(batch, nt) >= 2 ** 31:
+            raise ValueError(f"{name}: {tuple(K.shape)} is too many tasks")
+        lib = _library()
+        # float64 scratch: L's exact copy and the updates, 1.5 B M^2 + 64 B M
+        L64 = torch.empty(K.shape, dtype=torch.float64, device=K.device)
+        C = torch.empty((batch, nt * (nt + 1) // 2, CHOL_TILE, CHOL_TILE),
+                        dtype=torch.float64, device=K.device)
+        flags = torch.zeros(lib.hetmogp_chol_blocked_flags(batch, nt),
+                            dtype=torch.int32, device=K.device)
+        _blocked_launch(chol_blocked, "hetmogp_chol_blocked_f32", K, L, iL,
+                        L64, C, flags)
+    return L, iL
+
+
+chol_blocked.launches = 0
+
+
 # ---- the kernels as operators -----------------------------------------------
 #
 # Each routed forward is a custom operator of the ``hetmogp`` namespace: its
@@ -1713,7 +1825,7 @@ _LAUNCHERS = (rbf_K_batched_vec, rbf_K_batched_scalar, tril_projection_tma,
               tril_projection_3pass_tma, tril_right_tma, tril_right3_tma,
               tril_out_tma, tril_out3_tma, gh_sweep, gh_sweep_value,
               task_var_exp, task_var_exp_value, task_var_exp_backward,
-              adam_update, chol_panel)
+              adam_update, chol_panel, chol_blocked)
 
 
 def launch_counts() -> dict:

@@ -28,10 +28,13 @@ that skip them too (``ops/cuda_dispatch.py`` decides):
 ``tri_inverse`` is ``rec_tri_inverse``, the JAX package's recursive
 blocked inverse: one batched ``trsm`` at the leaves, then its corners as
 kernels 4 and A.  ``blocked_cholesky_inverse`` and ``blocked_cholesky``
-are the JAX package's blocked factorization: left-looking panels of 128,
-each diagonal panel factored and inverted by kernel 9
-(``csrc/chol_panel_kernel.cu``), the rows below it on kernel A and the
-inverse's row strips on kernel 4.  ``tril_matmul`` stays a masked cuBLAS
+are the JAX package's blocked factorization: on a float32 CUDA stack
+wider than 128, kernel 10 (``csrc/chol_blocked_kernel.cu``), the whole
+pair's 128-wide tile tasks in one persistent launch; at most 128 wide,
+one launch of kernel 9 (``csrc/chol_panel_kernel.cu``); in float64 or on
+the CPU, left-looking panels, each diagonal panel factored and inverted
+by kernel 9 (its plain version on the CPU), the rows below it and the
+inverse's row strips as products.  ``tril_matmul`` stays a masked cuBLAS
 product.  Float32
 matmuls must run in full float32: TF32 ruins the projection P = Kfu @
 iLuu^T (see ``models/elbo.py``), so nothing here may run under
@@ -56,7 +59,8 @@ import contextvars
 import numpy as np
 import torch
 
-from hetmogp_tpu_torch.ops import cuda_dispatch
+from hetmogp_tpu_torch import profiling
+from hetmogp_tpu_torch.ops import cuda_dispatch, cuda_kernels
 
 
 def tril_indices(m: int):
@@ -234,41 +238,45 @@ def tri_inverse(L: torch.Tensor) -> torch.Tensor:
 # the blocked factorization: left-looking panels with shared panel inverses
 # ---------------------------------------------------------------------------
 #
+# A float32 CUDA stack wider than 128 takes kernel 10 (``_tiled``): the
+# algebra below cut into 128 x 128 tile tasks (the updates right-looking,
+# the inverse's strips as tiles) that persistent blocks take by a ticket,
+# in one launch; an M that 128 does not divide is padded to 128 ceil(M /
+# 128) with an identity block and cropped (exact: chol(I) = I, and the
+# zero block couples nothing).  What follows is the chain that float64
+# and CPU tensors take, one launch or call a step.
+#
 # The JAX package's ``_blocked_cholesky_panels`` and
 # ``_blocked_cholesky_inverse_single`` (hetmogp_tpu/ops/linalg.py:390-450):
 # only the (nb, nb) diagonal panels are factored by a serial routine, here
-# kernel 9, which also inverts each; the rest of the O(M^3) work is
-# products.  Panel j (rows and columns r0:r1):
-#   acc = K[r0:, r0:r1] - L[r0:, :r0] L[r0:r1, :r0]^T   (cuBLAS)
+# kernel 9 (on the card; its plain version on the CPU), which also inverts
+# each; the rest of the O(M^3) work is products.  Panel j (rows and
+# columns r0:r1):
+#   acc = K[r0:, r0:r1] - L[r0:, :r0] L[r0:r1, :r0]^T   (float64)
 #   Lkk, iLkk = kernel 9 of acc[:nb]
-#   L[r1:, r0:r1] = acc[nb:] tril(iLkk)^T               (kernel A)
+#   L[r1:, r0:r1] = acc[nb:] tril(iLkk)^T
 # refined once: R = acc[nb:] - L[r1:, r0:r1] Lkk^T, L[r1:, r0:r1] += R
-# tril(iLkk)^T (kernel A again).  Two departures from the JAX package, for
-# accuracy in float32: the JAX package multiplies by the inverse alone,
-# which against float64 loses up to cond(Lkk) eps (several times
-# cuSOLVER's potrf on the flagship's Kuu, cond ~1e6), and it accumulates
-# the updates acc in float32 over up to M - nb terms; here the refinement
-# restores a triangular solve's accuracy and the updates run in float64
-# (cuBLAS on the card's FP64 tensor cores, from a float64 copy of L's
-# finished columns), rounded to float32 once.  Together they put the pair
-# within potrf's and trsm's errors (``chip_smoke.py::factor_phase``).
-# Then the inverse, a row strip at a time from the same panel inverses:
+# tril(iLkk)^T.  Two departures from the JAX package, for accuracy in
+# float32 (kernel 10 keeps both): the JAX package multiplies by the
+# inverse alone, which against float64 loses up to cond(Lkk) eps (several
+# times cuSOLVER's potrf on the flagship's Kuu, cond ~1e6), and it
+# accumulates the updates acc in float32 over up to M - nb terms; here the
+# refinement restores a triangular solve's accuracy and the updates run in
+# float64 (from a float64 copy of L's finished columns), rounded to
+# float32 once.  Together they put the pair within potrf's and trsm's
+# errors (``chip_smoke.py::factor_phase``).  Then the inverse, a row strip
+# at a time from the same panel inverses:
 #   iL[r0:r1, :r0] = -iLkk (L[r0:r1, :r0] tril(iL[:r0, :r0]))
-# (the inner product on kernel 4; the outer one on cuBLAS, which writes the
-# negated product straight into iL's rows through its leading dimension:
-# kernel A would need X^T and its transposed result copied, and iLkk's
-# zeros above the diagonal are exact, so no mask is needed).  L and iL are
-# two (M, M) buffers written through views, where the JAX package
-# concatenates (in-place updates were slower on the TPU); kernel 9 writes
-# its panel's L and iL in place, and iLkk is that view of iL.  Kernels A
-# and 4 read their operands where they lie (``below``'s first panel, a
-# view of K; iLkk; each strip's two operands), through the strides TMA
-# takes when the rows are a multiple of 16 bytes apart (M % 4 == 0, as
-# the flagship's 1024); at another M they copy them to contiguous
-# tensors first.  Float64 runs kernel 9 and the products' plain
-# versions.  The panel width is fixed at 128, the widest kernel 9 takes
-# (the JAX package tunes it to the TPU: ``_auto_nb``); an M that 128 does
-# not divide gets a narrower last panel, not the unblocked factor.
+# (the outer product written straight into iL's rows through its leading
+# dimension; iLkk's zeros above the diagonal are exact, so no mask is
+# needed).  L and iL are two (M, M) buffers written through views, where
+# the JAX package concatenates (in-place updates were slower on the TPU);
+# kernel 9 writes its panel's L and iL in place, and iLkk is that view of
+# iL.  The products are the triangular products' plain versions (on a
+# float32 CPU tensor through their operators).  The panel width is 128
+# unless given, the widest kernel 9 takes (the JAX package tunes it to
+# the TPU: ``_auto_nb``); an M that it does not divide gets a narrower
+# last panel, not the unblocked factor.
 
 PANEL = 128
 
@@ -284,12 +292,39 @@ def _check_nb(nb):
     return nb
 
 
+def _tiled(K3):
+    """(L, iL) of a float32 CUDA (B, M, M) stack by kernel 10, M padded
+    to a multiple of 128 with an identity block where it is not one, and
+    cropped; the launch's tile tasks counted as ``factor.tile_tasks`` in
+    the innermost open span."""
+    b, m = K3.shape[0], K3.shape[-1]
+    mp = -(-m // PANEL) * PANEL
+    if mp == m:
+        Kp = K3.contiguous()
+    else:
+        Kp = K3.new_zeros((b, mp, mp))
+        Kp[:, :m, :m] = K3
+        Kp.diagonal(dim1=-2, dim2=-1)[:, m:] = 1.0
+    profiling.count("factor.tile_tasks",
+                    cuda_kernels.chol_blocked_tasks(b, mp // PANEL))
+    L, iL = cuda_dispatch.chol_blocked(Kp)
+    if mp != m:
+        L, iL = L[:, :m, :m], iL[:, :m, :m]
+    return L, iL
+
+
+def _kernel_route(K: torch.Tensor) -> bool:
+    """Whether K takes kernel 9 or 10 whole: a float32 CUDA tensor."""
+    return K.is_cuda and K.dtype == torch.float32
+
+
 def _blocked_panels(K3, nb, L, iL):
     """Factor (B, M, M) K3 into L (zeros on entry), panel by panel; return
     the panels' inverses, written into ``iL``'s diagonal blocks (views of
-    it) when ``iL`` is not None, else into scratch."""
+    it) when ``iL`` is not None, else into scratch.  Float64 or CPU
+    tensors: a float32 CUDA stack takes ``_tiled``."""
     m, dtype = K3.shape[-1], K3.dtype
-    products = dtype == torch.float32  # kernels A and 4 take float32
+    products = dtype == torch.float32  # the products' operators
     # the updates K - L L^T in float64, from a float64 copy of L's finished
     # columns (L itself in float64)
     K64 = K3.to(torch.float64)
@@ -328,13 +363,14 @@ def blocked_cholesky_inverse(K: torch.Tensor, nb=None):
     Both come back lower-triangular with exact zeros above the diagonal.
     A factorization that fails surfaces as NaNs, not as an exception and
     without a host read: from the failing panel on, in both outputs.
-    ``nb``: the panel width (128 unless given, at most 128); M <= nb is one
-    launch of kernel 9.  On a CUDA tensor kernel 9 factors and inverts
-    every diagonal panel (float32 and float64), kernel A forms the rows
-    below each and kernel 4 the inverse's strips (float32; float64 takes
-    their plain versions); a CPU tensor takes the plain versions.  It
-    records no gradient: a K that requires one raises
-    (``blocked_cholesky`` is the differentiable factor).
+    A float32 CUDA tensor takes one launch: kernel 9 where M <= 128,
+    else kernel 10 (128-wide tiles, whatever ``nb``).  Otherwise ``nb`` is
+    the panel width (128 unless given, at most 128) and M <= nb one
+    kernel 9 call: on a float64 CUDA tensor kernel 9 factors and inverts
+    every diagonal panel and the products' plain versions do the rest; a
+    CPU tensor takes the plain versions.  It records no gradient: a K
+    that requires one raises (``blocked_cholesky`` is the differentiable
+    factor).
     """
     if torch.is_grad_enabled() and K.requires_grad:
         raise RuntimeError("blocked_cholesky_inverse records no gradient; "
@@ -343,7 +379,10 @@ def blocked_cholesky_inverse(K: torch.Tensor, nb=None):
     nb = _check_nb(nb)
     m = K.shape[-1]
     K3 = K.reshape(-1, m, m)
-    if m <= nb:
+    if _kernel_route(K) and m > PANEL:
+        L, iL = _tiled(K3)
+        return L.reshape(K.shape), iL.reshape(K.shape)
+    if m <= (PANEL if _kernel_route(K) else nb):
         L, iL = cuda_dispatch.chol_panel(K3)
         return L.reshape(K.shape), iL.reshape(K.shape)
     L, iL = torch.zeros_like(K3), torch.zeros_like(K3)
@@ -359,7 +398,8 @@ def blocked_cholesky_inverse(K: torch.Tensor, nb=None):
 def blocked_cholesky(K: torch.Tensor, nb=None) -> torch.Tensor:
     """Cholesky factor of (..., M, M) SPD K by the blocked factorization:
     the JAX package's ``blocked_cholesky``, the panels of
-    ``blocked_cholesky_inverse`` without the inverse's strips.
+    ``blocked_cholesky_inverse`` without the inverse's strips (a float32
+    CUDA tensor wider than 128: kernel 10's launch, its inverse left).
 
     Lower-triangular, NaN from the failing panel on where the factorization
     fails.  Differentiable: where K requires a gradient the pair is formed
@@ -374,7 +414,9 @@ def blocked_cholesky(K: torch.Tensor, nb=None) -> torch.Tensor:
         return chol_cached(K, L, iL, use_kernel=K.dtype == torch.float32)
     m = K.shape[-1]
     K3 = K.reshape(-1, m, m)
-    if m <= nb:
+    if _kernel_route(K) and m > PANEL:
+        return _tiled(K3)[0].reshape(K.shape)
+    if m <= (PANEL if _kernel_route(K) else nb):
         return cuda_dispatch.chol_panel(K3)[0].reshape(K.shape)
     L = torch.zeros_like(K3)
     _blocked_panels(K3, nb, L, None)

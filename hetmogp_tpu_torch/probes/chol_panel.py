@@ -27,10 +27,6 @@ phases end at such barriers).  For each build it prints:
   plus 1e-6; float64: 1e-12 from the plain float64 version), exact zeros
   above the diagonal, two launches bitwise equal, and a non-SPD panel's
   NaN (pivots 0, 40 and 127), and its float32 errors at n = 128;
-* the blocked pair (``linalg.blocked_cholesky_inverse``) of the flagship's
-  Kuu (``chip_smoke.flagship_kuu``) with the build's kernel 9 in place of
-  the package's: L's and iL's normwise errors against float64, beside
-  ``potrf``'s and ``trsm``'s;
 * its time at each width, (4, n, n) float32, and at (4, 128, 128)
   float64: CUDA events behind a device sleep, every build and an empty
   kernel in turns there and back, median, min and max of the calls, and
@@ -303,55 +299,6 @@ def check(b: Build, widths, gen, smi: str) -> bool:
     return ok
 
 
-class _Swapped:
-    """The package's kernel library with kernel 9's entries a build's."""
-
-    def __init__(self, lib, b: Build):
-        self._lib, self._b = lib, b
-
-    def __getattr__(self, name):
-        tags = {"hetmogp_chol_panel_f32": torch.float32,
-                "hetmogp_chol_panel_f64": torch.float64}
-        if name in tags:
-            return self._b.entry[tags[name]]
-        return getattr(self._lib, name)
-
-
-def pair_errors(b: Build, K, ref, smi: str) -> None:
-    """The blocked pair of K with the build's kernel 9 in place of the
-    package's: L's and iL's normwise errors against float64 (``ref``: L,
-    iL, and potrf's and trsm's errors)."""
-    from hetmogp_tpu_torch.ops import linalg
-
-    real = ck._library
-    ck._library = lambda: _Swapped(real(), b)
-    try:
-        L, iL = linalg.blocked_cholesky_inverse(K)
-        torch.cuda.synchronize()
-    finally:
-        ck._library = real
-    eL, eiL = normwise(L, ref[0]), normwise(iL, ref[1])
-    print(f"  {b.name}: blocked pair of the flagship's Kuu "
-          f"{tuple(K.shape)}, normwise vs float64: L {eL:.3e} "
-          f"({eL / ref[2]:.3f}x potrf's {ref[2]:.3e}), iL {eiL:.3e} "
-          f"({eiL / ref[3]:.3f}x trsm's {ref[3]:.3e}) [card: {smi}]")
-
-
-def pair_reference(K):
-    """(L, iL) of K in float64, and the float32 potrf's and trsm's
-    normwise errors against them."""
-    from hetmogp_tpu_torch.ops import linalg
-
-    L64 = torch.linalg.cholesky(K.double())
-    eye = torch.eye(K.shape[-1], device="cuda", dtype=torch.float64)
-    iL64 = torch.linalg.solve_triangular(L64, eye.expand_as(L64),
-                                         upper=False)
-    Lp = linalg.cholesky(K)
-    iLp = torch.linalg.solve_triangular(Lp, eye.float().expand_as(Lp),
-                                        upper=False)
-    return L64, iL64, normwise(Lp, L64), normwise(iLp, iL64)
-
-
 def time_builds(builds, panels: dict, reps: int, smi: str) -> dict:
     """Every build at every case, and the empty kernel, in turns there and
     back: {(build, case): [ms, ...]}."""
@@ -467,14 +414,6 @@ def main() -> int:
     builds = [b for b in builds if b not in failed]
     stamped = [b for b in stamped
                if not any(b.name.startswith(f.name + " (") for f in failed)]
-    import chip_smoke
-
-    K = chip_smoke.flagship_kuu()
-    ref = pair_reference(K)
-    for b in builds:
-        pair_errors(b, K, ref, smi)
-    del K, ref
-
     base = spd(Q, 128, torch.float32, gen)
     panels = {f"n = {w}": base[:, :w, :w].contiguous() for w in widths}
     panels["float64 n = 128"] = spd(Q, 128, torch.float64, gen)

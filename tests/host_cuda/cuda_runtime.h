@@ -6,13 +6,20 @@
 // tests/test_torch_blocked_chol.py compiles csrc/chol_panel_kernel.cu,
 // its launch `K<<<grid, block, bytes, stream>>>(args);` rewritten as
 // `host_launch(grid, block, bytes, [&] { K(args); });` and its dynamic
-// shared memory (`extern __shared__ ... name[];`) as `host_dynamic_smem`.
+// shared memory (`extern __shared__ ... name[];`) as `host_dynamic_smem`,
+// and tests/test_torch_chol_blocked_plan.py csrc/chol_blocked_kernel.cu
+// (which includes the former) the same way.
 // That source keeps its Hopper primitives behind small functions, defined
 // there only under nvcc (`__CUDACC__`); this header supplies the host's:
 // mbarriers (`mbar_init`, `mbar_arrive`, `mbar_wait` on a phase parity,
 // `fence_barrier_init`), per-element asynchronous copies (`cp_async_elem`,
 // done at once, and `cp_async_arrive`, an arrival), named barriers with a
-// thread count (`named_barrier_sync`), `__shfl_sync` and `rsqrtf`.
+// thread count (`named_barrier_sync`), `__shfl_sync` and `rsqrtf`; and
+// kernel 10's: acquire loads and release adds on a counter (`ld_acquire`,
+// `red_release_add`), a waiting thread's `backoff` (a yield), 16-byte
+// asynchronous copies (`cp_async16`, done at once), the float64 mma
+// (`dmma_884`, through shuffles), float4, double2, and
+// the device queries of a persistent grid (HOST_SMS SMs, one block each).
 //
 // A launch runs its blocks one at a time, last block first, each as one
 // std::thread a CUDA thread: threadIdx and blockIdx are thread-local, a
@@ -38,6 +45,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <memory>
 #include <mutex>
 #include <thread>
@@ -72,6 +80,35 @@ template <typename F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
+#ifndef HOST_SMS
+#define HOST_SMS 3
+#endif
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = HOST_SMS;
+  return cudaSuccess;
+}
+template <typename F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          std::size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(16) double2 {
+  double x, y;
+};
+inline double2 make_double2(double x, double y) { return double2{x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 
 inline std::barrier<>* host_block_barrier = nullptr;
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
@@ -90,6 +127,24 @@ inline void __trap() {
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_add(v);
 }
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline int ld_acquire(const int* p) {
+  return std::atomic_ref<int>(*const_cast<int*>(p)).load(
+      std::memory_order_acquire);
+}
+inline void red_release_add(int* p, int v) {
+  std::atomic_ref<int>(*p).fetch_add(v, std::memory_order_release);
+}
+inline void backoff() { std::this_thread::yield(); }
+// 16-byte asynchronous copies, done at once
+inline void cp_async16(void* dst, const void* src) {
+  std::memcpy(dst, src, 16);
+}
+inline void cp_async_commit() {}
+template <int N>
+void cp_async_wait() {}
 template <typename T>
 T __ldcg(const T* p) {
   return *p;
@@ -107,6 +162,30 @@ T __shfl_sync(unsigned, T v, int src) {
   const T out = *reinterpret_cast<const T*>(slots + src % 32);
   __syncwarp();
   return out;
+}
+
+// mma.sync m8n8k4 in float64: lane l holds A[l / 4][l % 4], B[l % 4][l /
+// 4] and D[l / 4][2 (l % 4) + {0, 1}]; A's and B's values pass through
+// the warp's slots, in k order into each D
+inline void dmma_884(double (&d)[2], double a, double b) {
+  const int lane = threadIdx.x % 32;
+  double* slots = host_warp_slots;
+  double av[4], b0[4], b1[4];
+  slots[lane] = a;
+  __syncwarp();
+  for (int k = 0; k < 4; ++k) av[k] = slots[(lane / 4) * 4 + k];
+  __syncwarp();
+  slots[lane] = b;
+  __syncwarp();
+  for (int k = 0; k < 4; ++k) {
+    b0[k] = slots[(2 * (lane % 4)) * 4 + k];
+    b1[k] = slots[(2 * (lane % 4) + 1) * 4 + k];
+  }
+  __syncwarp();
+  for (int k = 0; k < 4; ++k) {
+    d[0] = std::fma(av[k], b0[k], d[0]);
+    d[1] = std::fma(av[k], b1[k], d[1]);
+  }
 }
 
 // An mbarrier's word: bits 0-31 the arrivals pending, 32-62 the count, 63

@@ -255,7 +255,7 @@ LAUNCHERS = ("rbf_K_batched_vec", "rbf_K_batched_scalar",
              "tril_right_tma", "tril_right3_tma", "tril_out_tma",
              "tril_out3_tma", "gh_sweep", "gh_sweep_value", "task_var_exp",
              "task_var_exp_value", "task_var_exp_backward", "adam_update",
-             "chol_panel")
+             "chol_panel", "chol_blocked")
 
 
 # the vector kernel is what ``rbf_K_batched`` reaches on the main path, and
